@@ -1,0 +1,440 @@
+#!/usr/bin/env python3
+"""Smoke run of tci_tpu_torch on one CUDA GPU.
+
+    python3 chip_smoke.py [--profile DIR]
+
+Run from the repository root (the package must sit beside this script). It
+needs one CUDA device and exits non-zero without one. Phases, one output
+line or more each:
+
+1. the device: torch's name for it, and nvidia-smi's name and power limit;
+2. the build of the CUDA rrLU kernel (csrc/rrlu.cu) from the sources;
+3. the kernel against its plain PyTorch version on the card, float64 and
+   float32: Lorentzian panels at the main path's bucket sizes (8 ... 128,
+   both orientations, padding, an abstol and a reltol stop), four panels in
+   one batched launch, and ``rrlu`` at N = 1000 and 2000 with numerical rank
+   100. Pivot order, npivot and err must be identical and the LU buffer
+   equal; both times are printed;
+4. BASELINE config 1 (8-D Lorentzian on {0..9}^8, tolerance 1e-8) through
+   ``crossinterpolate2`` with a ``TorchBatchEvaluator`` on the card: a cold
+   and a warm run, checked against tci_tpu's recorded series, with every
+   factorization launching the kernel and none taking the plain version;
+   a third run counts the device-to-host synchronizations;
+5. the kernel against the plain version on every panel config 1 factorized;
+6. with ``--profile DIR`` only: the median of 10 warm config-1 walls, then
+   one run under ``torch.profiler`` with a span around each layer of the
+   main path (Π sampling, rrlu_raw, the CI-factor solves, sweep2site,
+   fillsitetensors, the global search, the final sweep1site). The trace goes
+   to DIR/config1_trace.json; the device's busy time and idle share over the
+   run, the largest device items, the spans and the CUDA runtime calls are
+   printed.
+
+The second-to-last lines are nvidia-smi's card line and a JSON object with
+the kernel's launches, error and times; the last line is the result object.
+Any failure exits non-zero; nothing falls back to the CPU.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+import warnings
+
+# tci_tpu's host tier on a CPU, full precision (tests/test_torch_tensorci2.py)
+RECORDED_RANKS = [12, 12, 12]
+RECORDED_ERRORS = [8.648364589823703e-09, 4.396554474387151e-09,
+                   4.396554474387151e-09]
+
+
+def fail(msg):
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--profile", metavar="DIR",
+                        help="also profile config 1 and write its trace here")
+    opts = parser.parse_args()
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("no CUDA device (torch.cuda.is_available() is False)")
+    here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(here, "tci_tpu_torch")):
+        fail(f"tci_tpu_torch not found beside {__file__}")
+    sys.path.insert(0, here)
+    import numpy as np
+
+    import tci_tpu_torch
+    from tci_tpu_torch.ops import _build, lu as lu_mod, lu_cuda, lu_kernel
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    # -- 1. device -----------------------------------------------------------
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    smi_line = smi.stdout.strip().splitlines()[0]
+    print(f"[device] torch: {kind}, count {torch.cuda.device_count()}, "
+          f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+
+    # -- 2. build ------------------------------------------------------------
+    t0 = time.perf_counter()
+    lu_cuda._lib()
+    print(f"[build] rrlu.cu: {time.perf_counter() - t0:.3f} s "
+          f"(nvcc {_build.BUILD_SECONDS['rrlu']:.3f} s)", flush=True)
+
+    def cuda_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def compare(tag, out, ref, scale):
+        """Pivot order, npivot and err identical; returns max |LU diff|."""
+        A_o, rp_o, cp_o, k_o, mags_o, err_o = out
+        A_r, rp_r, cp_r, k_r, mags_r, err_r = ref
+        if not (torch.equal(rp_o, rp_r) and torch.equal(cp_o, cp_r)
+                and torch.equal(k_o, k_r)):
+            fail(f"{tag}: pivot order or npivot differs "
+                 f"(k {k_o.tolist()} vs {k_r.tolist()})")
+        same_err = (err_o == err_r) | (err_o.isnan() & err_r.isnan())
+        if not bool(same_err.all()) or not torch.equal(mags_o, mags_r):
+            fail(f"{tag}: err or pivot magnitudes differ")
+        diff = float((A_o - A_r).abs().max())
+        if diff > 0.0:
+            fail(f"{tag}: LU buffer differs by {diff:.3e} "
+                 f"(bound: bitwise, scale {scale:.3e})")
+        return diff
+
+    # -- 3. kernel vs plain version ------------------------------------------
+    def lorentzian(nI, nJ, seed, d=10):
+        rng = np.random.default_rng(seed)
+        left = rng.integers(0, d, size=(nI, 3))
+        right = rng.integers(0, d, size=(nJ, 3))
+        s = np.array([((p + 1.0) ** 2).sum() + (c + 1.0) ** 2
+                      for p in left for c in range(d)])
+        t = np.array([(c + 1.0) ** 2 + ((q + 1.0) ** 2).sum()
+                      for c in range(d) for q in right])
+        return 1.0 / (1.0 + s[:, None] + t[None, :])
+
+    def padded(A, dtype):
+        m, n = A.shape
+        P = torch.zeros((lu_kernel.bucket(m), lu_kernel.bucket(n)),
+                        dtype=dtype, device=dev)
+        P[:m, :n] = torch.as_tensor(A, device=dev)
+        return P
+
+    max_err = 0.0
+    main_ms = main_plain_ms = None
+    # (rows of I, cols of J): panels of (10 nI) x (10 nJ), as the main path
+    # builds them; a 5 x 6 panel for the 8 bucket
+    shapes = [(None, None), (1, 1), (2, 3), (4, 4), (6, 8), (10, 12), (12, 12)]
+    for dtype in (torch.float64, torch.float32):
+        for nI, nJ in shapes:
+            if nI is None:
+                rng = np.random.default_rng(3)
+                A = rng.standard_normal((5, 3)) @ rng.standard_normal((3, 6))
+            else:
+                A = lorentzian(nI, nJ, seed=10 * nI + nJ)
+            m, n = A.shape
+            P = padded(A, dtype)
+            stops = [("abstol", 1e-14, 1e-8 * float(np.abs(A).max()))]
+            if m >= 40:
+                stops.append(("reltol", 1e-6, 0.0))
+            for stop, reltol, abstol in stops:
+                for leftorth in (True, False):
+                    args = (P, m, n, min(m, n), reltol, abstol)
+                    kw = {"leftorthogonal": leftorth}
+                    out = lu_cuda.rrlu_call(*args, **kw)
+                    ref = lu_kernel.rrlu_plain(*args, **kw)
+                    tag = (f"{str(dtype)[6:]} {m}x{n} (bucket "
+                           f"{P.shape[0]}x{P.shape[1]}) {stop} "
+                           f"{'left' if leftorth else 'right'}")
+                    max_err = max(max_err, compare(tag, out, ref, 1.0))
+                    ms = cuda_ms(lambda: lu_cuda.rrlu_call(*args, **kw), 20)
+                    pms = cuda_ms(lambda: lu_kernel.rrlu_plain(*args, **kw), 5)
+                    print(f"[kernel] {tag}: k={int(out[3])} identical; "
+                          f"kernel {ms:.4f} ms, plain {pms:.4f} ms",
+                          flush=True)
+                    if (dtype == torch.float64 and (nI, nJ) == (12, 12)
+                            and stop == "abstol" and leftorth):
+                        main_ms, main_plain_ms = ms, pms
+
+    # four panels in one launch, per-panel extents and tolerances
+    for dtype in (torch.float64, torch.float32):
+        Ab = torch.stack([padded(lorentzian(12, 12, seed=s), dtype)
+                          for s in range(4)])
+        mt = torch.tensor([120, 110, 120, 97], device=dev)
+        nt = torch.tensor([120, 120, 100, 120], device=dev)
+        mr = torch.tensor([120, 8, 100, 97], device=dev)
+        rt = torch.tensor([1e-14, 0.0, 1e-6, 1e-14], device=dev)
+        at = torch.tensor([1e-10, 0.0, 0.0, 0.0], device=dev)
+        bargs = (Ab, mt, nt, mr, rt, at)
+        out = lu_cuda.rrlu_batched(*bargs, leftorthogonal=True)
+        ref = lu_kernel.rrlu_plain_batched(*bargs, leftorthogonal=True)
+        max_err = max(max_err, compare(f"batched B=4 {dtype}", out, ref, 1.0))
+        ms = cuda_ms(lambda: lu_cuda.rrlu_batched(*bargs, leftorthogonal=True),
+                     20)
+        pms = cuda_ms(
+            lambda: lu_kernel.rrlu_plain_batched(*bargs, leftorthogonal=True),
+            3)
+        print(f"[kernel] batched B=4 {str(dtype)[6:]} 128x128: k="
+              f"{out[3].tolist()} identical; kernel {ms:.4f} ms, "
+              f"plain {pms:.4f} ms", flush=True)
+
+    # the reference's rrLU benchmark sizes: N = 1000, 2000, rank 100
+    for N in (1000, 2000):
+        rng = np.random.default_rng(N)
+        A = torch.as_tensor(rng.standard_normal((N, 100))
+                            @ rng.standard_normal((100, N)), device=dev)
+        P = padded(A, torch.float64)
+        args = (P, N, N, N, 1e-12, 0.0)
+        out = lu_cuda.rrlu_call(*args, leftorthogonal=True)
+        ref = lu_kernel.rrlu_plain(*args, leftorthogonal=True)
+        max_err = max(max_err, compare(f"rrlu N={N}", out, ref, 1.0))
+        k = int(out[3])
+        if k != 100:
+            fail(f"rrlu N={N}: npivot {k}, expected 100")
+        lu = tci_tpu_torch.rrlu(A, reltol=1e-12)
+        rec = float((lu.left() @ lu.right() - A).abs().max())
+        if lu.npivots() != 100 or not rec < 1e-8 * float(A.abs().max()):
+            fail(f"rrlu N={N}: npivot {lu.npivots()}, reconstruction {rec}")
+        ms = cuda_ms(lambda: tci_tpu_torch.rrlu(A, reltol=1e-12), 3)
+        kms = cuda_ms(lambda: lu_cuda.rrlu_call(*args, leftorthogonal=True), 3)
+        pms = cuda_ms(lambda: lu_kernel.rrlu_plain(*args, leftorthogonal=True),
+                      3)
+        flops = sum(2.0 * (N - j) * (N - j) for j in range(k))
+        print(f"[kernel] rrlu N={N} f64 rank {k} (bucket {P.shape[0]}): "
+              f"identical; kernel {kms:.3f} ms ({flops / kms / 1e6:.3f} "
+              f"GFLOP/s), plain {pms:.3f} ms, public rrlu {ms:.3f} ms, "
+              f"|LU - A| {rec:.3e}", flush=True)
+
+    # -- 4. config 1 through the port -----------------------------------------
+    def fdev(idx):
+        v = idx.to(torch.float64) + 1.0
+        return 1.0 / (1.0 + (v * v).sum(dim=1))
+
+    localdims = [10] * 8
+    panels = []
+    rrlu_raw = lu_mod.rrlu_raw
+
+    def recording_rrlu_raw(A, *args):
+        panels.append((A, args))
+        return rrlu_raw(A, *args)
+
+    def solve_config1():
+        bf = tci_tpu_torch.TorchBatchEvaluator(fdev, localdims, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tci, ranks, errors = tci_tpu_torch.crossinterpolate2(
+            np.float64, bf, localdims, tolerance=1e-8,
+            rng=np.random.default_rng(0))
+        torch.cuda.synchronize()
+        return tci, ranks, errors, time.perf_counter() - t0, bf.nevals
+
+    def run_config1(record=False):
+        panels.clear()
+        lu_mod.rrlu_raw = recording_rrlu_raw
+        try:
+            tci, ranks, errors, wall, nevals = solve_config1()
+        finally:
+            lu_mod.rrlu_raw = rrlu_raw
+        ncalls = len(panels)
+        if not record:
+            panels.clear()
+        return tci, ranks, errors, wall, nevals, ncalls
+
+    tci, ranks, errors, cold, nevals, ncalls = run_config1(record=True)
+    print(f"[config1] cold: {cold:.3f} s, ranks {ranks}, "
+          f"{ncalls} rrLU calls", flush=True)
+    captured = list(panels)
+    panels.clear()
+
+    lu_cuda.LAUNCHES.clear()
+    lu_kernel.PLAIN_CALLS.clear()
+    tci, ranks, errors, warm, nevals, ncalls = run_config1()
+    launches = lu_cuda.LAUNCHES["rrlu"]
+    plain_cuda = lu_kernel.PLAIN_CALLS["cuda"]
+
+    x = (1, 2, 3, 4, 5, 4, 3, 2)
+    v = np.asarray(x, dtype=float) + 1.0
+    point_err = abs(tci(x) - 1.0 / (1.0 + v @ v))
+    print(f"[config1] warm: {warm:.3f} s, nevals {nevals}, "
+          f"{nevals / warm:.1f} evals/s, {ncalls} rrLU calls, "
+          f"{launches} kernel launches, {plain_cuda} plain calls on CUDA",
+          flush=True)
+    print(f"[config1] ranks {ranks} (recorded CPU {RECORDED_RANKS}); "
+          f"errors {[f'{e:.6e}' for e in errors]} (recorded CPU "
+          f"{[f'{e:.6e}' for e in RECORDED_ERRORS]}); linkdims "
+          f"{tci.linkdims()}; |t(x) - f(x)| = {point_err:.3e}", flush=True)
+    if not errors[-1] < 1e-8:
+        fail(f"config 1 did not converge: errors {errors}")
+    if ranks[-1] != 12 or ranks != RECORDED_RANKS:
+        fail(f"config 1 ranks {ranks}, recorded {RECORDED_RANKS}")
+    if not np.allclose(errors, RECORDED_ERRORS, rtol=0, atol=1e-15):
+        fail(f"config 1 errors {errors} differ from {RECORDED_ERRORS}")
+    if not point_err < 1e-7:
+        fail(f"config 1 pointwise error {point_err}")
+    if ncalls == 0 or launches < ncalls:
+        fail(f"{launches} kernel launches for {ncalls} rrLU calls")
+    if plain_cuda != 0:
+        fail(f"{plain_cuda} plain-version calls on CUDA tensors")
+    if not all(t.device.type == "cuda" for t in tci.sitetensors()):
+        fail("site tensors left the device")
+
+    # device-to-host synchronizations, counted by torch's sync debug mode
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            *_, ncalls_sync = run_config1()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    nsync = sum("synchroniz" in str(w.message) for w in caught)
+    print(f"[config1] device-to-host syncs: {nsync} in one run, "
+          f"{ncalls_sync} rrLU calls ({nsync / ncalls_sync:.2f} per call)",
+          flush=True)
+
+    # -- 5. kernel vs plain on config 1's own panels ---------------------------
+    for i, (A, (maxrank, reltol, abstol, leftorth)) in enumerate(captured):
+        m, n = A.shape
+        P = padded(A, torch.float64)
+        args = (P, m, n, min(maxrank, m, n), reltol, abstol)
+        out = lu_cuda.rrlu_call(*args, leftorthogonal=leftorth)
+        ref = lu_kernel.rrlu_plain(*args, leftorthogonal=leftorth)
+        max_err = max(max_err, compare(f"config1 panel {i} {m}x{n}", out,
+                                       ref, 1.0))
+    print(f"[kernel] config 1's {len(captured)} panels: kernel and plain "
+          f"version identical (max |LU diff| {max_err})", flush=True)
+
+    # -- 6. profile of config 1 (--profile) -----------------------------------
+    if opts.profile:
+        profile_config1(opts.profile, solve_config1)
+
+    if any(m == "jax" or m.startswith(("jax.", "tci_tpu."))
+           or m == "tci_tpu" for m in sys.modules):
+        fail("jax or tci_tpu was imported")
+
+    print(smi_line, flush=True)
+    print(json.dumps({"kernels": [{
+        "name": "rrlu_kernel",
+        "route": "cuda",
+        "source": "tci_tpu_torch/csrc/rrlu.cu",
+        "replaces": "tci_tpu/ops/pallas_lu.py:133",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": main_ms,
+        "plain_ms": main_plain_ms,
+    }]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+def profile_config1(outdir, solve_config1):
+    """Warm walls of config 1, then one run under torch.profiler with a span
+    around each layer of the main path; prints the breakdown."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from tci_tpu_torch.models import globalpivotfinder, tensorci2
+    from tci_tpu_torch.ops import lu as lu_mod, luci
+
+    walls = sorted(solve_config1()[3] for _ in range(10))
+    print(f"[profile] config 1 warm wall: median "
+          f"{(walls[4] + walls[5]) / 2:.4f} s of 10 runs "
+          f"(range {walls[0]:.4f}-{walls[-1]:.4f} s)", flush=True)
+
+    spans = [
+        (tensorci2, "_batchevaluate_dispatch", "sample_panel"),
+        (lu_mod, "rrlu_raw", "rrlu_raw"),
+        (luci.MatrixLUCI, "colstimespivotinv", "ci_left"),
+        (luci.MatrixLUCI, "pivotinvtimesrows", "ci_right"),
+        (tensorci2.TensorCI2, "sweep2site", "sweep2site"),
+        (tensorci2.TensorCI2, "fillsitetensors", "fillsitetensors"),
+        (tensorci2.TensorCI2, "sweep1site", "sweep1site"),
+        (globalpivotfinder.DefaultGlobalPivotFinder, "__call__",
+         "globalsearch"),
+    ]
+
+    def spanned(fn, name):
+        def wrapper(*args, **kwargs):
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return wrapper
+
+    saved = [(owner, attr, owner.__dict__[attr]) for owner, attr, _ in spans]
+    for (owner, attr, name), (_, _, fn) in zip(spans, saved):
+        setattr(owner, attr, spanned(fn, name))
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function("config1"):
+                wall = solve_config1()[3]
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+    os.makedirs(outdir, exist_ok=True)
+    path = os.path.join(outdir, "config1_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        trace = json.load(fh)
+    events = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+
+    def by_name(cat):
+        out = {}
+        for e in events:
+            if e.get("cat") == cat:
+                n, t = out.get(e["name"], (0, 0.0))
+                out[e["name"]] = (n + 1, t + e["dur"] / 1e3)
+        return sorted(out.items(), key=lambda kv: -kv[1][1])
+
+    top = next(e for e in events if e.get("cat") == "user_annotation"
+               and e["name"] == "config1")
+    lo, hi = top["ts"], top["ts"] + top["dur"]
+    window = top["dur"] / 1e3
+    device = sorted((max(e["ts"], lo), min(e["ts"] + e["dur"], hi))
+                    for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, lo
+    for a, b in device:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    busy /= 1e3
+    print(f"[profile] profiled wall {wall:.4f} s, span {window:.3f} ms; "
+          f"device busy {busy:.3f} ms (kernels, copies, memsets), idle share "
+          f"{1 - busy / window:.4f}", flush=True)
+    for name, (n, ms) in by_name("kernel")[:6]:
+        print(f"[profile] device: {name[:70]}: {ms:.3f} ms in {n}",
+              flush=True)
+    for name, (n, ms) in by_name("gpu_memcpy")[:2]:
+        print(f"[profile] device: {name}: {ms:.3f} ms in {n}", flush=True)
+    for name, (n, ms) in by_name("user_annotation"):
+        if name != "config1":
+            print(f"[profile] span {name}: {ms:.3f} ms in {n} (host, "
+                  f"inclusive)", flush=True)
+    for name, (n, ms) in by_name("cuda_runtime")[:6]:
+        print(f"[profile] runtime {name}: {n} calls, {ms:.3f} ms host",
+              flush=True)
+    print(f"[profile] trace: {path}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

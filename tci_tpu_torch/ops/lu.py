@@ -1,0 +1,244 @@
+"""Rank-revealing LU with complete (full) pivoting.
+
+Counterpart of ``tci_tpu/ops/lu.py`` (parity reference: src/matrixlu.jl).
+The elimination runs where the matrix lives (``lu_kernel.rrlu_raw``: the CUDA
+kernel for a CUDA tensor, the plain PyTorch version otherwise); the factors
+L and U stay there as tensors, while permutations, npivot, the pivot
+diagonal and the residual error are host values.
+
+Indices are 0-based.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..utils.device import to_device
+from .lu_kernel import rrlu_raw, submatrixargmax_colmajor
+
+_INTMAX = 2**62
+
+
+def submatrixargmax(
+    A,
+    rows=None,
+    cols=None,
+    f: Optional[Callable] = None,
+    colmask: Optional[Callable] = None,
+    rowmask: Optional[Callable] = None,
+):
+    """Position (r, c) maximizing f(A[r, c]) over the given row/col subsets.
+
+    `rows`/`cols` may be index lists, slices, None (all), or a single int
+    `startindex` passed as `rows` with cols=None meaning the trailing submatrix
+    A[startindex:, startindex:]. First maximum in column-major order wins,
+    matching matrixlu.jl:46-139.
+    """
+    A = A.cpu().numpy() if isinstance(A, torch.Tensor) else np.asarray(A)
+    if f is None:
+        f = lambda x: x.real if np.iscomplexobj(x) else x  # identity on reals
+
+    if isinstance(rows, (int, np.integer)) and cols is None:
+        start = int(rows)
+        rows = list(range(start, A.shape[0]))
+        cols = list(range(start, A.shape[1]))
+
+    def convertarg(arg, size):
+        if arg is None or arg == slice(None):
+            return list(range(size))
+        if isinstance(arg, (int, np.integer)):
+            return [int(arg)]
+        return list(arg)
+
+    rows = convertarg(rows, A.shape[0])
+    cols = convertarg(cols, A.shape[1])
+    if len(rows) == 0:
+        raise ValueError("rows must not be empty")
+    if len(cols) == 0:
+        raise ValueError("cols must not be empty")
+    if not all(0 <= r < A.shape[0] for r in rows):
+        raise ValueError("rows must be a subset of the row range of A")
+    if not all(0 <= c < A.shape[1] for c in cols):
+        raise ValueError("cols must be a subset of the column range of A")
+
+    if rowmask is not None:
+        rows = [r for r in rows if rowmask(r)]
+    if colmask is not None:
+        cols = [c for c in cols if colmask(c)]
+
+    sub = A[np.ix_(rows, cols)]
+    vals = np.vectorize(f)(sub) if sub.size else sub.real
+    r, c = submatrixargmax_colmajor(vals)
+    return rows[r], cols[c]
+
+
+class rrLU:
+    """Rank-revealing LU factorization P_r · A · P_c ≈ L · U.
+
+    Fields mirror the reference struct (matrixlu.jl:200-231): row/col
+    permutations (host int64), L (m × npivot) and U (npivot × n) as tensors
+    on the matrix's device, the leftorthogonal flag, npivot and the residual
+    `error` (magnitude of the first rejected pivot). `pivotdiag` is the host
+    copy of the pivots (the LU diagonal), fetched with the permutations.
+    """
+
+    def __init__(
+        self,
+        rowpermutation,
+        colpermutation,
+        L: torch.Tensor,
+        U: torch.Tensor,
+        leftorthogonal: bool,
+        npivot: int,
+        error: float,
+        pivotdiag: Optional[np.ndarray] = None,
+    ):
+        assert npivot == L.shape[1], "L must have npivot columns"
+        assert npivot == U.shape[0], "U must have npivot rows"
+        assert len(rowpermutation) == L.shape[0]
+        assert len(colpermutation) == U.shape[1]
+        self.rowpermutation = np.asarray(rowpermutation, dtype=np.int64)
+        self.colpermutation = np.asarray(colpermutation, dtype=np.int64)
+        self.L = torch.as_tensor(L)
+        self.U = torch.as_tensor(U)
+        self.leftorthogonal = bool(leftorthogonal)
+        self.npivot = int(npivot)
+        self.error = float(error)
+        if pivotdiag is None:
+            D = self.U if self.leftorthogonal else self.L
+            pivotdiag = torch.diagonal(D[:npivot, :npivot]).cpu().numpy()
+        self._diag = np.asarray(pivotdiag)
+        # device copies of the permutations, for the scatters in left/right
+        dev = self.L.device
+        self._rowperm_dev = to_device(self.rowpermutation, dev)
+        self._colperm_dev = to_device(self.colpermutation, dev)
+
+    # -- accessors (matrixlu.jl:685-813) ---------------------------------
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.L.shape[0], self.U.shape[1])
+
+    def size(self, dim: Optional[int] = None):
+        if dim is None:
+            return self.shape
+        return self.shape[dim]
+
+    def left(self, permute: bool = True) -> torch.Tensor:
+        if permute:
+            out = torch.empty_like(self.L)
+            out[self._rowperm_dev, :] = self.L
+            return out
+        return self.L
+
+    def right(self, permute: bool = True) -> torch.Tensor:
+        if permute:
+            out = torch.empty_like(self.U)
+            out[:, self._colperm_dev] = self.U
+            return out
+        return self.U
+
+    def diag(self) -> np.ndarray:
+        return self._diag.copy()
+
+    def rowindices(self) -> np.ndarray:
+        return self.rowpermutation[: self.npivot]
+
+    def colindices(self) -> np.ndarray:
+        return self.colpermutation[: self.npivot]
+
+    def npivots(self) -> int:
+        return self.npivot
+
+    def pivoterrors(self) -> np.ndarray:
+        return np.concatenate([np.abs(self.diag()), [self.error]])
+
+    def lastpivoterror(self) -> float:
+        return self.error
+
+    def transpose(self) -> "rrLU":
+        """LU factorization of A^T (matrixlu.jl:918-923)."""
+        return rrLU(
+            self.colpermutation,
+            self.rowpermutation,
+            self.U.T.contiguous(),
+            self.L.T.contiguous(),
+            not self.leftorthogonal,
+            self.npivot,
+            self.error,
+            self._diag,
+        )
+
+    @property
+    def T(self) -> "rrLU":
+        return self.transpose()
+
+    def __repr__(self):
+        return (
+            f"rrLU(shape={self.shape}, npivot={self.npivot}, "
+            f"error={self.error:.3e}, leftorthogonal={self.leftorthogonal})"
+        )
+
+
+def _finalize(
+    LUmat: torch.Tensor,
+    rowperm: np.ndarray,
+    colperm: np.ndarray,
+    npivot: int,
+    err: float,
+    leftorthogonal: bool,
+    diag: np.ndarray,
+    nan_in_factors: Tuple[bool, bool],
+) -> rrLU:
+    m, n = LUmat.shape
+    k = npivot
+    L = torch.tril(LUmat[:, :k])
+    U = torch.triu(LUmat[:k, :])
+    if nan_in_factors[0]:
+        raise ValueError("lu.L contains NaNs")
+    if nan_in_factors[1]:
+        raise ValueError("lu.U contains NaNs")
+    if leftorthogonal:
+        L.diagonal().fill_(1.0)
+    else:
+        U.diagonal().fill_(1.0)
+    if k >= min(m, n):
+        err = 0.0
+    return rrLU(rowperm, colperm, L, U, leftorthogonal, k, err, diag)
+
+
+def rrlu(
+    A,
+    maxrank: int = _INTMAX,
+    reltol: float = 1e-14,
+    abstol: float = 0.0,
+    leftorthogonal: bool = True,
+    mesh=None,
+    pivotsearch: str = "full",
+) -> rrLU:
+    """Rank-revealing LU of a dense matrix (numpy array or tensor).
+
+    pivotsearch="full": complete pivoting; the whole elimination is one
+    launch of the CUDA kernel for a CUDA tensor and the plain PyTorch loop
+    otherwise. Stop rule and at-least-one-pivot semantics match
+    matrixlu.jl:346-396.
+    """
+    if pivotsearch == "rook":
+        raise NotImplementedError(
+            "pivotsearch='rook' is not ported yet (ROADMAP A9)")
+    if pivotsearch != "full":
+        raise ValueError(
+            f"Unknown pivot search strategy {pivotsearch}. "
+            "Choose between rook and full."
+        )
+    if mesh is not None:
+        raise NotImplementedError(
+            "rrlu(mesh=...) is not ported yet (ROADMAP A14)")
+    LUmat, rowperm, colperm, k, diag, err, nanflags = rrlu_raw(
+        A, maxrank, reltol, abstol, leftorthogonal
+    )
+    return _finalize(LUmat, rowperm, colperm, k, err, leftorthogonal,
+                     diag, nanflags)

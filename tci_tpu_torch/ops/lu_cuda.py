@@ -1,0 +1,128 @@
+"""Wrapper of the CUDA complete-pivot rrLU kernel (``csrc/rrlu.cu``).
+
+Counterpart of ``tci_tpu/ops/pallas_lu.py``: ``rrlu_call`` and
+``rrlu_batched`` take the arguments of ``pallas_rrlu_call`` /
+``pallas_rrlu_batched`` and return the same 6-tuple (A_sw, rowperm, colperm,
+k, mags, err). One kernel serves both: a launch runs B panels, one thread
+block each (B = 1 for ``rrlu_call``).
+
+This module only launches the kernel: a panel that is not a contiguous
+float32/float64 CUDA tensor raises. Which of the kernel and its plain
+PyTorch version a panel takes is decided by where it lies, in
+``lu_kernel.rrlu_panel`` / ``rrlu_panel_batched``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from collections import Counter
+
+import torch
+
+from . import _build
+
+# Kernel launches, counted where the kernel is launched and nowhere else.
+LAUNCHES: Counter = Counter()
+
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_LAUNCH_ARGTYPES = [_P] * 12 + [_I, _I, _I, _D, _D, _I, _I, _I, _I, _P]
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("rrlu")
+    for fn in (lib.rrlu_launch_f64, lib.rrlu_launch_f32):
+        fn.argtypes = _LAUNCH_ARGTYPES
+        fn.restype = _I
+    lib.rrlu_panel_resident.argtypes = [_I, _I, _I]
+    lib.rrlu_panel_resident.restype = _I
+    return lib
+
+
+def _check_panel(A: torch.Tensor, ndim: int) -> None:
+    if A.device.type != "cuda":
+        raise ValueError(f"rrLU kernel needs a CUDA tensor, got {A.device}")
+    if A.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"rrLU kernel takes float32/float64, got {A.dtype}")
+    if A.dim() != ndim or 0 in A.shape:
+        raise ValueError(f"rrLU kernel needs a non-empty {ndim}-D panel, "
+                         f"got shape {tuple(A.shape)}")
+    if not A.is_contiguous():
+        raise ValueError("rrLU kernel needs a contiguous panel")
+
+
+def _launch(A, B, mp, npd, leftorthogonal, scalars, arrays):
+    """Allocate the outputs and launch B panels; `scalars` are
+    (m, n, maxrank, reltol, abstol), `arrays` the per-panel device arrays
+    (m, n, maxrank int32 (B,), tol (B, 2)) or Nones."""
+    lib = _lib()
+    dev, dt = A.device, A.dtype
+    rmax = min(mp, npd)
+    A_sw = torch.empty((B, mp, npd), dtype=dt, device=dev)
+    rowperm = torch.empty((B, mp), dtype=torch.int64, device=dev)
+    colperm = torch.empty((B, npd), dtype=torch.int64, device=dev)
+    mags = torch.empty((B, rmax), dtype=dt, device=dev)
+    k = torch.empty((B,), dtype=torch.int64, device=dev)
+    err = torch.empty((B,), dtype=dt, device=dev)
+    work = None
+    if not lib.rrlu_panel_resident(mp, npd, A.element_size()):
+        work = torch.empty((B, mp, npd), dtype=dt, device=dev)
+    fn = lib.rrlu_launch_f64 if dt == torch.float64 else lib.rrlu_launch_f32
+    m, n, maxrank, reltol, abstol = scalars
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(ptr(A), ptr(work), ptr(A_sw), ptr(rowperm), ptr(colperm),
+                ptr(mags), ptr(k), ptr(err), *(ptr(a) for a in arrays),
+                m, n, maxrank, reltol, abstol, B, mp, npd,
+                int(bool(leftorthogonal)), stream)
+    if rc != 0:
+        raise RuntimeError(f"rrLU kernel launch failed with CUDA error {rc} "
+                           f"(B={B}, panel {mp}x{npd}, {dt})")
+    LAUNCHES["rrlu"] += 1
+    return A_sw, rowperm, colperm, k, mags, err
+
+
+def rrlu_call(A: torch.Tensor, m_true, n_true, maxrank, reltol, abstol,
+              *, leftorthogonal: bool):
+    """Eliminate one zero-padded (mp, np) panel; the contract of
+    ``pallas_rrlu_call`` and of the plain ``lu_kernel.rrlu_plain``."""
+    _check_panel(A, 2)
+    mp, npd = A.shape
+    m, n, maxrank = int(m_true), int(n_true), int(maxrank)
+    if not (0 <= m <= mp and 0 <= n <= npd and maxrank >= 0):
+        raise ValueError(f"true extents ({m}, {n}) / maxrank {maxrank} do "
+                         f"not fit the ({mp}, {npd}) panel")
+    out = _launch(A, 1, mp, npd, leftorthogonal,
+                  (m, n, maxrank, float(reltol), float(abstol)),
+                  (None, None, None, None))
+    A_sw, rowperm, colperm, k, mags, err = out
+    return A_sw[0], rowperm[0], colperm[0], k[0], mags[0], err[0]
+
+
+def rrlu_batched(A: torch.Tensor, m_true, n_true, maxrank, reltol, abstol,
+                 *, leftorthogonal: bool):
+    """Eliminate B panels of (B, mp, np) in one launch, with per-panel (B,)
+    true sizes, rank caps and tolerances (scalars apply to every panel);
+    the contract of ``pallas_rrlu_batched``."""
+    _check_panel(A, 3)
+    B, mp, npd = A.shape
+    dev = A.device
+
+    def per_panel(v, dtype):
+        return torch.as_tensor(v, dtype=dtype, device=dev).expand(B)
+
+    sizes = [per_panel(v, torch.int32).contiguous()
+             for v in (m_true, n_true, maxrank)]
+    lo, hi = torch.stack(sizes).aminmax(dim=1)
+    if int(lo.min()) < 0 or int(hi[0]) > mp or int(hi[1]) > npd:
+        raise ValueError(f"per-panel true extents do not fit the "
+                         f"({mp}, {npd}) panels")
+    tol = torch.stack([per_panel(reltol, A.dtype), per_panel(abstol, A.dtype)],
+                      dim=1).contiguous()
+    return _launch(A, B, mp, npd, leftorthogonal, (0, 0, 0, 0.0, 0.0),
+                   (*sizes, tol))

@@ -1,0 +1,237 @@
+"""Complete-pivot rank-revealing LU elimination on zero-padded panels.
+
+Counterpart of ``tci_tpu/ops/lu_kernel.py``. The elimination itself is the
+hand-written CUDA kernel ``csrc/rrlu.cu`` (wrapped by ``ops/lu_cuda.py``);
+this module holds its plain PyTorch version (``rrlu_plain``), which runs
+every panel that lies on the CPU and is what the kernel is checked against;
+``rrlu_panel`` / ``rrlu_panel_batched``, the one place that picks the
+kernel or the plain version by the panel's device; and the host-facing
+``rrlu_raw`` that pads a matrix to its shape bucket, runs the elimination
+where the matrix lives and brings back the pivots.
+
+The plain version is one swap-free body for all sizes (the contract of
+``tci_tpu``'s ``_rrlu_while``, written after ``_rrlu_state_fused``): the
+pivot column has the largest cached per-column max |a|^2, ties to the
+smallest swapped position; the pivot row has the largest |a|^2 in that
+column, ties likewise; the loop stops by the rule of matrixlu.jl:363. The
+Schur update is written as a multiply followed by a subtract, which is how
+the kernel rounds, so the two agree bitwise.
+"""
+
+from __future__ import annotations
+
+from collections import Counter
+from typing import Union
+
+import numpy as np
+import torch
+
+from . import lu_cuda
+
+# Calls of the plain version, by the device type of the panel. The main path
+# on a GPU must leave the "cuda" count at 0.
+PLAIN_CALLS: Counter = Counter()
+
+_BIG = 1 << 30
+
+
+def bucket(n: int) -> int:
+    """Round `n` up to a padded extent; at most ~4 buckets per octave."""
+    if n <= 8:
+        return 8
+    step = 1 << max(3, n.bit_length() - 3)
+    return ((n + step - 1) // step) * step
+
+
+def rrlu_plain(A: torch.Tensor, m_true: int, n_true: int, maxrank: int,
+               reltol: float, abstol: float, *, leftorthogonal: bool):
+    """Plain PyTorch elimination of one zero-padded (mp, np) panel.
+
+    Returns (A_sw, rowperm, colperm, k, mags, err) as tensors on A's device:
+    the LU buffer in the swapped layout, the permutations (position ->
+    original index, int64), the number of pivots, the pivot magnitudes
+    (length min(mp, np), zero past k) and the magnitude of the first
+    rejected pivot (NaN when maxrank is 0). Tolerances are compared in A's
+    dtype, as the kernel does.
+    """
+    PLAIN_CALLS[A.device.type] += 1
+    mp, npd = A.shape
+    dev, dt = A.device, A.dtype
+    m, n, maxrank = int(m_true), int(n_true), int(maxrank)
+    A = A.clone()
+    rows = torch.arange(mp, device=dev)
+    cols = torch.arange(npd, device=dev)
+    rowperm, colperm = rows.clone(), cols.clone()
+    rowpos, colpos = rows.clone(), cols.clone()
+    rt = torch.tensor(reltol, dtype=dt, device=dev)
+    at = torch.tensor(abstol, dtype=dt, device=dev)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    one = torch.ones((), dtype=dt, device=dev)
+    neg1 = -one
+    mags = torch.zeros(min(mp, npd), dtype=dt, device=dev)
+    maxerror = zero
+    err = torch.full((), float("nan"), dtype=dt, device=dev)
+    colmax = torch.where((rows < m)[:, None], A * A, neg1).amax(0)
+    k = 0
+    while k < maxrank:
+        validc = (colpos >= k) & (cols < n)
+        cm = torch.where(validc, colmax, neg1)
+        M = cm.max()
+        if bool(M < 0):
+            # no valid column left: stop with err 0, as the TPU kernel does
+            err = zero
+            break
+        bestcolpos = int(torch.where((cm == M) & validc, colpos, _BIG).min())
+        pc = int(colperm[bestcolpos])
+
+        validr = (rowpos >= k) & (rows < m)
+        acol = A[:, pc]
+        met = torch.where(validr, acol * acol, neg1)
+        Mr = met.max()
+        bestrowpos = int(torch.where((met == Mr) & validr, rowpos, _BIG).min())
+        pr = int(rowperm[min(bestrowpos, mp - 1)])
+        newerr = torch.sqrt(torch.clamp(Mr, min=0))
+
+        stop = k > 0 and (bool(newerr < rt * maxerror) or bool(newerr < at))
+        stop = stop or bool(Mr < 0) or (k > 0 and bool(newerr == 0))
+        err = newerr
+        if stop:
+            break
+
+        # virtual swaps: position k <-> best positions
+        r_at_k = int(rowperm[k])
+        rowperm[bestrowpos] = r_at_k
+        rowperm[k] = pr
+        rowpos[r_at_k] = bestrowpos
+        rowpos[pr] = k
+        c_at_k = int(colperm[k])
+        colperm[bestcolpos] = c_at_k
+        colperm[k] = pc
+        colpos[c_at_k] = bestcolpos
+        colpos[pc] = k
+
+        piv = A[pr, pc]
+        safe = torch.where(piv != 0, piv, one)
+        urow = (rowpos >= k + 1) & (rows < m)
+        ucol = (colpos >= k + 1) & (cols < n)
+        if leftorthogonal:
+            mult = A[:, pc] / safe
+            x = torch.where(urow, mult, zero)
+            y = torch.where(ucol, A[pr, :], zero)
+            Anew = A - x[:, None] * y[None, :]
+            Anew[:, pc] = torch.where(urow, mult, Anew[:, pc])
+        else:
+            divr = A[pr, :] / safe
+            y = torch.where(ucol, divr, zero)
+            x = torch.where(urow, A[:, pc], zero)
+            Anew = A - x[:, None] * y[None, :]
+            Anew[pr, :] = torch.where(ucol, divr, Anew[pr, :])
+        A = Anew
+        colmax = torch.where(urow[:, None], A * A, neg1).amax(0)
+        mags[k] = newerr
+        maxerror = torch.maximum(maxerror, newerr)
+        k += 1
+    A_sw = A[rowperm][:, colperm]
+    return (A_sw, rowperm, colperm,
+            torch.tensor(k, dtype=torch.int64, device=dev), mags, err)
+
+
+def rrlu_plain_batched(A: torch.Tensor, m_true, n_true, maxrank, reltol,
+                       abstol, *, leftorthogonal: bool):
+    """``rrlu_plain`` over B panels of (B, mp, np), with per-panel (B,)
+    sizes, rank caps and tolerances (or scalars for all panels)."""
+    B = A.shape[0]
+
+    def per_panel(v):
+        v = np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v)
+        return np.broadcast_to(v, (B,))
+
+    m_true, n_true, maxrank, reltol, abstol = map(
+        per_panel, (m_true, n_true, maxrank, reltol, abstol))
+    outs = [
+        rrlu_plain(A[b], int(m_true[b]), int(n_true[b]), int(maxrank[b]),
+                   float(reltol[b]), float(abstol[b]),
+                   leftorthogonal=leftorthogonal)
+        for b in range(B)
+    ]
+    return tuple(torch.stack(parts) for parts in zip(*outs))
+
+
+def rrlu_panel(A: torch.Tensor, m_true, n_true, maxrank, reltol, abstol, *,
+               leftorthogonal: bool):
+    """Eliminate one zero-padded panel where it lies: a CPU tensor runs the
+    plain version, any other goes to the CUDA kernel (which raises for
+    what it does not take). Returns the 6-tuple of ``rrlu_plain``."""
+    fn = rrlu_plain if A.device.type == "cpu" else lu_cuda.rrlu_call
+    return fn(A, m_true, n_true, maxrank, reltol, abstol,
+              leftorthogonal=leftorthogonal)
+
+
+def rrlu_panel_batched(A: torch.Tensor, m_true, n_true, maxrank, reltol,
+                       abstol, *, leftorthogonal: bool):
+    """``rrlu_panel`` for B panels of (B, mp, np), with per-panel (B,)
+    sizes, rank caps and tolerances (or scalars for all panels)."""
+    fn = (rrlu_plain_batched if A.device.type == "cpu"
+          else lu_cuda.rrlu_batched)
+    return fn(A, m_true, n_true, maxrank, reltol, abstol,
+              leftorthogonal=leftorthogonal)
+
+
+def rrlu_raw(
+    A: Union[np.ndarray, torch.Tensor],
+    maxrank: int,
+    reltol: float,
+    abstol: float,
+    leftorthogonal: bool,
+):
+    """Eliminate a concrete matrix where it lives.
+
+    A numpy array or CPU tensor runs the plain version; a CUDA tensor runs
+    the kernel. Returns (LUmat (m, n) tensor on A's device, rowperm (m,),
+    colperm (n,), npivot, diag (npivot,), err, nan_in_factors): the
+    permutations, the LU diagonal and the NaN flags of the L and U factors
+    come back to the host in ONE transfer, the LU buffer stays where A is.
+    """
+    A = torch.as_tensor(A)
+    m, n = A.shape
+    if A.is_complex():
+        raise NotImplementedError(
+            "complex rrLU is not ported yet (ROADMAP A10)")
+    if m == 0 or n == 0:
+        return (A.to(torch.float64), np.arange(m), np.arange(n), 0,
+                np.zeros((0,)), float("nan"), (False, False))
+    mp, npd = bucket(m), bucket(n)
+    maxrank = min(int(maxrank), m, n)
+    Ap = torch.zeros((mp, npd), dtype=torch.float64, device=A.device)
+    Ap[:m, :n] = A
+    A_sw, rowperm, colperm, k, mags, err = rrlu_panel(
+        Ap, m, n, maxrank, reltol, abstol, leftorthogonal=leftorthogonal)
+    LU = A_sw[:m, :n]
+    r = min(m, n)
+    # NaN in column j of tril(LU) / row i of triu(LU): the L and U factors
+    # hold NaN iff one of their first k columns / rows does.
+    nan = torch.isnan(LU)
+    colnan = torch.tril(nan)[:, :r].any(0)
+    rownan = torch.triu(nan)[:r, :].any(1)
+    host = torch.cat([
+        rowperm[:m].to(torch.float64), colperm[:n].to(torch.float64),
+        k.to(torch.float64)[None], err.to(torch.float64)[None],
+        torch.diagonal(LU).to(torch.float64),
+        colnan.to(torch.float64), rownan.to(torch.float64),
+    ]).cpu().numpy()
+    rp = host[:m].astype(np.int64)
+    cp = host[m:m + n].astype(np.int64)
+    k = int(host[m + n])
+    err = float(host[m + n + 1])
+    rest = host[m + n + 2:]
+    diag = rest[:k]
+    flags = (bool(rest[r:r + k].any()), bool(rest[2 * r:2 * r + k].any()))
+    return LU, rp, cp, k, diag, err, flags
+
+
+def submatrixargmax_colmajor(metric: np.ndarray):
+    """First-occurrence argmax in column-major order over a 2-D metric array."""
+    flat = np.asarray(metric).T.reshape(-1)
+    p = int(np.argmax(flat))
+    m = metric.shape[0]
+    return p % m, p // m

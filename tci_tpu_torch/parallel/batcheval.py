@@ -1,0 +1,243 @@
+"""Batched evaluation protocol and adapters.
+
+Counterpart of ``tci_tpu/parallel/batcheval.py`` (parity reference:
+src/batcheval.jl). The protocol: an evaluator supports
+
+- single call:  f(indexset) -> scalar
+- batch call:   f.batch_evaluate(Iset, Jset, ncent) -> array of shape
+                (|Iset|, d_{nl}, ..., d_{nl+ncent-1}, |Jset|)
+
+where each entry is f at the concatenated index [left..., center..., right...].
+``TorchBatchEvaluator`` takes the place of ``JaxBatchEvaluator``: the index
+panel is assembled on its device by broadcasting, and the user's f maps an
+(N, L) int64 tensor to (N,) values there, so the sampled panel never leaves
+the device.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from ..utils.device import to_device, torch_dtype
+
+MultiIndex = tuple
+
+
+class BatchEvaluator:
+    """Base class for batch-evaluable functions."""
+
+    def __call__(self, *args):
+        if len(args) == 1:
+            return self.evaluate_single(args[0])
+        if len(args) in (2, 3):
+            Iset, Jset = args[0], args[1]
+            ncent = args[2] if len(args) == 3 else None
+            return self.batch_evaluate(Iset, Jset, ncent)
+        raise TypeError("BatchEvaluator takes (indexset) or (Iset, Jset[, M])")
+
+    def evaluate_single(self, indexset):
+        raise NotImplementedError
+
+    def batch_evaluate(self, Iset, Jset, ncent=None):
+        raise NotImplementedError
+
+
+def isbatchevaluable(f) -> bool:
+    """True when `f` implements the batch-evaluation protocol."""
+    return isinstance(f, BatchEvaluator) or hasattr(f, "batch_evaluate")
+
+
+def evaluate_rows(f, indices, dtype=np.float64) -> torch.Tensor:
+    """Evaluate f at every row of an (B, L) index matrix with as few calls
+    as possible: one call when f exposes `evaluate_many` (the result stays
+    on f's device), otherwise a host loop."""
+    indices = np.asarray(indices, dtype=np.int64)
+    if hasattr(f, "evaluate_many"):
+        return torch.as_tensor(f.evaluate_many(indices))
+    call = f.evaluate_single if hasattr(f, "evaluate_single") else f
+    out = np.empty(indices.shape[0], dtype=dtype)
+    for r in range(indices.shape[0]):
+        out[r] = call(tuple(int(x) for x in indices[r]))
+    return torch.from_numpy(out)
+
+
+def _index_count(indexset) -> int:
+    return len(indexset[0]) if len(indexset) else 0
+
+
+def _result_shape(localdims, leftindexset, rightindexset, ncent):
+    nl = _index_count(leftindexset)
+    return (
+        len(leftindexset),
+        *[localdims[nl + i] for i in range(ncent)],
+        len(rightindexset),
+    )
+
+
+def _infer_ncent(localdims, leftindexset, rightindexset, ncent):
+    if ncent is not None:
+        return ncent
+    nl = _index_count(leftindexset)
+    nr = _index_count(rightindexset)
+    return len(localdims) - nl - nr
+
+
+def _index_matrix(indexset, width: int) -> np.ndarray:
+    return np.asarray([tuple(x) for x in indexset], dtype=np.int64).reshape(
+        len(indexset), width
+    )
+
+
+def _assemble_indices(
+    localdims: Sequence[int],
+    leftindexset: Sequence[MultiIndex],
+    rightindexset: Sequence[MultiIndex],
+    ncent: int,
+    device: Union[str, torch.device] = "cpu",
+) -> torch.Tensor:
+    """Build the (|I|·Πd·|J|, nl+ncent+nr) int64 tensor of full multi-indices
+    in C order (left slowest, right fastest) on `device`: only the left and
+    right index sets are uploaded, the product is formed there by
+    broadcasting (batcheval.jl:131-175)."""
+    device = torch.device(device)
+    nl = _index_count(leftindexset)
+    nr = _index_count(rightindexset)
+    L = nl + ncent + nr
+    left = to_device(_index_matrix(leftindexset, nl), device)
+    right = to_device(_index_matrix(rightindexset, nr), device)
+    centerdims = [localdims[nl + i] for i in range(ncent)]
+    if ncent > 0:
+        grids = torch.meshgrid(
+            *[torch.arange(d, dtype=torch.int64, device=device)
+              for d in centerdims],
+            indexing="ij",
+        )
+        center = torch.stack(grids, dim=-1).reshape(-1, ncent)
+    else:
+        center = torch.zeros((1, 0), dtype=torch.int64, device=device)
+    nI, nC, nJ = left.shape[0], center.shape[0], right.shape[0]
+    out = torch.empty((nI, nC, nJ, L), dtype=torch.int64, device=device)
+    out[:, :, :, :nl] = left[:, None, None, :]
+    out[:, :, :, nl : nl + ncent] = center[None, :, None, :]
+    out[:, :, :, nl + ncent :] = right[None, None, :, :]
+    return out.reshape(nI * nC * nJ, L)
+
+
+def _empty_panel(localdims, Iset, Jset, ncent, dtype, device="cpu"):
+    return torch.zeros(_result_shape(localdims, Iset, Jset, ncent),
+                       dtype=torch_dtype(dtype), device=device)
+
+
+def _batchevaluate_dispatch(
+    valuetype,
+    f,
+    localdims: Sequence[int],
+    leftindexset: Sequence[MultiIndex],
+    rightindexset: Sequence[MultiIndex],
+    ncent: Optional[int] = None,
+) -> torch.Tensor:
+    """Evaluate f on the product set left x (free center dims) x right.
+
+    BatchEvaluators get one batched call (batcheval.jl:196-214) and the
+    result stays where they computed it; plain callables are evaluated per
+    assembled index row on the host (batcheval.jl:131-175).
+    Returns a tensor of shape (|I|, d..., |J|).
+    """
+    ncent = _infer_ncent(localdims, leftindexset, rightindexset, ncent)
+    if len(leftindexset) * len(rightindexset) == 0:
+        return _empty_panel(localdims, leftindexset, rightindexset, ncent,
+                            valuetype)
+    if isbatchevaluable(f):
+        return torch.as_tensor(f.batch_evaluate(leftindexset, rightindexset,
+                                                ncent))
+    indices = _assemble_indices(localdims, leftindexset, rightindexset,
+                                ncent).tolist()
+    vals = torch.tensor([f(tuple(row)) for row in indices],
+                        dtype=torch_dtype(valuetype))
+    return vals.reshape(
+        _result_shape(localdims, leftindexset, rightindexset, ncent))
+
+
+class VectorizedBatchEvaluator(BatchEvaluator):
+    """Adapter for a numpy function that consumes a whole (B, L) index
+    matrix at once; its panels are host (CPU) tensors."""
+
+    def __init__(self, fvec: Callable[[np.ndarray], np.ndarray], localdims,
+                 dtype=np.float64):
+        self.fvec = fvec
+        self.localdims = list(localdims)
+        self.dtype = dtype
+
+    def evaluate_single(self, indexset):
+        arr = np.asarray([tuple(indexset)], dtype=np.int64)
+        return self.fvec(arr)[0]
+
+    def batch_evaluate(self, Iset, Jset, ncent=None):
+        ncent = _infer_ncent(self.localdims, Iset, Jset, ncent)
+        if len(Iset) * len(Jset) == 0:
+            return _empty_panel(self.localdims, Iset, Jset, ncent, self.dtype)
+        indices = _assemble_indices(self.localdims, Iset, Jset, ncent).numpy()
+        vals = np.asarray(self.fvec(indices), dtype=self.dtype)
+        return torch.from_numpy(vals).reshape(
+            _result_shape(self.localdims, Iset, Jset, ncent))
+
+
+class TorchBatchEvaluator(BatchEvaluator):
+    """Device evaluator: `f` maps an (N, L) int64 tensor of multi-indices on
+    `device` to (N,) values there, written with torch operations. Panels
+    are assembled and evaluated on the device and returned as device
+    tensors; ``nevals`` counts the samples taken."""
+
+    def __init__(self, f: Callable[[torch.Tensor], torch.Tensor], localdims,
+                 dtype=torch.float64, device: Union[str, torch.device] = "cpu"):
+        self.f = f
+        self.localdims = list(localdims)
+        self.dtype = torch_dtype(dtype)
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.device = device
+        self.nevals = 0
+
+    def _eval(self, indices: torch.Tensor) -> torch.Tensor:
+        self.nevals += int(indices.shape[0])
+        vals = self.f(indices)
+        if vals.shape != (indices.shape[0],) or vals.device != self.device:
+            raise ValueError(
+                f"f must return ({indices.shape[0]},) values on {self.device},"
+                f" got shape {tuple(vals.shape)} on {vals.device}")
+        return vals.to(self.dtype)
+
+    def evaluate_many(self, indices) -> torch.Tensor:
+        if isinstance(indices, torch.Tensor):
+            indices = indices.to(self.device, torch.int64)
+        else:
+            indices = to_device(np.asarray(indices, dtype=np.int64),
+                                self.device)
+        return self._eval(indices)
+
+    def evaluate_single(self, indexset):
+        arr = np.asarray([tuple(indexset)], dtype=np.int64)
+        return self.evaluate_many(arr)[0].item()
+
+    def batch_evaluate(self, Iset, Jset, ncent=None):
+        ncent = _infer_ncent(self.localdims, Iset, Jset, ncent)
+        if len(Iset) * len(Jset) == 0:
+            return _empty_panel(self.localdims, Iset, Jset, ncent, self.dtype,
+                                self.device)
+        indices = _assemble_indices(self.localdims, Iset, Jset, ncent,
+                                    self.device)
+        return self._eval(indices).reshape(
+            _result_shape(self.localdims, Iset, Jset, ncent))
+
+    def __call__(self, *args):
+        if len(args) == 1 and not (
+            isinstance(args[0], (list, tuple))
+            and args[0]
+            and isinstance(args[0][0], (list, tuple))
+        ):
+            return self.evaluate_single(args[0])
+        return super().__call__(*args)

@@ -1,0 +1,99 @@
+"""tci_tpu_torch on a CUDA device: the rrLU kernel against its plain PyTorch
+version on the card, and the main path through the kernel.
+
+Every test needs a CUDA device and skips without one: the CUDA kernel has
+no CPU mode. This file imports neither jax nor tci_tpu, so it runs on a
+machine without them:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerance: none. The kernel rounds like the plain version (no fused
+multiply-add, round-to-nearest division and square root), so outputs are
+compared for equality.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import tci_tpu_torch
+from tci_tpu_torch.ops import lu_cuda, lu_kernel
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the rrLU kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _equal(a, b):
+    return torch.equal(a, b) or bool((a.isnan() & b.isnan()).all())
+
+
+def _panel(seed, mp, npd, m, n, rank, dtype, device):
+    rng = np.random.default_rng(seed)
+    A = np.zeros((mp, npd))
+    A[:m, :n] = rng.standard_normal((m, rank)) @ rng.standard_normal((rank, n))
+    return torch.from_numpy(A).to(device=device, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("leftorthogonal", [True, False])
+@pytest.mark.parametrize("shape", [(8, 8, 8, 5, 4), (128, 128, 120, 117, 30),
+                                   (64, 16, 60, 10, 16), (256, 256, 250, 240, 50)])
+def test_kernel_matches_plain(cuda, shape, leftorthogonal, dtype):
+    mp, npd, m, n, rank = shape
+    A = _panel(1, mp, npd, m, n, rank, dtype, cuda)
+    args = (A, m, n, min(m, n), 1e-10, 0.0)
+    out = lu_cuda.rrlu_call(*args, leftorthogonal=leftorthogonal)
+    ref = lu_kernel.rrlu_plain(*args, leftorthogonal=leftorthogonal)
+    torch.cuda.synchronize()
+    for o, r in zip(out, ref):
+        assert _equal(o, r)
+
+
+def test_batched_kernel_matches_plain(cuda):
+    A = torch.stack([_panel(s, 32, 24, 32, 24, 24, torch.float64, cuda)
+                     for s in range(4)])
+    mt = torch.tensor([32, 30, 32, 17], device=cuda)
+    nt = torch.tensor([24, 24, 20, 24], device=cuda)
+    mr = torch.tensor([24, 8, 24, 24], device=cuda)
+    rt = torch.tensor([0.0, 0.0, 1e-3, 0.0], device=cuda)
+    at = torch.zeros(4, device=cuda)
+    out = lu_cuda.rrlu_batched(A, mt, nt, mr, rt, at, leftorthogonal=True)
+    ref = lu_kernel.rrlu_plain_batched(A, mt, nt, mr, rt, at,
+                                       leftorthogonal=True)
+    for o, r in zip(out, ref):
+        assert _equal(o, r)
+
+
+def test_rrlu_on_cuda_launches_the_kernel(cuda):
+    A = _panel(2, 300, 200, 300, 200, 40, torch.float64, cuda)
+    launches = lu_cuda.LAUNCHES["rrlu"]
+    plain = lu_kernel.PLAIN_CALLS["cuda"]
+    lu = tci_tpu_torch.rrlu(A, reltol=1e-10)
+    assert lu_cuda.LAUNCHES["rrlu"] == launches + 1
+    assert lu_kernel.PLAIN_CALLS["cuda"] == plain
+    assert lu.npivots() == 40 and lu.L.device.type == "cuda"
+    assert torch.allclose(lu.left() @ lu.right(), A, atol=1e-9)
+
+
+def test_tci2_on_cuda_matches_cpu(cuda):
+    def f(idx):
+        v = idx.to(torch.float64) + 1.0
+        return 1.0 / (1.0 + (v * v).sum(dim=1))
+
+    dims = [10] * 4
+    runs = []
+    for dev in ("cpu", cuda):
+        bf = tci_tpu_torch.TorchBatchEvaluator(f, dims, device=dev)
+        runs.append(tci_tpu_torch.crossinterpolate2(
+            np.float64, bf, dims, tolerance=1e-8,
+            rng=np.random.default_rng(0)))
+    (c, cranks, cerrs), (g, granks, gerrs) = runs
+    assert granks == cranks and g.Iset == c.Iset and g.Jset == c.Jset
+    np.testing.assert_allclose(gerrs, cerrs, rtol=0, atol=1e-15)
+    assert all(t.device.type == "cuda" for t in g.sitetensors())
