@@ -12,9 +12,17 @@ line or more each:
 3. the kernel against its plain PyTorch version on the card, float64 and
    float32: Lorentzian panels at the main path's bucket sizes (8 ... 128,
    both orientations, padding, an abstol and a reltol stop), four panels in
-   one batched launch, and ``rrlu`` at N = 1000 and 2000 with numerical rank
-   100. Pivot order, npivot and err must be identical and the LU buffer
-   equal; both times are printed;
+   one batched launch, ``rrlu`` at N = 1000 and 2000 with numerical rank
+   100 (N = 2000 run 20 times against one plain result), the mode table
+   (f64 buckets 128^2 ... 4096^2: which mode the kernel takes, its time and
+   the plain version's), and the panels the one-block design could not
+   take, 64 x 10000 (rank 40) and 4200^2 (rank 100). Pivot order, npivot and
+   err must be identical and the LU buffer equal; both times are printed;
+3b. BASELINE config 2: rrLU of a numpy-seeded 4096^2 f64 matrix
+   U diag(exp(-j/16)) V of rank 256, maxrank 256, reltol 1e-10: kernel and
+   plain version bitwise, reconstruction max|LU - A| / max|A| < 1e-8, both
+   times and GFLOP/s counted as 2 r N^2 (benchmarks/bench_rrlu.py) and as
+   2 sum_j (N - j)^2;
 4. BASELINE config 1 (8-D Lorentzian on {0..9}^8, tolerance 1e-8) through
    ``crossinterpolate2`` with a ``TorchBatchEvaluator`` on the card: a cold
    and a warm run, checked against tci_tpu's recorded series, with every
@@ -199,6 +207,7 @@ def main():
               f"plain {pms:.4f} ms", flush=True)
 
     # the reference's rrLU benchmark sizes: N = 1000, 2000, rank 100
+    n2000 = {}
     for N in (1000, 2000):
         rng = np.random.default_rng(N)
         A = torch.as_tensor(rng.standard_normal((N, 100))
@@ -224,6 +233,79 @@ def main():
               f"identical; kernel {kms:.3f} ms ({flops / kms / 1e6:.3f} "
               f"GFLOP/s), plain {pms:.3f} ms, public rrlu {ms:.3f} ms, "
               f"|LU - A| {rec:.3e}", flush=True)
+        if N == 2000:
+            n2000 = {"n2000_ms": kms, "n2000_plain_ms": pms}
+            # a stale cross-block read would show as a rare wrong pivot
+            for rep in range(20):
+                compare(f"rrlu N=2000 repeat {rep}",
+                        lu_cuda.rrlu_call(*args, leftorthogonal=True), ref,
+                        1.0)
+            print("[kernel] rrlu N=2000: 20 more kernel runs, each identical "
+                  "to the plain result", flush=True)
+
+    # the mode each f64 bucket takes, and its time against the plain version
+    lib = lu_cuda._lib()
+    for N in (128, 160, 192, 256, 512, 1024, 2048, 4096):
+        rank = min(100, N // 2)
+        rng = np.random.default_rng(N)
+        P = torch.as_tensor(rng.standard_normal((N, rank))
+                            @ rng.standard_normal((rank, N)), device=dev)
+        args = (P, N, N, N, 1e-12, 0.0)
+        out = lu_cuda.rrlu_call(*args, leftorthogonal=True)
+        ref = lu_kernel.rrlu_plain(*args, leftorthogonal=True)
+        max_err = max(max_err, compare(f"mode table {N}^2", out, ref, 1.0))
+        mode = ("multi-block" if lib.rrlu_scratch_bytes(N, N, 8) > 0
+                else "resident")
+        kms = cuda_ms(lambda: lu_cuda.rrlu_call(*args, leftorthogonal=True), 3)
+        pms = cuda_ms(lambda: lu_kernel.rrlu_plain(*args, leftorthogonal=True),
+                      3)
+        print(f"[mode] f64 {N}x{N} rank {int(out[3])}: {mode}, kernel "
+              f"{kms:.4f} ms, plain {pms:.4f} ms (identical)", flush=True)
+
+    # panels whose vectors overflowed the one-block design's shared memory
+    for m, n, rank in ((64, 10000, 40), (4200, 4200, 100)):
+        rng = np.random.default_rng(m + n)
+        A = torch.as_tensor(rng.standard_normal((m, rank))
+                            @ rng.standard_normal((rank, n)), device=dev)
+        P = padded(A, torch.float64)
+        args = (P, m, n, min(m, n), 1e-12, 0.0)
+        out = lu_cuda.rrlu_call(*args, leftorthogonal=True)
+        ref = lu_kernel.rrlu_plain(*args, leftorthogonal=True)
+        max_err = max(max_err, compare(f"rrlu {m}x{n}", out, ref, 1.0))
+        lu = tci_tpu_torch.rrlu(A, reltol=1e-12)
+        rec = float((lu.left() @ lu.right() - A).abs().max())
+        if lu.npivots() != rank or not rec < 1e-8 * float(A.abs().max()):
+            fail(f"rrlu {m}x{n}: npivot {lu.npivots()}, reconstruction {rec}")
+        print(f"[kernel] rrlu {m}x{n} f64 (bucket {P.shape[0]}x{P.shape[1]})"
+              f": k={int(out[3])} identical; public rrlu npivot "
+              f"{lu.npivots()}, |LU - A| {rec:.3e}", flush=True)
+
+    # -- 3b. BASELINE config 2 -------------------------------------------------
+    N, R = 4096, 256
+    rng = np.random.default_rng(4096)
+    U = rng.standard_normal((N, R)) * np.exp(-np.arange(R) / 16.0)
+    A = torch.as_tensor(U @ rng.standard_normal((R, N)), device=dev)
+    args = (A, N, N, R, 1e-10, 0.0)
+    out = lu_cuda.rrlu_call(*args, leftorthogonal=True)
+    ref = lu_kernel.rrlu_plain(*args, leftorthogonal=True)
+    max_err = max(max_err, compare("config 2", out, ref, 1.0))
+    k = int(out[3])
+    lu = tci_tpu_torch.rrlu(A, maxrank=R, reltol=1e-10)
+    rel = float((lu.left() @ lu.right() - A).abs().max() / A.abs().max())
+    if lu.npivots() != k or not rel < 1e-8:
+        fail(f"config 2: npivot {lu.npivots()} (kernel {k}), "
+             f"max|LU - A|/max|A| = {rel:.3e}")
+    kms = cuda_ms(lambda: lu_cuda.rrlu_call(*args, leftorthogonal=True), 5)
+    pms = cuda_ms(lambda: lu_kernel.rrlu_plain(*args, leftorthogonal=True), 2)
+    flops_bench = 2.0 * k * N * N
+    flops_exact = sum(2.0 * (N - j) * (N - j) for j in range(k))
+    print(f"[config2] rrLU {N}^2 f64 rank {k}: identical; kernel {kms:.3f} ms"
+          f" ({flops_bench / kms / 1e6:.3f} GFLOP/s as 2rN^2, "
+          f"{flops_exact / kms / 1e6:.3f} as 2 sum (N-j)^2), plain "
+          f"{pms:.3f} ms ({flops_bench / pms / 1e6:.3f} / "
+          f"{flops_exact / pms / 1e6:.3f}); max|LU - A|/max|A| {rel:.3e}",
+          flush=True)
+    config2 = {"config2_ms": kms, "config2_plain_ms": pms}
 
     # -- 4. config 1 through the port -----------------------------------------
     def fdev(idx):
@@ -341,6 +423,8 @@ def main():
         "max_abs_err": max_err,
         "ms": main_ms,
         "plain_ms": main_plain_ms,
+        **n2000,
+        **config2,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

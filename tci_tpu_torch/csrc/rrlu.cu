@@ -1,5 +1,4 @@
-// Complete-pivot rank-revealing LU of zero-padded panels, one thread block
-// per panel.
+// Complete-pivot rank-revealing LU of zero-padded panels.
 //
 // Replaces the Pallas TPU kernel tci_tpu/ops/pallas_lu.py::_rrlu_kernel
 // (entry points pallas_rrlu_call and pallas_rrlu_batched) and the XLA
@@ -13,7 +12,7 @@
 //     in that column, ties to the smallest swapped position. This is the
 //     reference's column-major first maximum in the swapped layout
 //     (matrixlu.jl:70-86). Every reduction is a (value, position) argmax, so
-//     the winner never depends on thread timing;
+//     the winner never depends on thread timing or on how a panel is cut;
 //   - stop rule of matrixlu.jl:363 once k > 0 (|pivot| < reltol * largest
 //     pivot so far, or < abstol), plus an exactly-zero pivot and "no valid
 //     line left"; err is the magnitude of the first rejected pivot (0 when
@@ -29,14 +28,27 @@
 // in tci_tpu_torch/ops/lu_kernel.py (a multiply kernel, then a subtract
 // kernel). Pivot order, k, err and the LU buffer agree bitwise with it.
 //
-// What bounds it on an H100: every pivot streams the whole trailing matrix
-// once (read + write, m * n * 16 bytes per step in f64), so the kernel is
-// memory-bound. A panel that fits in shared memory (a 128 x 128 f64 bucket
-// is 128 KB of the 227 KB a block may use) is loaded once and eliminated
-// there: device memory sees one read and one write of the panel in all.
-// Larger panels (the N = 1000 / 2000 rrlu calls) are updated in place in a
-// global-memory work buffer by one block, which uses a single SM's share of
-// the memory bandwidth; spreading such panels over many blocks is later work.
+// Two modes, one launch per call in both:
+//
+//   - resident (panels up to 128 x 128 f64, kResidentPanelBytes): one
+//     256-thread block per panel holds it in shared memory, so device memory
+//     sees one read and one write of the panel in all. A pivot costs a pass
+//     over the panel in shared memory and a few block barriers; one SM's
+//     shared-memory bandwidth bounds it, which is why larger panels leave;
+//   - multi-block (everything larger): one cooperative launch of as many
+//     1024-thread blocks as fit on the card at once. The true extents are cut
+//     into tiles (a band of up to 256 rows x 64 columns), each owned by one
+//     block for the whole elimination. Per pivot, block 0 reduces the
+//     per-band column maxima, finds the pivot, tests the stop rule and
+//     publishes the pivot column and row (x, y); a grid barrier; every block
+//     updates its tiles and writes their column maxima; a grid barrier. Each
+//     pivot reads and writes the trailing matrix once, over all SMs: a panel
+//     up to ~40 MB stays in the 50 MB L2 between pivots, a larger one streams
+//     from HBM, and the serial part on block 0 plus two grid barriers (about
+//     10 us a pivot) bounds small panels. Per-block shared memory is fixed;
+//     the state that grows with the panel lives in global scratch the
+//     wrapper allocates, so no panel size is refused. Batched panels take
+//     the whole grid in turn.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,10 +78,13 @@ struct Ops<float> {
 
 constexpr int kBig = 1 << 30;  // "no position" (the TPU kernel's BIG)
 constexpr int kResidentThreads = 256;
-constexpr int kStreamThreads = 1024;
 // Dynamic shared memory a block may request on sm_90, less room for the
 // kernel's static shared memory.
 constexpr size_t kSmemLimit = 232448 - 2048;
+// Largest panel the one-block mode takes: a 128 x 128 f64 panel. Above it the
+// multi-block mode is faster even where the panel would fit (at a 160^2 f64
+// bucket and 80 pivots, 0.93 ms against 2.16 ms on an H100).
+constexpr size_t kResidentPanelBytes = 128 * 128 * 8;
 
 template <typename T>
 __device__ __forceinline__ bool better(T v, int p, T bv, int bp) {
@@ -187,23 +202,24 @@ __device__ void panel_pass(T* A, int np, int m, int n, const int* rflag,
 }
 
 template <typename T>
-size_t smem_bytes(int mp, int np, bool resident, int nthreads) {
-  size_t bytes = resident ? (size_t)mp * np * sizeof(T) : 0;
-  bytes += ((size_t)np /*colmax*/ + mp /*x*/ + np /*y*/ + nthreads /*red*/) *
-           sizeof(T);
+size_t smem_bytes(int mp, int np) {
+  size_t bytes = (size_t)mp * np * sizeof(T);
+  bytes += ((size_t)np /*colmax*/ + mp /*x*/ + np /*y*/ +
+            kResidentThreads /*red*/) * sizeof(T);
   bytes += (3 * (size_t)mp + 3 * (size_t)np) * sizeof(int);
   return bytes;
 }
 
-template <typename T, int NT>
-__global__ void __launch_bounds__(NT)
-    rrlu_kernel(const T* __restrict__ A_in, T* A_work, T* __restrict__ A_sw,
+template <typename T>
+__global__ void __launch_bounds__(kResidentThreads)
+    rrlu_kernel(const T* __restrict__ A_in, T* __restrict__ A_sw,
                 int64_t* __restrict__ rowperm_out,
                 int64_t* __restrict__ colperm_out, T* __restrict__ mags_out,
                 int64_t* __restrict__ k_out, T* __restrict__ err_out,
                 const int* m_arr, const int* n_arr, const int* maxrank_arr,
                 const T* tol_arr, int m_s, int n_s, int maxrank_s, T reltol_s,
-                T abstol_s, int mp, int np, int leftorth_i, int resident) {
+                T abstol_s, int mp, int np, int leftorth_i) {
+  constexpr int NT = kResidentThreads;
   __shared__ T s_val[33];
   __shared__ int s_pos[33];
 
@@ -220,8 +236,8 @@ __global__ void __launch_bounds__(NT)
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* tbase = reinterpret_cast<T*>(smem_raw);
-  T* A = resident ? tbase : A_work + b * panel;
-  T* colmax = tbase + (resident ? panel : 0);
+  T* A = tbase;
+  T* colmax = tbase + panel;
   T* x = colmax + np;
   T* y = x + mp;
   T* red = y + np;
@@ -351,89 +367,513 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
+// ---------------------------------------------------------------------------
+// Multi-block mode: one cooperative launch, every block of the grid works on
+// one panel at a time (batched panels take the grid in turn).
+
+constexpr int kGridThreads = 1024;
+constexpr int kTileCols = 64;      // two 32-lane chunks: 512 B of an f64 row
+constexpr int kMaxTileRows = 256;  // rows of a band, chosen per launch
+constexpr int kUnroll = 4;         // rows a warp loads before it stores
+
+// Grid-wide barrier on two words {arrived, generation} that the wrapper
+// zeroes. Thread 0 of each block fences the block's writes (bar.sync makes
+// them visible to it, the fence is cumulative) before it arrives, and fences
+// again after the generation moves. The launch is cooperative, so every
+// block is resident and the spin ends.
+__device__ __forceinline__ void grid_sync(unsigned int* bar,
+                                          unsigned int nblocks) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    volatile unsigned int* gen = bar + 1;
+    const unsigned int g = *gen;  // before arriving: only our arrival moves it
+    __threadfence();
+    if (atomicAdd(bar, 1u) == nblocks - 1u) {
+      atomicExch(bar, 0u);
+      __threadfence();
+      atomicAdd(bar + 1, 1u);
+    } else {
+      while (*gen == g) __nanosleep(20);
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// Global scratch of the multi-block mode, carved from one byte buffer that
+// the wrapper allocates (rrlu_scratch_bytes). Nothing here grows the
+// per-block shared memory.
+template <typename T>
+struct GridScratch {
+  T* A;       // (mp, np) work buffer, updated in place
+  T* pmax;    // (nbands, np) per-band column max |a|^2 over unpivoted rows
+  T* x;       // (mp,) scaled pivot column of the current pivot
+  T* y;       // (np,) pivot row of the current pivot
+  int* rf;    // (mp,) row unpivoted and inside the true extent
+  int* cf;    // (np,) column likewise
+  int* rowpos;
+  int* rowperm;
+  int* colpos;
+  int* colperm;
+  int* ctrl;  // {stop, pr, pc}: published by block 0, read after a barrier
+};
+
+__host__ __device__ inline size_t align_up(size_t b) {
+  return (b + 255) & ~(size_t)255;
+}
+
+template <typename T>
+__host__ __device__ size_t grid_scratch(unsigned char* base, int mp, int np,
+                                        int nbands, GridScratch<T>* s) {
+  size_t off = 0;
+  auto take = [&](size_t bytes) {
+    unsigned char* p = base + off;
+    off += align_up(bytes);
+    return p;
+  };
+  unsigned char* a = take((size_t)mp * np * sizeof(T));
+  unsigned char* pm = take((size_t)nbands * np * sizeof(T));
+  unsigned char* x = take((size_t)mp * sizeof(T));
+  unsigned char* y = take((size_t)np * sizeof(T));
+  unsigned char* ints = take((3 * (size_t)mp + 3 * (size_t)np + 4) *
+                             sizeof(int));
+  if (s) {
+    s->A = reinterpret_cast<T*>(a);
+    s->pmax = reinterpret_cast<T*>(pm);
+    s->x = reinterpret_cast<T*>(x);
+    s->y = reinterpret_cast<T*>(y);
+    s->rf = reinterpret_cast<int*>(ints);
+    s->rowpos = s->rf + mp;
+    s->rowperm = s->rowpos + mp;
+    s->cf = s->rowperm + mp;
+    s->colpos = s->cf + np;
+    s->colperm = s->colpos + np;
+    s->ctrl = s->colperm + np;
+  }
+  return off;
+}
+
+// Rows per band: the tallest of 256, 128, 64, 32 that still cuts the panel
+// into at least one tile per block, so block 0's reduction over bands stays
+// short on large panels and small ones still spread over the grid.
+inline int band_rows(int mp, int np, int nblocks) {
+  const int nc = (np + kTileCols - 1) / kTileCols;
+  int tr = kMaxTileRows;
+  while (tr > 32 && (long)((mp + tr - 1) / tr) * nc < nblocks) tr >>= 1;
+  return tr;
+}
+
+// One pass over the tiles a block owns (tile t belongs to block
+// t % gridDim.x for the whole elimination, so a block reads back only what it
+// wrote itself and plain loads of A are safe). With update set it applies the
+// rank-1 Schur update on unpivoted rows x unpivoted columns and stores the
+// multipliers (the fused pass of panel_pass); in every case it writes each
+// tile column's max |a|^2 over its band's unpivoted rows to pmax. x, y and
+// the flags were written by block 0 before the last barrier: they are read
+// with __ldcg (L2), never through a possibly stale L1 line.
+template <typename T>
+__device__ void grid_pass(const T* __restrict__ src, GridScratch<T>& s,
+                          int np, int m, int n, int tr, bool update,
+                          bool leftorth, int pr, int pc, T* x_s, int* rf_s,
+                          T* y_s, int* cf_s, T* red) {
+  constexpr int kWarps = kGridThreads / 32;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nb = (m + tr - 1) / tr;
+  const int nc = (n + kTileCols - 1) / kTileCols;
+  for (int t = blockIdx.x; t < nb * nc; t += gridDim.x) {
+    const int band = t / nc;
+    const int i0 = band * tr;
+    const int j0 = (t % nc) * kTileCols;
+    const int rows = min(tr, m - i0);
+    for (int r = threadIdx.x; r < rows; r += kGridThreads) {
+      rf_s[r] = update ? __ldcg(s.rf + i0 + r) : 1;
+      x_s[r] = update ? __ldcg(s.x + i0 + r) : T(0);
+    }
+    for (int c = threadIdx.x; c < kTileCols; c += kGridThreads) {
+      const int j = j0 + c;
+      cf_s[c] = update && j < n ? __ldcg(s.cf + j) : 0;
+      y_s[c] = update && j < n ? __ldcg(s.y + j) : T(0);
+    }
+    __syncthreads();
+    // kUnroll rows of a warp are loaded before any is stored, so each
+    // thread keeps 2 * kUnroll loads in flight (a store to A could alias a
+    // later load, so the compiler would not hoist them itself).
+    T cm[2] = {T(-1), T(-1)};
+    for (int r0 = warp; r0 < rows; r0 += kUnroll * kWarps) {
+      T a[kUnroll][2];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int r = r0 + u * kWarps;
+        // a pivoted row has nothing to update or count, bar row pr's
+        // multipliers in the right-orthogonal form
+        const bool live = r < rows && (rf_s[r] || i0 + r == pr);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int j = j0 + h * 32 + lane;
+          const size_t e = (size_t)(i0 + r) * np + j;
+          a[u][h] = live && j < n ? (update ? s.A[e] : src[e]) : T(0);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const int r = r0 + u * kWarps;
+        const int i = i0 + r;
+        if (r >= rows) break;
+        const int rf = rf_s[r];
+        if (!rf && i != pr) continue;
+        const T xi = x_s[r];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = h * 32 + lane;
+          const int j = j0 + c;
+          if (j >= n) continue;
+          const size_t e = (size_t)i * np + j;
+          T v = a[u][h];
+          if (!update) {
+            s.A[e] = v;
+          } else if (rf && cf_s[c]) {
+            v = Ops<T>::sub(v, Ops<T>::mul(xi, y_s[c]));
+            s.A[e] = v;
+          } else if (leftorth ? (rf && j == pc) : (i == pr && cf_s[c])) {
+            v = leftorth ? xi : y_s[c];
+            s.A[e] = v;
+          }
+          if (rf) {
+            const T sq = Ops<T>::mul(v, v);
+            cm[h] = sq > cm[h] ? sq : cm[h];
+          }
+        }
+      }
+    }
+    red[warp * kTileCols + lane] = cm[0];
+    red[warp * kTileCols + 32 + lane] = cm[1];
+    __syncthreads();
+    if (threadIdx.x < kTileCols && j0 + (int)threadIdx.x < n) {
+      T v = red[threadIdx.x];
+      for (int w = 1; w < kWarps; ++w) {
+        const T u = red[w * kTileCols + threadIdx.x];
+        v = u > v ? u : v;
+      }
+      s.pmax[(size_t)band * np + j0 + threadIdx.x] = v;
+    }
+    __syncthreads();  // the staging and red are reused by the next tile
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kGridThreads)
+    rrlu_grid_kernel(const T* __restrict__ A_in, unsigned char* scratch,
+                     unsigned int* bar, T* __restrict__ A_sw,
+                     int64_t* __restrict__ rowperm_out,
+                     int64_t* __restrict__ colperm_out,
+                     T* __restrict__ mags_out, int64_t* __restrict__ k_out,
+                     T* __restrict__ err_out, const int* m_arr,
+                     const int* n_arr, const int* maxrank_arr,
+                     const T* tol_arr, int m_s, int n_s, int maxrank_s,
+                     T reltol_s, T abstol_s, int B, int mp, int np,
+                     int leftorth_i, int tr) {
+  constexpr int NT = kGridThreads;
+  __shared__ T s_val[33];
+  __shared__ int s_pos[33];
+  __shared__ T x_s[kMaxTileRows];
+  __shared__ int rf_s[kMaxTileRows];
+  __shared__ T y_s[kTileCols];
+  __shared__ int cf_s[kTileCols];
+  __shared__ T red[(NT / 32) * kTileCols];
+
+  const int tid = threadIdx.x;
+  const bool lead = blockIdx.x == 0;
+  const unsigned int G = gridDim.x;
+  const bool leftorth = leftorth_i != 0;
+  const int rmax = mp < np ? mp : np;
+  const size_t panel = (size_t)mp * np;
+  const int nbands = (mp + tr - 1) / tr;
+  GridScratch<T> s;
+  grid_scratch<T>(scratch, mp, np, nbands, &s);
+  const size_t gtid = (size_t)blockIdx.x * NT + tid;
+  const size_t gstride = (size_t)G * NT;
+
+  for (int b = 0; b < B; ++b) {
+    const int m = m_arr ? m_arr[b] : m_s;
+    const int n = n_arr ? n_arr[b] : n_s;
+    const int maxrank = maxrank_arr ? maxrank_arr[b] : maxrank_s;
+    const T reltol = tol_arr ? tol_arr[2 * b] : reltol_s;
+    const T abstol = tol_arr ? tol_arr[2 * b + 1] : abstol_s;
+    const T* Ain = A_in + b * panel;
+    const int nbm = (m + tr - 1) / tr;  // bands this panel's pass writes
+
+    // Set-up: the tiles' owners copy the true extents into the work buffer
+    // and write the first column maxima; padding is copied grid-stride (it
+    // is never updated, only read by the final gather through L2). Block 0
+    // alone writes the permutations and flags until the end of the panel.
+    for (size_t e = gtid; e < panel; e += gstride) {
+      const int i = (int)(e / np), j = (int)(e % np);
+      if (i >= m || j >= n) s.A[e] = Ain[e];
+    }
+    if (lead) {
+      for (int i = tid; i < mp; i += NT) {
+        s.rowpos[i] = i;
+        s.rowperm[i] = i;
+        s.rf[i] = i < m;
+      }
+      for (int j = tid; j < np; j += NT) {
+        s.colpos[j] = j;
+        s.colperm[j] = j;
+        s.cf[j] = j < n;
+      }
+      for (int r = tid; r < rmax; r += NT) mags_out[b * rmax + r] = T(0);
+    }
+    grid_pass<T>(Ain, s, np, m, n, tr, false, leftorth, -1, -1, x_s, rf_s,
+                 y_s, cf_s, red);
+    grid_sync(bar, G);
+
+    int k = 0;
+    T maxerror = T(0);  // block 0's
+    T err = Ops<T>::nan();
+    while (true) {
+      if (lead) {
+        // (a)-(d) on one block; the others wait at the barrier. Every
+        // argmax is a (value, smallest swapped position) pair, so the
+        // winner does not depend on how the panel was cut into tiles.
+        bool stop = k >= maxrank;
+        int pr = -1, pc = -1;
+        if (!stop) {
+          T cv = T(-1);
+          int cp = kBig;
+          for (int j = tid; j < n; j += NT) {
+            if (!s.cf[j]) continue;
+            T v = T(-1);
+            for (int bd = 0; bd < nbm; ++bd) {
+              const T u = __ldcg(s.pmax + (size_t)bd * np + j);
+              v = u > v ? u : v;
+            }
+            const int p = s.colpos[j];
+            if (better(v, p, cv, cp)) {
+              cv = v;
+              cp = p;
+            }
+          }
+          block_argmax<T, NT>(cv, cp, s_val, s_pos);
+          if (cv < T(0)) {  // no valid column left: stop with err 0
+            err = T(0);
+            stop = true;
+          } else {
+            const int bestcolpos = cp;
+            pc = s.colperm[bestcolpos];
+            T rv = T(-1);
+            int rp = kBig;
+            for (int i = tid; i < m; i += NT) {
+              if (!s.rf[i]) continue;
+              const T a = __ldcg(s.A + (size_t)i * np + pc);
+              const T v = Ops<T>::mul(a, a);
+              const int p = s.rowpos[i];
+              if (better(v, p, rv, rp)) {
+                rv = v;
+                rp = p;
+              }
+            }
+            block_argmax<T, NT>(rv, rp, s_val, s_pos);
+            const int bestrowpos = rp;
+            pr = s.rowperm[bestrowpos < mp - 1 ? bestrowpos : mp - 1];
+            const T newerr = Ops<T>::sqrt(rv > T(0) ? rv : T(0));
+            stop = k > 0 && (newerr < Ops<T>::mul(reltol, maxerror) ||
+                             newerr < abstol);
+            stop = stop || rv < T(0) || (newerr == T(0) && k > 0);
+            err = newerr;
+            if (!stop) {
+              __syncthreads();  // every thread has read rowperm[bestrowpos]
+              if (tid == 0) {
+                const int r_at_k = s.rowperm[k];
+                s.rowperm[bestrowpos] = r_at_k;
+                s.rowperm[k] = pr;
+                s.rowpos[r_at_k] = bestrowpos;
+                s.rowpos[pr] = k;
+                const int c_at_k = s.colperm[k];
+                s.colperm[bestcolpos] = c_at_k;
+                s.colperm[k] = pc;
+                s.colpos[c_at_k] = bestcolpos;
+                s.colpos[pc] = k;
+                // only the pivot's row and column leave the unpivoted set
+                s.rf[pr] = 0;
+                s.cf[pc] = 0;
+                mags_out[b * rmax + k] = newerr;
+              }
+              maxerror = newerr > maxerror ? newerr : maxerror;
+              __syncthreads();
+              const T piv = __ldcg(s.A + (size_t)pr * np + pc);
+              const T safe = piv != T(0) ? piv : T(1);
+              for (int i = tid; i < m; i += NT) {
+                const T a = __ldcg(s.A + (size_t)i * np + pc);
+                s.x[i] = s.rf[i] ? (leftorth ? Ops<T>::div(a, safe) : a)
+                                 : T(0);
+              }
+              for (int j = tid; j < n; j += NT) {
+                const T a = __ldcg(s.A + (size_t)pr * np + j);
+                s.y[j] = s.cf[j] ? (leftorth ? a : Ops<T>::div(a, safe))
+                                 : T(0);
+              }
+            }
+          }
+        }
+        if (tid == 0) {
+          s.ctrl[0] = stop;
+          s.ctrl[1] = pr;
+          s.ctrl[2] = pc;
+          if (stop) {
+            k_out[b] = k;
+            err_out[b] = err;
+          }
+        }
+      }
+      grid_sync(bar, G);
+      // One word written before the barrier decides for every block, so all
+      // take the same branch and meet at the same barriers.
+      if (__ldcg(s.ctrl)) break;
+      const int pr = __ldcg(s.ctrl + 1);
+      const int pc = __ldcg(s.ctrl + 2);
+      grid_pass<T>(Ain, s, np, m, n, tr, true, leftorth, pr, pc, x_s, rf_s,
+                   y_s, cf_s, red);
+      grid_sync(bar, G);
+      ++k;
+    }
+
+    // The swapped-layout gather, spread over the grid; the work buffer and
+    // the permutations were written by other blocks, so they come from L2.
+    for (size_t i = gtid; i < (size_t)mp; i += gstride)
+      rowperm_out[b * mp + i] = __ldcg(s.rowperm + i);
+    for (size_t j = gtid; j < (size_t)np; j += gstride)
+      colperm_out[b * np + j] = __ldcg(s.colperm + j);
+    T* out = A_sw + b * panel;
+    for (size_t e = gtid; e < panel; e += gstride) {
+      const int i = (int)(e / np), j = (int)(e % np);
+      out[e] = __ldcg(s.A + (size_t)__ldcg(s.rowperm + i) * np +
+                      __ldcg(s.colperm + j));
+    }
+    grid_sync(bar, G);  // the next panel reuses the scratch
+  }
+}
+
 template <typename T>
 bool is_resident(int mp, int np) {
-  return smem_bytes<T>(mp, np, true, kResidentThreads) <= kSmemLimit;
+  return (size_t)mp * np * sizeof(T) <= kResidentPanelBytes &&
+         smem_bytes<T>(mp, np) <= kSmemLimit;
 }
 
-template <typename T, int NT>
-int launch_nt(const void* A_in, void* A_work, void* A_sw, void* rowperm,
-              void* colperm, void* mags, void* k_out, void* err_out,
-              const void* m_arr, const void* n_arr, const void* maxrank_arr,
-              const void* tol_arr, int m, int n, int maxrank, double reltol,
-              double abstol, int B, int mp, int np, int leftorth,
-              int resident, void* stream) {
-  const size_t smem = smem_bytes<T>(mp, np, resident != 0, NT);
-  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      rrlu_kernel<T, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+// Blocks of the multi-block grid: as many as can be resident at once (the
+// cooperative launch refuses more), but no more than the panel has tiles.
+template <typename T>
+int grid_shape(int mp, int np, int* G, int* tr) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, rrlu_grid_kernel<T>, kGridThreads, 0);
   if (e != cudaSuccess) return (int)e;
-  rrlu_kernel<T, NT><<<B, NT, smem, (cudaStream_t)stream>>>(
-      (const T*)A_in, (T*)A_work, (T*)A_sw, (int64_t*)rowperm,
-      (int64_t*)colperm, (T*)mags, (int64_t*)k_out, (T*)err_out,
-      (const int*)m_arr, (const int*)n_arr, (const int*)maxrank_arr,
-      (const T*)tol_arr, m, n, maxrank, (T)reltol, (T)abstol, mp, np,
-      leftorth, resident);
-  return (int)cudaGetLastError();
+  const long tiles = (long)((mp + 31) / 32) * ((np + kTileCols - 1) / kTileCols);
+  long g = (long)sms * per_sm;
+  if (g > tiles) g = tiles;
+  if (g < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  *G = (int)g;
+  *tr = band_rows(mp, np, *G);
+  return 0;
 }
 
 template <typename T>
-int launch(const void* A_in, void* A_work, void* A_sw, void* rowperm,
-           void* colperm, void* mags, void* k_out, void* err_out,
-           const void* m_arr, const void* n_arr, const void* maxrank_arr,
-           const void* tol_arr, int m, int n, int maxrank, double reltol,
-           double abstol, int B, int mp, int np, int leftorth, void* stream) {
+long long scratch_bytes(int mp, int np) {
+  if (is_resident<T>(mp, np)) return 0;
+  int G = 0, tr = 0;
+  const int rc = grid_shape<T>(mp, np, &G, &tr);
+  if (rc != 0) return -(long long)rc;
+  return (long long)grid_scratch<T>(nullptr, mp, np, (mp + tr - 1) / tr,
+                                    nullptr);
+}
+
+template <typename T>
+int launch(const void* A_in, void* scratch, void* bar, void* A_sw,
+           void* rowperm, void* colperm, void* mags, void* k_out,
+           void* err_out, const void* m_arr, const void* n_arr,
+           const void* maxrank_arr, const void* tol_arr, int m, int n,
+           int maxrank, double reltol, double abstol, int B, int mp, int np,
+           int leftorth, void* stream) {
   if (B <= 0 || mp <= 0 || np <= 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
   if (is_resident<T>(mp, np)) {
-    return launch_nt<T, kResidentThreads>(
-        A_in, A_work, A_sw, rowperm, colperm, mags, k_out, err_out, m_arr,
-        n_arr, maxrank_arr, tol_arr, m, n, maxrank, reltol, abstol, B, mp, np,
-        leftorth, 1, stream);
+    const size_t smem = smem_bytes<T>(mp, np);
+    cudaError_t e = cudaFuncSetAttribute(
+        rrlu_kernel<T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    rrlu_kernel<T><<<B, kResidentThreads, smem, st>>>(
+        (const T*)A_in, (T*)A_sw, (int64_t*)rowperm,
+        (int64_t*)colperm, (T*)mags, (int64_t*)k_out, (T*)err_out,
+        (const int*)m_arr, (const int*)n_arr, (const int*)maxrank_arr,
+        (const T*)tol_arr, m, n, maxrank, (T)reltol, (T)abstol, mp, np,
+        leftorth);
+    return (int)cudaGetLastError();
   }
-  if (A_work == nullptr) return (int)cudaErrorInvalidValue;
-  return launch_nt<T, kStreamThreads>(
-      A_in, A_work, A_sw, rowperm, colperm, mags, k_out, err_out, m_arr, n_arr,
-      maxrank_arr, tol_arr, m, n, maxrank, reltol, abstol, B, mp, np, leftorth,
-      0, stream);
+  if (scratch == nullptr || bar == nullptr) return (int)cudaErrorInvalidValue;
+  int G = 0, tr = 0;
+  int rc = grid_shape<T>(mp, np, &G, &tr);
+  if (rc != 0) return rc;
+  const T* a_in = (const T*)A_in;
+  unsigned char* scr = (unsigned char*)scratch;
+  unsigned int* br = (unsigned int*)bar;
+  T* a_sw = (T*)A_sw;
+  int64_t* rp = (int64_t*)rowperm;
+  int64_t* cp = (int64_t*)colperm;
+  T* mg = (T*)mags;
+  int64_t* ko = (int64_t*)k_out;
+  T* eo = (T*)err_out;
+  const int* ma = (const int*)m_arr;
+  const int* na = (const int*)n_arr;
+  const int* ra = (const int*)maxrank_arr;
+  const T* ta = (const T*)tol_arr;
+  T rt = (T)reltol, at = (T)abstol;
+  void* args[] = {&a_in, &scr, &br, &a_sw, &rp, &cp, &mg, &ko, &eo,
+                  &ma, &na, &ra, &ta, &m, &n, &maxrank, &rt, &at,
+                  &B, &mp, &np, &leftorth, &tr};
+  cudaError_t e = cudaLaunchCooperativeKernel(
+      (const void*)rrlu_grid_kernel<T>, dim3(G), dim3(kGridThreads), args, 0,
+      st);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// 1 when an (mp, np) panel of elements of `elsize` bytes is eliminated in
-// shared memory; 0 when the caller must pass a global work buffer.
-int rrlu_panel_resident(int mp, int np, int elsize) {
-  return elsize == 8 ? (int)is_resident<double>(mp, np)
-                     : (int)is_resident<float>(mp, np);
+// Bytes of global scratch an (mp, np) panel of `elsize`-byte elements needs
+// on the current device: 0 when it is eliminated in shared memory, minus a
+// CUDA error code when the grid cannot be sized. The wrapper allocates it,
+// and a zeroed pair of 32-bit words for the grid barrier.
+long long rrlu_scratch_bytes(int mp, int np, int elsize) {
+  return elsize == 8 ? scratch_bytes<double>(mp, np)
+                     : scratch_bytes<float>(mp, np);
 }
 
 // B panels of (mp, np), contiguous. Per-panel sizes, rank caps and
 // tolerances come from the device arrays m_arr, n_arr, maxrank_arr ((B,)
 // int32) and tol_arr ((B, 2): reltol, abstol) when they are not null, and
-// from the scalar arguments otherwise. Returns cudaGetLastError() of the
-// launch (0 on success).
-int rrlu_launch_f64(const void* A_in, void* A_work, void* A_sw, void* rowperm,
-                    void* colperm, void* mags, void* k_out, void* err_out,
-                    const void* m_arr, const void* n_arr,
-                    const void* maxrank_arr, const void* tol_arr, int m, int n,
-                    int maxrank, double reltol, double abstol, int B, int mp,
-                    int np, int leftorth, void* stream) {
-  return launch<double>(A_in, A_work, A_sw, rowperm, colperm, mags, k_out,
-                        err_out, m_arr, n_arr, maxrank_arr, tol_arr, m, n,
-                        maxrank, reltol, abstol, B, mp, np, leftorth, stream);
-}
-
-int rrlu_launch_f32(const void* A_in, void* A_work, void* A_sw, void* rowperm,
-                    void* colperm, void* mags, void* k_out, void* err_out,
-                    const void* m_arr, const void* n_arr,
-                    const void* maxrank_arr, const void* tol_arr, int m, int n,
-                    int maxrank, double reltol, double abstol, int B, int mp,
-                    int np, int leftorth, void* stream) {
-  return launch<float>(A_in, A_work, A_sw, rowperm, colperm, mags, k_out,
-                       err_out, m_arr, n_arr, maxrank_arr, tol_arr, m, n,
-                       maxrank, reltol, abstol, B, mp, np, leftorth, stream);
-}
+// from the scalar arguments otherwise. Returns the launch's CUDA error code
+// (0 on success).
+#define RRLU_LAUNCH(NAME, T)                                                  \
+  int NAME(const void* A_in, void* scratch, void* bar, void* A_sw,           \
+           void* rowperm, void* colperm, void* mags, void* k_out,            \
+           void* err_out, const void* m_arr, const void* n_arr,              \
+           const void* maxrank_arr, const void* tol_arr, int m, int n,       \
+           int maxrank, double reltol, double abstol, int B, int mp, int np, \
+           int leftorth, void* stream) {                                     \
+    return launch<T>(A_in, scratch, bar, A_sw, rowperm, colperm, mags,       \
+                     k_out, err_out, m_arr, n_arr, maxrank_arr, tol_arr, m,  \
+                     n, maxrank, reltol, abstol, B, mp, np, leftorth,        \
+                     stream);                                                \
+  }
+RRLU_LAUNCH(rrlu_launch_f64, double)
+RRLU_LAUNCH(rrlu_launch_f32, float)
+#undef RRLU_LAUNCH
 
 }  // extern "C"

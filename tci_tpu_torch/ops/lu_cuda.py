@@ -3,8 +3,10 @@
 Counterpart of ``tci_tpu/ops/pallas_lu.py``: ``rrlu_call`` and
 ``rrlu_batched`` take the arguments of ``pallas_rrlu_call`` /
 ``pallas_rrlu_batched`` and return the same 6-tuple (A_sw, rowperm, colperm,
-k, mags, err). One kernel serves both: a launch runs B panels, one thread
-block each (B = 1 for ``rrlu_call``).
+k, mags, err). Each call is one launch of B panels (B = 1 for
+``rrlu_call``): panels up to 128 x 128 f64 take one thread block each, with
+the panel in shared memory; larger ones take the whole card in turn, in a
+cooperative multi-block launch whose global scratch this module allocates.
 
 This module only launches the kernel: a panel that is not a contiguous
 float32/float64 CUDA tensor raises. Which of the kernel and its plain
@@ -26,7 +28,7 @@ from . import _build
 LAUNCHES: Counter = Counter()
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-_LAUNCH_ARGTYPES = [_P] * 12 + [_I, _I, _I, _D, _D, _I, _I, _I, _I, _P]
+_LAUNCH_ARGTYPES = [_P] * 13 + [_I, _I, _I, _D, _D, _I, _I, _I, _I, _P]
 
 
 @functools.cache
@@ -35,8 +37,8 @@ def _lib() -> ctypes.CDLL:
     for fn in (lib.rrlu_launch_f64, lib.rrlu_launch_f32):
         fn.argtypes = _LAUNCH_ARGTYPES
         fn.restype = _I
-    lib.rrlu_panel_resident.argtypes = [_I, _I, _I]
-    lib.rrlu_panel_resident.restype = _I
+    lib.rrlu_scratch_bytes.argtypes = [_I, _I, _I]
+    lib.rrlu_scratch_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -65,9 +67,6 @@ def _launch(A, B, mp, npd, leftorthogonal, scalars, arrays):
     mags = torch.empty((B, rmax), dtype=dt, device=dev)
     k = torch.empty((B,), dtype=torch.int64, device=dev)
     err = torch.empty((B,), dtype=dt, device=dev)
-    work = None
-    if not lib.rrlu_panel_resident(mp, npd, A.element_size()):
-        work = torch.empty((B, mp, npd), dtype=dt, device=dev)
     fn = lib.rrlu_launch_f64 if dt == torch.float64 else lib.rrlu_launch_f32
     m, n, maxrank, reltol, abstol = scalars
 
@@ -75,11 +74,21 @@ def _launch(A, B, mp, npd, leftorthogonal, scalars, arrays):
         return None if t is None else t.data_ptr()
 
     with torch.cuda.device(dev):
+        # panels above the resident limit run in the multi-block mode:
+        # global scratch, and the two words of its grid barrier, zeroed
+        scratch = barrier = None
+        nbytes = lib.rrlu_scratch_bytes(mp, npd, A.element_size())
+        if nbytes < 0:
+            raise RuntimeError(f"rrLU kernel: CUDA error {-nbytes} sizing "
+                               f"the multi-block grid (panel {mp}x{npd})")
+        if nbytes > 0:
+            scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+            barrier = torch.zeros((2,), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(ptr(A), ptr(work), ptr(A_sw), ptr(rowperm), ptr(colperm),
-                ptr(mags), ptr(k), ptr(err), *(ptr(a) for a in arrays),
-                m, n, maxrank, reltol, abstol, B, mp, npd,
-                int(bool(leftorthogonal)), stream)
+        rc = fn(ptr(A), ptr(scratch), ptr(barrier), ptr(A_sw), ptr(rowperm),
+                ptr(colperm), ptr(mags), ptr(k), ptr(err),
+                *(ptr(a) for a in arrays), m, n, maxrank, reltol, abstol, B,
+                mp, npd, int(bool(leftorthogonal)), stream)
     if rc != 0:
         raise RuntimeError(f"rrLU kernel launch failed with CUDA error {rc} "
                            f"(B={B}, panel {mp}x{npd}, {dt})")

@@ -42,8 +42,13 @@ def _panel(seed, mp, npd, m, n, rank, dtype, device):
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("leftorthogonal", [True, False])
-@pytest.mark.parametrize("shape", [(8, 8, 8, 5, 4), (128, 128, 120, 117, 30),
-                                   (64, 16, 60, 10, 16), (256, 256, 250, 240, 50)])
+@pytest.mark.parametrize("shape", [
+    # (mp, np, m, n, rank): shared-memory resident panels ...
+    (8, 8, 8, 5, 4), (128, 128, 120, 117, 30), (64, 16, 60, 10, 16),
+    # ... and multi-block ones, from just above the resident limit up
+    (176, 176, 170, 165, 40), (192, 192, 190, 185, 40),
+    (256, 256, 250, 240, 50), (512, 256, 500, 250, 60),
+    (1024, 1024, 1000, 990, 100), (64, 10240, 60, 10000, 40)])
 def test_kernel_matches_plain(cuda, shape, leftorthogonal, dtype):
     mp, npd, m, n, rank = shape
     A = _panel(1, mp, npd, m, n, rank, dtype, cuda)
@@ -68,6 +73,67 @@ def test_batched_kernel_matches_plain(cuda):
                                        leftorthogonal=True)
     for o, r in zip(out, ref):
         assert _equal(o, r)
+
+
+def test_batched_multiblock_matches_plain(cuda):
+    """Two 512 x 512 panels above the resident limit take the grid in turn,
+    each with its own extents, rank cap and tolerances."""
+    A = torch.stack([_panel(5, 512, 512, 500, 480, 60, torch.float64, cuda),
+                     _panel(6, 512, 512, 450, 512, 90, torch.float64, cuda)])
+    mt = torch.tensor([500, 450], device=cuda)
+    nt = torch.tensor([480, 512], device=cuda)
+    mr = torch.tensor([480, 40], device=cuda)
+    rt = torch.tensor([1e-10, 0.0], dtype=torch.float64, device=cuda)
+    at = torch.tensor([0.0, 1e-3], dtype=torch.float64, device=cuda)
+    for leftorthogonal in (True, False):
+        out = lu_cuda.rrlu_batched(A, mt, nt, mr, rt, at,
+                                   leftorthogonal=leftorthogonal)
+        ref = lu_kernel.rrlu_plain_batched(A, mt, nt, mr, rt, at,
+                                           leftorthogonal=leftorthogonal)
+        assert out[3].tolist() == [60, 40]
+        for o, r in zip(out, ref):
+            assert _equal(o, r)
+
+
+def test_multiblock_repeats_bitwise(cuda):
+    """N = 2000 in the multi-block mode, 20 runs against one plain result:
+    a stale cross-block read would show as a rare wrong pivot."""
+    A = _panel(2000, 2048, 2048, 2000, 2000, 100, torch.float64, cuda)
+    args = (A, 2000, 2000, 2000, 1e-12, 0.0)
+    ref = lu_kernel.rrlu_plain(*args, leftorthogonal=True)
+    assert int(ref[3]) == 100
+    for _ in range(20):
+        out = lu_cuda.rrlu_call(*args, leftorthogonal=True)
+        for o, r in zip(out, ref):
+            assert _equal(o, r)
+
+
+def test_multiblock_rrlu_is_one_launch(cuda):
+    A = _panel(3, 1000, 1000, 1000, 1000, 50, torch.float64, cuda)
+    launches = lu_cuda.LAUNCHES["rrlu"]
+    plain = lu_kernel.PLAIN_CALLS["cuda"]
+    lu = tci_tpu_torch.rrlu(A, reltol=1e-10)
+    assert lu_cuda.LAUNCHES["rrlu"] == launches + 1
+    assert lu_kernel.PLAIN_CALLS["cuda"] == plain
+    assert lu.npivots() == 50
+
+
+@pytest.mark.parametrize("shape", [(64, 10000, 40), (4200, 4200, 100)])
+def test_rrlu_large_panels_match_plain(cuda, shape):
+    """Panels whose vectors overflowed the one-block mode's shared memory
+    (ROADMAP C-port-3): the public rrlu returns the plain version's result."""
+    m, n, rank = shape
+    A = _panel(7, m, n, m, n, rank, torch.float64, cuda)
+    lu = tci_tpu_torch.rrlu(A, reltol=1e-12)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(lu_kernel, "rrlu_panel", lu_kernel.rrlu_plain)
+        ref = tci_tpu_torch.rrlu(A, reltol=1e-12)
+    assert lu.npivots() == ref.npivots() == rank
+    assert np.array_equal(lu.rowpermutation, ref.rowpermutation)
+    assert np.array_equal(lu.colpermutation, ref.colpermutation)
+    assert torch.equal(lu.L, ref.L) and torch.equal(lu.U, ref.U)
+    assert np.array_equal(lu.pivoterrors(), ref.pivoterrors())
+    assert lu.lastpivoterror() == ref.lastpivoterror()
 
 
 def test_rrlu_on_cuda_launches_the_kernel(cuda):

@@ -58,11 +58,18 @@ def _case(name):
         return _A5, {"maxrank": 2}
     if name == "small_values":
         return 1e-13 * _A5[:4, :4], {"abstol": 1e-3}
+    # shapes that run the CUDA kernel's multi-block mode on a card
+    if name == "wide_rank40":
+        return (rng.standard_normal((64, 40))
+                @ rng.standard_normal((40, 1000))), {"reltol": 1e-10}
+    if name == "rank60":
+        return (rng.standard_normal((400, 60))
+                @ rng.standard_normal((60, 300))), {"reltol": 1e-10}
     raise KeyError(name)
 
 
 CASES = ["random", "lowrank_reltol", "exact_lowrank", "zero_pivot",
-         "maxrank", "small_values"]
+         "maxrank", "small_values", "wide_rank40", "rank60"]
 
 
 def _np(x):
