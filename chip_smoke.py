@@ -11,9 +11,14 @@ line or more each:
 2. the build of the CUDA rrLU kernel (csrc/rrlu.cu) from the sources;
 3. the kernel against its plain PyTorch version on the card, float64 and
    float32: Lorentzian panels at the main path's bucket sizes (8 ... 128,
-   both orientations, padding, an abstol and a reltol stop), four panels in
-   one batched launch, ``rrlu`` at N = 1000 and 2000 with numerical rank
-   100 (N = 2000 run 20 times against one plain result), the mode table
+   both orientations, padding, an abstol and a reltol stop; for each, the
+   kernel's device time per launch from torch.profiler beside the mean of
+   back-to-back wrapper calls, which includes host time, and the least time
+   the card could take), the resident kernel's split (device time with the
+   rank capped at 0, 1, 2, 4 and k: fixed and per-pivot cost, at 128^2 and
+   16^2), four panels in one batched launch, ``rrlu`` at N = 1000 and 2000
+   with numerical rank 100 (N = 2000 run 20 times against one plain
+   result), the mode table
    (f64 buckets 128^2 ... 4096^2: which mode the kernel takes, its time and
    the plain version's), and the panels the one-block design could not
    take, 64 x 10000 (rank 40) and 4200^2 (rank 100). Pivot order, npivot and
@@ -27,7 +32,9 @@ line or more each:
    ``crossinterpolate2`` with a ``TorchBatchEvaluator`` on the card: a cold
    and a warm run, checked against tci_tpu's recorded series, with every
    factorization launching the kernel and none taking the plain version;
-   a third run counts the device-to-host synchronizations;
+   a third run counts the device-to-host synchronizations; a fourth passes
+   a plain scalar f and no device argument, and must run on the card too
+   (launches equal to rrLU calls, no plain call, the recorded series);
 5. the kernel against the plain version on every panel config 1 factorized;
 6. with ``--profile DIR`` only: the median of 10 warm config-1 walls, then
    one run under ``torch.profiler`` with a span around each layer of the
@@ -47,6 +54,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -113,6 +121,45 @@ def main():
         end.synchronize()
         return start.elapsed_time(end) / reps
 
+    def kernel_device_ms(fn, reps):
+        """Mean device time per launch of the rrLU kernel over `reps` calls
+        of fn, from a torch.profiler trace (host time excluded); None when
+        the trace holds no such kernel."""
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as fh:
+                events = json.load(fh)["traceEvents"]
+        durs = [e["dur"] for e in events if e.get("ph") == "X"
+                and e.get("cat") == "kernel" and "rrlu" in e.get("name", "")]
+        return sum(durs) / len(durs) / 1e3 if durs else None
+
+    # NVIDIA's H100 SXM data sheet: 3.35 TB/s of HBM3; 34 TFLOP/s f64 and
+    # 67 TFLOP/s f32 outside the tensor cores (the rates of a 700 W card)
+    HBM_BYTES_PER_S = 3.35e12
+    PEAK_FLOP_PER_S = {8: 34e12, 4: 67e12}
+
+    def bound_ms(mp, npd, m, n, k, elsize):
+        """The least time the card could take for one elimination: each
+        input byte read once and each output byte written once (the panel
+        in; the LU buffer, both permutations, mags, k and err out) over the
+        HBM rate, against the Schur updates this run's k needs,
+        2 sum_{j<k} (m-1-j)(n-1-j) operations, over the peak rate."""
+        nbytes = (2 * mp * npd * elsize + 8 * (mp + npd + 1)
+                  + elsize * (min(mp, npd) + 1))
+        ops = sum(2.0 * (m - 1 - j) * (n - 1 - j) for j in range(k))
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_FLOP_PER_S[elsize] * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                           "operations")
+
     def compare(tag, out, ref, scale):
         """Pivot order, npivot and err identical; returns max |LU diff|."""
         A_o, rp_o, cp_o, k_o, mags_o, err_o = out
@@ -149,7 +196,7 @@ def main():
         return P
 
     max_err = 0.0
-    main_ms = main_plain_ms = None
+    main = {}
     # (rows of I, cols of J): panels of (10 nI) x (10 nJ), as the main path
     # builds them; a 5 x 6 panel for the 8 bucket
     shapes = [(None, None), (1, 1), (2, 3), (4, 4), (6, 8), (10, 12), (12, 12)]
@@ -175,14 +222,50 @@ def main():
                            f"{P.shape[0]}x{P.shape[1]}) {stop} "
                            f"{'left' if leftorth else 'right'}")
                     max_err = max(max_err, compare(tag, out, ref, 1.0))
+                    k = int(out[3])
                     ms = cuda_ms(lambda: lu_cuda.rrlu_call(*args, **kw), 20)
+                    dms = kernel_device_ms(
+                        lambda: lu_cuda.rrlu_call(*args, **kw), 20)
                     pms = cuda_ms(lambda: lu_kernel.rrlu_plain(*args, **kw), 5)
-                    print(f"[kernel] {tag}: k={int(out[3])} identical; "
-                          f"kernel {ms:.4f} ms, plain {pms:.4f} ms",
-                          flush=True)
+                    bms, bby = bound_ms(*P.shape, m, n, k, P.element_size())
+                    dev_txt = ("not measured" if dms is None
+                               else f"{dms:.4f} ms")
+                    print(f"[kernel] {tag}: k={k} identical; kernel device "
+                          f"time {dev_txt} a launch (profiler), wrapper call "
+                          f"{ms:.4f} ms (events), plain {pms:.4f} ms, bound "
+                          f"{bms:.6f} ms ({bby})", flush=True)
                     if (dtype == torch.float64 and (nI, nJ) == (12, 12)
                             and stop == "abstol" and leftorth):
-                        main_ms, main_plain_ms = ms, pms
+                        main = {"ms": dms if dms is not None else ms,
+                                "ms_from": ("profiler" if dms is not None
+                                            else "cuda events"),
+                                "wrapper_ms": ms, "plain_ms": pms,
+                                "bound_ms": bms, "bound_by": bby}
+
+    # the resident kernel's split: device time with the rank capped at 0
+    # (launch, load, first pass, write-out) and at 1, 2, 4 and the panel's
+    # own k pivots; the slope is the cost of a pivot
+    for nI, nJ in ((12, 12), (1, 1)):
+        A = lorentzian(nI, nJ, seed=10 * nI + nJ)
+        m, n = A.shape
+        P = padded(A, torch.float64)
+        abstol = 1e-8 * float(np.abs(A).max())
+        kfull = int(lu_cuda.rrlu_call(P, m, n, min(m, n), 1e-14, abstol,
+                                      leftorthogonal=True)[3])
+        times = {}
+        for cap in sorted({0, 1, 2, 4, kfull}):
+            times[cap] = kernel_device_ms(
+                lambda: lu_cuda.rrlu_call(P, m, n, cap, 1e-14, abstol,
+                                          leftorthogonal=True), 20)
+        if any(t is None for t in times.values()):
+            print(f"[split] {m}x{n}: device times not measured", flush=True)
+            continue
+        per_pivot = (times[kfull] - times[0]) / kfull * 1e3
+        print(f"[split] f64 {m}x{n} (bucket {P.shape[0]}x{P.shape[1]}) "
+              f"device time by rank cap: " + ", ".join(
+                  f"{c}: {t * 1e3:.2f} us" for c, t in times.items())
+              + f"; fixed {times[0] * 1e3:.2f} us, {per_pivot:.2f} us a "
+              f"pivot", flush=True)
 
     # four panels in one launch, per-panel extents and tolerances
     for dtype in (torch.float64, torch.float32):
@@ -199,12 +282,20 @@ def main():
         max_err = max(max_err, compare(f"batched B=4 {dtype}", out, ref, 1.0))
         ms = cuda_ms(lambda: lu_cuda.rrlu_batched(*bargs, leftorthogonal=True),
                      20)
+        dms = kernel_device_ms(
+            lambda: lu_cuda.rrlu_batched(*bargs, leftorthogonal=True), 20)
         pms = cuda_ms(
             lambda: lu_kernel.rrlu_plain_batched(*bargs, leftorthogonal=True),
             3)
+        dev_txt = "not measured" if dms is None else f"{dms:.4f} ms"
+        bounds = [bound_ms(128, 128, int(mt[b]), int(nt[b]), int(out[3][b]),
+                           Ab.element_size()) for b in range(4)]
+        bms = max(sum(t for t, by in bounds if by == "bytes"),
+                  sum(t for t, by in bounds if by == "operations"))
         print(f"[kernel] batched B=4 {str(dtype)[6:]} 128x128: k="
-              f"{out[3].tolist()} identical; kernel {ms:.4f} ms, "
-              f"plain {pms:.4f} ms", flush=True)
+              f"{out[3].tolist()} identical; kernel device time {dev_txt} a "
+              f"launch (profiler), wrapper call {ms:.4f} ms (events), "
+              f"plain {pms:.4f} ms, bound {bms:.6f} ms", flush=True)
 
     # the reference's rrLU benchmark sizes: N = 1000, 2000, rank 100
     n2000 = {}
@@ -229,10 +320,11 @@ def main():
         pms = cuda_ms(lambda: lu_kernel.rrlu_plain(*args, leftorthogonal=True),
                       3)
         flops = sum(2.0 * (N - j) * (N - j) for j in range(k))
+        bms, bby = bound_ms(*P.shape, N, N, k, 8)
         print(f"[kernel] rrlu N={N} f64 rank {k} (bucket {P.shape[0]}): "
               f"identical; kernel {kms:.3f} ms ({flops / kms / 1e6:.3f} "
               f"GFLOP/s), plain {pms:.3f} ms, public rrlu {ms:.3f} ms, "
-              f"|LU - A| {rec:.3e}", flush=True)
+              f"bound {bms:.4f} ms ({bby}), |LU - A| {rec:.3e}", flush=True)
         if N == 2000:
             n2000 = {"n2000_ms": kms, "n2000_plain_ms": pms}
             # a stale cross-block read would show as a rare wrong pivot
@@ -299,12 +391,13 @@ def main():
     pms = cuda_ms(lambda: lu_kernel.rrlu_plain(*args, leftorthogonal=True), 2)
     flops_bench = 2.0 * k * N * N
     flops_exact = sum(2.0 * (N - j) * (N - j) for j in range(k))
+    bms, bby = bound_ms(N, N, N, N, k, 8)
     print(f"[config2] rrLU {N}^2 f64 rank {k}: identical; kernel {kms:.3f} ms"
           f" ({flops_bench / kms / 1e6:.3f} GFLOP/s as 2rN^2, "
           f"{flops_exact / kms / 1e6:.3f} as 2 sum (N-j)^2), plain "
           f"{pms:.3f} ms ({flops_bench / pms / 1e6:.3f} / "
-          f"{flops_exact / pms / 1e6:.3f}); max|LU - A|/max|A| {rel:.3e}",
-          flush=True)
+          f"{flops_exact / pms / 1e6:.3f}); bound {bms:.4f} ms ({bby}); "
+          f"max|LU - A|/max|A| {rel:.3e}", flush=True)
     config2 = {"config2_ms": kms, "config2_plain_ms": pms}
 
     # -- 4. config 1 through the port -----------------------------------------
@@ -316,9 +409,9 @@ def main():
     panels = []
     rrlu_raw = lu_mod.rrlu_raw
 
-    def recording_rrlu_raw(A, *args):
+    def recording_rrlu_raw(A, *args, **kwargs):
         panels.append((A, args))
-        return rrlu_raw(A, *args)
+        return rrlu_raw(A, *args, **kwargs)
 
     def solve_config1():
         bf = tci_tpu_torch.TorchBatchEvaluator(fdev, localdims, device=dev)
@@ -330,11 +423,11 @@ def main():
         torch.cuda.synchronize()
         return tci, ranks, errors, time.perf_counter() - t0, bf.nevals
 
-    def run_config1(record=False):
+    def run_config1(record=False, solve=solve_config1):
         panels.clear()
         lu_mod.rrlu_raw = recording_rrlu_raw
         try:
-            tci, ranks, errors, wall, nevals = solve_config1()
+            tci, ranks, errors, wall, nevals = solve()
         finally:
             lu_mod.rrlu_raw = rrlu_raw
         ncalls = len(panels)
@@ -373,7 +466,7 @@ def main():
         fail(f"config 1 errors {errors} differ from {RECORDED_ERRORS}")
     if not point_err < 1e-7:
         fail(f"config 1 pointwise error {point_err}")
-    if ncalls == 0 or launches < ncalls:
+    if ncalls == 0 or launches != ncalls:
         fail(f"{launches} kernel launches for {ncalls} rrLU calls")
     if plain_cuda != 0:
         fail(f"{plain_cuda} plain-version calls on CUDA tensors")
@@ -392,6 +485,37 @@ def main():
     print(f"[config1] device-to-host syncs: {nsync} in one run, "
           f"{ncalls_sync} rrLU calls ({nsync / ncalls_sync:.2f} per call)",
           flush=True)
+
+    # a plain scalar f and no device argument: the port's default device is
+    # the card, so the host-sampled panels are factorized there
+    def fscalar(x):
+        return 1.0 / (1.0 + sum((i + 1.0) ** 2 for i in x))
+
+    def solve_config1_plain():
+        t0 = time.perf_counter()
+        tci, ranks, errors = tci_tpu_torch.crossinterpolate2(
+            np.float64, fscalar, localdims, tolerance=1e-8,
+            rng=np.random.default_rng(0))
+        torch.cuda.synchronize()
+        return tci, ranks, errors, time.perf_counter() - t0, 0
+
+    launches0 = lu_cuda.LAUNCHES["rrlu"]
+    plain0 = sum(lu_kernel.PLAIN_CALLS.values())
+    tci_p, ranks_p, errors_p, wall_p, _, ncalls_p = run_config1(
+        solve=solve_config1_plain)
+    launches_p = lu_cuda.LAUNCHES["rrlu"] - launches0
+    plain_p = sum(lu_kernel.PLAIN_CALLS.values()) - plain0
+    print(f"[config1] plain scalar f, no device argument: {wall_p:.3f} s on "
+          f"{tci_p.device}, ranks {ranks_p}, {ncalls_p} rrLU calls, "
+          f"{launches_p} kernel launches, {plain_p} plain calls", flush=True)
+    if tci_p.device.type != "cuda":
+        fail(f"config 1 with a plain f ran on {tci_p.device}")
+    if ncalls_p == 0 or launches_p != ncalls_p or plain_p != 0:
+        fail(f"config 1 with a plain f: {launches_p} kernel launches and "
+             f"{plain_p} plain calls for {ncalls_p} rrLU calls")
+    if ranks_p != RECORDED_RANKS or not np.allclose(
+            errors_p, RECORDED_ERRORS, rtol=0, atol=1e-15):
+        fail(f"config 1 with a plain f: ranks {ranks_p}, errors {errors_p}")
 
     # -- 5. kernel vs plain on config 1's own panels ---------------------------
     for i, (A, (maxrank, reltol, abstol, leftorth)) in enumerate(captured):
@@ -414,6 +538,9 @@ def main():
         fail("jax or tci_tpu was imported")
 
     print(smi_line, flush=True)
+    # "ms" is the kernel's device time a launch on the main-path 128^2 f64
+    # panel; no PyTorch call computes a complete-pivot rrLU
+    # (torch.linalg.lu_factor pivots partially), so library_ms is null
     print(json.dumps({"kernels": [{
         "name": "rrlu_kernel",
         "route": "cuda",
@@ -421,8 +548,8 @@ def main():
         "replaces": "tci_tpu/ops/pallas_lu.py:133",
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": main_ms,
-        "plain_ms": main_plain_ms,
+        **main,
+        "library_ms": None,
         **n2000,
         **config2,
     }]}), flush=True)

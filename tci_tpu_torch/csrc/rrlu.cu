@@ -31,10 +31,33 @@
 // Two modes, one launch per call in both:
 //
 //   - resident (panels up to 128 x 128 f64, kResidentPanelBytes): one
-//     256-thread block per panel holds it in shared memory, so device memory
-//     sees one read and one write of the panel in all. A pivot costs a pass
-//     over the panel in shared memory and a few block barriers; one SM's
-//     shared-memory bandwidth bounds it, which is why larger panels leave;
+//     1024-thread block per panel holds it in shared memory, so device memory
+//     sees one read and one write of the panel in all (0.08 us of HBM time at
+//     128^2 f64). What bounds it is latency on one SM: the load, and per
+//     pivot a chain of dependent shared-memory steps and block barriers. The
+//     design cuts each link of that chain:
+//       * the panel, padding included, arrives by Hopper's bulk-copy engine
+//         (cp.async.bulk into shared memory, completing on an mbarrier),
+//         issued by one thread while the others set up the state vectors;
+//       * 32 warps share the pass over <= 128 rows, so shared-memory and f64
+//         latency is hidden by other warps, and each thread loads four rows
+//         before it stores any;
+//       * three block barriers per pivot. The pass leaves, in each thread,
+//         its best pivot candidate (|a|^2, column position, row position),
+//         so the pivot column and the pivot row come out of one reduction:
+//         a warp shuffle at the end of the pass, then warp 0 reduces the 32
+//         warp winners, tests the stop rule and publishes the pivot. The
+//         virtual swaps, the new row and column keys and the vectors x and
+//         y are built in one phase, each thread for its own rows and
+//         columns;
+//       * the swapped-layout write-out gives rows to warps and columns to
+//         lanes (coalesced stores, no 64-bit division).
+//     What is left is the chain itself: every pivot runs selection on one
+//     warp, the x/y phase and a pass in turn, and even on a 16^2 panel that
+//     costs microseconds; at 128^2 the pass adds its shared-memory and issue
+//     work (chip_smoke.py's [split] lines measure the fixed and per-pivot
+//     costs). Larger panels, bound by one SM's shared-memory bandwidth,
+//     leave;
 //   - multi-block (everything larger): one cooperative launch of as many
 //     1024-thread blocks as fit on the card at once. The true extents are cut
 //     into tiles (a band of up to 256 rows x 64 columns), each owned by one
@@ -77,7 +100,10 @@ struct Ops<float> {
 };
 
 constexpr int kBig = 1 << 30;  // "no position" (the TPU kernel's BIG)
-constexpr int kResidentThreads = 256;
+constexpr int kResidentThreads = 1024;
+constexpr int kResidentWarps = kResidentThreads / 32;
+constexpr int kResidentUnroll = 4;       // rows a thread loads before it stores
+constexpr unsigned kBulkChunk = 16384;   // bytes per bulk-copy request
 // Dynamic shared memory a block may request on sm_90, less room for the
 // kernel's static shared memory.
 constexpr size_t kSmemLimit = 232448 - 2048;
@@ -135,79 +161,198 @@ __device__ void block_argmax(T& val, int& pos, T* s_val, int* s_pos) {
   __syncthreads();  // the scratch is reused by the next reduction
 }
 
-// One pass over the true extents of the panel. Columns go to lanes (so a
-// warp reads 32 neighbouring entries of a row), rows are split over the R
-// warps that share a 32-column chunk. With update set, the pass applies the
-// rank-1 Schur update on unpivoted rows x unpivoted columns and stores the
-// multipliers; in every case it leaves each column's max |a|^2 over the
-// unpivoted rows in colmax.
-template <typename T, int NT>
-__device__ void panel_pass(T* A, int np, int m, int n, const int* rflag,
-                           const int* cflag, const T* x, const T* y, T* colmax,
-                           T* red, bool update, bool leftorth, int pr, int pc) {
-  constexpr int kWarps = NT / 32;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nchunks = (n + 31) >> 5;
-  int R = kWarps / nchunks;
-  if (R < 1) R = 1;
-  const int cstride = kWarps / R;
-  const int wchunk = warp / R;
-  const int wsub = warp % R;
-  for (int c = wchunk; c < nchunks; c += cstride) {
-    const int j = c * 32 + lane;
-    T cm = T(-1);
-    if (j < n) {
-      const int cf = cflag[j];
-      const T yj = y[j];
-      for (int i = wsub; i < m; i += R) {
-        T* p = A + (size_t)i * np + j;
-        const int rf = rflag[i];
-        T a = *p;
-        if (update) {
-          if (rf && cf) {
-            a = Ops<T>::sub(a, Ops<T>::mul(x[i], yj));
-            *p = a;
-          } else if (leftorth ? (rf && j == pc) : (i == pr && cf)) {
-            a = leftorth ? x[i] : yj;
-            *p = a;
-          }
-        }
-        if (rf) {
-          const T sq = Ops<T>::mul(a, a);
-          cm = sq > cm ? sq : cm;
-        }
-      }
-    }
-    if (R == 1) {
-      if (j < n) colmax[j] = cm;
-    } else {
-      red[warp * 32 + lane] = cm;
-    }
+// How the resident pass spreads the true extents over the 32 warps: columns
+// in chunks of 32 (one per lane), R warps per chunk, each taking every R-th
+// row. Computed once per panel (it holds integer divisions).
+struct PassLayout {
+  int nchunks, R, cstride, wchunk, wsub;
+  __device__ PassLayout(int n, int warp) {
+    nchunks = (n + 31) >> 5;
+    R = nchunks > 0 ? kResidentWarps / nchunks : kResidentWarps;
+    if (R < 1) R = 1;
+    cstride = kResidentWarps / R;
+    wchunk = warp / R;
+    wsub = warp % R;
   }
-  __syncthreads();
-  if (R > 1) {
-    for (int t = threadIdx.x; t < nchunks * 32; t += NT) {
-      const int c = t >> 5;
-      const int l = t & 31;
-      T cm = red[(c * R) * 32 + l];
-      for (int r = 1; r < R; ++r) {
-        const T v = red[(c * R + r) * 32 + l];
-        cm = v > cm ? v : cm;
-      }
-      if (c * 32 + l < n) colmax[c * 32 + l] = cm;
-    }
-    __syncthreads();
+};
+
+// Dynamic shared memory of the resident mode: the panel, then x (mp) and y
+// (np); rowpos, rowperm, rkey (mp), colpos, colperm, ckey (np).
+template <typename T>
+size_t smem_bytes(int mp, int np) {
+  return ((size_t)mp * np + mp + np) * sizeof(T) +
+         (3 * (size_t)mp + 3 * (size_t)np) * sizeof(int);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// One thread copies `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from global to shared memory with the bulk-copy engine, in requests of
+// kBulkChunk bytes that all complete on `bar`. The block must pass a
+// __syncthreads() (the barrier's initialisation) before anyone waits on it.
+__device__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                          unsigned long long* bar) {
+  const unsigned b = smem_addr(bar);
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(b), "r"(1u)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   b),
+               "r"(bytes)
+               : "memory");
+  for (unsigned off = 0; off < bytes; off += kBulkChunk) {
+    const unsigned len = bytes - off < kBulkChunk ? bytes - off : kBulkChunk;
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];" ::"r"(smem_addr(static_cast<char*>(dst) + off)),
+        "l"(static_cast<const char*>(src) + off), "r"(len), "r"(b)
+        : "memory");
   }
 }
 
+// Waits until the barrier's phase `parity` has completed.
+__device__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  const unsigned b = smem_addr(bar);
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(b), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Pivot candidates (|a|^2, column position, row position) in the order of
+// the pivot rule: the largest value, then the smallest column position, then
+// the smallest row position. The largest candidate over every (column, row
+// group) partial is the pivot the two-stage rule picks: its column has the
+// largest column maximum with the smallest position, and its row the
+// largest |a|^2 in that column with the smallest position. The positions
+// travel as one key, column above row, so one unsigned compare orders them:
+// a resident panel has fewer than 2^16 - 1 rows and columns (is_resident),
+// and kNoRow / kNoKey sort after every real position.
+constexpr unsigned kNoRow = 0xFFFFu;
+constexpr unsigned kNoKey = 0xFFFFFFFFu;
+
+__device__ __forceinline__ unsigned pos_key(int col, unsigned row) {
+  return ((unsigned)col << 16) | row;
+}
+
 template <typename T>
-size_t smem_bytes(int mp, int np) {
-  size_t bytes = (size_t)mp * np * sizeof(T);
-  bytes += ((size_t)np /*colmax*/ + mp /*x*/ + np /*y*/ +
-            kResidentThreads /*red*/) * sizeof(T);
-  bytes += (3 * (size_t)mp + 3 * (size_t)np) * sizeof(int);
-  return bytes;
+__device__ __forceinline__ bool better_key(T v, unsigned key, T bv,
+                                           unsigned bkey) {
+  return v > bv || (v == bv && key < bkey);
+}
+
+// Warp-wide argmax of candidates: every lane ends with the winner (a
+// butterfly over a total order, so the lanes agree).
+template <typename T>
+__device__ __forceinline__ void warp_argmax(T& v, unsigned& key) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const T ov = __shfl_xor_sync(0xffffffffu, v, off);
+    const unsigned okey = __shfl_xor_sync(0xffffffffu, key, off);
+    if (better_key(ov, okey, v, key)) {
+      v = ov;
+      key = okey;
+    }
+  }
+}
+
+// One pass over the true extents of the panel. Columns go to lanes (a warp
+// reads 32 neighbouring entries of a row); the R warps of a chunk split its
+// rows. rkey/ckey hold the swapped position of an unpivoted row/column and
+// -1 otherwise. With update set, the pass applies the rank-1 Schur update
+// on unpivoted rows x unpivoted columns and stores the multipliers (pivot
+// column when left-orthogonal, pivot row otherwise). In every case each
+// thread ends with its best pivot candidate over its columns and its row
+// group's unpivoted rows ((-1, kNoKey) when it has none), and the warp's
+// best candidate goes to w_val/w_key[warp]. That is the whole reduction a
+// barrier needs: no per-column partials are stored.
+template <typename T>
+__device__ void resident_pass(T* A, int np, int m, int n,
+                              const PassLayout& L, const int* rkey,
+                              const int* ckey, const T* x, const T* y,
+                              T* w_val, unsigned* w_key, bool update,
+                              bool leftorth, int pr, int pc) {
+  constexpr int U = kResidentUnroll;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int R = L.R;
+  const int wsub = L.wsub;
+  // shared-memory offsets fit 32 bits; the U rows of a step are `rstep`
+  // elements apart
+  const int rstep = R * np;
+  T bv = T(-1);
+  unsigned bkey = kNoKey;
+  for (int c = L.wchunk; c < L.nchunks; c += L.cstride) {
+    const int j = c * 32 + lane;
+    T cm = T(-1);
+    int cp = kNoRow;
+    const int cpos = j < n ? ckey[j] : -1;
+    if (j < n) {
+      const bool cf = cpos >= 0;
+      const bool mcol = update && leftorth && j == pc;
+      const bool mrow_col = update && !leftorth && cf;
+      const T yj = update && cf ? y[j] : T(0);
+      T* col = A + j;
+      for (int i0 = wsub; i0 < m; i0 += U * R) {
+        T* p0 = col + i0 * np;
+        // U rows loaded before any is stored: a store to A could alias a
+        // later load, so the compiler would not hoist them itself
+        int rk[U];
+        T xi[U], a[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int i = i0 + u * R;
+          const bool in = i < m;
+          rk[u] = in ? rkey[i] : -1;
+          xi[u] = in && update ? x[i] : T(0);
+          a[u] = in ? p0[u * rstep] : T(0);
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int i = i0 + u * R;
+          if (rk[u] >= 0) {
+            if (cf) {
+              T v = a[u];
+              if (update) {
+                v = Ops<T>::sub(v, Ops<T>::mul(xi[u], yj));
+                p0[u * rstep] = v;
+              }
+              const T sq = Ops<T>::mul(v, v);
+              if (sq > cm || (sq == cm && rk[u] < cp)) {
+                cm = sq;
+                cp = rk[u];
+              }
+            } else if (mcol) {
+              p0[u * rstep] = xi[u];
+            }
+          } else if (mrow_col && i == pr) {
+            p0[u * rstep] = yj;
+          }
+        }
+      }
+    }
+    if (cpos >= 0) {
+      const unsigned key = pos_key(cpos, (unsigned)cp);
+      if (better_key(cm, key, bv, bkey)) {
+        bv = cm;
+        bkey = key;
+      }
+    }
+  }
+  warp_argmax<T>(bv, bkey);
+  if (lane == 0) {
+    w_val[warp] = bv;
+    w_key[warp] = bkey;
+  }
 }
 
 template <typename T>
@@ -220,11 +365,19 @@ __global__ void __launch_bounds__(kResidentThreads)
                 const T* tol_arr, int m_s, int n_s, int maxrank_s, T reltol_s,
                 T abstol_s, int mp, int np, int leftorth_i) {
   constexpr int NT = kResidentThreads;
-  __shared__ T s_val[33];
-  __shared__ int s_pos[33];
+  constexpr int kW = kResidentWarps;
+  __shared__ unsigned long long load_bar;
+  __shared__ T w_val[kW];  // per-warp winners: value, position key
+  __shared__ unsigned w_key[kW];
+  // the pivot warp 0 publishes: {stop, pc, pr, bestcolpos, bestrowpos,
+  // r_at_k, c_at_k} and the pivot (1 where it is exactly 0)
+  __shared__ int s_piv[7];
+  __shared__ T s_safe;
 
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int m = m_arr ? m_arr[b] : m_s;
   const int n = n_arr ? n_arr[b] : n_s;
   const int maxrank = maxrank_arr ? maxrank_arr[b] : maxrank_s;
@@ -233,125 +386,132 @@ __global__ void __launch_bounds__(kResidentThreads)
   const bool leftorth = leftorth_i != 0;
   const int rmax = mp < np ? mp : np;
   const size_t panel = (size_t)mp * np;
+  const PassLayout L(n, warp);
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* tbase = reinterpret_cast<T*>(smem_raw);
-  T* A = tbase;
-  T* colmax = tbase + panel;
-  T* x = colmax + np;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* A = reinterpret_cast<T*>(smem_raw);
+  T* x = A + panel;
   T* y = x + mp;
-  T* red = y + np;
-  int* rowpos = reinterpret_cast<int*>(red + NT);
+  int* rowpos = reinterpret_cast<int*>(y + np);
   int* rowperm = rowpos + mp;
-  int* rflag = rowperm + mp;
-  int* colpos = rflag + mp;
+  int* rkey = rowperm + mp;
+  int* colpos = rkey + mp;
   int* colperm = colpos + np;
-  int* cflag = colperm + np;
+  int* ckey = colperm + np;
 
-  const T* Ain = A_in + b * panel;
-  for (size_t e = tid; e < panel; e += NT) A[e] = Ain[e];
+  // The whole bucket, padding included (C-port-2 reads it), by the
+  // bulk-copy engine; the state vectors are set up meanwhile.
+  if (tid == 0)
+    bulk_load(A, A_in + b * panel, (unsigned)(panel * sizeof(T)), &load_bar);
   for (int i = tid; i < mp; i += NT) {
     rowpos[i] = i;
     rowperm[i] = i;
-    rflag[i] = i < m;
+    rkey[i] = i < m ? i : -1;
   }
   for (int j = tid; j < np; j += NT) {
     colpos[j] = j;
     colperm[j] = j;
-    cflag[j] = 0;
-    y[j] = T(0);
+    ckey[j] = j < n ? j : -1;
   }
   for (int r = tid; r < rmax; r += NT) mags_out[b * rmax + r] = T(0);
-  __syncthreads();
-  panel_pass<T, NT>(A, np, m, n, rflag, cflag, x, y, colmax, red, false,
-                    leftorth, -1, -1);
+  __syncthreads();  // the barrier's initialisation and the vectors
+  mbar_wait(&load_bar, 0);
+  resident_pass<T>(A, np, m, n, L, rkey, ckey, x, y, w_val, w_key, false,
+                   leftorth, -1, -1);
 
   int k = 0;
   T maxerror = T(0);
   T err = Ops<T>::nan();
-  while (k < maxrank) {
-    // pivot column: max cached colmax over valid columns
-    T cv = T(-1);
-    int cp = kBig;
-    for (int j = tid; j < n; j += NT) {
-      const int p = colpos[j];
-      if (p >= k && better(colmax[j], p, cv, cp)) {
-        cv = colmax[j];
-        cp = p;
-      }
-    }
-    block_argmax<T, NT>(cv, cp, s_val, s_pos);
-    if (cv < T(0)) {  // no valid column left: stop with err 0
-      err = T(0);
-      break;
-    }
-    const int bestcolpos = cp;
-    const int pc = colperm[bestcolpos];
+  while (true) {
+    __syncthreads();  // (1) the warps' candidates and the last swap
+    if (k >= maxrank) break;  // uniform: k and maxrank are the same everywhere
 
-    // pivot row within column pc
-    T rv = T(-1);
-    int rp = kBig;
-    for (int i = tid; i < m; i += NT) {
-      const int p = rowpos[i];
-      if (p >= k) {
-        const T a = A[(size_t)i * np + pc];
-        const T v = Ops<T>::mul(a, a);
-        if (better(v, p, rv, rp)) {
-          rv = v;
-          rp = p;
+    // Warp 0 reduces the 32 warp winners, picks the pivot, tests the stop
+    // rule and publishes the result; the other warps wait at the barrier.
+    // (One warp does it: 32 warps reducing at once contend for the shuffle
+    // unit and take longer.)
+    if (warp == 0) {
+      T cv = w_val[lane];
+      unsigned key = w_key[lane];
+      warp_argmax<T>(cv, key);
+      const int bestcolpos = (int)(key >> 16);
+      const int bestrowpos = (int)(key & kNoRow);
+      if (lane == 0) {
+        int stop = 1;
+        T e = T(0);  // no valid column (or row) left: stop with err 0
+        int pc = 0, pr = 0;
+        T safe = T(1);
+        if (cv >= T(0)) {
+          pc = colperm[bestcolpos];
+          pr = rowperm[bestrowpos < mp - 1 ? bestrowpos : mp - 1];
+          e = Ops<T>::sqrt(cv);
+          stop = k > 0 && (e < Ops<T>::mul(reltol, maxerror) ||
+                           e < abstol || e == T(0));
+          const T piv = A[pr * np + pc];
+          safe = piv != T(0) ? piv : T(1);
+          if (!stop) {
+            maxerror = e > maxerror ? e : maxerror;
+            mags_out[b * rmax + k] = e;
+            // a valid row and column sit at position k or later
+            s_piv[5] = rowperm[k];
+            s_piv[6] = colperm[k];
+          }
         }
+        err = e;
+        s_piv[0] = stop;
+        s_piv[1] = pc;
+        s_piv[2] = pr;
+        s_piv[3] = bestcolpos;
+        s_piv[4] = bestrowpos;
+        s_safe = safe;
       }
     }
-    block_argmax<T, NT>(rv, rp, s_val, s_pos);
-    const T Mr = rv;
-    const int bestrowpos = rp;
-    const int pr = rowperm[bestrowpos < mp - 1 ? bestrowpos : mp - 1];
-    const T newerr = Ops<T>::sqrt(Mr > T(0) ? Mr : T(0));
+    __syncthreads();  // (2) the pivot
+    if (s_piv[0]) break;
+    const int pc = s_piv[1], pr = s_piv[2];
+    const int bestcolpos = s_piv[3], bestrowpos = s_piv[4];
+    const int r_at_k = s_piv[5], c_at_k = s_piv[6];
+    const T safe = s_safe;
 
-    bool stop = k > 0 && (newerr < Ops<T>::mul(reltol, maxerror) ||
-                          newerr < abstol);
-    stop = stop || Mr < T(0) || (newerr == T(0) && k > 0);
-    err = newerr;
-    if (stop) break;  // block-uniform: every thread saw the same values
-
-    // Every thread has read rowperm[bestrowpos] (pr) before thread 0
-    // overwrites that slot below.
-    __syncthreads();
+    // The virtual swaps (pr to position k, the row there to bestrowpos;
+    // likewise the columns), the keys of the next pass and x, y, each
+    // thread for its own rows and columns. Nothing writes A, rowperm or
+    // colperm in this phase.
+    for (int i = tid; i < mp; i += NT) {
+      const bool moved = i == pr || i == r_at_k;
+      const int p = i == pr ? k : (i == r_at_k ? bestrowpos : rowpos[i]);
+      if (moved) rowpos[i] = p;
+      const bool rf = p > k && i < m;
+      rkey[i] = rf ? p : -1;
+      if (rf) {
+        const T a = A[i * np + pc];
+        x[i] = leftorth ? Ops<T>::div(a, safe) : a;
+      }
+    }
+    // columns start half a block away from rows, on other warps
+    for (int j = (tid + NT / 2) % NT; j < np; j += NT) {
+      const bool moved = j == pc || j == c_at_k;
+      const int p = j == pc ? k : (j == c_at_k ? bestcolpos : colpos[j]);
+      if (moved) colpos[j] = p;
+      const bool cf = p > k && j < n;
+      ckey[j] = cf ? p : -1;
+      if (cf) {
+        const T a = A[pr * np + j];
+        y[j] = leftorth ? a : Ops<T>::div(a, safe);
+      }
+    }
+    __syncthreads();  // (3) keys, x and y; every thread has read the perms
     if (tid == 0) {
-      const int r_at_k = rowperm[k];
       rowperm[bestrowpos] = r_at_k;
       rowperm[k] = pr;
-      rowpos[r_at_k] = bestrowpos;
-      rowpos[pr] = k;
-      const int c_at_k = colperm[k];
       colperm[bestcolpos] = c_at_k;
       colperm[k] = pc;
-      colpos[c_at_k] = bestcolpos;
-      colpos[pc] = k;
-      mags_out[b * rmax + k] = newerr;
     }
-    maxerror = newerr > maxerror ? newerr : maxerror;
-    __syncthreads();
-
-    const T piv = A[(size_t)pr * np + pc];
-    const T safe = piv != T(0) ? piv : T(1);
-    for (int i = tid; i < mp; i += NT) {
-      const int rf = rowpos[i] >= k + 1 && i < m;
-      rflag[i] = rf;
-      const T a = A[(size_t)i * np + pc];
-      x[i] = rf ? (leftorth ? Ops<T>::div(a, safe) : a) : T(0);
-    }
-    for (int j = tid; j < np; j += NT) {
-      const int cf = colpos[j] >= k + 1 && j < n;
-      cflag[j] = cf;
-      const T a = A[(size_t)pr * np + j];
-      y[j] = cf ? (leftorth ? a : Ops<T>::div(a, safe)) : T(0);
-    }
-    __syncthreads();
-    panel_pass<T, NT>(A, np, m, n, rflag, cflag, x, y, colmax, red, true,
-                      leftorth, pr, pc);
+    resident_pass<T>(A, np, m, n, L, rkey, ckey, x, y, w_val, w_key, true,
+                     leftorth, pr, pc);
     ++k;
   }
+  __syncthreads();
 
   if (tid == 0) {
     k_out[b] = k;
@@ -359,11 +519,12 @@ __global__ void __launch_bounds__(kResidentThreads)
   }
   for (int i = tid; i < mp; i += NT) rowperm_out[b * mp + i] = rowperm[i];
   for (int j = tid; j < np; j += NT) colperm_out[b * np + j] = colperm[j];
+  // A_sw[i, j] = A[rowperm[i], colperm[j]]: rows to warps, columns to lanes
   T* out = A_sw + b * panel;
-  for (size_t e = tid; e < panel; e += NT) {
-    const int i = (int)(e / np);
-    const int j = (int)(e % np);
-    out[e] = A[(size_t)rowperm[i] * np + colperm[j]];
+  for (int i = warp; i < mp; i += kW) {
+    const T* src = A + (size_t)rowperm[i] * np;
+    T* dst = out + (size_t)i * np;
+    for (int j = lane; j < np; j += 32) dst[j] = src[colperm[j]];
   }
 }
 
@@ -467,7 +628,7 @@ inline int band_rows(int mp, int np, int nblocks) {
 // t % gridDim.x for the whole elimination, so a block reads back only what it
 // wrote itself and plain loads of A are safe). With update set it applies the
 // rank-1 Schur update on unpivoted rows x unpivoted columns and stores the
-// multipliers (the fused pass of panel_pass); in every case it writes each
+// multipliers (the fused pass of resident_pass); in every case it writes each
 // tile column's max |a|^2 over its band's unpivoted rows to pmax. x, y and
 // the flags were written by block 0 before the last barrier: they are read
 // with __ldcg (L2), never through a possibly stale L1 line.
@@ -757,7 +918,24 @@ __global__ void __launch_bounds__(kGridThreads)
 template <typename T>
 bool is_resident(int mp, int np) {
   return (size_t)mp * np * sizeof(T) <= kResidentPanelBytes &&
-         smem_bytes<T>(mp, np) <= kSmemLimit;
+         smem_bytes<T>(mp, np) <= kSmemLimit && mp < 0xFFFF && np < 0xFFFF;
+}
+
+// The resident kernel's dynamic shared-memory limit, raised to the largest
+// resident size once per device (a launch then never sets it).
+template <typename T>
+cudaError_t resident_smem_attribute() {
+  constexpr int kMaxDevices = 64;
+  static bool done[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < kMaxDevices && done[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(rrlu_kernel<T>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)kSmemLimit);
+  if (e == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return e;
 }
 
 // Blocks of the multi-block grid: as many as can be resident at once (the
@@ -801,11 +979,12 @@ int launch(const void* A_in, void* scratch, void* bar, void* A_sw,
   if (B <= 0 || mp <= 0 || np <= 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (is_resident<T>(mp, np)) {
-    const size_t smem = smem_bytes<T>(mp, np);
-    cudaError_t e = cudaFuncSetAttribute(
-        rrlu_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    // the bulk copy needs 16-byte aligned panels of a multiple of 16 bytes
+    if (((uintptr_t)A_in & 15) != 0 || ((size_t)mp * np * sizeof(T)) % 16 != 0)
+      return (int)cudaErrorMisalignedAddress;
+    cudaError_t e = resident_smem_attribute<T>();
     if (e != cudaSuccess) return (int)e;
+    const size_t smem = smem_bytes<T>(mp, np);
     rrlu_kernel<T><<<B, kResidentThreads, smem, st>>>(
         (const T*)A_in, (T*)A_sw, (int64_t*)rowperm,
         (int64_t*)colperm, (T*)mags, (int64_t*)k_out, (T*)err_out,

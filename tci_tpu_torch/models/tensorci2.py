@@ -3,13 +3,16 @@
 Counterpart of the host tier of ``tci_tpu/models/tensorci2.py`` (parity
 reference: src/tensorci2.jl). The state machine (Iset/Jset per bond as host
 lists of tuples, non-strict nesting via set history, 1/2-site sweeps, global
-pivot insertion, convergence criterion) is bondwise identical. Each bond's
-Π panel is sampled where the evaluator lives (``TorchBatchEvaluator`` on a
-CUDA device), factorized there by the rrLU kernel, and the CI factors come
-from triangular solves on the same device. Per bond only the permutations,
-npivot and the pivot errors come back to the host; panels, LU buffers and
-site tensors stay on the device. The running max |sample| is kept on the
-device too and read when the host needs it.
+pivot insertion, convergence criterion) is bondwise identical. A TCI runs
+on one device, ``TensorCI2.device``: the current CUDA device unless the
+caller passes ``device`` (``device="cpu"`` for the CPU). Each bond's Π panel
+is sampled where the evaluator lives (``TorchBatchEvaluator`` on its
+device; a plain f or a ``VectorizedBatchEvaluator`` on the host) and moved
+to that device in one place, ``filltensor``; there the rrLU kernel
+factorizes it and the CI factors come from triangular solves. Per bond only
+the permutations, npivot and the pivot errors come back to the host;
+panels, LU buffers and site tensors stay on the device. The running max
+|sample| is kept on the device too and read when the host needs it.
 
 Indices are 0-based tuples.
 """
@@ -24,7 +27,7 @@ import torch
 
 from ..ops.luci import MatrixLUCI
 from ..parallel.batcheval import _batchevaluate_dispatch, isbatchevaluable
-from ..utils.device import torch_dtype
+from ..utils.device import resolve_device, to_device, torch_dtype
 from ..utils.sweep import forwardsweep
 from ..utils.util import padzero, pushunique
 from .globalpivotfinder import DefaultGlobalPivotFinder, GlobalPivotSearchInput
@@ -59,33 +62,41 @@ def filltensor(
     Iset: Sequence[MultiIndex],
     Jset: Sequence[MultiIndex],
     ncent: int,
+    device: torch.device,
 ) -> torch.Tensor:
     """Sample f on Iset x (free center legs) x Jset; shape (|I|, d..., |J|)
-    (tensorci2.jl:475-497)."""
+    (tensorci2.jl:475-497), on `device` whichever device f sampled on."""
     if len(Iset) * len(Jset) == 0:
-        return torch.zeros((0,) * (ncent + 2), dtype=torch_dtype(valuetype))
+        return torch.zeros((0,) * (ncent + 2), dtype=torch_dtype(valuetype),
+                           device=device)
     N = len(localdims)
     nl = len(Iset[0])
     nr = len(Jset[0])
     if ncent != N - nl - nr:
         raise ValueError("Invalid number of central indices")
-    return _batchevaluate_dispatch(valuetype, f, list(localdims), Iset, Jset,
-                                   ncent)
+    return to_device(_batchevaluate_dispatch(valuetype, f, list(localdims),
+                                             Iset, Jset, ncent), device)
 
 
 class TensorCI2(AbstractTensorTrain):
-    """TCI2 interpolation state (tensorci2.jl:50-93)."""
+    """TCI2 interpolation state (tensorci2.jl:50-93). Panels, factors and
+    site tensors live on `device` (``utils.device.resolve_device``: the
+    current CUDA device by default; without one the constructor raises
+    unless ``device="cpu"`` is given)."""
 
-    def __init__(self, localdims: Sequence[int], dtype=np.float64):
+    def __init__(self, localdims: Sequence[int], dtype=np.float64,
+                 device=None):
         if len(localdims) <= 1:
             raise ValueError("localdims should have at least 2 elements!")
         n = len(localdims)
         self.localdims = [int(d) for d in localdims]
         self.dtype = torch_dtype(dtype)
+        self.device = resolve_device(device)
         self.Iset: List[List[MultiIndex]] = [[] for _ in range(n)]
         self.Jset: List[List[MultiIndex]] = [[] for _ in range(n)]
         self._sitetensors: List[torch.Tensor] = [
-            torch.zeros((0, d, 0), dtype=self.dtype) for d in self.localdims
+            torch.zeros((0, d, 0), dtype=self.dtype, device=self.device)
+            for d in self.localdims
         ]
         self.pivoterrors: List[float] = []
         self.bonderrors = np.zeros(n - 1)
@@ -103,8 +114,9 @@ class TensorCI2(AbstractTensorTrain):
         localdims: Sequence[int],
         initialpivots: Optional[Sequence[Sequence[int]]] = None,
         dtype=np.float64,
+        device=None,
     ) -> "TensorCI2":
-        tci = cls(localdims, dtype=dtype)
+        tci = cls(localdims, dtype=dtype, device=device)
         if initialpivots is None:
             initialpivots = [tuple(0 for _ in localdims)]
         initialpivots = [tuple(p) for p in initialpivots]
@@ -123,8 +135,9 @@ class TensorCI2(AbstractTensorTrain):
         Iset: Sequence[Sequence[MultiIndex]],
         Jset: Sequence[Sequence[MultiIndex]],
         dtype=np.float64,
+        device=None,
     ) -> "TensorCI2":
-        tci = cls(localdims, dtype=dtype)
+        tci = cls(localdims, dtype=dtype, device=device)
         tci.Iset = [[tuple(int(v) for v in i) for i in s] for s in Iset]
         tci.Jset = [[tuple(int(v) for v in j) for j in s] for s in Jset]
         pivots = reconstructglobalpivotsfromijset(
@@ -150,7 +163,8 @@ class TensorCI2(AbstractTensorTrain):
 
     def invalidatesitetensors(self) -> None:
         for b in range(len(self)):
-            self._sitetensors[b] = torch.zeros((0, 0, 0), dtype=self.dtype)
+            self._sitetensors[b] = torch.zeros((0, 0, 0), dtype=self.dtype,
+                                               device=self.device)
 
     def issitetensorsavailable(self) -> bool:
         return all(t.numel() != 0 for t in self._sitetensors)
@@ -234,7 +248,8 @@ class TensorCI2(AbstractTensorTrain):
         Is = kronecker_is(self.Iset[b], self.localdims[b])
         Js = self.Jset[b]
         Pi1 = filltensor(
-            self.dtype, f, self.localdims, self.Iset[b], self.Jset[b], 1
+            self.dtype, f, self.localdims, self.Iset[b], self.Jset[b], 1,
+            self.device,
         ).reshape(len(Is), len(Js))
         self.updatemaxsample(Pi1)
 
@@ -243,7 +258,8 @@ class TensorCI2(AbstractTensorTrain):
             return self._sitetensors[b]
 
         P = filltensor(
-            self.dtype, f, self.localdims, self.Iset[b + 1], self.Jset[b], 0
+            self.dtype, f, self.localdims, self.Iset[b + 1], self.Jset[b], 0,
+            self.device,
         ).reshape(len(self.Iset[b + 1]), len(self.Jset[b]))
         if len(self.Iset[b + 1]) != len(self.Jset[b]):
             raise ValueError(f"Pivot matrix at bond {b} is not square!")
@@ -283,7 +299,8 @@ class TensorCI2(AbstractTensorTrain):
             Is = kronecker_is(self.Iset[b], self.localdims[b]) if fwd else self.Iset[b]
             Js = self.Jset[b] if fwd else kronecker_sj(self.localdims[b], self.Jset[b])
             Pi = filltensor(
-                self.dtype, f, self.localdims, self.Iset[b], self.Jset[b], 1
+                self.dtype, f, self.localdims, self.Iset[b], self.Jset[b], 1,
+                self.device,
             ).reshape(len(Is), len(Js))
             self.updatemaxsample(Pi)
             luci = MatrixLUCI(
@@ -311,7 +328,7 @@ class TensorCI2(AbstractTensorTrain):
             )
             localtensor = filltensor(
                 self.dtype, f, self.localdims,
-                self.Iset[lastindex], self.Jset[lastindex], 1,
+                self.Iset[lastindex], self.Jset[lastindex], 1, self.device,
             ).reshape(shape)
             self.setsitetensor(lastindex, localtensor)
 
@@ -348,7 +365,8 @@ class TensorCI2(AbstractTensorTrain):
         )
         t1 = time.time()
         Pi = filltensor(
-            self.dtype, f, self.localdims, Icombined, Jcombined, 0
+            self.dtype, f, self.localdims, Icombined, Jcombined, 0,
+            self.device,
         ).reshape(len(Icombined), len(Jcombined))
         t2 = time.time()
         self.updatemaxsample(Pi)
@@ -609,13 +627,19 @@ def crossinterpolate2(
     f,
     localdims: Sequence[int],
     initialpivots: Optional[Sequence[Sequence[int]]] = None,
+    device=None,
     **kwargs,
 ):
     """Cross-interpolate f by TCI2 (tensorci2.jl:1313-1323).
 
-    Returns (tci, ranks, errors). Keyword arguments are forwarded to
-    TensorCI2.optimize.
+    Runs on `device`: the current CUDA device by default; without one it
+    raises unless ``device="cpu"`` is given. f may sample anywhere (a plain
+    callable or a ``VectorizedBatchEvaluator`` on the host, a
+    ``TorchBatchEvaluator`` on its device); its panels are moved to
+    `device`. Returns (tci, ranks, errors). Other keyword arguments are
+    forwarded to TensorCI2.optimize.
     """
-    tci = TensorCI2.from_function(f, localdims, initialpivots, dtype=valuetype)
+    tci = TensorCI2.from_function(f, localdims, initialpivots, dtype=valuetype,
+                                  device=device)
     ranks, errors = tci.optimize(f, **kwargs)
     return tci, ranks, errors

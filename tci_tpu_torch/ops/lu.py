@@ -1,10 +1,12 @@
 """Rank-revealing LU with complete (full) pivoting.
 
 Counterpart of ``tci_tpu/ops/lu.py`` (parity reference: src/matrixlu.jl).
-The elimination runs where the matrix lives (``lu_kernel.rrlu_raw``: the CUDA
-kernel for a CUDA tensor, the plain PyTorch version otherwise); the factors
-L and U stay there as tensors, while permutations, npivot, the pivot
-diagonal and the residual error are host values.
+The elimination runs on the matrix's device (``lu_kernel.rrlu_raw``): a
+numpy array goes to the current CUDA device unless the caller passes
+``device="cpu"``, a tensor stays where it is. A CUDA panel runs the CUDA
+kernel, a CPU panel the plain PyTorch version; the factors L and U stay on
+the device as tensors, while permutations, npivot, the pivot diagonal and
+the residual error are host values.
 
 Indices are 0-based.
 """
@@ -218,12 +220,17 @@ def rrlu(
     leftorthogonal: bool = True,
     mesh=None,
     pivotsearch: str = "full",
+    device=None,
 ) -> rrLU:
     """Rank-revealing LU of a dense matrix (numpy array or tensor).
 
+    A numpy array is uploaded to `device`: the current CUDA device by
+    default, and a RuntimeError without one unless ``device="cpu"`` is
+    given. A tensor stays where the caller put it (that is the caller
+    choosing its device), unless `device` is given.
     pivotsearch="full": complete pivoting; the whole elimination is one
-    launch of the CUDA kernel for a CUDA tensor and the plain PyTorch loop
-    otherwise. Stop rule and at-least-one-pivot semantics match
+    launch of the CUDA kernel on a CUDA device and the plain PyTorch loop
+    on the CPU. Stop rule and at-least-one-pivot semantics match
     matrixlu.jl:346-396.
     """
     if pivotsearch == "rook":
@@ -238,7 +245,7 @@ def rrlu(
         raise NotImplementedError(
             "rrlu(mesh=...) is not ported yet (ROADMAP A14)")
     LUmat, rowperm, colperm, k, diag, err, nanflags = rrlu_raw(
-        A, maxrank, reltol, abstol, leftorthogonal
+        A, maxrank, reltol, abstol, leftorthogonal, device=device
     )
     return _finalize(LUmat, rowperm, colperm, k, err, leftorthogonal,
                      diag, nanflags)

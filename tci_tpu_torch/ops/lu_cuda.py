@@ -5,8 +5,10 @@ Counterpart of ``tci_tpu/ops/pallas_lu.py``: ``rrlu_call`` and
 ``pallas_rrlu_batched`` and return the same 6-tuple (A_sw, rowperm, colperm,
 k, mags, err). Each call is one launch of B panels (B = 1 for
 ``rrlu_call``): panels up to 128 x 128 f64 take one thread block each, with
-the panel in shared memory; larger ones take the whole card in turn, in a
-cooperative multi-block launch whose global scratch this module allocates.
+the panel in shared memory (it must start on a 16-byte boundary and hold a
+multiple of 16 bytes, as every shape bucket does); larger ones take the
+whole card in turn, in a cooperative multi-block launch whose global
+scratch this module allocates.
 
 This module only launches the kernel: a panel that is not a contiguous
 float32/float64 CUDA tensor raises. Which of the kernel and its plain
@@ -54,6 +56,18 @@ def _check_panel(A: torch.Tensor, ndim: int) -> None:
         raise ValueError("rrLU kernel needs a contiguous panel")
 
 
+@functools.cache
+def _scratch_bytes(device_index: int, mp: int, npd: int, elsize: int) -> int:
+    """Global scratch of an (mp, np) panel on one device, from the kernel
+    (0 for a panel it eliminates in shared memory; the limit lives in
+    ``csrc/rrlu.cu`` alone). Asked once per shape, not per call."""
+    nbytes = _lib().rrlu_scratch_bytes(mp, npd, elsize)
+    if nbytes < 0:
+        raise RuntimeError(f"rrLU kernel: CUDA error {-nbytes} sizing the "
+                           f"multi-block grid (panel {mp}x{npd})")
+    return nbytes
+
+
 def _launch(A, B, mp, npd, leftorthogonal, scalars, arrays):
     """Allocate the outputs and launch B panels; `scalars` are
     (m, n, maxrank, reltol, abstol), `arrays` the per-panel device arrays
@@ -61,12 +75,17 @@ def _launch(A, B, mp, npd, leftorthogonal, scalars, arrays):
     lib = _lib()
     dev, dt = A.device, A.dtype
     rmax = min(mp, npd)
-    A_sw = torch.empty((B, mp, npd), dtype=dt, device=dev)
-    rowperm = torch.empty((B, mp), dtype=torch.int64, device=dev)
-    colperm = torch.empty((B, npd), dtype=torch.int64, device=dev)
-    mags = torch.empty((B, rmax), dtype=dt, device=dev)
-    k = torch.empty((B,), dtype=torch.int64, device=dev)
-    err = torch.empty((B,), dtype=dt, device=dev)
+    # two allocations: (A_sw, mags, err) in A's dtype, (rowperm, colperm, k)
+    # in int64
+    npanel = B * mp * npd
+    tbuf = torch.empty((npanel + B * rmax + B,), dtype=dt, device=dev)
+    ibuf = torch.empty((B * (mp + npd + 1),), dtype=torch.int64, device=dev)
+    A_sw = tbuf[:npanel].view(B, mp, npd)
+    mags = tbuf[npanel:npanel + B * rmax].view(B, rmax)
+    err = tbuf[npanel + B * rmax:]
+    rowperm = ibuf[:B * mp].view(B, mp)
+    colperm = ibuf[B * mp:B * (mp + npd)].view(B, npd)
+    k = ibuf[B * (mp + npd):]
     fn = lib.rrlu_launch_f64 if dt == torch.float64 else lib.rrlu_launch_f32
     m, n, maxrank, reltol, abstol = scalars
 
@@ -77,13 +96,17 @@ def _launch(A, B, mp, npd, leftorthogonal, scalars, arrays):
         # panels above the resident limit run in the multi-block mode:
         # global scratch, and the two words of its grid barrier, zeroed
         scratch = barrier = None
-        nbytes = lib.rrlu_scratch_bytes(mp, npd, A.element_size())
-        if nbytes < 0:
-            raise RuntimeError(f"rrLU kernel: CUDA error {-nbytes} sizing "
-                               f"the multi-block grid (panel {mp}x{npd})")
+        nbytes = _scratch_bytes(dev.index, mp, npd, A.element_size())
         if nbytes > 0:
             scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
             barrier = torch.zeros((2,), dtype=torch.int32, device=dev)
+        elif A.data_ptr() % 16 or (mp * npd * A.element_size()) % 16:
+            # the resident mode loads the panel with the bulk-copy engine
+            raise ValueError(
+                f"rrLU kernel: a shared-memory resident panel must start on "
+                f"a 16-byte boundary and hold a multiple of 16 bytes (shape "
+                f"buckets are multiples of 8 elements); got {mp}x{npd} {dt} "
+                f"at offset {A.data_ptr() % 16}")
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(ptr(A), ptr(scratch), ptr(barrier), ptr(A_sw), ptr(rowperm),
                 ptr(colperm), ptr(mags), ptr(k), ptr(err),

@@ -6,8 +6,9 @@ this module holds its plain PyTorch version (``rrlu_plain``), which runs
 every panel that lies on the CPU and is what the kernel is checked against;
 ``rrlu_panel`` / ``rrlu_panel_batched``, the one place that picks the
 kernel or the plain version by the panel's device; and the host-facing
-``rrlu_raw`` that pads a matrix to its shape bucket, runs the elimination
-where the matrix lives and brings back the pivots.
+``rrlu_raw`` that puts a matrix on its device (the card unless the caller
+asks for the CPU), pads it to its shape bucket, runs the elimination there
+and brings back the pivots.
 
 The plain version is one swap-free body for all sizes (the contract of
 ``tci_tpu``'s ``_rrlu_while``, written after ``_rrlu_state_fused``): the
@@ -26,6 +27,7 @@ from typing import Union
 import numpy as np
 import torch
 
+from ..utils.device import resolve_device, to_device
 from . import lu_cuda
 
 # Calls of the plain version, by the device type of the panel. The main path
@@ -183,16 +185,23 @@ def rrlu_raw(
     reltol: float,
     abstol: float,
     leftorthogonal: bool,
+    device=None,
 ):
-    """Eliminate a concrete matrix where it lives.
+    """Eliminate a concrete matrix on its device.
 
-    A numpy array or CPU tensor runs the plain version; a CUDA tensor runs
-    the kernel. Returns (LUmat (m, n) tensor on A's device, rowperm (m,),
-    colperm (n,), npivot, diag (npivot,), err, nan_in_factors): the
+    A numpy array is uploaded to `device` (``utils.device.resolve_device``:
+    the current CUDA device by default, and a RuntimeError without one
+    unless ``device="cpu"`` is given). A tensor stays where the caller put
+    it, unless `device` is given. A CUDA panel runs the kernel, a CPU panel
+    the plain version. Returns (LUmat (m, n) tensor on that device, rowperm
+    (m,), colperm (n,), npivot, diag (npivot,), err, nan_in_factors): the
     permutations, the LU diagonal and the NaN flags of the L and U factors
-    come back to the host in ONE transfer, the LU buffer stays where A is.
+    come back to the host in ONE transfer, the LU buffer stays on the device.
     """
-    A = torch.as_tensor(A)
+    if not isinstance(A, torch.Tensor):
+        A = to_device(np.asarray(A), resolve_device(device))
+    elif device is not None:
+        A = A.to(resolve_device(device))
     m, n = A.shape
     if A.is_complex():
         raise NotImplementedError(

@@ -17,11 +17,17 @@ from .lu import rrLU, rrlu
 
 
 class MatrixLUCI:
-    def __init__(self, A=None, *, lu: Optional[rrLU] = None, **kwargs):
+    """CI view of an rrLU. From a matrix A, keyword arguments go to
+    ``rrlu``: a numpy A is factorized on `device` (the current CUDA device
+    by default; without one this raises unless ``device="cpu"`` is given),
+    a tensor A where it lies."""
+
+    def __init__(self, A=None, *, lu: Optional[rrLU] = None, device=None,
+                 **kwargs):
         if lu is not None:
             self.lu = lu
         elif A is not None:
-            self.lu = rrlu(A, **kwargs)
+            self.lu = rrlu(A, device=device, **kwargs)
         else:
             raise NotImplementedError(
                 "MatrixLUCI from a function (rrlu_from_function / arrlu) is "

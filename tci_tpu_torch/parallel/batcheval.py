@@ -21,7 +21,7 @@ from typing import Callable, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from ..utils.device import to_device, torch_dtype
+from ..utils.device import resolve_device, to_device, torch_dtype
 
 MultiIndex = tuple
 
@@ -96,13 +96,12 @@ def _assemble_indices(
     leftindexset: Sequence[MultiIndex],
     rightindexset: Sequence[MultiIndex],
     ncent: int,
-    device: Union[str, torch.device] = "cpu",
+    device: torch.device,
 ) -> torch.Tensor:
     """Build the (|I|·Πd·|J|, nl+ncent+nr) int64 tensor of full multi-indices
-    in C order (left slowest, right fastest) on `device`: only the left and
-    right index sets are uploaded, the product is formed there by
-    broadcasting (batcheval.jl:131-175)."""
-    device = torch.device(device)
+    in C order (left slowest, right fastest) on the caller's `device`: only
+    the left and right index sets are uploaded, the product is formed there
+    by broadcasting (batcheval.jl:131-175)."""
     nl = _index_count(leftindexset)
     nr = _index_count(rightindexset)
     L = nl + ncent + nr
@@ -126,7 +125,7 @@ def _assemble_indices(
     return out.reshape(nI * nC * nJ, L)
 
 
-def _empty_panel(localdims, Iset, Jset, ncent, dtype, device="cpu"):
+def _empty_panel(localdims, Iset, Jset, ncent, dtype, device):
     return torch.zeros(_result_shape(localdims, Iset, Jset, ncent),
                        dtype=torch_dtype(dtype), device=device)
 
@@ -143,18 +142,19 @@ def _batchevaluate_dispatch(
 
     BatchEvaluators get one batched call (batcheval.jl:196-214) and the
     result stays where they computed it; plain callables are evaluated per
-    assembled index row on the host (batcheval.jl:131-175).
+    assembled index row on the host (batcheval.jl:131-175), so their panel
+    is a host tensor. The caller moves the panel to its device.
     Returns a tensor of shape (|I|, d..., |J|).
     """
     ncent = _infer_ncent(localdims, leftindexset, rightindexset, ncent)
     if len(leftindexset) * len(rightindexset) == 0:
         return _empty_panel(localdims, leftindexset, rightindexset, ncent,
-                            valuetype)
+                            valuetype, torch.device("cpu"))
     if isbatchevaluable(f):
         return torch.as_tensor(f.batch_evaluate(leftindexset, rightindexset,
                                                 ncent))
     indices = _assemble_indices(localdims, leftindexset, rightindexset,
-                                ncent).tolist()
+                                ncent, torch.device("cpu")).tolist()
     vals = torch.tensor([f(tuple(row)) for row in indices],
                         dtype=torch_dtype(valuetype))
     return vals.reshape(
@@ -163,7 +163,8 @@ def _batchevaluate_dispatch(
 
 class VectorizedBatchEvaluator(BatchEvaluator):
     """Adapter for a numpy function that consumes a whole (B, L) index
-    matrix at once; its panels are host (CPU) tensors."""
+    matrix at once; its panels are host (CPU) tensors, which ``TensorCI2``
+    moves to its device."""
 
     def __init__(self, fvec: Callable[[np.ndarray], np.ndarray], localdims,
                  dtype=np.float64):
@@ -178,8 +179,10 @@ class VectorizedBatchEvaluator(BatchEvaluator):
     def batch_evaluate(self, Iset, Jset, ncent=None):
         ncent = _infer_ncent(self.localdims, Iset, Jset, ncent)
         if len(Iset) * len(Jset) == 0:
-            return _empty_panel(self.localdims, Iset, Jset, ncent, self.dtype)
-        indices = _assemble_indices(self.localdims, Iset, Jset, ncent).numpy()
+            return _empty_panel(self.localdims, Iset, Jset, ncent, self.dtype,
+                                torch.device("cpu"))
+        indices = _assemble_indices(self.localdims, Iset, Jset, ncent,
+                                    torch.device("cpu")).numpy()
         vals = np.asarray(self.fvec(indices), dtype=self.dtype)
         return torch.from_numpy(vals).reshape(
             _result_shape(self.localdims, Iset, Jset, ncent))
@@ -189,17 +192,17 @@ class TorchBatchEvaluator(BatchEvaluator):
     """Device evaluator: `f` maps an (N, L) int64 tensor of multi-indices on
     `device` to (N,) values there, written with torch operations. Panels
     are assembled and evaluated on the device and returned as device
-    tensors; ``nevals`` counts the samples taken."""
+    tensors; ``nevals`` counts the samples taken. `device` defaults to the
+    current CUDA device (``utils.device.resolve_device``); without one the
+    constructor raises unless ``device="cpu"`` is given."""
 
     def __init__(self, f: Callable[[torch.Tensor], torch.Tensor], localdims,
-                 dtype=torch.float64, device: Union[str, torch.device] = "cpu"):
+                 dtype=torch.float64,
+                 device: Optional[Union[str, torch.device]] = None):
         self.f = f
         self.localdims = list(localdims)
         self.dtype = torch_dtype(dtype)
-        device = torch.device(device)
-        if device.type == "cuda" and device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-        self.device = device
+        self.device = resolve_device(device)
         self.nevals = 0
 
     def _eval(self, indices: torch.Tensor) -> torch.Tensor:

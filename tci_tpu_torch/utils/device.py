@@ -2,8 +2,27 @@
 
 from __future__ import annotations
 
+from typing import Optional, Union
+
 import numpy as np
 import torch
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None
+                   ) -> torch.device:
+    """The device an entry point runs on: `device` when given, else the
+    current CUDA device. There is no silent CPU fallback: without a CUDA
+    device the caller has to ask for the CPU with ``device="cpu"``."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "tci_tpu_torch runs on a CUDA device by default and none is "
+                "available; pass device=\"cpu\" to run on the CPU")
+        return torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def torch_dtype(dtype) -> torch.dtype:
@@ -13,10 +32,13 @@ def torch_dtype(dtype) -> torch.dtype:
     return torch.from_numpy(np.zeros(0, dtype=dtype)).dtype
 
 
-def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Upload a host array; through pinned memory for a CUDA device, so the
-    host does not wait for work already queued on the device."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if device.type == "cuda":
+def to_device(a: Union[np.ndarray, torch.Tensor],
+              device: torch.device) -> torch.Tensor:
+    """Move a host array or tensor to `device`; a host upload to a CUDA
+    device goes through pinned memory, so the host does not wait for work
+    already queued on the device."""
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(a))
+    if t.device.type == "cpu" and device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)

@@ -60,6 +60,98 @@ def test_kernel_matches_plain(cuda, shape, leftorthogonal, dtype):
         assert _equal(o, r)
 
 
+def _lorentzian(nI, nJ, seed, d=10):
+    """A Π panel of config 1's shape, (d nI) x (d nJ), full of exact ties."""
+    rng = np.random.default_rng(seed)
+    left = rng.integers(0, d, size=(nI, 3))
+    right = rng.integers(0, d, size=(nJ, 3))
+    s = np.array([((p + 1.0) ** 2).sum() + (c + 1.0) ** 2
+                  for p in left for c in range(d)])
+    t = np.array([(c + 1.0) ** 2 + ((q + 1.0) ** 2).sum()
+                  for c in range(d) for q in right])
+    return 1.0 / (1.0 + s[:, None] + t[None, :])
+
+
+def _bucketed(A, dtype, device):
+    m, n = A.shape
+    P = torch.zeros((lu_kernel.bucket(m), lu_kernel.bucket(n)), dtype=dtype,
+                    device=device)
+    P[:m, :n] = torch.as_tensor(A, device=device)
+    return P
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("leftorthogonal", [True, False])
+@pytest.mark.parametrize("stop", ["abstol", "reltol"])
+@pytest.mark.parametrize("blocks", [
+    # (rows of I, cols of J) of a config-1 panel, (10 nI) x (10 nJ): buckets
+    # 16^2 ... 128^2; None is a 5 x 6 rank-3 panel in the 8^2 bucket
+    None, (1, 1), (2, 3), (4, 4), (6, 8), (10, 12), (12, 12)])
+def test_resident_matches_plain(cuda, blocks, stop, leftorthogonal, dtype):
+    """The shared-memory resident mode at the main path's panel shapes."""
+    if blocks is None:
+        rng = np.random.default_rng(3)
+        A = rng.standard_normal((5, 3)) @ rng.standard_normal((3, 6))
+    else:
+        A = _lorentzian(*blocks, seed=10 * blocks[0] + blocks[1])
+    m, n = A.shape
+    P = _bucketed(A, dtype, cuda)
+    reltol, abstol = ((1e-14, 1e-8 * float(np.abs(A).max()))
+                      if stop == "abstol" else (1e-6, 0.0))
+    args = (P, m, n, min(m, n), reltol, abstol)
+    assert lu_cuda._scratch_bytes(P.device.index, *P.shape,
+                                  P.element_size()) == 0  # resident
+    out = lu_cuda.rrlu_call(*args, leftorthogonal=leftorthogonal)
+    ref = lu_kernel.rrlu_plain(*args, leftorthogonal=leftorthogonal)
+    torch.cuda.synchronize()
+    for o, r in zip(out, ref):
+        assert _equal(o, r)
+
+
+def test_resident_repeats_bitwise(cuda):
+    """The 128^2 main-path panel, 20 runs against one plain result: a race
+    between the kernel's phases would show as a rare wrong pivot."""
+    A = _lorentzian(12, 12, seed=132)
+    P = _bucketed(A, torch.float64, cuda)
+    args = (P, 120, 120, 120, 1e-14, 1e-8 * float(np.abs(A).max()))
+    ref = lu_kernel.rrlu_plain(*args, leftorthogonal=True)
+    for _ in range(20):
+        out = lu_cuda.rrlu_call(*args, leftorthogonal=True)
+        for o, r in zip(out, ref):
+            assert _equal(o, r)
+
+
+def test_resident_misaligned_panel_raises(cuda):
+    """The bulk copy needs a 16-byte aligned panel: a view 8 bytes into a
+    buffer is refused before any launch."""
+    buf = torch.zeros(8 * 8 + 1, dtype=torch.float64, device=cuda)
+    P = buf[1:].view(8, 8)
+    launches = lu_cuda.LAUNCHES["rrlu"]
+    with pytest.raises(ValueError, match="16-byte"):
+        lu_cuda.rrlu_call(P, 8, 8, 8, 0.0, 0.0, leftorthogonal=True)
+    assert lu_cuda.LAUNCHES["rrlu"] == launches
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_batched_resident_128_matches_plain(cuda, dtype):
+    """Four 128^2 Π panels in one launch, per-panel extents, rank caps and
+    tolerances (chip_smoke.py's batched case)."""
+    A = torch.stack([_bucketed(_lorentzian(12, 12, seed=s), dtype, cuda)
+                     for s in range(4)])
+    mt = torch.tensor([120, 110, 120, 97], device=cuda)
+    nt = torch.tensor([120, 120, 100, 120], device=cuda)
+    mr = torch.tensor([120, 8, 100, 97], device=cuda)
+    rt = torch.tensor([1e-14, 0.0, 1e-6, 1e-14], device=cuda)
+    at = torch.tensor([1e-10, 0.0, 0.0, 0.0], device=cuda)
+    for leftorthogonal in (True, False):
+        out = lu_cuda.rrlu_batched(A, mt, nt, mr, rt, at,
+                                   leftorthogonal=leftorthogonal)
+        ref = lu_kernel.rrlu_plain_batched(A, mt, nt, mr, rt, at,
+                                           leftorthogonal=leftorthogonal)
+        for o, r in zip(out, ref):
+            assert _equal(o, r)
+
+
 def test_batched_kernel_matches_plain(cuda):
     A = torch.stack([_panel(s, 32, 24, 32, 24, 24, torch.float64, cuda)
                      for s in range(4)])
@@ -158,8 +250,25 @@ def test_tci2_on_cuda_matches_cpu(cuda):
         bf = tci_tpu_torch.TorchBatchEvaluator(f, dims, device=dev)
         runs.append(tci_tpu_torch.crossinterpolate2(
             np.float64, bf, dims, tolerance=1e-8,
-            rng=np.random.default_rng(0)))
+            rng=np.random.default_rng(0), device=dev))
     (c, cranks, cerrs), (g, granks, gerrs) = runs
     assert granks == cranks and g.Iset == c.Iset and g.Jset == c.Jset
     np.testing.assert_allclose(gerrs, cerrs, rtol=0, atol=1e-15)
     assert all(t.device.type == "cuda" for t in g.sitetensors())
+
+
+def test_default_device_tci2_with_plain_f_runs_the_kernel(cuda):
+    """No device argument and a plain scalar f: the panels are sampled on
+    the host and factorized on the card, every one by the kernel."""
+    def f(x):
+        return 1.0 / (1.0 + sum((i + 1.0) ** 2 for i in x))
+
+    launches = lu_cuda.LAUNCHES["rrlu"]
+    plain = sum(lu_kernel.PLAIN_CALLS.values())
+    tci, ranks, errs = tci_tpu_torch.crossinterpolate2(
+        np.float64, f, [10] * 4, tolerance=1e-8, rng=np.random.default_rng(0))
+    assert tci.device.type == "cuda"
+    assert lu_cuda.LAUNCHES["rrlu"] > launches
+    assert sum(lu_kernel.PLAIN_CALLS.values()) == plain
+    assert all(t.device.type == "cuda" for t in tci.sitetensors())
+    assert errs[-1] < 1e-8

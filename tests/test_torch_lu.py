@@ -82,7 +82,8 @@ def test_rrlu_matches_tci_tpu(case, leftorthogonal):
     A, kw = _case(case)
     ref = tci_tpu.rrlu(A, leftorthogonal=leftorthogonal, **kw)
     launches = lu_cuda.LAUNCHES["rrlu"]
-    out = tci_tpu_torch.rrlu(A, leftorthogonal=leftorthogonal, **kw)
+    out = tci_tpu_torch.rrlu(A, leftorthogonal=leftorthogonal, device="cpu",
+                             **kw)
     assert lu_cuda.LAUNCHES["rrlu"] == launches  # CPU input: plain version
     assert out.L.device.type == "cpu"
     assert out.npivots() == ref.npivots()
@@ -108,9 +109,9 @@ def test_rrlu_tensor_input_stays_on_its_device():
 def test_rrlu_unported_options_raise():
     A = np.eye(4)
     with pytest.raises(NotImplementedError, match="A9"):
-        tci_tpu_torch.rrlu(A, pivotsearch="rook")
+        tci_tpu_torch.rrlu(A, pivotsearch="rook", device="cpu")
     with pytest.raises(NotImplementedError, match="A14"):
-        tci_tpu_torch.rrlu(A, mesh=object())
+        tci_tpu_torch.rrlu(A, mesh=object(), device="cpu")
 
 
 @pytest.mark.parametrize("leftorthogonal", [True, False])
@@ -123,7 +124,8 @@ def test_matrixluci_matches_tci_tpu(case, leftorthogonal):
         A = rng.standard_normal((30, 6)) @ rng.standard_normal((6, 20))
         kw = {"reltol": 1e-8}
     ref = tci_tpu.MatrixLUCI(A, leftorthogonal=leftorthogonal, **kw)
-    out = tci_tpu_torch.MatrixLUCI(A, leftorthogonal=leftorthogonal, **kw)
+    out = tci_tpu_torch.MatrixLUCI(A, leftorthogonal=leftorthogonal,
+                                   device="cpu", **kw)
     np.testing.assert_array_equal(out.rowindices(), ref.rowindices())
     np.testing.assert_array_equal(out.colindices(), ref.colindices())
     atol = 1e-12 * np.abs(A).max()

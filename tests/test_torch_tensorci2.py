@@ -72,7 +72,8 @@ def test_crossinterpolate2_matches_tci_tpu(name):
     ref, rranks, rerrs = tci_tpu.crossinterpolate2(
         np.float64, f_ref, dims, tolerance=1e-8, rng=np.random.default_rng(0))
     out, oranks, oerrs = tci_tpu_torch.crossinterpolate2(
-        np.float64, f_port, dims, tolerance=1e-8, rng=np.random.default_rng(0))
+        np.float64, f_port, dims, tolerance=1e-8, rng=np.random.default_rng(0),
+        device="cpu")
     assert oranks == rranks
     assert out.Iset == ref.Iset and out.Jset == ref.Jset
     np.testing.assert_allclose(oerrs, rerrs, rtol=0, atol=ERR_ATOL)
@@ -101,7 +102,7 @@ def test_state_carried_across():
                                       ref.Iset, ref.Jset)
     b = tci_tpu_torch.TensorCI2.from_ijsets(
         VectorizedBatchEvaluator(lorentzian_np, dims), dims, ref.Iset,
-        ref.Jset)
+        ref.Jset, device="cpu")
     assert b.maxsamplevalue == a.maxsamplevalue
     abstol = 1e-8 * a.maxsamplevalue
     a.sweep2site(JaxVBE(lorentzian_np, dims), 1, abstol=abstol)
@@ -133,7 +134,8 @@ def test_config1_recorded_series(evaluator):
     else:
         f = TorchBatchEvaluator(lorentzian_torch, dims, device="cpu")
     tci, ranks, errors = tci_tpu_torch.crossinterpolate2(
-        np.float64, f, dims, tolerance=1e-8, rng=np.random.default_rng(0))
+        np.float64, f, dims, tolerance=1e-8, rng=np.random.default_rng(0),
+        device="cpu")
     assert ranks == CONFIG1_RANKS
     np.testing.assert_allclose(errors, CONFIG1_ERRORS, rtol=0, atol=ERR_ATOL)
     assert tci.linkdims() == CONFIG1_LINKDIMS
