@@ -29,20 +29,31 @@ line or more each:
    times and GFLOP/s counted as 2 r N^2 (benchmarks/bench_rrlu.py) and as
    2 sum_j (N - j)^2;
 4. BASELINE config 1 (8-D Lorentzian on {0..9}^8, tolerance 1e-8) through
-   ``crossinterpolate2`` with a ``TorchBatchEvaluator`` on the card: a cold
-   and a warm run, checked against tci_tpu's recorded series, with every
-   factorization launching the kernel and none taking the plain version;
-   a third run counts the device-to-host synchronizations; a fourth passes
-   a plain scalar f and no device argument, and must run on the card too
-   (launches equal to rrLU calls, no plain call, the recorded series);
-5. the kernel against the plain version on every panel config 1 factorized;
-6. with ``--profile DIR`` only: the median of 10 warm config-1 walls, then
-   one run under ``torch.profiler`` with a span around each layer of the
-   main path (Π sampling, rrlu_raw, the CI-factor solves, sweep2site,
-   fillsitetensors, the global search, the final sweep1site). The trace goes
-   to DIR/config1_trace.json; the device's busy time and idle share over the
-   run, the largest device items, the spans and the CUDA runtime calls are
-   printed.
+   ``crossinterpolate2`` on the card, by each of the port's three tiers:
+   the host tier (a plain scalar f and no device argument: panels sampled
+   on the host, factorized on the card), the fused tier (a
+   ``TorchBatchEvaluator`` with ``enable_device_sweep=False``: one fused
+   update a bond) and the engine (the default ``TorchBatchEvaluator``: a
+   whole sweep on the card, one fetch at its end). Each tier runs cold,
+   warm and once more under torch's sync debug mode; each run is checked
+   against tci_tpu's recorded series, with every elimination launching the
+   kernel (launches equal to rrlu_raw calls plus the tiers' own rrLU
+   calls), none taking the plain version, the fetches the tier should make,
+   and the pivot sets of the host tier. Then one engine sweep with its fill
+   runs under sync debug mode "error" (no synchronization, one fetch), and
+   an engine that starts at a capacity of 4 has to grow;
+5. the kernel against the plain version on every launch the cold runs of
+   phase 4 made; its times on the engine's bond panel (Imax (d + 1)
+   square, multi-block) and on the engine's fill (its P blocks in one
+   batched launch); the bounds of the kernels still to be ported;
+6. with ``--profile DIR`` only: for each tier, the median of 10 warm
+   config-1 walls, then one run under ``torch.profiler`` with a span around
+   each layer (Π sampling, rrlu_raw, the CI-factor solves, sweep2site,
+   fillsitetensors, the global search, sweep1site, and the device tiers'
+   sweeps, the host time that queues them, their fetches and the fused
+   updates). The traces go to DIR/config1_<tier>_trace.json; the device's
+   busy time and idle share over the run, the largest device items, the
+   spans and the CUDA runtime calls are printed.
 
 The second-to-last lines are nvidia-smi's card line and a JSON object with
 the kernel's launches, error and times; the last line is the result object.
@@ -146,17 +157,22 @@ def main():
     HBM_BYTES_PER_S = 3.35e12
     PEAK_FLOP_PER_S = {8: 34e12, 4: 67e12}
 
-    def bound_ms(mp, npd, m, n, k, elsize):
-        """The least time the card could take for one elimination: each
-        input byte read once and each output byte written once (the panel
-        in; the LU buffer, both permutations, mags, k and err out) over the
-        HBM rate, against the Schur updates this run's k needs,
-        2 sum_{j<k} (m-1-j)(n-1-j) operations, over the peak rate."""
+    def bound_parts(mp, npd, m, n, k, elsize):
+        """The two lower bounds of one elimination, in ms: each input byte
+        read once and each output byte written once (the panel in; the LU
+        buffer, both permutations, mags, k and err out) over the HBM rate,
+        and the Schur updates this run's k needs, 2 sum_{j<k} (m-1-j)(n-1-j)
+        operations, over the peak rate."""
         nbytes = (2 * mp * npd * elsize + 8 * (mp + npd + 1)
                   + elsize * (min(mp, npd) + 1))
         ops = sum(2.0 * (m - 1 - j) * (n - 1 - j) for j in range(k))
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_FLOP_PER_S[elsize] * 1e3
+        return (nbytes / HBM_BYTES_PER_S * 1e3,
+                ops / PEAK_FLOP_PER_S[elsize] * 1e3)
+
+    def bound_ms(mp, npd, m, n, k, elsize):
+        """The least time the card could take for one elimination, the
+        larger of bound_parts, and which of the two it is."""
+        t_bytes, t_ops = bound_parts(mp, npd, m, n, k, elsize)
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
                                                            "operations")
 
@@ -196,7 +212,7 @@ def main():
         return P
 
     max_err = 0.0
-    main = {}
+    host_panel = {}
     # (rows of I, cols of J): panels of (10 nI) x (10 nJ), as the main path
     # builds them; a 5 x 6 panel for the 8 bucket
     shapes = [(None, None), (1, 1), (2, 3), (4, 4), (6, 8), (10, 12), (12, 12)]
@@ -236,11 +252,16 @@ def main():
                           f"{bms:.6f} ms ({bby})", flush=True)
                     if (dtype == torch.float64 and (nI, nJ) == (12, 12)
                             and stop == "abstol" and leftorth):
-                        main = {"ms": dms if dms is not None else ms,
-                                "ms_from": ("profiler" if dms is not None
-                                            else "cuda events"),
-                                "wrapper_ms": ms, "plain_ms": pms,
-                                "bound_ms": bms, "bound_by": bby}
+                        host_panel = {
+                            "host_panel": f"{P.shape[0]}x{P.shape[1]}",
+                            "host_panel_ms": dms if dms is not None else ms,
+                            "host_panel_ms_from": (
+                                "profiler" if dms is not None
+                                else "cuda events"),
+                            "host_panel_wrapper_ms": ms,
+                            "host_panel_plain_ms": pms,
+                            "host_panel_bound_ms": bms,
+                            "host_panel_bound_by": bby}
 
     # the resident kernel's split: device time with the rank capped at 0
     # (launch, load, first pass, write-out) and at 1, 2, 4 and the panel's
@@ -400,156 +421,302 @@ def main():
           f"max|LU - A|/max|A| {rel:.3e}", flush=True)
     config2 = {"config2_ms": kms, "config2_plain_ms": pms}
 
-    # -- 4. config 1 through the port -----------------------------------------
+    # -- 4. config 1 through the port's three tiers ---------------------------
+    from tci_tpu_torch.models.device_sweep import DeviceSweepEngine
+    from tci_tpu_torch.utils.device import FETCHES
+
     def fdev(idx):
         v = idx.to(torch.float64) + 1.0
         return 1.0 / (1.0 + (v * v).sum(dim=1))
 
-    localdims = [10] * 8
-    panels = []
-    rrlu_raw = lu_mod.rrlu_raw
-
-    def recording_rrlu_raw(A, *args, **kwargs):
-        panels.append((A, args))
-        return rrlu_raw(A, *args, **kwargs)
-
-    def solve_config1():
-        bf = tci_tpu_torch.TorchBatchEvaluator(fdev, localdims, device=dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        tci, ranks, errors = tci_tpu_torch.crossinterpolate2(
-            np.float64, bf, localdims, tolerance=1e-8,
-            rng=np.random.default_rng(0))
-        torch.cuda.synchronize()
-        return tci, ranks, errors, time.perf_counter() - t0, bf.nevals
-
-    def run_config1(record=False, solve=solve_config1):
-        panels.clear()
-        lu_mod.rrlu_raw = recording_rrlu_raw
-        try:
-            tci, ranks, errors, wall, nevals = solve()
-        finally:
-            lu_mod.rrlu_raw = rrlu_raw
-        ncalls = len(panels)
-        if not record:
-            panels.clear()
-        return tci, ranks, errors, wall, nevals, ncalls
-
-    tci, ranks, errors, cold, nevals, ncalls = run_config1(record=True)
-    print(f"[config1] cold: {cold:.3f} s, ranks {ranks}, "
-          f"{ncalls} rrLU calls", flush=True)
-    captured = list(panels)
-    panels.clear()
-
-    lu_cuda.LAUNCHES.clear()
-    lu_kernel.PLAIN_CALLS.clear()
-    tci, ranks, errors, warm, nevals, ncalls = run_config1()
-    launches = lu_cuda.LAUNCHES["rrlu"]
-    plain_cuda = lu_kernel.PLAIN_CALLS["cuda"]
-
-    x = (1, 2, 3, 4, 5, 4, 3, 2)
-    v = np.asarray(x, dtype=float) + 1.0
-    point_err = abs(tci(x) - 1.0 / (1.0 + v @ v))
-    print(f"[config1] warm: {warm:.3f} s, nevals {nevals}, "
-          f"{nevals / warm:.1f} evals/s, {ncalls} rrLU calls, "
-          f"{launches} kernel launches, {plain_cuda} plain calls on CUDA",
-          flush=True)
-    print(f"[config1] ranks {ranks} (recorded CPU {RECORDED_RANKS}); "
-          f"errors {[f'{e:.6e}' for e in errors]} (recorded CPU "
-          f"{[f'{e:.6e}' for e in RECORDED_ERRORS]}); linkdims "
-          f"{tci.linkdims()}; |t(x) - f(x)| = {point_err:.3e}", flush=True)
-    if not errors[-1] < 1e-8:
-        fail(f"config 1 did not converge: errors {errors}")
-    if ranks[-1] != 12 or ranks != RECORDED_RANKS:
-        fail(f"config 1 ranks {ranks}, recorded {RECORDED_RANKS}")
-    if not np.allclose(errors, RECORDED_ERRORS, rtol=0, atol=1e-15):
-        fail(f"config 1 errors {errors} differ from {RECORDED_ERRORS}")
-    if not point_err < 1e-7:
-        fail(f"config 1 pointwise error {point_err}")
-    if ncalls == 0 or launches != ncalls:
-        fail(f"{launches} kernel launches for {ncalls} rrLU calls")
-    if plain_cuda != 0:
-        fail(f"{plain_cuda} plain-version calls on CUDA tensors")
-    if not all(t.device.type == "cuda" for t in tci.sitetensors()):
-        fail("site tensors left the device")
-
-    # device-to-host synchronizations, counted by torch's sync debug mode
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            *_, ncalls_sync = run_config1()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    nsync = sum("synchroniz" in str(w.message) for w in caught)
-    print(f"[config1] device-to-host syncs: {nsync} in one run, "
-          f"{ncalls_sync} rrLU calls ({nsync / ncalls_sync:.2f} per call)",
-          flush=True)
-
-    # a plain scalar f and no device argument: the port's default device is
-    # the card, so the host-sampled panels are factorized there
     def fscalar(x):
         return 1.0 / (1.0 + sum((i + 1.0) ** 2 for i in x))
 
-    def solve_config1_plain():
+    localdims = [10] * 8
+    # host: a plain scalar f and no device argument (sampled on the host,
+    # factorized on the card); fused: a TorchBatchEvaluator with the engine
+    # off (one fused update a bond); engine: the default TorchBatchEvaluator
+    # (one fetch a sweep)
+    TIERS = ("host", "fused", "engine")
+
+    def solve_config1(tier, imax=None):
+        if tier == "host":
+            f = fscalar
+        else:
+            f = tci_tpu_torch.TorchBatchEvaluator(
+                fdev, localdims, enable_device_sweep=tier == "engine")
+            if imax is not None:
+                f._device_sweep_engine = DeviceSweepEngine(
+                    f._values, localdims, imax=imax)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         tci, ranks, errors = tci_tpu_torch.crossinterpolate2(
-            np.float64, fscalar, localdims, tolerance=1e-8,
+            np.float64, f, localdims, tolerance=1e-8,
             rng=np.random.default_rng(0))
         torch.cuda.synchronize()
-        return tci, ranks, errors, time.perf_counter() - t0, 0
+        return tci, ranks, errors, time.perf_counter() - t0, f
 
-    launches0 = lu_cuda.LAUNCHES["rrlu"]
-    plain0 = sum(lu_kernel.PLAIN_CALLS.values())
-    tci_p, ranks_p, errors_p, wall_p, _, ncalls_p = run_config1(
-        solve=solve_config1_plain)
-    launches_p = lu_cuda.LAUNCHES["rrlu"] - launches0
-    plain_p = sum(lu_kernel.PLAIN_CALLS.values()) - plain0
-    print(f"[config1] plain scalar f, no device argument: {wall_p:.3f} s on "
-          f"{tci_p.device}, ranks {ranks_p}, {ncalls_p} rrLU calls, "
-          f"{launches_p} kernel launches, {plain_p} plain calls", flush=True)
-    if tci_p.device.type != "cuda":
-        fail(f"config 1 with a plain f ran on {tci_p.device}")
-    if ncalls_p == 0 or launches_p != ncalls_p or plain_p != 0:
-        fail(f"config 1 with a plain f: {launches_p} kernel launches and "
-             f"{plain_p} plain calls for {ncalls_p} rrLU calls")
-    if ranks_p != RECORDED_RANKS or not np.allclose(
-            errors_p, RECORDED_ERRORS, rtol=0, atol=1e-15):
-        fail(f"config 1 with a plain f: ranks {ranks_p}, errors {errors_p}")
+    def tier_calls(f):
+        """rrLU launches the device tiers of evaluator f asked for."""
+        parts = (getattr(f, "_" + a, None) for a in (
+            "device_sweep_engine", "fused_updater", "fused_site_tensors"))
+        return sum(p.rrlu_calls for p in parts if p is not None)
 
-    # -- 5. kernel vs plain on config 1's own panels ---------------------------
-    for i, (A, (maxrank, reltol, abstol, leftorth)) in enumerate(captured):
-        m, n = A.shape
-        P = padded(A, torch.float64)
-        args = (P, m, n, min(maxrank, m, n), reltol, abstol)
-        out = lu_cuda.rrlu_call(*args, leftorthogonal=leftorth)
-        ref = lu_kernel.rrlu_plain(*args, leftorthogonal=leftorth)
-        max_err = max(max_err, compare(f"config1 panel {i} {m}x{n}", out,
-                                       ref, 1.0))
-    print(f"[kernel] config 1's {len(captured)} panels: kernel and plain "
-          f"version identical (max |LU diff| {max_err})", flush=True)
+    # every launch of the kernel on a recorded run: its inputs, for phase 5
+    launch_inputs = []
+    raw_calls = [0]
+    originals = (lu_mod.rrlu_raw, lu_cuda.rrlu_call, lu_cuda.rrlu_batched)
+
+    def counting_rrlu_raw(*args, **kwargs):
+        raw_calls[0] += 1
+        return originals[0](*args, **kwargs)
+
+    def clones(args):
+        return tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                     for a in args)
+
+    def run_config1(tier, record=False, imax=None):
+        """One config-1 run with every count set to 0 just before it; the
+        counts are read just after."""
+        lu_cuda.LAUNCHES.clear()
+        lu_kernel.PLAIN_CALLS.clear()
+        FETCHES.clear()
+        raw_calls[0] = 0
+        lu_mod.rrlu_raw = counting_rrlu_raw
+        if record:
+            lu_cuda.rrlu_call = lambda *a, **k: (
+                launch_inputs.append((tier, False, clones(a), k))
+                or originals[1](*a, **k))
+            lu_cuda.rrlu_batched = lambda *a, **k: (
+                launch_inputs.append((tier, True, clones(a), k))
+                or originals[2](*a, **k))
+        try:
+            tci, ranks, errors, wall, f = solve_config1(tier, imax)
+        finally:
+            lu_mod.rrlu_raw, lu_cuda.rrlu_call, lu_cuda.rrlu_batched = originals
+        counts = {"launches": lu_cuda.LAUNCHES["rrlu"],
+                  "plain_cuda": lu_kernel.PLAIN_CALLS["cuda"],
+                  "rrlu_raw": raw_calls[0], "tier_calls": tier_calls(f),
+                  "fetches": dict(FETCHES),
+                  "nevals": getattr(f, "nevals", 0)}
+        return tci, ranks, errors, wall, f, counts
+
+    def check_config1(tag, tci, ranks, errors, counts):
+        x = (1, 2, 3, 4, 5, 4, 3, 2)
+        v = np.asarray(x, dtype=float) + 1.0
+        point_err = abs(tci(x) - 1.0 / (1.0 + v @ v))
+        if ranks != RECORDED_RANKS or not np.allclose(
+                errors, RECORDED_ERRORS, rtol=0, atol=1e-15):
+            fail(f"config 1 {tag}: ranks {ranks}, errors {errors}; recorded "
+                 f"{RECORDED_RANKS}, {RECORDED_ERRORS}")
+        if not point_err < 1e-7:
+            fail(f"config 1 {tag}: pointwise error {point_err}")
+        if tci.device.type != "cuda" or not all(
+                t.device.type == "cuda" for t in tci.sitetensors()):
+            fail(f"config 1 {tag}: ran on {tci.device} or its site tensors "
+                 f"left the card")
+        # every elimination launched the kernel: the host tier's through
+        # rrlu_raw, the device tiers' through their own calls
+        n = counts["rrlu_raw"] + counts["tier_calls"]
+        if counts["launches"] == 0 or counts["launches"] != n:
+            fail(f"config 1 {tag}: {counts['launches']} kernel launches for "
+                 f"{counts['rrlu_raw']} rrlu_raw and {counts['tier_calls']} "
+                 f"tier rrLU calls")
+        if counts["plain_cuda"] != 0:
+            fail(f"config 1 {tag}: {counts['plain_cuda']} plain-version calls "
+                 f"on CUDA tensors")
+        return point_err
+
+    def count_syncs(tier):
+        """Host waits of one run: the synchronizations torch's sync debug
+        mode flags, and the device tiers' fetches (a wait on an event, which
+        the debug mode does not see)."""
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                *_, counts = run_config1(tier)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        flagged = sum("synchroniz" in str(w.message) for w in caught)
+        return flagged, sum(counts["fetches"].values())
+
+    results = {}
+    for tier in TIERS:
+        tci, ranks, errors, cold, f, counts = run_config1(tier, record=True)
+        check_config1(f"{tier} cold", tci, ranks, errors, counts)
+        tci, ranks, errors, warm, f, counts = run_config1(tier)
+        point_err = check_config1(f"{tier} warm", tci, ranks, errors, counts)
+        flagged, fetch_waits = count_syncs(tier)
+        iters = len(ranks)
+        bonds = 2 * iters * (len(localdims) - 1)
+        if tier == "host" and (counts["tier_calls"] or counts["fetches"]):
+            fail(f"config 1 host: device tiers ran ({counts})")
+        if tier == "fused" and (
+                counts["fetches"].get("fused_bond") != bonds
+                or f.fused_updater.rrlu_calls != bonds
+                or counts["fetches"].get("engine")):
+            fail(f"config 1 fused: {counts['fetches']} fetches and "
+                 f"{f.fused_updater.rrlu_calls} fused launches for {bonds} "
+                 f"bond updates")
+        if tier == "engine" and (
+                counts["rrlu_raw"] or f._fused_updater is not None
+                or counts["fetches"] != {"engine": 2 * iters + 1}
+                or counts["tier_calls"] != f.device_sweep_engine.rrlu_calls):
+            fail(f"config 1 engine: {counts} for {iters} iterations; the "
+                 f"engine should fetch once a sweep and launch every rrLU")
+        results[tier] = {"cold": cold, "warm": warm, **counts,
+                         "flagged_syncs": flagged, "fetch_waits": fetch_waits,
+                         "sets": (tci.Iset, tci.Jset)}
+        print(f"[config1] {tier} tier: cold {cold:.4f} s, warm {warm:.4f} s, "
+              f"ranks {ranks}, errors {[f'{e:.6e}' for e in errors]}, "
+              f"|t(x) - f(x)| {point_err:.3e}; {counts['launches']} kernel "
+              f"launches ({counts['rrlu_raw']} rrlu_raw, "
+              f"{counts['tier_calls']} tier calls), {counts['plain_cuda']} "
+              f"plain calls on CUDA, fetches {counts['fetches']}; host waits "
+              f"in one run: {flagged} flagged syncs + {fetch_waits} fetches; "
+              f"nevals {counts['nevals']}", flush=True)
+    for tier in ("fused", "engine"):
+        if results[tier]["sets"] != results["host"]["sets"]:
+            fail(f"config 1: the {tier} tier's pivot sets differ from the "
+                 f"host tier's")
+
+    # the engine's sweep synchronizes nowhere but at its fetch
+    bf = tci_tpu_torch.TorchBatchEvaluator(fdev, localdims)
+    tci = tci_tpu_torch.TensorCI2.from_function(bf, localdims)
+    engine = bf.device_sweep_engine
+    empty = [[] for _ in localdims]
+    engine.sweep2site(tci, True, 1e-14, 0.0, 2**62, empty, empty)
+    torch.cuda.synchronize()
+    fetches0 = FETCHES["engine"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        engine.sweep2site(tci, False, 1e-14, 0.0, 2**62, empty, empty,
+                          fill_sites=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if FETCHES["engine"] != fetches0 + 1:
+        fail(f"engine sweep: {FETCHES['engine'] - fetches0} fetches")
+    print("[config1] engine sweep2site with the fill under sync debug mode "
+          "\"error\": no synchronization, 1 fetch", flush=True)
+
+    # an engine that starts at a capacity of 4 has to grow to rank 12
+    tci, ranks, errors, grow_wall, f, counts = run_config1("engine", imax=4)
+    check_config1("engine from Imax 4", tci, ranks, errors, counts)
+    if not f.device_sweep_engine.Imax > 4 or counts["rrlu_raw"]:
+        fail(f"engine from Imax 4: Imax {f.device_sweep_engine.Imax}, "
+             f"{counts['rrlu_raw']} rrlu_raw calls")
+    print(f"[config1] engine from Imax 4: grew to Imax "
+          f"{f.device_sweep_engine.Imax}, {grow_wall:.4f} s, "
+          f"{counts['launches']} launches, fetches {counts['fetches']}",
+          flush=True)
+
+    # -- 5. kernel vs plain on every launch config 1 made ---------------------
+    engine_panel = engine_fill = None
+    for i, (tier, is_batched, args, kw) in enumerate(launch_inputs):
+        kernel = originals[2] if is_batched else originals[1]
+        plain = (lu_kernel.rrlu_plain_batched if is_batched
+                 else lu_kernel.rrlu_plain)
+        out, ref = kernel(*args, **kw), plain(*args, **kw)
+        max_err = max(max_err, compare(
+            f"config1 {tier} launch {i} {tuple(args[0].shape)}", out, ref,
+            1.0))
+        # for their times: the engine's first fill (its P blocks in one
+        # launch) and its bond panel with the most pivots
+        if tier == "engine":
+            ks = out[3].tolist()
+            if args[0].shape[0] > 1 and engine_fill is None:
+                engine_fill = (args, kw, ks)
+            elif args[0].shape[-1] > 128 and (
+                    engine_panel is None or ks[0] > engine_panel[2][0]):
+                engine_panel = (args, kw, ks)
+    ntier = {t: sum(x[0] == t for x in launch_inputs) for t in TIERS}
+    print(f"[kernel] config 1's launches ({ntier}): kernel and plain version "
+          f"identical (max |LU diff| {max_err})", flush=True)
+    if engine_panel is None or engine_fill is None:
+        fail("config 1 engine: no bond panel above the resident limit or no "
+             "batched fill among its launches")
+
+    def time_engine_launch(name, rec):
+        """Device, wrapper-call and plain times of one recorded engine
+        launch, and its bound summed over its panels."""
+        args, kw, ks = rec
+        B, mp, npd = args[0].shape
+        parts = [bound_parts(mp, npd, int(args[1][b]), int(args[2][b]),
+                             ks[b], args[0].element_size()) for b in range(B)]
+        t_bytes, t_ops = (sum(p[i] for p in parts) for i in (0, 1))
+        res = {name: f"{B}x{mp}x{npd}",
+               f"{name}_ms": kernel_device_ms(
+                   lambda: originals[2](*args, **kw), 20),
+               f"{name}_wrapper_ms": cuda_ms(
+                   lambda: originals[2](*args, **kw), 20),
+               f"{name}_plain_ms": cuda_ms(
+                   lambda: lu_kernel.rrlu_plain_batched(*args, **kw), 3),
+               f"{name}_bound_ms": max(t_bytes, t_ops),
+               f"{name}_bound_by": ("bytes" if t_bytes >= t_ops
+                                    else "operations")}
+        mode = ("multi-block" if lu_cuda._lib().rrlu_scratch_bytes(
+            mp, npd, args[0].element_size()) > 0 else "resident")
+        print(f"[kernel] {name} {B} x {mp}x{npd} {str(args[0].dtype)[6:]} "
+              f"(k={ks}, {mode}): kernel device time {res[name + '_ms']} ms "
+              f"a launch (profiler), wrapper call "
+              f"{res[name + '_wrapper_ms']:.4f} ms (events), plain "
+              f"{res[name + '_plain_ms']:.4f} ms, bound "
+              f"{res[name + '_bound_ms']:.6f} ms ({res[name + '_bound_by']})",
+              flush=True)
+        return res
+
+    # the engine's bond panel, Imax (d + 1) square, and its fill's P blocks
+    eng = {**time_engine_launch("engine_panel", engine_panel),
+           **time_engine_launch("engine_fill", engine_fill)}
+
+    # the least time of the TPU kernels still to be ported (ROADMAP B9, the
+    # probes of benchmarks/probe_pallas_batched.py, B = 4, n = 256): each
+    # input byte read once and each output byte written once over the HBM
+    # rate; their arithmetic is a few integer operations
+    b9_bytes = {"v1": 4 * 2 * 4, "v2": 4 * 3 * 4 + 4 * 2 * 4,
+                "v3": 4 * 3 * 4 + 4 * 256 * 4 + 4 * 2 * 4,
+                "v4": 4 * 3 * 4 + 4 * 256 * 4 + 4 * 2 * 4,
+                "v4b": 4 * 2 * 4 + 4 * 256 * 4 + 4 * 2 * 4,
+                "v4c": 4 * 3 * 4 + 4 * 256 * 4 + 4 * 2 * 4}
+    print("[bound] B9 probes, to be ported: " + ", ".join(
+        f"{name} {nb} B {nb / HBM_BYTES_PER_S * 1e3:.4g} ms"
+        for name, nb in b9_bytes.items()), flush=True)
 
     # -- 6. profile of config 1 (--profile) -----------------------------------
     if opts.profile:
-        profile_config1(opts.profile, solve_config1)
+        for tier in TIERS:
+            profile_config1(opts.profile, tier,
+                            lambda t=tier: solve_config1(t)[3])
 
     if any(m == "jax" or m.startswith(("jax.", "tci_tpu."))
            or m == "tci_tpu" for m in sys.modules):
         fail("jax or tci_tpu was imported")
 
     print(smi_line, flush=True)
-    # "ms" is the kernel's device time a launch on the main-path 128^2 f64
-    # panel; no PyTorch call computes a complete-pivot rrLU
+    # "launches", "ms", "plain_ms" and "bound_ms" are all the engine's, the
+    # default path of a TorchBatchEvaluator: its launches in one config-1
+    # run and the kernel's device time a launch on its bond panel; each
+    # path's launches are beside them, and the host tier's 128^2 panel
+    # under host_panel_*. No PyTorch call computes a complete-pivot rrLU
     # (torch.linalg.lu_factor pivots partially), so library_ms is null
+    ms = eng["engine_panel_ms"]
     print(json.dumps({"kernels": [{
         "name": "rrlu_kernel",
         "route": "cuda",
         "source": "tci_tpu_torch/csrc/rrlu.cu",
         "replaces": "tci_tpu/ops/pallas_lu.py:133",
-        "launches": launches,
+        "launches": results["engine"]["launches"],
+        "launches_by_path": {t: results[t]["launches"] for t in TIERS},
         "max_abs_err": max_err,
-        **main,
+        "ms": ms if ms is not None else eng["engine_panel_wrapper_ms"],
+        "ms_from": "profiler" if ms is not None else "cuda events",
+        "plain_ms": eng["engine_panel_plain_ms"],
+        "bound_ms": eng["engine_panel_bound_ms"],
+        "bound_by": eng["engine_panel_bound_by"],
         "library_ms": None,
+        **host_panel,
+        **eng,
         **n2000,
         **config2,
     }]}), flush=True)
@@ -558,20 +725,22 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-def profile_config1(outdir, solve_config1):
-    """Warm walls of config 1, then one run under torch.profiler with a span
-    around each layer of the main path; prints the breakdown."""
+def profile_config1(outdir, tier, solve):
+    """Warm walls of config 1 through one tier (`solve` runs it and returns
+    its wall), then one run under torch.profiler with a span around each
+    layer of the path; prints the breakdown."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from tci_tpu_torch.models import globalpivotfinder, tensorci2
-    from tci_tpu_torch.ops import lu as lu_mod, luci
+    from tci_tpu_torch.models import device_sweep, globalpivotfinder, tensorci2
+    from tci_tpu_torch.ops import fused, lu as lu_mod, luci
 
-    walls = sorted(solve_config1()[3] for _ in range(10))
-    print(f"[profile] config 1 warm wall: median "
+    walls = sorted(solve() for _ in range(10))
+    print(f"[profile] {tier}: config 1 warm wall: median "
           f"{(walls[4] + walls[5]) / 2:.4f} s of 10 runs "
           f"(range {walls[0]:.4f}-{walls[-1]:.4f} s)", flush=True)
 
+    engine = device_sweep.DeviceSweepEngine
     spans = [
         (tensorci2, "_batchevaluate_dispatch", "sample_panel"),
         (lu_mod, "rrlu_raw", "rrlu_raw"),
@@ -582,6 +751,16 @@ def profile_config1(outdir, solve_config1):
         (tensorci2.TensorCI2, "sweep1site", "sweep1site"),
         (globalpivotfinder.DefaultGlobalPivotFinder, "__call__",
          "globalsearch"),
+        # the device tiers: the host time that queues a sweep's launches
+        # (engine_*_queue) apart from the wait at its fetch
+        (engine, "sweep2site", "engine_sweep2site"),
+        (device_sweep, "_sweep", "engine_sweep_queue"),
+        (device_sweep, "_fill", "engine_fill_queue"),
+        (device_sweep, "_sweep1", "engine_sweep1site_queue"),
+        (device_sweep, "fetch", "fetch"),
+        (fused.FusedBondUpdater, "update", "fused_update"),
+        (fused.FusedSiteTensors, "compute", "fused_site_tensor"),
+        (fused, "fetch", "fetch"),
     ]
 
     def spanned(fn, name):
@@ -597,12 +776,12 @@ def profile_config1(outdir, solve_config1):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             with record_function("config1"):
-                wall = solve_config1()[3]
+                wall = solve()
     finally:
         for owner, attr, fn in saved:
             setattr(owner, attr, fn)
     os.makedirs(outdir, exist_ok=True)
-    path = os.path.join(outdir, "config1_trace.json")
+    path = os.path.join(outdir, f"config1_{tier}_trace.json")
     prof.export_chrome_trace(path)
     with open(path) as fh:
         trace = json.load(fh)
@@ -629,22 +808,22 @@ def profile_config1(outdir, solve_config1):
             busy += b - max(a, end)
             end = b
     busy /= 1e3
-    print(f"[profile] profiled wall {wall:.4f} s, span {window:.3f} ms; "
+    print(f"[profile] {tier}: profiled wall {wall:.4f} s, span {window:.3f} ms; "
           f"device busy {busy:.3f} ms (kernels, copies, memsets), idle share "
           f"{1 - busy / window:.4f}", flush=True)
     for name, (n, ms) in by_name("kernel")[:6]:
-        print(f"[profile] device: {name[:70]}: {ms:.3f} ms in {n}",
+        print(f"[profile] {tier}: device: {name[:70]}: {ms:.3f} ms in {n}",
               flush=True)
     for name, (n, ms) in by_name("gpu_memcpy")[:2]:
-        print(f"[profile] device: {name}: {ms:.3f} ms in {n}", flush=True)
+        print(f"[profile] {tier}: device: {name}: {ms:.3f} ms in {n}", flush=True)
     for name, (n, ms) in by_name("user_annotation"):
         if name != "config1":
-            print(f"[profile] span {name}: {ms:.3f} ms in {n} (host, "
+            print(f"[profile] {tier}: span {name}: {ms:.3f} ms in {n} (host, "
                   f"inclusive)", flush=True)
     for name, (n, ms) in by_name("cuda_runtime")[:6]:
-        print(f"[profile] runtime {name}: {n} calls, {ms:.3f} ms host",
+        print(f"[profile] {tier}: runtime {name}: {n} calls, {ms:.3f} ms host",
               flush=True)
-    print(f"[profile] trace: {path}", flush=True)
+    print(f"[profile] {tier}: trace: {path}", flush=True)
 
 
 if __name__ == "__main__":

@@ -117,6 +117,18 @@ __device__ __forceinline__ bool better(T v, int p, T bv, int bp) {
   return v > bv || (v == bv && p < bp);
 }
 
+// One panel's true extents and rank cap, clamped to the (mp, np) panel on the
+// device: they may come from device arrays that no host code has read (the
+// whole-sweep engine computes them on the card), and a bad one must not index
+// outside the panel. A rank cap above min(mp, np) changes nothing when cut: no
+// elimination takes more pivots than it has valid lines.
+__device__ __forceinline__ void clamp_extents(int mp, int np, int& m, int& n,
+                                              int& maxrank) {
+  m = min(max(m, 0), mp);
+  n = min(max(n, 0), np);
+  maxrank = min(max(maxrank, 0), min(mp, np));
+}
+
 // Block-wide argmax over (value, position) pairs: the largest value wins,
 // ties go to the smallest position. Every thread returns the winner.
 template <typename T, int NT>
@@ -378,9 +390,10 @@ __global__ void __launch_bounds__(kResidentThreads)
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int m = m_arr ? m_arr[b] : m_s;
-  const int n = n_arr ? n_arr[b] : n_s;
-  const int maxrank = maxrank_arr ? maxrank_arr[b] : maxrank_s;
+  int m = m_arr ? m_arr[b] : m_s;
+  int n = n_arr ? n_arr[b] : n_s;
+  int maxrank = maxrank_arr ? maxrank_arr[b] : maxrank_s;
+  clamp_extents(mp, np, m, n, maxrank);
   const T reltol = tol_arr ? tol_arr[2 * b] : reltol_s;
   const T abstol = tol_arr ? tol_arr[2 * b + 1] : abstol_s;
   const bool leftorth = leftorth_i != 0;
@@ -756,9 +769,10 @@ __global__ void __launch_bounds__(kGridThreads)
   const size_t gstride = (size_t)G * NT;
 
   for (int b = 0; b < B; ++b) {
-    const int m = m_arr ? m_arr[b] : m_s;
-    const int n = n_arr ? n_arr[b] : n_s;
-    const int maxrank = maxrank_arr ? maxrank_arr[b] : maxrank_s;
+    int m = m_arr ? m_arr[b] : m_s;
+    int n = n_arr ? n_arr[b] : n_s;
+    int maxrank = maxrank_arr ? maxrank_arr[b] : maxrank_s;
+    clamp_extents(mp, np, m, n, maxrank);
     const T reltol = tol_arr ? tol_arr[2 * b] : reltol_s;
     const T abstol = tol_arr ? tol_arr[2 * b + 1] : abstol_s;
     const T* Ain = A_in + b * panel;
@@ -1037,8 +1051,9 @@ long long rrlu_scratch_bytes(int mp, int np, int elsize) {
 // B panels of (mp, np), contiguous. Per-panel sizes, rank caps and
 // tolerances come from the device arrays m_arr, n_arr, maxrank_arr ((B,)
 // int32) and tol_arr ((B, 2): reltol, abstol) when they are not null, and
-// from the scalar arguments otherwise. Returns the launch's CUDA error code
-// (0 on success).
+// from the scalar arguments otherwise; the kernel clamps them to the panel, so
+// the caller need not read them back to check them. Returns the launch's CUDA
+// error code (0 on success).
 #define RRLU_LAUNCH(NAME, T)                                                  \
   int NAME(const void* A_in, void* scratch, void* bar, void* A_sw,           \
            void* rowperm, void* colperm, void* mags, void* k_out,            \

@@ -1,18 +1,24 @@
 """TCI2: two-site sweep tensor cross interpolation with rrLU pivot selection.
 
-Counterpart of the host tier of ``tci_tpu/models/tensorci2.py`` (parity
-reference: src/tensorci2.jl). The state machine (Iset/Jset per bond as host
-lists of tuples, non-strict nesting via set history, 1/2-site sweeps, global
-pivot insertion, convergence criterion) is bondwise identical. A TCI runs
-on one device, ``TensorCI2.device``: the current CUDA device unless the
-caller passes ``device`` (``device="cpu"`` for the CPU). Each bond's Π panel
-is sampled where the evaluator lives (``TorchBatchEvaluator`` on its
-device; a plain f or a ``VectorizedBatchEvaluator`` on the host) and moved
-to that device in one place, ``filltensor``; there the rrLU kernel
-factorizes it and the CI factors come from triangular solves. Per bond only
-the permutations, npivot and the pivot errors come back to the host;
-panels, LU buffers and site tensors stay on the device. The running max
-|sample| is kept on the device too and read when the host needs it.
+Counterpart of ``tci_tpu/models/tensorci2.py`` (parity reference:
+src/tensorci2.jl), full pivoting. The state machine (Iset/Jset per bond as
+host lists of tuples, non-strict nesting via set history, 1/2-site sweeps,
+global pivot insertion, convergence criterion) is bondwise identical. A TCI
+runs on one device, ``TensorCI2.device``: the current CUDA device unless
+the caller passes ``device`` (``device="cpu"`` for the CPU).
+
+Like ``tci_tpu``, it takes the device tiers an evaluator offers
+(``TorchBatchEvaluator``): the whole-sweep engine (``device_sweep_engine``:
+a 2-site sweep, the site-tensor fill and the 1-site sweep with one fetch
+each), else the per-bond fused update (``fused_updater``) and the fused
+site tensors (``fused_site_tensors``). Without them (a plain f or a
+``VectorizedBatchEvaluator``) it runs the host tier: each bond's Π panel is
+sampled where the evaluator lives and moved to the TCI's device in one
+place, ``filltensor``; there the rrLU kernel factorizes it and the CI
+factors come from triangular solves. Per bond only the permutations,
+npivot and the pivot errors come back to the host; panels, LU buffers and
+site tensors stay on the device. The running max |sample| is kept on the
+device too and read when the host needs it.
 
 Indices are 0-based tuples.
 """
@@ -20,7 +26,7 @@ Indices are 0-based tuples.
 from __future__ import annotations
 
 import time
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -184,8 +190,12 @@ class TensorCI2(AbstractTensorTrain):
         self._maxsample_dev = None
         self._maxsample = float(value)
 
-    def updatemaxsample(self, samples: torch.Tensor) -> None:
-        """Fold max |samples| into the running max without a host sync."""
+    def updatemaxsample(self, samples: Union[torch.Tensor, float]) -> None:
+        """Fold max |samples| (a tensor, which stays on its device, or a
+        host number) into the running max without a host sync."""
+        if not isinstance(samples, torch.Tensor):
+            self._maxsample = max(self._maxsample, abs(float(samples)))
+            return
         if samples.numel() == 0:
             return
         m = samples.abs().amax()
@@ -245,6 +255,15 @@ class TensorCI2(AbstractTensorTrain):
         """Compute site tensor b as Π_1 · P^{-1} (tensorci2.jl:599-629)."""
         if not leftorthogonal:
             raise ValueError("leftorthogonal=False is not supported!")
+        fst = getattr(f, "fused_site_tensors", None)
+        if fst is not None and b < len(self) - 1:
+            # both panels sampled and solved on the evaluator's device
+            T, maxsample = fst.compute(
+                self.Iset[b], self.localdims[b], self.Jset[b], self.Iset[b + 1]
+            )
+            self.updatemaxsample(maxsample)
+            self._sitetensors[b] = to_device(T, self.device)
+            return self._sitetensors[b]
         Is = kronecker_is(self.Iset[b], self.localdims[b])
         Js = self.Jset[b]
         Pi1 = filltensor(
@@ -271,6 +290,9 @@ class TensorCI2(AbstractTensorTrain):
         return self._sitetensors[b]
 
     def fillsitetensors(self, f) -> None:
+        engine = getattr(f, "device_sweep_engine", None)
+        if engine is not None and engine.fillsitetensors(self):
+            return
         for b in range(len(self)):
             self.setsitetensor_from_f(f, b)
 
@@ -293,6 +315,11 @@ class TensorCI2(AbstractTensorTrain):
                 "choose between forward, backward."
             )
         fwd = sweepdirection == "forward"
+        engine = getattr(f, "device_sweep_engine", None)
+        if engine is not None and engine.sweep1site(
+            self, fwd, reltol, abstol, maxbonddim, updatetensors=updatetensors
+        ):
+            return
         n = len(self)
         brange = range(n - 1) if fwd else range(n - 1, 0, -1)
         for b in brange:
@@ -363,6 +390,26 @@ class TensorCI2(AbstractTensorTrain):
         Jcombined = _union(
             kronecker_sj(self.localdims[b + 1], self.Jset[b + 1]), extraJset
         )
+        if getattr(f, "fused_updater", None) is not None:
+            # Π sampling, rrLU and CI factors on the evaluator's device, one
+            # fetch of the pivot record; the factors are only formed when
+            # they become site tensors (non-strict-nesting sweeps discard
+            # them, tensorci2.jl:923-926)
+            need_factors = len(extraIset) == 0 and len(extraJset) == 0
+            (left, right, rowind, colind, perrs, err, maxsample) = (
+                f.fused_updater.update(
+                    Icombined, Jcombined, reltol, abstol, maxbonddim,
+                    leftorthogonal, need_factors=need_factors,
+                )
+            )
+            self.updatemaxsample(maxsample)
+            self.Iset[b + 1] = [Icombined[i] for i in rowind]
+            self.Jset[b] = [Jcombined[j] for j in colind]
+            if need_factors:
+                self.setsitetensor(b, to_device(left, self.device))
+                self.setsitetensor(b + 1, to_device(right, self.device))
+            self.updateerrors(b, perrs)
+            return
         t1 = time.time()
         Pi = filltensor(
             self.dtype, f, self.localdims, Icombined, Jcombined, 0,
@@ -404,6 +451,8 @@ class TensorCI2(AbstractTensorTrain):
     ) -> None:
         self.invalidatesitetensors()
         n = len(self)
+        engine = getattr(f, "device_sweep_engine", None)
+        engine_filled = False
         for it in range(iter1, iter1 + niter):
             extraIset: List[List[MultiIndex]] = [[] for _ in range(n)]
             extraJset: List[List[MultiIndex]] = [[] for _ in range(n)]
@@ -415,7 +464,20 @@ class TensorCI2(AbstractTensorTrain):
             self.Jset_history.append([list(s) for s in self.Jset])
 
             self.flushpivoterror()
-            if forwardsweep(sweepstrategy, it):
+            fwd = forwardsweep(sweepstrategy, it)
+            if pivotsearch == "full" and engine is not None:
+                # the whole sweep on the device, one fetch at its end; on the
+                # final sweep the site-tensor fill runs on the same device
+                # state before that fetch. Falls back to the per-bond path
+                # when the rank exceeds the engine's capacity.
+                want_fill = fillsitetensors and it == iter1 + niter - 1
+                if engine.sweep2site(
+                    self, fwd, 1e-14, abstol, maxbonddim,
+                    extraIset, extraJset, fill_sites=want_fill,
+                ):
+                    engine_filled = want_fill
+                    continue
+            if fwd:
                 brange, leftorth, direction = range(n - 1), True, "forward"
             else:
                 brange, leftorth, direction = (
@@ -429,7 +491,7 @@ class TensorCI2(AbstractTensorTrain):
                     extraIset=extraIset[b + 1],
                     extraJset=extraJset[b],
                 )
-        if fillsitetensors:
+        if fillsitetensors and not engine_filled:
             self.fillsitetensors(f)
 
     # -- main optimization loop (tensorci2.jl:1018-1172) ----------------------

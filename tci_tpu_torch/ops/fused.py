@@ -1,0 +1,230 @@
+"""Fused bond update: Π sampling, rank-revealing LU and CI factors on the
+device, one fetch a bond.
+
+Counterpart of ``tci_tpu/ops/fused.py`` (its non-pair parts). TCI's two-site
+update (tensorci2.jl:825-930) samples the Π panel, factorizes it and extracts
+the left/right CI factors. For a ``TorchBatchEvaluator`` all three run on
+its device as a stream of launches: the panel never leaves the card, the
+rrLU kernel factorizes it, and the factor algebra (triangular solves and
+permutation scatters, matrixluci.jl:194-241) handles the dynamic rank by
+masking instead of dynamic shapes. Only the pivot record comes back, in one
+fetch; the factors stay on the device as site tensors. PyTorch runs
+eagerly, so ``tci_tpu``'s jitted programs become plain functions here.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..utils.device import fetch, resolve_device, to_device, torch_dtype
+from .lu_kernel import bucket, rrlu_panel, rrlu_panel_batched
+
+
+def sample_panel(f: Callable, rows: torch.Tensor, cols: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """The panel f([rows_i, cols_j]) for index rows (..., m, nl) and columns
+    (..., n, nr), int64 on f's device: one call of f on the assembled
+    (... m n, nl + nr) index matrix, shape (..., m, n)."""
+    *batch, m, nl = rows.shape
+    n, nr = cols.shape[-2:]
+    idx = torch.empty((*batch, m, n, nl + nr), dtype=torch.int64,
+                      device=rows.device)
+    idx[..., :nl] = rows.unsqueeze(-2)
+    idx[..., nl:] = cols.unsqueeze(-3)
+    return f(idx.reshape(-1, nl + nr)).reshape(*batch, m, n).to(dtype)
+
+
+def ci_factors(A: torch.Tensor, rowperm: torch.Tensor, colperm: torch.Tensor,
+               k, leftorthogonal: bool):
+    """CI factors from a padded in-place LU (device side).
+
+    Mirrors matrixluci.jl:194-283 with the rank k (an int or a 0-d device
+    tensor) handled by masking: the k x k pivot block of the triangular
+    solve is padded to identity so the solve stays benign; columns/rows
+    beyond k of the outputs are garbage and the caller slices them away.
+    Returns (left (mp, rmax), right (rmax, np)) in ORIGINAL row/column
+    order."""
+    mp, npd = A.shape
+    rmax = min(mp, npd)
+    ridx = torch.arange(rmax, device=A.device)
+    eye = torch.eye(rmax, dtype=A.dtype, device=A.device)
+    inblock = (ridx[:, None] < k) & (ridx[None, :] < k)
+    if leftorthogonal:
+        L_all = torch.tril(A[:, :rmax])
+        L_all.diagonal().fill_(1.0)
+        U_all = torch.triu(A[:rmax, :])
+        Lb = L_all[:rmax]
+        M = torch.where(inblock, Lb, eye)
+        X = torch.linalg.solve_triangular(M, L_all, upper=False, left=False)
+        left = torch.zeros_like(X).index_copy_(0, rowperm, X)
+        R = Lb @ U_all
+        right = torch.zeros_like(R).index_copy_(1, colperm, R)
+    else:
+        U_all = torch.triu(A[:rmax, :])
+        U_all.diagonal().fill_(1.0)
+        L_all = torch.tril(A[:, :rmax])
+        Ub = U_all[:, :rmax]
+        M = torch.where(inblock, Ub, eye)
+        X = torch.linalg.solve_triangular(M, U_all, upper=True)
+        right = torch.zeros_like(X).index_copy_(1, colperm, X)
+        C = L_all @ Ub
+        left = torch.zeros_like(C).index_copy_(0, rowperm, C)
+    return left, right
+
+
+def panel_solve_pinv(Pi1: torch.Tensor, P: torch.Tensor,
+                     n_ip: torch.Tensor) -> torch.Tensor:
+    """T = Π₁ · P^{-1} for B panels on their device: Pi1 (B, r, n), P
+    (B, n, n) padded to identity outside its true n_ip x n_ip block, n_ip
+    (B,) on P's device. One complete-pivot rrLU launch factorizes all B
+    P blocks (reltol = abstol = 0, maxrank = n_ip), then two batched
+    triangular solves; nothing is read back to the host."""
+    B, n, _ = P.shape
+    A, rowperm, colperm, _, _, _ = rrlu_panel_batched(
+        P, n_ip, n_ip, n_ip, 0.0, 0.0, leftorthogonal=True)
+    ridx = torch.arange(n, device=P.device)
+    eye = torch.eye(n, dtype=P.dtype, device=P.device)
+    pad = ridx[None, :] >= n_ip[:, None]
+    padm = pad[:, :, None] | pad[:, None, :]
+    L = torch.tril(A)
+    L.diagonal(dim1=-2, dim2=-1).fill_(1.0)
+    L = torch.where(padm, eye, L)
+    U = torch.where(padm, eye, torch.triu(A))
+    r = Pi1.shape[1]
+    Qp = torch.gather(Pi1, 2, colperm[:, None, :].expand(B, r, n))
+    Y = torch.linalg.solve_triangular(U, Qp, upper=True, left=False)
+    Y = torch.linalg.solve_triangular(L, Y, upper=False, left=False)
+    return torch.zeros_like(Y).scatter_(
+        2, rowperm[:, None, :].expand(B, r, n), Y)
+
+
+def pad_index_panels(Ic: np.ndarray, Jc: np.ndarray
+                     ) -> Tuple[np.ndarray, np.ndarray, int, int]:
+    """Pad (nI, nl) / (nJ, nr) int panels to bucketed row counts (zero rows;
+    the fused update masks them out of the Π panel)."""
+    nI, nJ = Ic.shape[0], Jc.shape[0]
+    mI, mJ = bucket(nI), bucket(nJ)
+    if mI != nI:
+        Ic = np.vstack([Ic, np.zeros((mI - nI, Ic.shape[1]), Ic.dtype)])
+    if mJ != nJ:
+        Jc = np.vstack([Jc, np.zeros((mJ - nJ, Jc.shape[1]), Jc.dtype)])
+    return Ic, Jc, nI, nJ
+
+
+def _index_rows(indexset, width: Optional[int] = None) -> np.ndarray:
+    rows = np.asarray([tuple(i) for i in indexset], dtype=np.int64)
+    return rows.reshape(len(indexset), -1 if width is None else width)
+
+
+class FusedSiteTensors:
+    """Site tensor T = Π₁ · P^{-1} on the device (tensorci2.jl:599-629):
+    both panels sampled by `f` and solved where they lie; T stays there
+    (see TensorCI2.setsitetensor_from_f). `f` maps an (N, L) int64 tensor
+    on `device` to (N,) values."""
+
+    def __init__(self, f: Callable, dtype=torch.float64, device=None):
+        self.f = f
+        self.dtype = torch_dtype(dtype)
+        self.device = resolve_device(device)
+        self.nevals = 0
+        self.rrlu_calls = 0
+
+    def compute(self, Iset_b, localdim: int, Jset_b, Iset_b1):
+        """T_b from Iset[b], d_b, Jset[b], Iset[b+1]: the (|Iset[b]|, d_b,
+        |Iset[b+1]|) device tensor and the max |sample| as a 0-d device
+        tensor (no fetch)."""
+        Is = _index_rows([tuple(i) + (s,) for i in Iset_b
+                          for s in range(localdim)])
+        Js, Ip = _index_rows(Jset_b), _index_rows(Iset_b1)
+        n_is, n_js, n_ip = Is.shape[0], Js.shape[0], Ip.shape[0]
+        if n_ip != n_js:
+            raise ValueError("Pivot matrix is not square!")
+        Is, Js, _, _ = pad_index_panels(Is, Js)
+        Ip, _, _, _ = pad_index_panels(Ip, Js)
+        mI, mJ, mP = Is.shape[0], Js.shape[0], Ip.shape[0]
+        self.nevals += mI * mJ + mP * mJ
+        dev = self.device
+        Is, Js, Ip = (to_device(a, dev) for a in (Is, Js, Ip))
+        Pi1 = sample_panel(self.f, Is, Js, self.dtype)
+        P = sample_panel(self.f, Ip, Js, self.dtype)
+        cols = torch.arange(mJ, device=dev)[None, :] < n_js
+        mask1 = (torch.arange(mI, device=dev)[:, None] < n_is) & cols
+        maskP = (torch.arange(mP, device=dev)[:, None] < n_ip) & cols
+        maxsample = torch.maximum(torch.where(mask1, Pi1, 0).abs().amax(),
+                                  torch.where(maskP, P, 0).abs().amax())
+        # pad P to identity outside the true block: the padded block passes
+        # through the elimination untouched and the solves stay benign
+        P = torch.where(maskP, P, torch.eye(mP, mJ, dtype=P.dtype, device=dev))
+        n_ip_dev = torch.full((1,), n_ip, dtype=torch.int64, device=dev)
+        T = panel_solve_pinv(Pi1[None], P[None], n_ip_dev)[0]
+        self.rrlu_calls += 1
+        return (T[:n_is, :n_ip].reshape(len(Iset_b), localdim, len(Iset_b1)),
+                maxsample)
+
+
+class FusedBondUpdater:
+    """The fused bond update for one integrand (``make_fused_bond_update``'s
+    program and ``tci_tpu``'s ``FusedBondUpdater`` in one).
+
+    Attached to ``TorchBatchEvaluator``; ``TensorCI2.updatepivots`` calls
+    ``update(Icombined, Jcombined, ...)``: one rrLU launch and one fetch of
+    the pivot record a bond; the factors stay on the device."""
+
+    def __init__(self, f: Callable, dtype=torch.float64, device=None):
+        self.f = f
+        self.dtype = torch_dtype(dtype)
+        self.device = resolve_device(device)
+        self.nevals = 0
+        self.rrlu_calls = 0
+
+    def _fused(self, Ic, Jc, nI: int, nJ: int, maxrank: int, reltol: float,
+               abstol: float, leftorthogonal: bool, need_factors: bool):
+        """Sample the padded panel, mask it to the true (nI, nJ) block,
+        factorize it with the rrLU kernel and, if asked, form the CI
+        factors; all on the device, nothing read back."""
+        dev = self.device
+        Pi = sample_panel(self.f, Ic, Jc, self.dtype)
+        valid = ((torch.arange(Ic.shape[0], device=dev)[:, None] < nI)
+                 & (torch.arange(Jc.shape[0], device=dev)[None, :] < nJ))
+        Pi = torch.where(valid, Pi, 0)
+        maxsample = Pi.abs().amax()
+        A, rowperm, colperm, k, mags, err = rrlu_panel(
+            Pi, nI, nJ, maxrank, reltol, abstol, leftorthogonal=leftorthogonal)
+        self.rrlu_calls += 1
+        factors = (ci_factors(A, rowperm, colperm, k, leftorthogonal)
+                   if need_factors else None)
+        return factors, rowperm, colperm, k, mags, err, maxsample
+
+    def update(self, Icombined, Jcombined, reltol: float, abstol: float,
+               maxrank: int, leftorthogonal: bool, need_factors: bool = True):
+        """Run the fused bond update. Returns (left (nI, k), right (k, nJ),
+        row pivots, column pivots, pivot errors, err, max |sample|): the
+        factors as device tensors (None with need_factors=False, when
+        non-strict-nesting sweeps discard them), the rest on the host from
+        one fetch."""
+        Ic, Jc, nI, nJ = pad_index_panels(_index_rows(Icombined),
+                                          _index_rows(Jcombined))
+        mI, mJ = Ic.shape[0], Jc.shape[0]
+        self.nevals += mI * mJ
+        maxrank = min(maxrank, nI, nJ)
+        factors, rowperm, colperm, k, mags, err, maxsample = self._fused(
+            to_device(Ic, self.device), to_device(Jc, self.device), nI, nJ,
+            maxrank, reltol, abstol, leftorthogonal, need_factors)
+        f64 = torch.float64
+        rec = fetch(torch.cat([
+            rowperm.to(f64), colperm.to(f64), k.to(f64)[None], mags.to(f64),
+            err.to(f64)[None], maxsample.to(f64)[None]]), "fused_bond")
+        k = int(rec[mI + mJ])
+        rowind = rec[:k].astype(np.int64)
+        colind = rec[mI:mI + k].astype(np.int64)
+        mags = rec[mI + mJ + 1:mI + mJ + 1 + k]
+        err_final = 0.0 if k >= min(nI, nJ) else float(rec[-2])
+        left = right = None
+        if need_factors:
+            left, right = factors[0][:nI, :k], factors[1][:k, :nJ]
+        return (left, right, rowind, colind,
+                np.concatenate([np.abs(mags), [err_final]]), err_final,
+                float(rec[-1]))

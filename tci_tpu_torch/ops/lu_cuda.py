@@ -56,6 +56,24 @@ def _check_panel(A: torch.Tensor, ndim: int) -> None:
         raise ValueError("rrLU kernel needs a contiguous panel")
 
 
+def check_extents(mp: int, npd: int, m_true, n_true, maxrank) -> None:
+    """Raise ValueError when extents given on the host (ints, or tensors on
+    the CPU) do not fit (mp, np) panels: 0 <= m <= mp, 0 <= n <= np and
+    maxrank >= 0. Reading them costs no sync. Extents on a card are not
+    read: the kernel clamps them to the panel, so a caller that computed
+    them there (the whole-sweep engine) queues its eliminations without a
+    sync, and a bad one still cannot index outside the panel."""
+    for v, hi in ((m_true, mp), (n_true, npd), (maxrank, None)):
+        if isinstance(v, torch.Tensor) and v.device.type != "cpu":
+            continue
+        v = torch.as_tensor(v)
+        if v.numel() and (int(v.min()) < 0
+                          or (hi is not None and int(v.max()) > hi)):
+            raise ValueError(
+                f"true extents ({m_true}, {n_true}) / maxrank {maxrank} do "
+                f"not fit the ({mp}, {npd}) panel")
+
+
 @functools.cache
 def _scratch_bytes(device_index: int, mp: int, npd: int, elsize: int) -> int:
     """Global scratch of an (mp, np) panel on one device, from the kernel
@@ -126,9 +144,7 @@ def rrlu_call(A: torch.Tensor, m_true, n_true, maxrank, reltol, abstol,
     _check_panel(A, 2)
     mp, npd = A.shape
     m, n, maxrank = int(m_true), int(n_true), int(maxrank)
-    if not (0 <= m <= mp and 0 <= n <= npd and maxrank >= 0):
-        raise ValueError(f"true extents ({m}, {n}) / maxrank {maxrank} do "
-                         f"not fit the ({mp}, {npd}) panel")
+    check_extents(mp, npd, m, n, maxrank)
     out = _launch(A, 1, mp, npd, leftorthogonal,
                   (m, n, maxrank, float(reltol), float(abstol)),
                   (None, None, None, None))
@@ -140,21 +156,31 @@ def rrlu_batched(A: torch.Tensor, m_true, n_true, maxrank, reltol, abstol,
                  *, leftorthogonal: bool):
     """Eliminate B panels of (B, mp, np) in one launch, with per-panel (B,)
     true sizes, rank caps and tolerances (scalars apply to every panel);
-    the contract of ``pallas_rrlu_batched``."""
+    the contract of ``pallas_rrlu_batched``.
+
+    Nothing is read back from the card: sizes and tolerances may be
+    tensors on A's device that the caller computed there (the whole-sweep
+    engine's extents), which the kernel clamps to the panel, so a sweep can
+    queue its eliminations without a sync; sizes given on the host are
+    checked (``check_extents``). Scalar tolerances go to the kernel as
+    arguments and int32 (B,) size tensors as they are, so such a call
+    launches nothing but the kernel and its barrier reset."""
     _check_panel(A, 3)
     B, mp, npd = A.shape
+    check_extents(mp, npd, m_true, n_true, maxrank)
     dev = A.device
 
     def per_panel(v, dtype):
-        return torch.as_tensor(v, dtype=dtype, device=dev).expand(B)
+        if isinstance(v, torch.Tensor):
+            return v.to(device=dev, dtype=dtype).expand(B).contiguous()
+        return torch.full((B,), v, dtype=dtype, device=dev)
 
-    sizes = [per_panel(v, torch.int32).contiguous()
-             for v in (m_true, n_true, maxrank)]
-    lo, hi = torch.stack(sizes).aminmax(dim=1)
-    if int(lo.min()) < 0 or int(hi[0]) > mp or int(hi[1]) > npd:
-        raise ValueError(f"per-panel true extents do not fit the "
-                         f"({mp}, {npd}) panels")
-    tol = torch.stack([per_panel(reltol, A.dtype), per_panel(abstol, A.dtype)],
-                      dim=1).contiguous()
-    return _launch(A, B, mp, npd, leftorthogonal, (0, 0, 0, 0.0, 0.0),
+    sizes = [per_panel(v, torch.int32) for v in (m_true, n_true, maxrank)]
+    if isinstance(reltol, torch.Tensor) or isinstance(abstol, torch.Tensor):
+        tol = torch.stack([per_panel(reltol, A.dtype),
+                           per_panel(abstol, A.dtype)], dim=1).contiguous()
+        tols = (0.0, 0.0)
+    else:
+        tol, tols = None, (float(reltol), float(abstol))
+    return _launch(A, B, mp, npd, leftorthogonal, (0, 0, 0) + tols,
                    (*sizes, tol))

@@ -54,12 +54,14 @@ def rrlu_plain(A: torch.Tensor, m_true: int, n_true: int, maxrank: int,
     original index, int64), the number of pivots, the pivot magnitudes
     (length min(mp, np), zero past k) and the magnitude of the first
     rejected pivot (NaN when maxrank is 0). Tolerances are compared in A's
-    dtype, as the kernel does.
+    dtype, and the sizes clamped to the panel, as the kernel does.
     """
     PLAIN_CALLS[A.device.type] += 1
     mp, npd = A.shape
     dev, dt = A.device, A.dtype
-    m, n, maxrank = int(m_true), int(n_true), int(maxrank)
+    m = min(max(int(m_true), 0), mp)
+    n = min(max(int(n_true), 0), npd)
+    maxrank = min(max(int(maxrank), 0), min(mp, npd))
     A = A.clone()
     rows = torch.arange(mp, device=dev)
     cols = torch.arange(npd, device=dev)
@@ -163,20 +165,30 @@ def rrlu_panel(A: torch.Tensor, m_true, n_true, maxrank, reltol, abstol, *,
                leftorthogonal: bool):
     """Eliminate one zero-padded panel where it lies: a CPU tensor runs the
     plain version, any other goes to the CUDA kernel (which raises for
-    what it does not take). Returns the 6-tuple of ``rrlu_plain``."""
-    fn = rrlu_plain if A.device.type == "cpu" else lu_cuda.rrlu_call
-    return fn(A, m_true, n_true, maxrank, reltol, abstol,
-              leftorthogonal=leftorthogonal)
+    what it does not take). Extents that do not fit the panel raise a
+    ValueError on either path. Returns the 6-tuple of ``rrlu_plain``."""
+    if A.device.type != "cpu":
+        return lu_cuda.rrlu_call(A, m_true, n_true, maxrank, reltol, abstol,
+                                 leftorthogonal=leftorthogonal)
+    lu_cuda.check_extents(*A.shape, m_true, n_true, maxrank)
+    return rrlu_plain(A, m_true, n_true, maxrank, reltol, abstol,
+                      leftorthogonal=leftorthogonal)
 
 
 def rrlu_panel_batched(A: torch.Tensor, m_true, n_true, maxrank, reltol,
                        abstol, *, leftorthogonal: bool):
     """``rrlu_panel`` for B panels of (B, mp, np), with per-panel (B,)
-    sizes, rank caps and tolerances (or scalars for all panels)."""
-    fn = (rrlu_plain_batched if A.device.type == "cpu"
-          else lu_cuda.rrlu_batched)
-    return fn(A, m_true, n_true, maxrank, reltol, abstol,
-              leftorthogonal=leftorthogonal)
+    sizes, rank caps and tolerances (or scalars for all panels). Sizes and
+    tolerances may be tensors on A's device; on a CUDA device nothing is
+    read back to the host, and the kernel clamps sizes to the panel. Sizes
+    given on the host (ints, CPU tensors) that do not fit raise a
+    ValueError."""
+    if A.device.type != "cpu":
+        return lu_cuda.rrlu_batched(A, m_true, n_true, maxrank, reltol,
+                                    abstol, leftorthogonal=leftorthogonal)
+    lu_cuda.check_extents(*A.shape[1:], m_true, n_true, maxrank)
+    return rrlu_plain_batched(A, m_true, n_true, maxrank, reltol, abstol,
+                              leftorthogonal=leftorthogonal)
 
 
 def rrlu_raw(

@@ -192,27 +192,98 @@ class TorchBatchEvaluator(BatchEvaluator):
     """Device evaluator: `f` maps an (N, L) int64 tensor of multi-indices on
     `device` to (N,) values there, written with torch operations. Panels
     are assembled and evaluated on the device and returned as device
-    tensors; ``nevals`` counts the samples taken. `device` defaults to the
-    current CUDA device (``utils.device.resolve_device``); without one the
-    constructor raises unless ``device="cpu"`` is given."""
+    tensors. `device` defaults to the current CUDA device
+    (``utils.device.resolve_device``); without one the constructor raises
+    unless ``device="cpu"`` is given.
+
+    Like ``tci_tpu``'s ``JaxBatchEvaluator`` it hands TensorCI2 its device
+    tiers: the whole-sweep engine (``device_sweep_engine``, on unless
+    ``enable_device_sweep=False``), the per-bond fused update
+    (``fused_updater``) and the fused site tensors
+    (``fused_site_tensors``). ``nevals`` counts the samples of all of them;
+    the tiers count padded panels, as ``tci_tpu`` does."""
 
     def __init__(self, f: Callable[[torch.Tensor], torch.Tensor], localdims,
                  dtype=torch.float64,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 enable_device_sweep: bool = True):
         self.f = f
         self.localdims = list(localdims)
         self.dtype = torch_dtype(dtype)
         self.device = resolve_device(device)
-        self.nevals = 0
+        self.enable_device_sweep = enable_device_sweep
+        self._nevals = 0
+        self._fused_updater = None
+        self._fused_site_tensors = None
+        self._device_sweep_engine = None
 
-    def _eval(self, indices: torch.Tensor) -> torch.Tensor:
-        self.nevals += int(indices.shape[0])
+    def _tier_dtype(self) -> torch.dtype:
+        """The value type of the device tiers, which take real values only
+        until complex is ported."""
+        if self.dtype.is_complex:
+            raise NotImplementedError(
+                "complex device tiers are not ported yet (ROADMAP A10)")
+        return self.dtype
+
+    @property
+    def fused_updater(self):
+        """Per-bond fused update on the device (Π sampling, rrLU and CI
+        factors, one fetch a bond); TensorCI2.updatepivots uses it when the
+        engine is off or declines."""
+        if self._fused_updater is None:
+            from ..ops.fused import FusedBondUpdater
+
+            self._fused_updater = FusedBondUpdater(
+                self._values, self._tier_dtype(), self.device)
+        return self._fused_updater
+
+    @property
+    def device_sweep_engine(self):
+        """Whole-sweep engine: every bond update of a 2-site sweep, the
+        site-tensor fill and the 1-site sweep on the device, one fetch a
+        sweep (models/device_sweep.py); None when disabled."""
+        if not self.enable_device_sweep:
+            return None
+        if self._device_sweep_engine is None:
+            from ..models.device_sweep import DeviceSweepEngine
+
+            self._device_sweep_engine = DeviceSweepEngine(
+                self._values, self.localdims, dtype=self._tier_dtype(),
+                device=self.device)
+        return self._device_sweep_engine
+
+    @property
+    def fused_site_tensors(self):
+        """Site tensor T = Π₁ · P^{-1} on the device (ops/fused.py)."""
+        if self._fused_site_tensors is None:
+            from ..ops.fused import FusedSiteTensors
+
+            self._fused_site_tensors = FusedSiteTensors(
+                self._values, self._tier_dtype(), self.device)
+        return self._fused_site_tensors
+
+    @property
+    def nevals(self) -> int:
+        """Number of f evaluations through this adapter and its tiers."""
+        return self._nevals + sum(
+            tier.nevals for tier in (self._fused_updater,
+                                     self._fused_site_tensors,
+                                     self._device_sweep_engine)
+            if tier is not None)
+
+    def _values(self, indices: torch.Tensor) -> torch.Tensor:
+        """f on an (N, L) int64 index tensor on the device, checked and
+        cast; the tiers call it and count their own samples."""
         vals = self.f(indices)
         if vals.shape != (indices.shape[0],) or vals.device != self.device:
             raise ValueError(
                 f"f must return ({indices.shape[0]},) values on {self.device},"
                 f" got shape {tuple(vals.shape)} on {vals.device}")
         return vals.to(self.dtype)
+
+    def _eval(self, indices: torch.Tensor) -> torch.Tensor:
+        self._nevals += int(indices.shape[0])
+        return self._values(indices)
 
     def evaluate_many(self, indices) -> torch.Tensor:
         if isinstance(indices, torch.Tensor):

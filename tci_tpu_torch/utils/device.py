@@ -2,10 +2,15 @@
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Optional, Union
 
 import numpy as np
 import torch
+
+# Device-to-host fetches of the device tiers, by tier ("engine",
+# "fused_bond"), counted where they happen (``fetch``) and nowhere else.
+FETCHES: Counter = Counter()
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -42,3 +47,20 @@ def to_device(a: Union[np.ndarray, torch.Tensor],
     if t.device.type == "cpu" and device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+def fetch(t: torch.Tensor, tier: str) -> np.ndarray:
+    """Bring a device tier's packed result record to the host: the one
+    device-to-host transfer of a sweep or a bond update, counted in
+    ``FETCHES[tier]``. On a CUDA device it is an asynchronous copy into
+    pinned memory that the host then waits for on an event, so the host
+    waits for the work queued before it and for nothing else."""
+    FETCHES[tier] += 1
+    if t.device.type != "cuda":
+        return t.detach().numpy()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(t.device))
+    done.synchronize()
+    return host.numpy()

@@ -1,5 +1,6 @@
 """tci_tpu_torch on a CUDA device: the rrLU kernel against its plain PyTorch
-version on the card, and the main path through the kernel.
+version on the card, and the main path through the kernel: the host tier,
+the fused tier and the whole-sweep engine, which syncs only at its fetch.
 
 Every test needs a CUDA device and skips without one: the CUDA kernel has
 no CPU mode. This file imports neither jax nor tci_tpu, so it runs on a
@@ -255,6 +256,119 @@ def test_tci2_on_cuda_matches_cpu(cuda):
     assert granks == cranks and g.Iset == c.Iset and g.Jset == c.Jset
     np.testing.assert_allclose(gerrs, cerrs, rtol=0, atol=1e-15)
     assert all(t.device.type == "cuda" for t in g.sitetensors())
+
+
+def _lorentz(idx):
+    v = idx.to(torch.float64) + 1.0
+    return 1.0 / (1.0 + (v * v).sum(dim=1))
+
+
+@pytest.mark.parametrize("shape", [
+    # (B, panel edge): the engine's fill blocks (resident), the host tier's
+    # largest bucket, and config 1's engine bond panel Imax (d + 1) at
+    # Imax = 32 (multi-block)
+    (1, 32), (1, 128), (1, 352), (7, 32)])
+def test_device_extents_match_plain(cuda, shape):
+    """Extents, rank caps and tolerances given as device tensors: nothing is
+    read back (sync debug mode "error" would raise), the kernel clamps an
+    extent past the panel as the plain version does, and the two agree
+    bitwise."""
+    B, e = shape
+    rng = np.random.default_rng(e + B)
+    A = torch.zeros((B, e, e), dtype=torch.float64, device=cuda)
+    for b, s in enumerate(rng.integers(0, 1000, B)):
+        panel = _lorentzian(e // 10, e // 10, seed=int(s))
+        A[b, :panel.shape[0], :panel.shape[1]] = torch.as_tensor(panel)
+    m = torch.as_tensor(rng.integers(e // 2, e + 1, B), dtype=torch.int32,
+                        device=cuda)
+    m[0] = e + 5  # past the panel: clamped to e
+    n = torch.as_tensor(rng.integers(e // 2, e + 1, B), dtype=torch.int32,
+                        device=cuda)
+    maxrank = torch.minimum(m, n)
+    reltol = torch.full((B,), 1e-14, dtype=torch.float64, device=cuda)
+    abstol = torch.full((B,), 1e-10, dtype=torch.float64, device=cuda)
+    args = (A, m, n, maxrank, reltol, abstol)
+    launches = lu_cuda.LAUNCHES["rrlu"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = lu_kernel.rrlu_panel_batched(*args, leftorthogonal=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert lu_cuda.LAUNCHES["rrlu"] == launches + 1
+    ref = lu_kernel.rrlu_plain_batched(*args, leftorthogonal=True)
+    for o, r in zip(out, ref):
+        assert _equal(o, r)
+    assert int(out[3].min()) > 0
+
+
+@pytest.mark.parametrize("as_tensor", [False, True])
+def test_host_extents_that_do_not_fit_raise(cuda, as_tensor):
+    """Extents given on the host (ints, or tensors on the CPU) are still
+    checked before a launch; only extents on the card are left to the
+    kernel's clamp."""
+    A = torch.zeros((2, 32, 32), dtype=torch.float64, device=cuda)
+    m = torch.tensor([32, 33]) if as_tensor else 33
+    launches = lu_cuda.LAUNCHES["rrlu"]
+    with pytest.raises(ValueError, match="do not fit"):
+        lu_cuda.rrlu_batched(A, m, 32, 32, 0.0, 0.0, leftorthogonal=True)
+    with pytest.raises(ValueError, match="do not fit"):
+        lu_cuda.rrlu_call(A[0], 32, -1, 32, 0.0, 0.0, leftorthogonal=True)
+    assert lu_cuda.LAUNCHES["rrlu"] == launches
+
+
+def test_engine_sweep_syncs_only_at_its_fetch(cuda):
+    """One whole 2-site sweep and its fill at config 1's widths: torch's
+    sync debug mode sees no synchronization, and the one host wait, the
+    fetch at the end, is counted once."""
+    from tci_tpu_torch.models import device_sweep
+
+    dims = [10] * 8
+    bf = tci_tpu_torch.TorchBatchEvaluator(_lorentz, dims, device=cuda)
+    tci = tci_tpu_torch.TensorCI2.from_function(bf, dims, device=cuda)
+    engine = bf.device_sweep_engine
+    empty = [[] for _ in dims]
+    assert engine.sweep2site(tci, True, 1e-14, 0.0, 2**62, empty, empty)
+    torch.cuda.synchronize()
+    fetches, launches = device_sweep.FETCHES["engine"], lu_cuda.LAUNCHES["rrlu"]
+    plain = lu_kernel.PLAIN_CALLS["cuda"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        assert engine.sweep2site(tci, False, 1e-14, 0.0, 2**62, empty, empty,
+                                 fill_sites=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert device_sweep.FETCHES["engine"] == fetches + 1
+    assert lu_cuda.LAUNCHES["rrlu"] == launches + len(dims)
+    assert lu_kernel.PLAIN_CALLS["cuda"] == plain
+    assert engine.Imax == 32
+    assert all(t.device.type == "cuda" for t in tci.sitetensors())
+
+
+def test_config1_tiers_match_host_tier(cuda):
+    """Config 1 on the card through the engine, the fused tier and the host
+    tier: the same ranks and pivot sets, errors to 1e-15."""
+    dims = [10] * 8
+
+    def host_f(x):
+        return 1.0 / (1.0 + sum((i + 1.0) ** 2 for i in x))
+
+    runs = []
+    for f in (host_f,
+              tci_tpu_torch.TorchBatchEvaluator(_lorentz, dims, device=cuda),
+              tci_tpu_torch.TorchBatchEvaluator(_lorentz, dims, device=cuda,
+                                                enable_device_sweep=False)):
+        plain = lu_kernel.PLAIN_CALLS["cuda"]
+        runs.append(tci_tpu_torch.crossinterpolate2(
+            np.float64, f, dims, tolerance=1e-8, rng=np.random.default_rng(0),
+            device=cuda))
+        assert lu_kernel.PLAIN_CALLS["cuda"] == plain
+    (h, hranks, herrs), *tiers = runs
+    assert hranks == [12, 12, 12]
+    for t, ranks, errs in tiers:
+        assert ranks == hranks and t.Iset == h.Iset and t.Jset == h.Jset
+        np.testing.assert_allclose(errs, herrs, rtol=0, atol=1e-15)
+        assert all(s.device.type == "cuda" for s in t.sitetensors())
 
 
 def test_default_device_tci2_with_plain_f_runs_the_kernel(cuda):
