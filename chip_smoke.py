@@ -8,7 +8,8 @@ needs one CUDA device and exits non-zero without one. Phases, one output
 line or more each:
 
 1. the device: torch's name for it, and nvidia-smi's name and power limit;
-2. the build of the CUDA rrLU kernel (csrc/rrlu.cu) from the sources;
+2. the build of the CUDA kernels from the sources, csrc/rrlu.cu and
+   csrc/probe_batched.cu, one nvcc process each, started together;
 3. the kernel against its plain PyTorch version on the card, float64 and
    float32: Lorentzian panels at the main path's bucket sizes (8 ... 128,
    both orientations, padding, an abstol and a reltol stop; for each, the
@@ -28,6 +29,13 @@ line or more each:
    plain version bitwise, reconstruction max|LU - A| / max|A| < 1e-8, both
    times and GFLOP/s counted as 2 r N^2 (benchmarks/bench_rrlu.py) and as
    2 sum_j (N - j)^2;
+3c. the batched-grid probes (ops/probe_batched.run_probes: the six probe
+   kernels v1 ... v4c, then the single-panel and the batched rrLU entry
+   points on 64 x 128 float32 panels), its JSON object on one line; each
+   of the six kernels against its plain version on the card, exactly, at
+   the probe's inputs and at a second set (B = 7, n = 1000, a seeded
+   table with a loop limit of 0 in one row); each kernel's device time a
+   launch, its plain version's time and its bound;
 4. BASELINE config 1 (8-D Lorentzian on {0..9}^8, tolerance 1e-8) through
    ``crossinterpolate2`` on the card, by each of the port's three tiers:
    the host tier (a plain scalar f and no device argument: panels sampled
@@ -42,21 +50,41 @@ line or more each:
    and the pivot sets of the host tier. Then one engine sweep with its fill
    runs under sync debug mode "error" (no synchronization, one fetch), and
    an engine that starts at a capacity of 4 has to grow;
+4b. BASELINE config 3 (benchmarks/bench_quantics.py: quantics TCI of
+   cos(100 x) exp(-x) on a 2^40 grid, 40 legs of dimension 2, tolerance
+   1e-10) through ``crossinterpolate2`` with a default
+   ``TorchBatchEvaluator``: the engine, whose 96^2 bond panels take the
+   kernel's resident mode. Cold, warm, the median of 10 warm walls and one
+   run whose device kernels are counted; rank 2, final error < 1e-10, the
+   spot check of bench_quantics.py through the port's ``DiscretizedGrid``
+   < 1e-9, every elimination on the engine, one fetch a sweep, no plain
+   call;
+4c. BASELINE config 4 (benchmarks/bench_integration.py: the 10-D integral
+   of 1000 cos(10 sum x^2) exp(-(sum x)^4 / 1000) over [-1, 1]^10, GK15,
+   tolerance 1e-8, maxbonddim 64) through ``integrate(torch_native=True)``:
+   the engine at d = 15, bond panels of 512^2 at a capacity of 32 and
+   1024^2 at 64 (multi-block). Cold, warm, median of 10, kernel count; the
+   integral within 1e-3 of -5.4960415218049, the engine's capacities and
+   whether it declined, no plain call; and once through
+   ``integrate(vectorized=True)`` (host sampling, factorization on the
+   card): the two integrals within 1e-6;
 5. the kernel against the plain version on every launch the cold runs of
-   phase 4 made; its times on the engine's bond panel (Imax (d + 1)
-   square, multi-block) and on the engine's fill (its P blocks in one
-   batched launch); the bounds of the kernels still to be ported;
-6. with ``--profile DIR`` only: for each tier, the median of 10 warm
-   config-1 walls, then one run under ``torch.profiler`` with a span around
-   each layer (Π sampling, rrlu_raw, the CI-factor solves, sweep2site,
-   fillsitetensors, the global search, sweep1site, and the device tiers'
-   sweeps, the host time that queues them, their fetches and the fused
-   updates). The traces go to DIR/config1_<tier>_trace.json; the device's
-   busy time and idle share over the run, the largest device items, the
-   spans and the CUDA runtime calls are printed.
+   phases 4, 4b and 4c made; its times on the engines' bond panels (Imax
+   (d + 1) square: 352^2 for config 1, 96^2 for config 3, 512^2 and 1024^2
+   for config 4) and on config 1's fill (its P blocks in one batched
+   launch);
+6. with ``--profile DIR`` only: for each tier of config 1, for config 3 and
+   for config 4, the median of 10 warm walls, then one run under
+   ``torch.profiler`` with a span around each layer (Π sampling, rrlu_raw,
+   the CI-factor solves, sweep2site, fillsitetensors, the global search,
+   sweep1site, and the device tiers' sweeps, the host time that queues
+   them, their fetches and the fused updates). The traces go to
+   DIR/<run>_trace.json; the device's busy time and idle share over the
+   run, the largest device items, the spans and the CUDA runtime calls are
+   printed.
 
 The second-to-last lines are nvidia-smi's card line and a JSON object with
-the kernel's launches, error and times; the last line is the result object.
+every kernel's launches, error and times; the last line is the result object.
 Any failure exits non-zero; nothing falls back to the CPU.
 """
 
@@ -74,6 +102,13 @@ RECORDED_RANKS = [12, 12, 12]
 RECORDED_ERRORS = [8.648364589823703e-09, 4.396554474387151e-09,
                    4.396554474387151e-09]
 
+# where each probe kernel's Pallas original starts in
+# benchmarks/probe_pallas_batched.py
+PROBE_LINES = {"v1": 47, "v2": 63, "v3": 81, "v4": 108, "v4b": 143,
+               "v4c": 168}
+# BASELINE config 4's integral (tests/test_integration.py)
+CONFIG4_INTEGRAL = -5.4960415218049
+
 
 def fail(msg):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
@@ -83,7 +118,8 @@ def fail(msg):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
-                        help="also profile config 1 and write its trace here")
+                        help="also profile configs 1, 3 and 4 and write their traces "
+                        "here")
     opts = parser.parse_args()
     try:
         import torch
@@ -98,7 +134,8 @@ def main():
     import numpy as np
 
     import tci_tpu_torch
-    from tci_tpu_torch.ops import _build, lu as lu_mod, lu_cuda, lu_kernel
+    from tci_tpu_torch.ops import (_build, lu as lu_mod, lu_cuda, lu_kernel,
+                                   probe_batched)
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -116,9 +153,13 @@ def main():
 
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
+    _build.build(["rrlu", "probe_batched"])
     lu_cuda._lib()
-    print(f"[build] rrlu.cu: {time.perf_counter() - t0:.3f} s "
-          f"(nvcc {_build.BUILD_SECONDS['rrlu']:.3f} s)", flush=True)
+    probe_batched._lib()
+    print(f"[build] rrlu.cu and probe_batched.cu, in parallel: "
+          f"{time.perf_counter() - t0:.3f} s (nvcc: rrlu "
+          f"{_build.BUILD_SECONDS['rrlu']:.3f} s, probe_batched "
+          f"{_build.BUILD_SECONDS['probe_batched']:.3f} s)", flush=True)
 
     def cuda_ms(fn, reps):
         fn()
@@ -132,24 +173,35 @@ def main():
         end.synchronize()
         return start.elapsed_time(end) / reps
 
-    def kernel_device_ms(fn, reps):
-        """Mean device time per launch of the rrLU kernel over `reps` calls
-        of fn, from a torch.profiler trace (host time excluded); None when
-        the trace holds no such kernel."""
-        from torch.profiler import ProfilerActivity, profile
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
+    def traced_kernels(fn, activities):
+        """(name, microseconds) of every device kernel that fn() launched,
+        from a torch.profiler trace of it."""
+        from torch.profiler import profile
+        with profile(activities=activities) as prof:
+            fn()
             torch.cuda.synchronize()
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, "trace.json")
             prof.export_chrome_trace(path)
             with open(path) as fh:
                 events = json.load(fh)["traceEvents"]
-        durs = [e["dur"] for e in events if e.get("ph") == "X"
-                and e.get("cat") == "kernel" and "rrlu" in e.get("name", "")]
+        return [(e.get("name", ""), e["dur"]) for e in events
+                if e.get("ph") == "X" and e.get("cat") == "kernel"]
+
+    def kernel_device_ms(fn, reps, match="rrlu"):
+        """Mean device time per launch of the kernels whose name holds
+        `match` over `reps` calls of fn, from a torch.profiler trace (host
+        time excluded); None when the trace holds no such kernel."""
+        from torch.profiler import ProfilerActivity
+        fn()
+        torch.cuda.synchronize()
+
+        def calls():
+            for _ in range(reps):
+                fn()
+        durs = [dur for name, dur in
+                traced_kernels(calls, [ProfilerActivity.CUDA])
+                if match in name]
         return sum(durs) / len(durs) / 1e3 if durs else None
 
     # NVIDIA's H100 SXM data sheet: 3.35 TB/s of HBM3; 34 TFLOP/s f64 and
@@ -421,6 +473,99 @@ def main():
           f"max|LU - A|/max|A| {rel:.3e}", flush=True)
     config2 = {"config2_ms": kms, "config2_plain_ms": pms}
 
+    # -- 3c. the batched-grid probes -------------------------------------------
+    # the probe as its user runs it, with every count set to 0 just before
+    probe_batched.LAUNCHES.clear()
+    lu_cuda.LAUNCHES.clear()
+    lu_kernel.PLAIN_CALLS.clear()
+    probes_out = probe_batched.run_probes(dev)
+    torch.cuda.synchronize()
+    probe_launches = dict(probe_batched.LAUNCHES)
+    probe_rrlu_launches = lu_cuda.LAUNCHES["rrlu"]
+    print("[probes] " + json.dumps(probes_out), flush=True)
+    expected = [[0, 1, 2, 3], [0, 6, 12, 18], [0, 3, 6, 9], [1, 3, 6, 10],
+                [1.0, 3.0, 5.0, 7.0], [2, 3, 4, 5], 32, [32, 32, 32, 32]]
+    if not all(step["ok"] for step in probes_out.values()) or [
+            step["check"] for step in probes_out.values()] != expected:
+        fail(f"run_probes: a step failed or printed other values than "
+             f"{expected}")
+    if (probe_launches != {name: 1 for name in probe_batched.NAMES}
+            or probe_rrlu_launches != 2
+            or lu_kernel.PLAIN_CALLS["cuda"] != 0):
+        fail(f"run_probes: probe launches {probe_launches}, rrLU launches "
+             f"{probe_rrlu_launches}, plain calls on CUDA "
+             f"{lu_kernel.PLAIN_CALLS['cuda']}; expected 1 each, 2 and 0")
+
+    def probe_call(fn, name, B, n, s):
+        if name == "v1":
+            return (fn(B, dev),)
+        return (fn(s),) if name == "v2" else fn(s, n)
+
+    probe_entries = []
+    for name in probe_batched.NAMES:
+        wrapper, plain = probe_batched.PROBES[name]
+        err = 0.0
+        for which in ("probe", "second"):
+            B, n, s = probe_batched.check_inputs(name, which, dev)
+            before = probe_batched.LAUNCHES[name]
+            out = probe_call(wrapper, name, B, n, s)
+            torch.cuda.synchronize()
+            ref = probe_call(plain, name, B, n, s)
+            if probe_batched.LAUNCHES[name] != before + 1:
+                fail(f"probe {name}: the wrapper did not launch its kernel")
+            for o, r in zip(out, ref):
+                if o.shape != r.shape or o.dtype != r.dtype or (
+                        o.device.type != "cuda"):
+                    fail(f"probe {name} ({which}): output {tuple(o.shape)} "
+                         f"{o.dtype} on {o.device}, plain {tuple(r.shape)} "
+                         f"{r.dtype}")
+                err = max(err, float((o.double() - r.double()).abs().max()))
+                if not torch.equal(o, r):
+                    fail(f"probe {name} ({which} inputs): kernel and plain "
+                         f"version differ (bound: equal)")
+        # times and bound at the probe's own inputs: every byte the
+        # function needs read once (of the table only the columns it reads:
+        # 0 and 2 for v2, 0 for the others) and every output byte written
+        # once over the HBM rate,
+        # against the loop trips and row stores this table asks for over
+        # the card's 32-bit rate outside the tensor cores
+        B, n, s = probe_batched.check_inputs(name, "probe", dev)
+        outs = probe_call(wrapper, name, B, n, s)
+        cols_read = {"v1": 0, "v2": 2}.get(name, 1)
+        nbytes = sum(t.numel() * t.element_size() for t in outs) + (
+            0 if s is None else B * cols_read * s.element_size())
+        trips = (int(s[:, 0].clamp(min=0).sum())
+                 if name in ("v4", "v4c") else 0)
+        ops = {"v1": B, "v2": B, "v3": B * n, "v4": trips, "v4b": 2 * B,
+               "v4c": trips * n}[name]
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_FLOP_PER_S[4] * 1e3
+        dms = kernel_device_ms(
+            lambda: probe_call(wrapper, name, B, n, s), 20,
+            match=f"probe_{name}_kernel")
+        wms = cuda_ms(lambda: probe_call(wrapper, name, B, n, s), 20)
+        pms = cuda_ms(lambda: probe_call(plain, name, B, n, s), 5)
+        line = PROBE_LINES[name]
+        probe_entries.append({
+            "name": f"probe_{name}_kernel", "route": "cuda",
+            "source": "tci_tpu_torch/csrc/probe_batched.cu",
+            "replaces": f"benchmarks/probe_pallas_batched.py:{line}",
+            "launches": probe_launches[name], "max_abs_err": err,
+            "ms": dms if dms is not None else wms,
+            "ms_from": "profiler" if dms is not None else "cuda events",
+            "wrapper_ms": wms, "plain_ms": pms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None})
+        dev_txt = "not measured" if dms is None else f"{dms:.5f} ms"
+        print(f"[probe] {name} (B={B}, n={n}): kernel equal to the plain "
+              f"version at both input sets; kernel device time {dev_txt} a "
+              f"launch (profiler), wrapper call {wms:.5f} ms (events), plain "
+              f"{pms:.5f} ms", flush=True)
+    print("[bound] probes: " + ", ".join(
+        f"{e['name'][6:-7]} {e['bound_ms']:.4g} ms ({e['bound_by']})"
+        for e in probe_entries), flush=True)
+
     # -- 4. config 1 through the port's three tiers ---------------------------
     from tci_tpu_torch.models.device_sweep import DeviceSweepEngine
     from tci_tpu_torch.utils.device import FETCHES
@@ -475,30 +620,37 @@ def main():
         return tuple(a.clone() if isinstance(a, torch.Tensor) else a
                      for a in args)
 
-    def run_config1(tier, record=False, imax=None):
-        """One config-1 run with every count set to 0 just before it; the
-        counts are read just after."""
+    def run_counted(tag, solve, record=False):
+        """One run of a workload with every count set to 0 just before it;
+        the counts are read just after. `solve` returns (..., wall, f)."""
         lu_cuda.LAUNCHES.clear()
+        probe_batched.LAUNCHES.clear()
         lu_kernel.PLAIN_CALLS.clear()
         FETCHES.clear()
         raw_calls[0] = 0
         lu_mod.rrlu_raw = counting_rrlu_raw
         if record:
             lu_cuda.rrlu_call = lambda *a, **k: (
-                launch_inputs.append((tier, False, clones(a), k))
+                launch_inputs.append((tag, False, clones(a), k))
                 or originals[1](*a, **k))
             lu_cuda.rrlu_batched = lambda *a, **k: (
-                launch_inputs.append((tier, True, clones(a), k))
+                launch_inputs.append((tag, True, clones(a), k))
                 or originals[2](*a, **k))
         try:
-            tci, ranks, errors, wall, f = solve_config1(tier, imax)
+            res = solve()
         finally:
             lu_mod.rrlu_raw, lu_cuda.rrlu_call, lu_cuda.rrlu_batched = originals
+        f = res[-1]
         counts = {"launches": lu_cuda.LAUNCHES["rrlu"],
                   "plain_cuda": lu_kernel.PLAIN_CALLS["cuda"],
                   "rrlu_raw": raw_calls[0], "tier_calls": tier_calls(f),
                   "fetches": dict(FETCHES),
                   "nevals": getattr(f, "nevals", 0)}
+        return res, counts
+
+    def run_config1(tier, record=False, imax=None):
+        (tci, ranks, errors, wall, f), counts = run_counted(
+            tier, lambda: solve_config1(tier, imax), record)
         return tci, ranks, errors, wall, f, counts
 
     def check_config1(tag, tci, ranks, errors, counts):
@@ -611,41 +763,241 @@ def main():
           f"{counts['launches']} launches, fetches {counts['fetches']}",
           flush=True)
 
-    # -- 5. kernel vs plain on every launch config 1 made ---------------------
-    engine_panel = engine_fill = None
-    for i, (tier, is_batched, args, kw) in enumerate(launch_inputs):
+    def median_warm(solve, n=10):
+        """Median and range of n warm walls of solve() (its wall is the
+        second to last item it returns)."""
+        walls = sorted(solve()[-2] for _ in range(n))
+        return (walls[(n - 1) // 2] + walls[n // 2]) / 2, walls[0], walls[-1]
+
+    def count_kernels(solve):
+        """One run under torch.profiler: (all device kernels, rrLU kernels)
+        it launched, or (None, None) when the trace holds no kernel."""
+        from torch.profiler import ProfilerActivity
+        names = [name for name, _ in traced_kernels(
+            solve, [ProfilerActivity.CPU, ProfilerActivity.CUDA])]
+        if not names:
+            return None, None
+        return len(names), sum("rrlu" in n for n in names)
+
+    def check_engine_run(tag, counts, f, sweeps):
+        """Every elimination ran on the engine and launched the kernel, the
+        engine fetched once a sweep, and nothing took the plain version."""
+        engine = f.device_sweep_engine
+        if (counts["launches"] == 0 or counts["rrlu_raw"]
+                or f._fused_updater is not None
+                or f._fused_site_tensors is not None
+                or counts["launches"] != engine.rrlu_calls
+                or counts["tier_calls"] != engine.rrlu_calls):
+            fail(f"{tag}: {counts}, engine rrLU calls {engine.rrlu_calls}; "
+                 f"the engine should launch every rrLU")
+        if counts["plain_cuda"] != 0:
+            fail(f"{tag}: {counts['plain_cuda']} plain-version calls on CUDA "
+                 f"tensors")
+        if sweeps is not None and counts["fetches"] != {"engine": sweeps}:
+            fail(f"{tag}: fetches {counts['fetches']} for {sweeps} sweeps")
+
+    # -- 4b. BASELINE config 3: quantics TCI on a 2^40 grid -------------------
+    from tci_tpu_torch.utils.quantics import DiscretizedGrid
+
+    R3 = 40
+    dims3 = [2] * R3
+    qweights = torch.tensor([2.0 ** -(r + 1) for r in range(R3)],
+                            dtype=torch.float64, device=dev)
+
+    def fquantics(bits):
+        # x = sum_r bits_r 2^-(r+1): 40 distinct powers of two, exact in f64
+        x = (bits.to(torch.float64) * qweights).sum(dim=1)
+        return torch.cos(100.0 * x) * torch.exp(-x)
+
+    def solve_config3():
+        f = tci_tpu_torch.TorchBatchEvaluator(fquantics, dims3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tci, ranks, errors = tci_tpu_torch.crossinterpolate2(
+            np.float64, f, dims3, tolerance=1e-10,
+            rng=np.random.default_rng(0))
+        torch.cuda.synchronize()
+        return tci, ranks, errors, time.perf_counter() - t0, f
+
+    def check_config3(tag, tci, ranks, errors, counts, f):
+        grid = DiscretizedGrid(R3, 0.0, 1.0)
+        spot = 0.0
+        for x in [0.1, 0.25, 0.5, 0.75, 0.9]:
+            bits = grid.grididx_to_quantics([int(x * 2 ** R3)])
+            xx = grid.quantics_to_origcoord(bits)[0]
+            spot = max(spot, abs(tci(bits) - np.cos(100 * xx) * np.exp(-xx)))
+        if tci.rank() != 2 or not errors[-1] < 1e-10 or not spot < 1e-9:
+            fail(f"config 3 {tag}: rank {tci.rank()} (expected 2), ranks "
+                 f"{ranks}, errors {errors}, spot-check error {spot}")
+        if tci.device.type != "cuda":
+            fail(f"config 3 {tag}: ran on {tci.device}")
+        check_engine_run(f"config 3 {tag}", counts, f, 2 * len(ranks) + 1)
+        return spot
+
+    res3, counts3 = run_counted("config3", solve_config3, record=True)
+    check_config3("cold", *res3[:3], counts3, res3[-1])
+    cold3 = res3[3]
+    (tci, ranks, errors, warm3, f), counts3 = run_counted(
+        "config3", solve_config3)
+    spot3 = check_config3("warm", tci, ranks, errors, counts3, f)
+    med3 = median_warm(solve_config3)
+    nk3 = count_kernels(solve_config3)
+    print(f"[config3] quantics R={R3}: cold {cold3:.4f} s, warm {warm3:.4f} s,"
+          f" median of 10 warm {med3[0]:.4f} s (range {med3[1]:.4f}-"
+          f"{med3[2]:.4f}); rank {tci.rank()}, ranks {ranks}, errors "
+          f"{[f'{e:.6e}' for e in errors]}, spot-check error {spot3:.3e}; "
+          f"{counts3['launches']} rrLU kernel launches (all on the engine, "
+          f"Imax {f.device_sweep_engine.Imax}), device kernels in one run: "
+          f"{nk3[1]} rrLU / {nk3[0]} all (profiler), "
+          f"{counts3['plain_cuda']} plain calls on CUDA, fetches "
+          f"{counts3['fetches']}, nevals {counts3['nevals']}", flush=True)
+
+    # -- 4c. BASELINE config 4: 10-D integration over a GK15 grid --------------
+    from tci_tpu_torch.models import device_sweep, integration
+
+    def f4torch(X):
+        return 1000 * torch.cos(10 * (X ** 2).sum(dim=1)) * torch.exp(
+            -X.sum(dim=1) ** 4 / 1000)
+
+    def f4numpy(X):
+        return 1000 * np.cos(10 * np.sum(X ** 2, axis=1)) * np.exp(
+            -np.sum(X, axis=1) ** 4 / 1000)
+
+    def solve_config4(vectorized=False):
+        """integrate() as a user calls it; what it hands to and gets from
+        TCI2, and the engine's capacity after each sweep, are recorded on
+        the way. Returns (integral, tci, ranks, errors, capacities,
+        declined, wall, evaluator)."""
+        seen, sweeps = [], []
+        tci2, sweep2site = (integration.crossinterpolate2,
+                            device_sweep.DeviceSweepEngine.sweep2site)
+
+        def recording_tci2(valuetype, F, localdims, **kwargs):
+            out = tci2(valuetype, F, localdims, **kwargs)
+            seen.append((F, *out))
+            return out
+
+        def recording_sweep(self, *args, **kwargs):
+            done = sweep2site(self, *args, **kwargs)
+            sweeps.append((self.Imax, done))
+            return done
+
+        integration.crossinterpolate2 = recording_tci2
+        device_sweep.DeviceSweepEngine.sweep2site = recording_sweep
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            val = tci_tpu_torch.integrate(
+                np.float64, f4numpy if vectorized else f4torch, [-1.0] * 10,
+                [1.0] * 10, GKorder=15, tolerance=1e-8, maxbonddim=64,
+                pivotsearch="full", torch_native=not vectorized,
+                vectorized=vectorized, rng=np.random.default_rng(0))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            integration.crossinterpolate2 = tci2
+            device_sweep.DeviceSweepEngine.sweep2site = sweep2site
+        (F, tci, ranks, errors), = seen
+        capacities = list(dict.fromkeys(c for c, _ in sweeps))
+        declined = any(not done for _, done in sweeps)
+        return val, tci, ranks, errors, capacities, declined, wall, F
+
+    def check_config4(tag, val, tci, counts, f, declined):
+        if not abs(val - CONFIG4_INTEGRAL) < 1e-3 or tci.rank() > 64:
+            fail(f"config 4 {tag}: integral {val!r}, expected "
+                 f"{CONFIG4_INTEGRAL} within 1e-3; rank {tci.rank()} (cap 64)")
+        if tci.device.type != "cuda":
+            fail(f"config 4 {tag}: ran on {tci.device}")
+        if counts["plain_cuda"] != 0 or counts["launches"] == 0 or (
+                counts["launches"]
+                != counts["rrlu_raw"] + counts["tier_calls"]):
+            fail(f"config 4 {tag}: {counts}; every elimination should launch "
+                 f"the kernel and none take the plain version")
+        if not declined:
+            check_engine_run(f"config 4 {tag}", counts, f, None)
+
+    res4, counts4 = run_counted("config4", solve_config4, record=True)
+    check_config4("cold", res4[0], res4[1], counts4, res4[-1], res4[5])
+    cold4 = res4[6]
+    (val4, tci, ranks, errors, caps4, declined4, warm4, f), counts4 = (
+        run_counted("config4", solve_config4))
+    check_config4("warm", val4, tci, counts4, f, declined4)
+    med4 = median_warm(solve_config4)
+    nk4 = count_kernels(solve_config4)
+    print(f"[config4] integrate(torch_native=True), 10-D GK15: cold "
+          f"{cold4:.4f} s, warm {warm4:.4f} s, median of 10 warm "
+          f"{med4[0]:.4f} s (range {med4[1]:.4f}-{med4[2]:.4f}); integral "
+          f"{val4!r}, |I - ref| {abs(val4 - CONFIG4_INTEGRAL):.3e}; ranks "
+          f"{ranks}, final rank {tci.rank()}, errors "
+          f"{[f'{e:.6e}' for e in errors]}; engine capacities {caps4}, "
+          f"declined: {declined4}; {counts4['launches']} rrLU kernel "
+          f"launches ({counts4['rrlu_raw']} rrlu_raw, "
+          f"{counts4['tier_calls']} tier calls), device kernels in one run: "
+          f"{nk4[1]} rrLU / {nk4[0]} all (profiler), "
+          f"{counts4['plain_cuda']} plain calls on CUDA, fetches "
+          f"{counts4['fetches']}, nevals {counts4['nevals']}", flush=True)
+
+    # the same integrand sampled on the host (one numpy call a panel) and
+    # factorized on the card
+    (valv, tciv, ranksv, _, _, _, wallv, fv), countsv = run_counted(
+        "config4_vectorized", lambda: solve_config4(vectorized=True))
+    if (not abs(valv - val4) < 1e-6 or countsv["plain_cuda"] != 0
+            or countsv["launches"] != countsv["rrlu_raw"]
+            or countsv["launches"] == 0):
+        fail(f"config 4 vectorized: integral {valv!r} against {val4!r} "
+             f"(bound 1e-6), counts {countsv}")
+    print(f"[config4] integrate(vectorized=True), host sampling: {wallv:.4f} "
+          f"s, integral {valv!r}, |I - I_torch_native| "
+          f"{abs(valv - val4):.3e}, ranks {ranksv}, {countsv['launches']} "
+          f"rrLU kernel launches, {countsv['plain_cuda']} plain calls on "
+          f"CUDA", flush=True)
+
+    # -- 5. kernel vs plain on every launch of the cold runs -------------------
+    # for their times: config 1's first fill (its P blocks in one launch),
+    # and of each engine run the square bond panel of each size with the most
+    # pivots (among those, the largest true extents)
+    engine_fill = None
+    bond_panels = {}
+    for i, (tag, is_batched, args, kw) in enumerate(launch_inputs):
         kernel = originals[2] if is_batched else originals[1]
         plain = (lu_kernel.rrlu_plain_batched if is_batched
                  else lu_kernel.rrlu_plain)
         out, ref = kernel(*args, **kw), plain(*args, **kw)
         max_err = max(max_err, compare(
-            f"config1 {tier} launch {i} {tuple(args[0].shape)}", out, ref,
-            1.0))
-        # for their times: the engine's first fill (its P blocks in one
-        # launch) and its bond panel with the most pivots
-        if tier == "engine":
+            f"{tag} launch {i} {tuple(args[0].shape)}", out, ref, 1.0))
+        if tag in ("engine", "config3", "config4"):
             ks = out[3].tolist()
-            if args[0].shape[0] > 1 and engine_fill is None:
+            B, mp, npd = args[0].shape
+            if tag == "engine" and B > 1 and engine_fill is None:
                 engine_fill = (args, kw, ks)
-            elif args[0].shape[-1] > 128 and (
-                    engine_panel is None or ks[0] > engine_panel[2][0]):
-                engine_panel = (args, kw, ks)
-    ntier = {t: sum(x[0] == t for x in launch_inputs) for t in TIERS}
-    print(f"[kernel] config 1's launches ({ntier}): kernel and plain version "
-          f"identical (max |LU diff| {max_err})", flush=True)
-    if engine_panel is None or engine_fill is None:
-        fail("config 1 engine: no bond panel above the resident limit or no "
-             "batched fill among its launches")
+            elif B == 1 and mp == npd:
+                # most pivots first, then the largest true extents
+                rank = (ks[0], int(args[1][0]) * int(args[2][0]))
+                if (tag, mp) not in bond_panels or (
+                        rank > bond_panels[tag, mp][3]):
+                    bond_panels[tag, mp] = (args, kw, ks, rank)
+    ntag = {}
+    for rec in launch_inputs:
+        ntag[rec[0]] = ntag.get(rec[0], 0) + 1
+    print(f"[kernel] every launch of the cold runs ({ntag}): kernel and plain "
+          f"version identical (max |LU diff| {max_err})", flush=True)
+    for key in (("engine", 352), ("config3", 96), ("config4", 512)):
+        if key not in bond_panels:
+            fail(f"{key[0]}: no {key[1]}^2 bond panel among its launches "
+                 f"({sorted(bond_panels)})")
+    if engine_fill is None:
+        fail("config 1 engine: no batched fill among its launches")
 
     def time_engine_launch(name, rec):
         """Device, wrapper-call and plain times of one recorded engine
         launch, and its bound summed over its panels."""
-        args, kw, ks = rec
+        args, kw, ks = rec[:3]
         B, mp, npd = args[0].shape
         parts = [bound_parts(mp, npd, int(args[1][b]), int(args[2][b]),
                              ks[b], args[0].element_size()) for b in range(B)]
         t_bytes, t_ops = (sum(p[i] for p in parts) for i in (0, 1))
         res = {name: f"{B}x{mp}x{npd}",
+               f"{name}_k": ks,
                f"{name}_ms": kernel_device_ms(
                    lambda: originals[2](*args, **kw), 20),
                f"{name}_wrapper_ms": cuda_ms(
@@ -658,7 +1010,9 @@ def main():
         mode = ("multi-block" if lu_cuda._lib().rrlu_scratch_bytes(
             mp, npd, args[0].element_size()) > 0 else "resident")
         print(f"[kernel] {name} {B} x {mp}x{npd} {str(args[0].dtype)[6:]} "
-              f"(k={ks}, {mode}): kernel device time {res[name + '_ms']} ms "
+              f"(k={ks}, true extents {args[1].tolist()} x "
+              f"{args[2].tolist()}, {mode}): kernel device time "
+              f"{res[name + '_ms']} ms "
               f"a launch (profiler), wrapper call "
               f"{res[name + '_wrapper_ms']:.4f} ms (events), plain "
               f"{res[name + '_plain_ms']:.4f} ms, bound "
@@ -666,40 +1020,41 @@ def main():
               flush=True)
         return res
 
-    # the engine's bond panel, Imax (d + 1) square, and its fill's P blocks
-    eng = {**time_engine_launch("engine_panel", engine_panel),
-           **time_engine_launch("engine_fill", engine_fill)}
+    # the engines' bond panels, Imax (d + 1) square, and config 1's fill
+    eng = {**time_engine_launch("engine_panel", bond_panels["engine", 352]),
+           **time_engine_launch("engine_fill", engine_fill),
+           **time_engine_launch("config3_panel", bond_panels["config3", 96]),
+           **time_engine_launch("config4_panel_512",
+                                bond_panels["config4", 512])}
+    if ("config4", 1024) in bond_panels:
+        eng.update(time_engine_launch("config4_panel_1024",
+                                      bond_panels["config4", 1024]))
+    else:
+        print("[kernel] config 4 never reached a capacity of 64: no 1024^2 "
+              "bond panel to time", flush=True)
 
-    # the least time of the TPU kernels still to be ported (ROADMAP B9, the
-    # probes of benchmarks/probe_pallas_batched.py, B = 4, n = 256): each
-    # input byte read once and each output byte written once over the HBM
-    # rate; their arithmetic is a few integer operations
-    b9_bytes = {"v1": 4 * 2 * 4, "v2": 4 * 3 * 4 + 4 * 2 * 4,
-                "v3": 4 * 3 * 4 + 4 * 256 * 4 + 4 * 2 * 4,
-                "v4": 4 * 3 * 4 + 4 * 256 * 4 + 4 * 2 * 4,
-                "v4b": 4 * 2 * 4 + 4 * 256 * 4 + 4 * 2 * 4,
-                "v4c": 4 * 3 * 4 + 4 * 256 * 4 + 4 * 2 * 4}
-    print("[bound] B9 probes, to be ported: " + ", ".join(
-        f"{name} {nb} B {nb / HBM_BYTES_PER_S * 1e3:.4g} ms"
-        for name, nb in b9_bytes.items()), flush=True)
-
-    # -- 6. profile of config 1 (--profile) -----------------------------------
+    # -- 6. profiles (--profile) -----------------------------------------------
     if opts.profile:
         for tier in TIERS:
-            profile_config1(opts.profile, tier,
-                            lambda t=tier: solve_config1(t)[3])
+            profile_run(opts.profile, f"config1_{tier}",
+                        lambda t=tier: solve_config1(t)[3])
+        profile_run(opts.profile, "config3", lambda: solve_config3()[-2])
+        profile_run(opts.profile, "config4", lambda: solve_config4()[-2])
 
     if any(m == "jax" or m.startswith(("jax.", "tci_tpu."))
            or m == "tci_tpu" for m in sys.modules):
         fail("jax or tci_tpu was imported")
 
     print(smi_line, flush=True)
-    # "launches", "ms", "plain_ms" and "bound_ms" are all the engine's, the
-    # default path of a TorchBatchEvaluator: its launches in one config-1
-    # run and the kernel's device time a launch on its bond panel; each
-    # path's launches are beside them, and the host tier's 128^2 panel
-    # under host_panel_*. No PyTorch call computes a complete-pivot rrLU
-    # (torch.linalg.lu_factor pivots partially), so library_ms is null
+    # The rrLU entry's "launches", "ms", "plain_ms" and "bound_ms" are all
+    # config 1's engine's, the default path of a TorchBatchEvaluator: its
+    # launches in one config-1 run and the kernel's device time a launch on
+    # its bond panel; each path's launches are beside them (configs 3 and 4
+    # among them, with their bond panels under config3_panel_* and
+    # config4_panel_*), and the host tier's 128^2 panel under host_panel_*.
+    # A probe entry's "launches" is its count in run_probes. No PyTorch call
+    # computes a complete-pivot rrLU (torch.linalg.lu_factor pivots
+    # partially) or a probe, so library_ms is null
     ms = eng["engine_panel_ms"]
     print(json.dumps({"kernels": [{
         "name": "rrlu_kernel",
@@ -707,7 +1062,10 @@ def main():
         "source": "tci_tpu_torch/csrc/rrlu.cu",
         "replaces": "tci_tpu/ops/pallas_lu.py:133",
         "launches": results["engine"]["launches"],
-        "launches_by_path": {t: results[t]["launches"] for t in TIERS},
+        "launches_by_path": {**{t: results[t]["launches"] for t in TIERS},
+                             "config3": counts3["launches"],
+                             "config4": counts4["launches"],
+                             "run_probes": probe_rrlu_launches},
         "max_abs_err": max_err,
         "ms": ms if ms is not None else eng["engine_panel_wrapper_ms"],
         "ms_from": "profiler" if ms is not None else "cuda events",
@@ -719,16 +1077,17 @@ def main():
         **eng,
         **n2000,
         **config2,
-    }]}), flush=True)
+    }, *probe_entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-def profile_config1(outdir, tier, solve):
-    """Warm walls of config 1 through one tier (`solve` runs it and returns
-    its wall), then one run under torch.profiler with a span around each
-    layer of the path; prints the breakdown."""
+def profile_run(outdir, tier, solve):
+    """Warm walls of one workload (`tier` names it: config 1 through one
+    tier, config 3 or config 4; `solve` runs it and returns its wall), then
+    one run under torch.profiler with a span around each layer of the path;
+    prints the breakdown."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -736,7 +1095,7 @@ def profile_config1(outdir, tier, solve):
     from tci_tpu_torch.ops import fused, lu as lu_mod, luci
 
     walls = sorted(solve() for _ in range(10))
-    print(f"[profile] {tier}: config 1 warm wall: median "
+    print(f"[profile] {tier}: warm wall: median "
           f"{(walls[4] + walls[5]) / 2:.4f} s of 10 runs "
           f"(range {walls[0]:.4f}-{walls[-1]:.4f} s)", flush=True)
 
@@ -775,13 +1134,13 @@ def profile_config1(outdir, tier, solve):
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            with record_function("config1"):
+            with record_function("whole_run"):
                 wall = solve()
     finally:
         for owner, attr, fn in saved:
             setattr(owner, attr, fn)
     os.makedirs(outdir, exist_ok=True)
-    path = os.path.join(outdir, f"config1_{tier}_trace.json")
+    path = os.path.join(outdir, f"{tier}_trace.json")
     prof.export_chrome_trace(path)
     with open(path) as fh:
         trace = json.load(fh)
@@ -796,7 +1155,7 @@ def profile_config1(outdir, tier, solve):
         return sorted(out.items(), key=lambda kv: -kv[1][1])
 
     top = next(e for e in events if e.get("cat") == "user_annotation"
-               and e["name"] == "config1")
+               and e["name"] == "whole_run")
     lo, hi = top["ts"], top["ts"] + top["dur"]
     window = top["dur"] / 1e3
     device = sorted((max(e["ts"], lo), min(e["ts"] + e["dur"], hi))
@@ -817,7 +1176,7 @@ def profile_config1(outdir, tier, solve):
     for name, (n, ms) in by_name("gpu_memcpy")[:2]:
         print(f"[profile] {tier}: device: {name}: {ms:.3f} ms in {n}", flush=True)
     for name, (n, ms) in by_name("user_annotation"):
-        if name != "config1":
+        if name != "whole_run":
             print(f"[profile] {tier}: span {name}: {ms:.3f} ms in {n} (host, "
                   f"inclusive)", flush=True)
     for name, (n, ms) in by_name("cuda_runtime")[:6]:

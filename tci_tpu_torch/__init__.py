@@ -2,7 +2,7 @@
 
 The port of ``tci_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100. It keeps
 ``tci_tpu``'s layout, names, 0-based indices and float64 default. Its entry
-points run on the card: ``crossinterpolate2``, ``TensorCI2``,
+points run on the card: ``crossinterpolate2``, ``integrate``, ``TensorCI2``,
 ``TorchBatchEvaluator``, and ``rrlu`` / ``MatrixLUCI`` on a numpy array take
 ``device=None`` to mean the current CUDA device, and raise without one
 unless the caller passes ``device="cpu"``; nothing falls back to the CPU by
@@ -27,6 +27,7 @@ from .utils.indexset import IndexSet, isnested
 from .utils.sweep import forwardsweep
 from .ops.lu import rrLU, rrlu, submatrixargmax
 from .ops.luci import MatrixLUCI
+from .ops.kronrod import kronrod
 from .parallel.batcheval import (
     BatchEvaluator,
     TorchBatchEvaluator,
@@ -39,6 +40,7 @@ from .models.globalpivotfinder import (
     GlobalPivotSearchInput,
 )
 from .models.tensorci2 import TensorCI2, crossinterpolate2
+from .models.integration import integrate
 
 __all__ = [
     "maxabs", "padzero", "pushunique", "isconstant", "randomsubset",
@@ -48,5 +50,5 @@ __all__ = [
     "BatchEvaluator", "TorchBatchEvaluator", "VectorizedBatchEvaluator",
     "isbatchevaluable", "AbstractTensorTrain", "TensorTrain", "tensortrain",
     "DefaultGlobalPivotFinder", "GlobalPivotSearchInput",
-    "TensorCI2", "crossinterpolate2",
+    "TensorCI2", "crossinterpolate2", "integrate", "kronrod",
 ]

@@ -471,6 +471,8 @@ class TensorCI2(AbstractTensorTrain):
                 # state before that fetch. Falls back to the per-bond path
                 # when the rank exceeds the engine's capacity.
                 want_fill = fillsitetensors and it == iter1 + niter - 1
+                # drop what a per-bond sweep of this call may have set
+                self.invalidatesitetensors()
                 if engine.sweep2site(
                     self, fwd, 1e-14, abstol, maxbonddim,
                     extraIset, extraJset, fill_sites=want_fill,

@@ -31,7 +31,8 @@ NVCC_FLAGS = (
 )
 
 _LIBS: dict = {}
-# seconds spent compiling each library in this process (0.0 when reused)
+# seconds from the start of the build call that compiled a library until its
+# nvcc process had been waited for, in the order given (0.0 when reused)
 BUILD_SECONDS: dict = {}
 
 
@@ -48,28 +49,50 @@ def _nvcc() -> str:
     )
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Return the loaded library built from ``csrc/<name>.cu``."""
-    if name in _LIBS:
-        return _LIBS[name]
+def _paths(name: str):
+    """(source, library) paths of kernel `name`; the library's name carries
+    a hash of the source and the flags."""
     src = _CSRC / f"{name}.cu"
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"lib{name}_{digest}.so"
+    return src, BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build(names) -> None:
+    """Compile the libraries of ``csrc/<name>.cu`` that are not built yet,
+    one nvcc process a source, all started together."""
     t0 = time.perf_counter()
-    if not lib_path.exists():
+    running = []
+    for name in names:
+        src, lib_path = _paths(name)
+        if lib_path.exists():
+            BUILD_SECONDS.setdefault(name, 0.0)
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        running.append((name, src, lib_path, tmp, cmd, proc))
+    failures = []
+    for name, src, lib_path, tmp, cmd, proc in running:
+        out, err = proc.communicate()
+        BUILD_SECONDS[name] = time.perf_counter() - t0
         if proc.returncode != 0:
-            raise RuntimeError(
+            tmp.unlink(missing_ok=True)
+            failures.append(
                 f"nvcc failed ({proc.returncode}) building {src.name}:\n"
-                f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, lib_path)
-    BUILD_SECONDS[name] = time.perf_counter() - t0
-    lib = ctypes.CDLL(str(lib_path))
-    _LIBS[name] = lib
-    return lib
+                f"{' '.join(cmd)}\n{out}\n{err}")
+        else:
+            os.replace(tmp, lib_path)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Return the loaded library built from ``csrc/<name>.cu``."""
+    if name not in _LIBS:
+        build([name])
+        _LIBS[name] = ctypes.CDLL(str(_paths(name)[1]))
+    return _LIBS[name]

@@ -1,6 +1,7 @@
-"""tci_tpu_torch on a CUDA device: the rrLU kernel against its plain PyTorch
-version on the card, and the main path through the kernel: the host tier,
-the fused tier and the whole-sweep engine, which syncs only at its fetch.
+"""tci_tpu_torch on a CUDA device: the rrLU kernel and the six batched-grid
+probe kernels against their plain PyTorch versions on the card, and the main
+path through the kernel: the host tier, the fused tier and the whole-sweep
+engine, which syncs only at its fetch; ``integrate`` on the card.
 
 Every test needs a CUDA device and skips without one: the CUDA kernel has
 no CPU mode. This file imports neither jax nor tci_tpu, so it runs on a
@@ -18,7 +19,7 @@ import pytest
 import torch
 
 import tci_tpu_torch
-from tci_tpu_torch.ops import lu_cuda, lu_kernel
+from tci_tpu_torch.ops import lu_cuda, lu_kernel, probe_batched
 
 pytestmark = pytest.mark.cuda
 
@@ -26,7 +27,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the rrLU kernel has no CPU mode")
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -266,8 +267,9 @@ def _lorentz(idx):
 @pytest.mark.parametrize("shape", [
     # (B, panel edge): the engine's fill blocks (resident), the host tier's
     # largest bucket, and config 1's engine bond panel Imax (d + 1) at
-    # Imax = 32 (multi-block)
-    (1, 32), (1, 128), (1, 352), (7, 32)])
+    # Imax = 32 (multi-block); config 3's bond panel (d = 2: 96^2, resident)
+    # and config 4's (d = 15: 512^2, multi-block)
+    (1, 32), (1, 128), (1, 352), (7, 32), (1, 96), (1, 512)])
 def test_device_extents_match_plain(cuda, shape):
     """Extents, rank caps and tolerances given as device tensors: nothing is
     read back (sync debug mode "error" would raise), the kernel clamps an
@@ -386,3 +388,66 @@ def test_default_device_tci2_with_plain_f_runs_the_kernel(cuda):
     assert sum(lu_kernel.PLAIN_CALLS.values()) == plain
     assert all(t.device.type == "cuda" for t in tci.sitetensors())
     assert errs[-1] < 1e-8
+
+
+@pytest.mark.parametrize("which", ["probe", "second"])
+@pytest.mark.parametrize("name", probe_batched.NAMES)
+def test_probe_kernel_matches_plain(cuda, name, which):
+    """Each probe kernel against its plain version, for equality (int32, and
+    float32 values the operations keep exact); one launch a call."""
+    B, n, s = probe_batched.check_inputs(name, which, cuda)
+    wrapper, plain = probe_batched.PROBES[name]
+    args = (B, cuda) if name == "v1" else (s,) if name == "v2" else (s, n)
+    launches = probe_batched.LAUNCHES[name]
+    out, ref = wrapper(*args), plain(*args)
+    torch.cuda.synchronize()
+    assert probe_batched.LAUNCHES[name] == launches + 1
+    if name in ("v1", "v2"):
+        out, ref = (out,), (ref,)
+    for o, r in zip(out, ref):
+        assert o.device.type == "cuda" and o.dtype == r.dtype
+        assert torch.equal(o, r)
+
+
+def test_run_probes_on_the_card(cuda):
+    launches = dict(probe_batched.LAUNCHES)
+    rrlu, plain = lu_cuda.LAUNCHES["rrlu"], lu_kernel.PLAIN_CALLS["cuda"]
+    out = probe_batched.run_probes(cuda)
+    assert out == probe_batched.run_probes("cpu")
+    assert all(step["ok"] for step in out.values())
+    for name in probe_batched.NAMES:
+        assert probe_batched.LAUNCHES[name] == launches.get(name, 0) + 1
+    assert lu_cuda.LAUNCHES["rrlu"] == rrlu + 2
+    assert lu_kernel.PLAIN_CALLS["cuda"] == plain
+
+
+def test_integrate_torch_native_on_the_card(cuda):
+    """tests/test_integration.py's polynomial case through
+    integrate(torch_native=True) with no device argument: sampled and
+    factorized on the card, within 1e-12 relative of the CPU run."""
+    coefficients = [
+        0.23637074801483304, 0.20661524945577847, 0.1850826417895819,
+        0.8433788714289417, 0.5801482873508491, 0.20339438932656262,
+        0.21593267492457668, 0.8052490409622802, 0.7189346124875339,
+        0.9400806688257749, 0.355210845205325, 0.5251561513473092,
+        0.6819965273401778, 0.9221987248861162, 0.04166444723413998]
+
+    def f(X):
+        y = torch.full_like(X, coefficients[-1])
+        for c in coefficients[-2::-1]:
+            y = y * X + c
+        return y.prod(dim=1)
+
+    n = 5
+    exact = sum(c / (i + 1) for i, c in enumerate(coefficients)) ** n
+    launches, plain = lu_cuda.LAUNCHES["rrlu"], lu_kernel.PLAIN_CALLS["cuda"]
+    val = tci_tpu_torch.integrate(np.float64, f, [0.0] * n, [1.0] * n,
+                                  torch_native=True,
+                                  rng=np.random.default_rng(0))
+    assert lu_cuda.LAUNCHES["rrlu"] > launches
+    assert lu_kernel.PLAIN_CALLS["cuda"] == plain
+    ref = tci_tpu_torch.integrate(np.float64, f, [0.0] * n, [1.0] * n,
+                                  torch_native=True, device="cpu",
+                                  rng=np.random.default_rng(0))
+    assert np.isclose(val, exact)
+    assert abs(val - ref) <= 1e-12 * abs(ref)

@@ -134,6 +134,44 @@ def test_sweep_is_one_fetch():
     assert device_sweep.FETCHES["engine"] == fetches + 1
 
 
+def test_engine_sweep_drops_site_tensors_of_a_per_bond_sweep():
+    """sweep2site of two sweeps without the fill: the first needs capacity 6
+    and runs per bond on the fused tier (which sets site tensors), the second
+    fits the capacity of 4 and runs on the engine, which must leave every
+    site tensor invalidated, as tci_tpu does (ROADMAP C-port-6)."""
+    dims = [4] * 5
+    w = np.array([1.0, 0.7, 0.4, 0.3, 0.2])
+    pivots = [tuple(int(v) for v in p) for p in
+              np.random.default_rng(1).integers(0, 4, size=(6, 5))]
+    wj, wt = jnp.asarray(w), torch.from_numpy(w)
+
+    def fj(idx):
+        return 1.0 / (1.0 + jnp.sum(wj * (idx.astype(jnp.float64) + 1.0)) ** 2)
+
+    def ft(idx):
+        return 1.0 / (1.0 + ((idx.to(torch.float64) + 1.0) * wt).sum(1) ** 2)
+
+    bj = JaxBatchEvaluator(fj, dims)
+    bj._device_sweep_engine = JaxEngine(fj, dims, imax_cap=4)
+    bj.device_sweep_engine.use_sweep_pair = False
+    bt = tci_tpu_torch.TorchBatchEvaluator(ft, dims, device="cpu")
+    bt._device_sweep_engine = DeviceSweepEngine(bt._values, dims, imax_cap=4,
+                                                device="cpu")
+    ref = tci_tpu.TensorCI2.from_function(bj, dims, pivots)
+    out = tci_tpu_torch.TensorCI2.from_function(bt, dims, pivots,
+                                                device="cpu")
+    for tci, f in ((ref, bj), (out, bt)):
+        tci.sweep2site(f, 2, abstol=1e-12, maxbonddim=2, strictlynested=True,
+                       fillsitetensors=False)
+    # the first sweep ran per bond, the second on the engine
+    assert bt.fused_updater.rrlu_calls == len(dims) - 1
+    assert bt.device_sweep_engine.rrlu_calls == len(dims) - 1
+    assert out.Iset == ref.Iset and out.Jset == ref.Jset
+    for b in range(len(dims)):
+        assert tuple(ref._sitetensors[b].shape) == (0, 0, 0)
+        assert tuple(out._sitetensors[b].shape) == (0, 0, 0)
+
+
 def test_complex_tiers_are_not_ported():
     """A complex evaluator gets the same refusal from the device tiers as
     from the host tier's rrLU (ROADMAP A10), not a failure deep inside."""

@@ -29,6 +29,22 @@ def test_import_leaves_jax_out():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+@pytest.mark.parametrize("module", [
+    "utils.quantics", "ops.kronrod", "ops.probe_batched",
+    "models.integration"])
+def test_module_import_leaves_jax_out(module):
+    code = (
+        f"import sys, tci_tpu_torch.{module}\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'tci_tpu')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
 def test_cpu_panel_takes_plain_version():
     A = torch.from_numpy(np.random.default_rng(0).standard_normal((16, 16)))
     launches = lu_cuda.LAUNCHES["rrlu"]

@@ -2,11 +2,16 @@
 """Paired wall-time comparison of two checkouts of tci_tpu_torch on config 1.
 
     python3 tools/config1_ab.py --parent DIR [--change DIR] [--pairs 10]
-                                [--runs 10] [--out FILE]
+                                [--runs 10] [--out FILE] [--config {1,3,4}]
 
 Config 1 is BASELINE's 8-D Lorentzian on {0..9}^8 at tolerance 1e-8, run as
 a user runs it: ``crossinterpolate2`` with a default ``TorchBatchEvaluator``
-and ``rng=np.random.default_rng(0)``. Each checkout runs in processes of its
+and ``rng=np.random.default_rng(0)``. ``--config 3`` runs BASELINE's quantics
+TCI instead (cos(100 x) exp(-x) on a 2^40 grid, tolerance 1e-10), and
+``--config 4`` its 10-D integral (``integrate(torch_native=True)``, GK15,
+tolerance 1e-8, maxbonddim 64; its "errors" are the integral), both as
+chip_smoke.py runs them; the parent must have the modules they need. Each
+checkout runs in processes of its
 own (the two packages share a name), in pairs whose order alternates:
 parent then change, change then parent, and so on, so that a drift of the
 host or the card falls on both sides alike. Each process builds its
@@ -19,8 +24,8 @@ Printed: one line a pair (both medians and their ratio), nvidia-smi's card
 line, and a summary line: the median and range of the pair ratios, how many
 pairs the change won, the two-sided sign-test p-value, and the quartiles of
 each side's medians. Every run of both
-sides must give the same ranks and errors within 1e-15, or the script
-fails. ``--device cpu --dims 4,4,4,4,4`` rehearses it on a small problem.
+sides must give the same ranks and errors within 1e-15 (config 4: the same
+integral within 1e-6), or the script fails. ``--device cpu --dims 4,4,4,4,4`` rehearses it on a small problem.
 """
 
 import argparse
@@ -63,14 +68,36 @@ def worker(opts):
         if dev.type == "cuda":
             torch.cuda.synchronize()
 
+    tol = 1e-8
+    if opts.config == 3:
+        dims, tol = [2] * 40, 1e-10
+        qweights = torch.tensor([2.0 ** -(r + 1) for r in range(40)],
+                                dtype=torch.float64, device=dev)
+
+        def fdev(bits):
+            x = (bits.to(torch.float64) * qweights).sum(dim=1)
+            return torch.cos(100.0 * x) * torch.exp(-x)
+
+    def f4(X):
+        return 1000 * torch.cos(10 * (X ** 2).sum(dim=1)) * torch.exp(
+            -X.sum(dim=1) ** 4 / 1000)
+
     def solve(tier):
         kw = {"enable_device_sweep": False} if tier == "fused" else {}
-        f = tci_tpu_torch.TorchBatchEvaluator(fdev, dims, device=dev, **kw)
         sync()
         t0 = time.perf_counter()
-        _, ranks, errors = tci_tpu_torch.crossinterpolate2(
-            np.float64, f, dims, tolerance=1e-8,
-            rng=np.random.default_rng(0), device=dev)
+        if opts.config == 4:
+            val = tci_tpu_torch.integrate(
+                np.float64, f4, [-1.0] * 10, [1.0] * 10, GKorder=15,
+                tolerance=1e-8, maxbonddim=64, torch_native=True,
+                rng=np.random.default_rng(0), device=dev, **kw)
+            ranks, errors = [], [val]
+        else:
+            f = tci_tpu_torch.TorchBatchEvaluator(fdev, dims, device=dev,
+                                                  **kw)
+            _, ranks, errors = tci_tpu_torch.crossinterpolate2(
+                np.float64, f, dims, tolerance=tol,
+                rng=np.random.default_rng(0), device=dev)
         sync()
         return time.perf_counter() - t0, ranks, [float(e) for e in errors]
 
@@ -95,7 +122,7 @@ def worker(opts):
 def run_side(opts, checkout, tiers):
     cmd = [sys.executable, os.path.abspath(__file__), "--worker", checkout,
            "--runs", str(opts.runs), "--tiers", tiers, "--device",
-           opts.device, "--dims", opts.dims]
+           opts.device, "--dims", opts.dims, "--config", str(opts.config)]
     proc = subprocess.run(cmd, capture_output=True, text=True,
                           timeout=opts.side_timeout)
     if proc.returncode != 0:
@@ -121,6 +148,8 @@ def main():
     parser.add_argument("--out", help="write all walls here as JSON")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--dims", default=",".join(["10"] * 8))
+    parser.add_argument("--config", type=int, choices=(1, 3, 4), default=1,
+                        help="BASELINE config to run (default 1)")
     parser.add_argument("--side-timeout", type=float, default=300.0)
     parser.add_argument("--worker", help=argparse.SUPPRESS)
     parser.add_argument("--tiers", default="default", help=argparse.SUPPRESS)
@@ -140,6 +169,8 @@ def main():
     else:
         card = "cpu"
 
+    # config 4 compares integrals, which the tiers round differently
+    atol = 1e-6 if opts.config == 4 else 1e-15
     pairs = []
     for i in range(opts.pairs):
         order = ("parent", "change") if i % 2 == 0 else ("change", "parent")
@@ -153,7 +184,7 @@ def main():
             t = res["change"][tier]
             if t["ranks"] != p["ranks"] or max(
                     abs(a - b) for a, b in zip(t["errors"], p["errors"])
-            ) > 1e-15 or len(t["errors"]) != len(p["errors"]):
+            ) > atol or len(t["errors"]) != len(p["errors"]):
                 fail(f"pair {i}: change {tier} gave ranks {t['ranks']}, "
                      f"errors {t['errors']}; parent {p['ranks']}, "
                      f"{p['errors']}")
