@@ -47,9 +47,14 @@ line or more each:
    against tci_tpu's recorded series, with every elimination launching the
    kernel (launches equal to rrlu_raw calls plus the tiers' own rrLU
    calls), none taking the plain version, the fetches the tier should make,
-   and the pivot sets of the host tier. Then one engine sweep with its fill
-   runs under sync debug mode "error" (no synchronization, one fetch), and
-   an engine that starts at a capacity of 4 has to grow;
+   and the pivot sets of the host tier. The cold run keeps the inputs of
+   every launch for phase 5 and therefore queues its sweeps eagerly (a
+   capture runs the wrappers without values); the warm run records the
+   engine's sweeps into CUDA graphs and replays them, and a replay counts
+   the launches its graph holds. Then one engine sweep with its fill, a
+   replay of its graph, runs under sync debug mode "error" (no
+   synchronization, one fetch), and an engine that starts at a capacity of
+   4 has to grow;
 4b. BASELINE config 3 (benchmarks/bench_quantics.py: quantics TCI of
    cos(100 x) exp(-x) on a 2^40 grid, 40 legs of dimension 2, tolerance
    1e-10) through ``crossinterpolate2`` with a default
@@ -68,17 +73,35 @@ line or more each:
    whether it declined, no plain call; and once through
    ``integrate(vectorized=True)`` (host sampling, factorization on the
    card): the two integrals within 1e-6;
+4d. the engine's sweeps as CUDA graphs that an evaluator keeps, for configs
+   1, 3 and 4 at full width: five runs each with a new evaluator a run
+   (graphs off, recorded at a key's first use, at its second); then one
+   evaluator kept: the run that records, ten runs that only replay, ten
+   with the graphs switched off. The replayed and the eager results must be
+   identical bit for bit (index sets, ranks and error series, every site
+   tensor; config 4: the integral, and the capacities [32, 64] with new
+   evaluators), the site tensors of the first result unchanged by the later
+   runs, every warm sweep a replay, no key declined, launches equal to the
+   engine's rrLU calls, one fetch a sweep, no plain call. Printed: the walls
+   (medians and ranges), captures, replays, one call's host wall, each
+   program's capture time, the device items of one replay (profiler) with
+   the rrLU kernel's time inside it, and the memory the graphs' pool holds.
+   One program replayed with three (abstol, maxbonddim) pairs must give what
+   the eager body gives for each;
 5. the kernel against the plain version on every launch the cold runs of
    phases 4, 4b and 4c made; its times on the engines' bond panels (Imax
    (d + 1) square: 352^2 for config 1, 96^2 for config 3, 512^2 and 1024^2
    for config 4) and on config 1's fill (its P blocks in one batched
    launch);
-6. with ``--profile DIR`` only: for each tier of config 1, for config 3 and
-   for config 4, the median of 10 warm walls, then one run under
+6. with ``--profile DIR`` only: for config 1's host and fused tiers, and
+   for the engine on configs 1, 3 and 4 on an evaluator that is kept, once
+   replaying its graphs and once queuing eagerly, the median of 10 warm
+   walls, then one run under
    ``torch.profiler`` with a span around each layer (Π sampling, rrlu_raw,
    the CI-factor solves, sweep2site, fillsitetensors, the global search,
-   sweep1site, and the device tiers' sweeps, the host time that queues
-   them, their fetches and the fused updates). The traces go to
+   sweep1site, and the device tiers' sweeps, a program's upload and run,
+   the host time that queues an eager body, the fetches and the fused
+   updates). The traces go to
    DIR/<run>_trace.json; the device's busy time and idle share over the
    run, the largest device items, the spans and the CUDA runtime calls are
    printed.
@@ -584,15 +607,24 @@ def main():
     # (one fetch a sweep)
     TIERS = ("host", "fused", "engine")
 
-    def solve_config1(tier, imax=None):
-        if tier == "host":
+    def solve_config1(tier, imax=None, f=None, graphs=True, capture_at=None):
+        """One run of config 1 through a tier: with a new evaluator, or on
+        the evaluator `f` of an earlier run (which keeps its engine and the
+        engine's CUDA graphs). graphs=False queues every sweep eagerly;
+        capture_at sets the use of a key at which the engine records it."""
+        if f is not None:
+            set_graphs(f, graphs)
+        elif tier == "host":
             f = fscalar
         else:
             f = tci_tpu_torch.TorchBatchEvaluator(
-                fdev, localdims, enable_device_sweep=tier == "engine")
+                fdev, localdims, enable_device_sweep=tier == "engine",
+                cuda_graphs=graphs)
             if imax is not None:
                 f._device_sweep_engine = DeviceSweepEngine(
-                    f._values, localdims, imax=imax)
+                    f._values, localdims, imax=imax, cuda_graphs=graphs)
+            if capture_at is not None:
+                f.device_sweep_engine.capture_at = capture_at
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         tci, ranks, errors = tci_tpu_torch.crossinterpolate2(
@@ -600,6 +632,25 @@ def main():
             rng=np.random.default_rng(0))
         torch.cuda.synchronize()
         return tci, ranks, errors, time.perf_counter() - t0, f
+
+    def set_graphs(f, graphs):
+        """Switch the engine of evaluator f between replaying its CUDA
+        graphs and queuing its sweeps eagerly; the graphs are kept."""
+        f.cuda_graphs = graphs
+        if f._device_sweep_engine is not None:
+            f._device_sweep_engine.cuda_graphs = graphs
+
+    def all_replayed(engine):
+        """Every program of the engine was recorded at its capture_at-th
+        use and replayed at that and every later use."""
+        at = engine.capture_at
+        progs = engine.programs()
+        return (not engine.declined and engine.captures == sum(
+            p["uses"] >= at for p in progs) and all(
+                p["captured"] == (p["uses"] >= at)
+                and p["replays"] == max(0, p["uses"] - at + 1)
+                for p in progs) and engine.replays == sum(
+                    p["replays"] for p in progs) > 0)
 
     def tier_calls(f):
         """rrLU launches the device tiers of evaluator f asked for."""
@@ -620,9 +671,15 @@ def main():
         return tuple(a.clone() if isinstance(a, torch.Tensor) else a
                      for a in args)
 
-    def run_counted(tag, solve, record=False):
+    def run_counted(tag, solve, record=False, f=None):
         """One run of a workload with every count set to 0 just before it;
-        the counts are read just after. `solve` returns (..., wall, f)."""
+        the counts are read just after. `solve` returns (..., wall, f); `f`
+        is the evaluator when the run reuses one, whose own counts go on
+        from where they stood. A recorded run (record=True: the inputs of
+        every launch are kept for phase 5) must queue its sweeps eagerly: a
+        capture runs the wrappers without values."""
+        base_calls = tier_calls(f) if f is not None else 0
+        base_nevals = getattr(f, "nevals", 0)
         lu_cuda.LAUNCHES.clear()
         probe_batched.LAUNCHES.clear()
         lu_kernel.PLAIN_CALLS.clear()
@@ -641,16 +698,26 @@ def main():
         finally:
             lu_mod.rrlu_raw, lu_cuda.rrlu_call, lu_cuda.rrlu_batched = originals
         f = res[-1]
+        engine = getattr(f, "_device_sweep_engine", None)
+        if record and engine is not None and (engine.captures
+                                              or engine.replays):
+            fail(f"{tag}: a recorded run captured or replayed a graph")
         counts = {"launches": lu_cuda.LAUNCHES["rrlu"],
                   "plain_cuda": lu_kernel.PLAIN_CALLS["cuda"],
-                  "rrlu_raw": raw_calls[0], "tier_calls": tier_calls(f),
+                  "rrlu_raw": raw_calls[0],
+                  "tier_calls": tier_calls(f) - base_calls,
                   "fetches": dict(FETCHES),
-                  "nevals": getattr(f, "nevals", 0)}
+                  "nevals": getattr(f, "nevals", 0) - base_nevals,
+                  "declined": dict(engine.declined) if engine else {}}
+        if counts["declined"]:
+            fail(f"{tag}: the engine declined to capture "
+                 f"{counts['declined']}")
         return res, counts
 
-    def run_config1(tier, record=False, imax=None):
+    def run_config1(tier, record=False, imax=None, f=None, graphs=True):
         (tci, ranks, errors, wall, f), counts = run_counted(
-            tier, lambda: solve_config1(tier, imax), record)
+            tier, lambda: solve_config1(tier, imax, f,
+                                        graphs and not record), record, f)
         return tci, ranks, errors, wall, f, counts
 
     def check_config1(tag, tci, ranks, errors, counts):
@@ -714,9 +781,12 @@ def main():
         if tier == "engine" and (
                 counts["rrlu_raw"] or f._fused_updater is not None
                 or counts["fetches"] != {"engine": 2 * iters + 1}
-                or counts["tier_calls"] != f.device_sweep_engine.rrlu_calls):
-            fail(f"config 1 engine: {counts} for {iters} iterations; the "
-                 f"engine should fetch once a sweep and launch every rrLU")
+                or counts["tier_calls"] != f.device_sweep_engine.rrlu_calls
+                or not all_replayed(f.device_sweep_engine)):
+            fail(f"config 1 engine: {counts} for {iters} iterations, "
+                 f"programs {f.device_sweep_engine.programs()}; the engine "
+                 f"should fetch once a sweep, launch every rrLU, capture "
+                 f"its three programs and replay every sweep")
         results[tier] = {"cold": cold, "warm": warm, **counts,
                          "flagged_syncs": flagged, "fetch_waits": fetch_waits,
                          "sets": (tci.Iset, tci.Jset)}
@@ -738,19 +808,28 @@ def main():
     tci = tci_tpu_torch.TensorCI2.from_function(bf, localdims)
     engine = bf.device_sweep_engine
     empty = [[] for _ in localdims]
+    # each key once before: a key's first use records its graph, and the
+    # end of a capture synchronizes; the sweep under the debug mode replays
+    engine.sweep2site(tci, True, 1e-14, 0.0, 2**62, empty, empty)
+    engine.sweep2site(tci, False, 1e-14, 0.0, 2**62, empty, empty,
+                      fill_sites=True)
     engine.sweep2site(tci, True, 1e-14, 0.0, 2**62, empty, empty)
     torch.cuda.synchronize()
-    fetches0 = FETCHES["engine"]
+    fetches0, replays0 = FETCHES["engine"], engine.replays
     torch.cuda.set_sync_debug_mode("error")
     try:
         engine.sweep2site(tci, False, 1e-14, 0.0, 2**62, empty, empty,
                           fill_sites=True)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    if FETCHES["engine"] != fetches0 + 1:
-        fail(f"engine sweep: {FETCHES['engine'] - fetches0} fetches")
-    print("[config1] engine sweep2site with the fill under sync debug mode "
-          "\"error\": no synchronization, 1 fetch", flush=True)
+    if (FETCHES["engine"] != fetches0 + 1 or engine.captures != 2
+            or engine.replays != replays0 + 1 or engine.declined):
+        fail(f"engine sweep: {FETCHES['engine'] - fetches0} fetches, "
+             f"{engine.captures} captures, {engine.replays - replays0} "
+             f"replays, declined {engine.declined}")
+    print("[config1] engine sweep2site with the fill, replayed from its "
+          "CUDA graph under sync debug mode \"error\": no synchronization, "
+          "1 fetch", flush=True)
 
     # an engine that starts at a capacity of 4 has to grow to rank 12
     tci, ranks, errors, grow_wall, f, counts = run_config1("engine", imax=4)
@@ -782,14 +861,11 @@ def main():
     def check_engine_run(tag, counts, f, sweeps):
         """Every elimination ran on the engine and launched the kernel, the
         engine fetched once a sweep, and nothing took the plain version."""
-        engine = f.device_sweep_engine
         if (counts["launches"] == 0 or counts["rrlu_raw"]
                 or f._fused_updater is not None
                 or f._fused_site_tensors is not None
-                or counts["launches"] != engine.rrlu_calls
-                or counts["tier_calls"] != engine.rrlu_calls):
-            fail(f"{tag}: {counts}, engine rrLU calls {engine.rrlu_calls}; "
-                 f"the engine should launch every rrLU")
+                or counts["launches"] != counts["tier_calls"]):
+            fail(f"{tag}: {counts}; the engine should launch every rrLU")
         if counts["plain_cuda"] != 0:
             fail(f"{tag}: {counts['plain_cuda']} plain-version calls on CUDA "
                  f"tensors")
@@ -809,8 +885,14 @@ def main():
         x = (bits.to(torch.float64) * qweights).sum(dim=1)
         return torch.cos(100.0 * x) * torch.exp(-x)
 
-    def solve_config3():
-        f = tci_tpu_torch.TorchBatchEvaluator(fquantics, dims3)
+    def solve_config3(f=None, graphs=True, capture_at=None):
+        if f is not None:
+            set_graphs(f, graphs)
+        else:
+            f = tci_tpu_torch.TorchBatchEvaluator(fquantics, dims3,
+                                                  cuda_graphs=graphs)
+            if capture_at is not None:
+                f.device_sweep_engine.capture_at = capture_at
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         tci, ranks, errors = tci_tpu_torch.crossinterpolate2(
@@ -834,21 +916,24 @@ def main():
         check_engine_run(f"config 3 {tag}", counts, f, 2 * len(ranks) + 1)
         return spot
 
-    res3, counts3 = run_counted("config3", solve_config3, record=True)
+    res3, counts3 = run_counted(
+        "config3", lambda: solve_config3(graphs=False), record=True)
     check_config3("cold", *res3[:3], counts3, res3[-1])
     cold3 = res3[3]
     (tci, ranks, errors, warm3, f), counts3 = run_counted(
         "config3", solve_config3)
     spot3 = check_config3("warm", tci, ranks, errors, counts3, f)
     med3 = median_warm(solve_config3)
-    nk3 = count_kernels(solve_config3)
+    # counted on the kept evaluator, whose sweeps are all replays by then
+    solve_config3(f=f)
+    nk3 = count_kernels(lambda: solve_config3(f=f))
     print(f"[config3] quantics R={R3}: cold {cold3:.4f} s, warm {warm3:.4f} s,"
           f" median of 10 warm {med3[0]:.4f} s (range {med3[1]:.4f}-"
           f"{med3[2]:.4f}); rank {tci.rank()}, ranks {ranks}, errors "
           f"{[f'{e:.6e}' for e in errors]}, spot-check error {spot3:.3e}; "
           f"{counts3['launches']} rrLU kernel launches (all on the engine, "
-          f"Imax {f.device_sweep_engine.Imax}), device kernels in one run: "
-          f"{nk3[1]} rrLU / {nk3[0]} all (profiler), "
+          f"Imax {f.device_sweep_engine.Imax}), device kernels in one "
+          f"replayed run: {nk3[1]} rrLU / {nk3[0]} all (profiler), "
           f"{counts3['plain_cuda']} plain calls on CUDA, fetches "
           f"{counts3['fetches']}, nevals {counts3['nevals']}", flush=True)
 
@@ -863,16 +948,25 @@ def main():
         return 1000 * np.cos(10 * np.sum(X ** 2, axis=1)) * np.exp(
             -np.sum(X, axis=1) ** 4 / 1000)
 
-    def solve_config4(vectorized=False):
+    def solve_config4(vectorized=False, fresh=True, graphs=True,
+                      capture_at=None):
         """integrate() as a user calls it; what it hands to and gets from
         TCI2, and the engine's capacity after each sweep, are recorded on
-        the way. Returns (integral, tci, ranks, errors, capacities,
-        declined, wall, evaluator)."""
+        the way. integrate keeps its evaluator by integrand: fresh=True
+        drops it first, so that the run builds a new one, fresh=False runs
+        on the one the last run left. Returns (integral, tci, ranks,
+        errors, capacities, declined, wall, evaluator)."""
         seen, sweeps = [], []
         tci2, sweep2site = (integration.crossinterpolate2,
                             device_sweep.DeviceSweepEngine.sweep2site)
+        if fresh:
+            integration._GK_EVAL_CACHE.pop(f4torch, None)
 
         def recording_tci2(valuetype, F, localdims, **kwargs):
+            if not vectorized:
+                set_graphs(F, graphs)
+                if capture_at is not None:
+                    F.device_sweep_engine.capture_at = capture_at
             out = tci2(valuetype, F, localdims, **kwargs)
             seen.append((F, *out))
             return out
@@ -916,14 +1010,18 @@ def main():
         if not declined:
             check_engine_run(f"config 4 {tag}", counts, f, None)
 
-    res4, counts4 = run_counted("config4", solve_config4, record=True)
+    res4, counts4 = run_counted(
+        "config4", lambda: solve_config4(graphs=False), record=True)
     check_config4("cold", res4[0], res4[1], counts4, res4[-1], res4[5])
     cold4 = res4[6]
     (val4, tci, ranks, errors, caps4, declined4, warm4, f), counts4 = (
         run_counted("config4", solve_config4))
     check_config4("warm", val4, tci, counts4, f, declined4)
     med4 = median_warm(solve_config4)
-    nk4 = count_kernels(solve_config4)
+    # counted on the kept evaluator, whose sweeps are all replays by then
+    solve_config4(fresh=False)
+    solve_config4(fresh=False)
+    nk4 = count_kernels(lambda: solve_config4(fresh=False))
     print(f"[config4] integrate(torch_native=True), 10-D GK15: cold "
           f"{cold4:.4f} s, warm {warm4:.4f} s, median of 10 warm "
           f"{med4[0]:.4f} s (range {med4[1]:.4f}-{med4[2]:.4f}); integral "
@@ -932,8 +1030,8 @@ def main():
           f"{[f'{e:.6e}' for e in errors]}; engine capacities {caps4}, "
           f"declined: {declined4}; {counts4['launches']} rrLU kernel "
           f"launches ({counts4['rrlu_raw']} rrlu_raw, "
-          f"{counts4['tier_calls']} tier calls), device kernels in one run: "
-          f"{nk4[1]} rrLU / {nk4[0]} all (profiler), "
+          f"{counts4['tier_calls']} tier calls), device kernels in one "
+          f"replayed run: {nk4[1]} rrLU / {nk4[0]} all (profiler), "
           f"{counts4['plain_cuda']} plain calls on CUDA, fetches "
           f"{counts4['fetches']}, nevals {counts4['nevals']}", flush=True)
 
@@ -951,6 +1049,277 @@ def main():
           f"{abs(valv - val4):.3e}, ranks {ranksv}, {countsv['launches']} "
           f"rrLU kernel launches, {countsv['plain_cuda']} plain calls on "
           f"CUDA", flush=True)
+
+    # -- 4d. the engine's sweeps as CUDA graphs an evaluator keeps -------------
+    # For configs 1, 3 and 4, at full width: (a) a new evaluator a run, with
+    # the graphs off, recorded at a key's first use and at its second;
+    # (b) one evaluator kept across runs: one run that records, then ten
+    # that only replay, then ten with the graphs switched off; (c) the
+    # replayed result against the eagerly queued one, bit for bit.
+    fresh4 = (val4, tci, ranks, caps4)
+
+    def timed_calls(log):
+        """Patch the engine's three entry points to log (name, seconds,
+        replayed?) of every call; returns the undo."""
+        saved = {}
+        for name in ("sweep2site", "fillsitetensors", "sweep1site"):
+            saved[name] = fn = getattr(DeviceSweepEngine, name)
+
+            def timed(self, *a, _fn=fn, _name=name, **k):
+                r0, t0 = self.replays, time.perf_counter()
+                out = _fn(self, *a, **k)
+                log.append((_name, time.perf_counter() - t0,
+                            self.replays > r0))
+                return out
+            setattr(DeviceSweepEngine, name, timed)
+
+        def undo():
+            for name, fn in saved.items():
+                setattr(DeviceSweepEngine, name, fn)
+        return undo
+
+    def med(xs):
+        xs = sorted(xs)
+        return (xs[(len(xs) - 1) // 2] + xs[len(xs) // 2]) / 2
+
+    def spread(xs):
+        return f"{med(xs):.4f} s ({min(xs):.4f}-{max(xs):.4f})"
+
+    def replay_trace(engine):
+        """Per program of the engine, one replay under torch.profiler: the
+        device items (kernels, copies, memsets) the graph holds, and the
+        rrLU kernels' durations by launch grid."""
+        from torch.profiler import ProfilerActivity, profile
+        out = {}
+        for key, prog in engine._sweeps.items():
+            if not prog.captured:
+                continue
+
+            def once(prog=prog):
+                prog._replay()
+                lu_cuda.count_replay(prog.captured_launches)
+            once()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                once()
+                torch.cuda.synchronize()
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "trace.json")
+                prof.export_chrome_trace(path)
+                with open(path) as fh:
+                    events = json.load(fh)["traceEvents"]
+            items = [e for e in events if e.get("ph") == "X" and e.get("cat")
+                     in ("kernel", "gpu_memcpy", "gpu_memset")]
+            rrlu = {}
+            for e in items:
+                if "rrlu" in e.get("name", ""):
+                    grid = str(e.get("args", {}).get("grid"))
+                    rrlu.setdefault(grid, []).append(e["dur"])
+            out[key] = {"nodes": len(items),
+                        "device_ms": sum(e["dur"] for e in items) / 1e3,
+                        "rrlu_us_by_grid": {
+                            g: (len(d), sum(d) / len(d))
+                            for g, d in rrlu.items()}}
+        return out
+
+    def same_tci(tag, a, b):
+        """Index sets, error series and every site tensor of two TensorCI2
+        bit for bit."""
+        if a.Iset != b.Iset or a.Jset != b.Jset:
+            fail(f"{tag}: index sets differ between graph and eager")
+        if (a.pivoterrors != b.pivoterrors
+                or list(a.bonderrors) != list(b.bonderrors)
+                or a.maxsamplevalue != b.maxsamplevalue):
+            fail(f"{tag}: pivot errors, bond errors or max sample differ")
+        for i, (x, y) in enumerate(zip(a.sitetensors(), b.sitetensors())):
+            if x.shape != y.shape or not torch.equal(x, y):
+                fail(f"{tag}: site tensor {i} differs between graph and "
+                     f"eager (bound: bitwise)")
+
+    def graphs_phase(tag, solve, key_of, sweeps_of):
+        """`solve(f=None, graphs=True, capture_at=None)` runs the config
+        (f: the evaluator to reuse) and returns (..., wall, f); key_of maps
+        its result to what must be identical between runs; sweeps_of gives
+        the fetches a run should make (or None)."""
+        out = {}
+        # (a) a new evaluator a run
+        for name, kw in (("fresh_eager", {"graphs": False}),
+                         ("fresh_capture_at_1", {"capture_at": 1}),
+                         ("fresh_capture_at_2", {"capture_at": 2})):
+            out[name] = [solve(**kw)[-2] for _ in range(5)]
+        # (b) one evaluator kept: the run that records, then replays only
+        log = []
+        undo = timed_calls(log)
+        try:
+            res, counts = run_counted(tag, lambda: solve())
+            f = res[-1]
+            engine = f.device_sweep_engine
+            check_engine_run(f"{tag} recording run", counts, f,
+                             sweeps_of(res))
+            if not all_replayed(engine):
+                fail(f"{tag}: recording run: {engine.programs()}")
+            out["recording_run"] = res[-2]
+            first_key = key_of(res)
+            first_tci = res[1] if tag == "config4" else res[0]
+            held = [t.clone() for t in first_tci.sitetensors()]
+            captures, del_log = engine.captures, len(log)
+            walls, launches = [], None
+            for _ in range(10):
+                res, counts = run_counted(tag, lambda: solve(f=f), f=f)
+                check_engine_run(f"{tag} replayed run", counts, f,
+                                 sweeps_of(res))
+                if key_of(res) != first_key:
+                    fail(f"{tag}: a replayed run gave {key_of(res)}, the "
+                         f"recording run {first_key}")
+                walls.append(res[-2])
+                launches = counts["launches"]
+            if engine.captures != captures or not all(
+                    p["captured"] for p in engine.programs()):
+                fail(f"{tag}: warm runs on a kept evaluator captured again "
+                     f"or ran a key eagerly: {engine.programs()}")
+            if not all(replayed for _, _, replayed in log[del_log:]):
+                fail(f"{tag}: a sweep call of a warm run was not a replay")
+            out["kept_graphs"] = walls
+            replay_calls = log[del_log:]
+            replayed_tci = res[1] if tag == "config4" else res[0]
+            # site tensors of the first result: untouched by 10 more runs
+            for i, (t, h) in enumerate(zip(first_tci.sitetensors(), held)):
+                if not torch.equal(t, h):
+                    fail(f"{tag}: site tensor {i} of the first result "
+                         f"changed under later calls on the same evaluator")
+            same_tci(f"{tag} first against eleventh run", first_tci,
+                     replayed_tci)
+            pool = engine.graph_pool_bytes()
+            trace = replay_trace(engine)
+            # ... and with the graphs switched off, on the same evaluator
+            n0 = len(log)
+            walls = []
+            for _ in range(10):
+                res, counts = run_counted(
+                    tag, lambda: solve(f=f, graphs=False), f=f)
+                check_engine_run(f"{tag} eager run", counts, f,
+                                 sweeps_of(res))
+                walls.append(res[-2])
+            out["kept_eager"] = walls
+            eager_calls = log[n0:]
+            if any(replayed for _, _, replayed in eager_calls):
+                fail(f"{tag}: a run with the graphs off replayed one")
+            if key_of(res) != first_key or counts["launches"] != launches:
+                fail(f"{tag}: eager {key_of(res)}, {counts['launches']} "
+                     f"launches; replayed {first_key}, {launches}")
+            same_tci(f"{tag} graph against eager", replayed_tci,
+                     res[1] if tag == "config4" else res[0])
+            set_graphs(f, True)
+        finally:
+            undo()
+
+        def call_ms(calls, name):
+            xs = [t * 1e3 for n, t, _ in calls if n == name]
+            return f"{med(xs):.3f}" if xs else "none"
+
+        progs = engine.programs()
+        pool_txt = ("not measured" if pool is None
+                    else f"{pool / 2 ** 20:.1f} MiB")
+        print(f"[graphs] {tag}: a new evaluator a run (5 runs each): eager "
+              f"{spread(out['fresh_eager'])}, recorded at a key's first use "
+              f"{spread(out['fresh_capture_at_1'])}, at its second "
+              f"{spread(out['fresh_capture_at_2'])}", flush=True)
+        print(f"[graphs] {tag}: one evaluator kept: the recording run "
+              f"{out['recording_run']:.4f} s, then 10 replayed runs "
+              f"{spread(out['kept_graphs'])}, then 10 with the graphs off "
+              f"{spread(out['kept_eager'])}; graph and eager identical bit "
+              f"for bit (index sets, error series, site tensors, "
+              f"{first_key}); site tensors of the first result unchanged "
+              f"after 10 more runs", flush=True)
+        print(f"[graphs] {tag}: {engine.captures} captures, "
+              f"{engine.replays} replays, declined {engine.declined}; "
+              f"{launches} rrLU launches a replayed run; one call, host "
+              f"wall with its fetch, median ms replayed / eager: sweep2site "
+              f"{call_ms(replay_calls, 'sweep2site')} / "
+              f"{call_ms(eager_calls, 'sweep2site')}, sweep1site "
+              f"{call_ms(replay_calls, 'sweep1site')} / "
+              f"{call_ms(eager_calls, 'sweep1site')}, fillsitetensors "
+              f"{call_ms(replay_calls, 'fillsitetensors')} / "
+              f"{call_ms(eager_calls, 'fillsitetensors')}; the graphs' "
+              f"memory pool holds {pool_txt}", flush=True)
+        for p in progs:
+            tr = trace.get(p["key"], {})
+            print(f"[graphs] {tag}: program {p['key']}: {p['uses']} uses, "
+                  f"{p['replays']} replays, capture and instantiation "
+                  f"{p['capture_seconds'] * 1e3:.2f} ms, "
+                  f"{p['captured_launches']} rrLU launches, "
+                  f"{tr.get('nodes')} device items a replay taking "
+                  f"{tr.get('device_ms', float('nan')):.3f} ms on the device"
+                  f"; rrLU kernel (count, mean us) by grid: "
+                  f"{tr.get('rrlu_us_by_grid')}", flush=True)
+        return {"fresh_eager_median": med(out["fresh_eager"]),
+                "fresh_capture_at_1_median": med(out["fresh_capture_at_1"]),
+                "fresh_capture_at_2_median": med(out["fresh_capture_at_2"]),
+                "recording_run": out["recording_run"],
+                "kept_graphs_median": med(out["kept_graphs"]),
+                "kept_eager_median": med(out["kept_eager"]),
+                "captures": engine.captures, "launches": launches,
+                "pool_bytes": pool}
+
+    graph_results = {
+        "config1": graphs_phase(
+            "config1",
+            lambda f=None, graphs=True, capture_at=None: solve_config1(
+                "engine", None, f, graphs, capture_at),
+            lambda res: (res[1], res[2]),
+            lambda res: 2 * len(res[1]) + 1),
+        "config3": graphs_phase(
+            "config3", solve_config3, lambda res: (res[1], res[2]),
+            lambda res: 2 * len(res[1]) + 1),
+        "config4": graphs_phase(
+            "config4",
+            lambda f=None, graphs=True, capture_at=None: solve_config4(
+                fresh=f is None, graphs=graphs, capture_at=capture_at),
+            # the integral, the ranks and the capacities [32, 64] of a
+            # recording run; a kept engine stays at the capacity it grew to
+            lambda res: (res[0], res[2]),
+            lambda res: None),
+    }
+    if graph_results["config1"]["kept_graphs_median"] <= 0:
+        fail("graphs phase: no wall measured")
+
+    # one program, replayed with other tolerances and rank caps: what the
+    # eagerly queued body gives for each
+    seen = {}
+    for graphs in (False, True):
+        bf = tci_tpu_torch.TorchBatchEvaluator(fdev, localdims,
+                                               cuda_graphs=graphs)
+        tci = tci_tpu_torch.TensorCI2.from_function(bf, localdims)
+        engine = bf.device_sweep_engine
+        seen[graphs] = []
+        for abstol, maxbond in ((1e-3, 2), (1e-12, 2 ** 62), (1e-6, 5)):
+            tci.flushpivoterror()
+            engine.sweep2site(tci, True, 1e-14, abstol, maxbond, empty, empty)
+            seen[graphs].append((tci.Iset, tci.Jset, list(tci.pivoterrors)))
+        if engine.captures != int(graphs) or engine.replays != 3 * graphs:
+            fail(f"tolerance check: {engine.programs()}")
+    ranks_seen = [max(len(s) for s in st[0]) for st in seen[True]]
+    if seen[True] != seen[False] or ranks_seen[0] != 2 or ranks_seen[2] > 5:
+        fail(f"one program replayed with three abstol / maxbonddim pairs "
+             f"differs from the eager body (ranks {ranks_seen})")
+    print(f"[graphs] one 2-site sweep program of config 1 replayed with "
+          f"(abstol, maxbonddim) = (1e-3, 2), (1e-12, 2^62), (1e-6, 5): "
+          f"ranks {ranks_seen}, index sets and pivot errors identical to "
+          f"the eager body's each time", flush=True)
+    # config 4 with a new evaluator: the run that recorded its graphs
+    # (phase 4c's warm run) against the one that queued eagerly (its cold
+    # run): the integral, the ranks, the capacities and the tensor train
+    if (fresh4[0] != res4[0] or fresh4[2] != res4[2]
+            or fresh4[3] != res4[4] or fresh4[3] != [32, 64]):
+        fail(f"config 4: graphs gave integral {fresh4[0]!r}, ranks "
+             f"{fresh4[2]}, capacities {fresh4[3]}; eager {res4[0]!r}, "
+             f"{res4[2]}, {res4[4]}; expected equal, capacities [32, 64]")
+    same_tci("config 4, new evaluators, graph against eager", fresh4[1],
+             res4[1])
+    print(f"[graphs] config4: new evaluators, graphs on against off: "
+          f"integral {fresh4[0]!r}, ranks {fresh4[2]} and capacities "
+          f"{fresh4[3]} equal, tensor train identical bit for bit",
+          flush=True)
 
     # -- 5. kernel vs plain on every launch of the cold runs -------------------
     # for their times: config 1's first fill (its P blocks in one launch),
@@ -1035,11 +1404,31 @@ def main():
 
     # -- 6. profiles (--profile) -----------------------------------------------
     if opts.profile:
-        for tier in TIERS:
+        for tier in ("host", "fused"):
             profile_run(opts.profile, f"config1_{tier}",
                         lambda t=tier: solve_config1(t)[3])
-        profile_run(opts.profile, "config3", lambda: solve_config3()[-2])
-        profile_run(opts.profile, "config4", lambda: solve_config4()[-2])
+        # the engine on an evaluator that is kept: every sweep a replay of
+        # its graph, then the same sweeps queued eagerly (nothing is
+        # recorded while the profiler runs)
+        kept = solve_config1("engine")[-1]
+        solve_config1("engine", f=kept)
+        profile_run(opts.profile, "config1_engine_replayed",
+                    lambda: solve_config1("engine", f=kept)[3])
+        profile_run(opts.profile, "config1_engine_eager",
+                    lambda: solve_config1("engine", f=kept, graphs=False)[3])
+        kept3 = solve_config3()[-1]
+        solve_config3(f=kept3)
+        profile_run(opts.profile, "config3_replayed",
+                    lambda: solve_config3(f=kept3)[-2])
+        profile_run(opts.profile, "config3_eager",
+                    lambda: solve_config3(f=kept3, graphs=False)[-2])
+        solve_config4()
+        solve_config4(fresh=False)
+        solve_config4(fresh=False)
+        profile_run(opts.profile, "config4_replayed",
+                    lambda: solve_config4(fresh=False)[-2])
+        profile_run(opts.profile, "config4_eager",
+                    lambda: solve_config4(fresh=False, graphs=False)[-2])
 
     if any(m == "jax" or m.startswith(("jax.", "tci_tpu."))
            or m == "tci_tpu" for m in sys.modules):
@@ -1073,6 +1462,7 @@ def main():
         "bound_ms": eng["engine_panel_bound_ms"],
         "bound_by": eng["engine_panel_bound_by"],
         "library_ms": None,
+        "cuda_graphs": graph_results,
         **host_panel,
         **eng,
         **n2000,
@@ -1116,6 +1506,10 @@ def profile_run(outdir, tier, solve):
         (device_sweep, "_sweep", "engine_sweep_queue"),
         (device_sweep, "_fill", "engine_fill_queue"),
         (device_sweep, "_sweep1", "engine_sweep1site_queue"),
+        # a program's upload (pack and one copy in) and its run: the host
+        # time of one replay, or of the eager body with its queue spans
+        (device_sweep._Program, "load", "engine_program_load"),
+        (device_sweep._Program, "run", "engine_program_run"),
         (device_sweep, "fetch", "fetch"),
         (fused.FusedBondUpdater, "update", "fused_update"),
         (fused.FusedSiteTensors, "compute", "fused_site_tensor"),

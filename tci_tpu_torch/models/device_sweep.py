@@ -18,26 +18,38 @@ rrLU factorization and index-set bookkeeping. Here:
   kernel sees a contiguous panel; its extents, rank cap and results stay on
   the device, and the selected pivots are gathered back into the buffers.
 
-``tci_tpu`` traces one XLA program per sweep (a ``lax.scan`` over bonds);
-PyTorch runs eagerly, so each body is a host loop over bonds that queues
-launches: the bond index is a Python int, every shape is fixed by the
-capacity Imax, and nothing reads a device value until the sweep's single
-fetch. The capacity grows when a sweep saturates it; above ``imax_cap`` or
-``max_panel_edge`` the engine declines and TensorCI2 falls back to the
-per-bond fused tier (``ops/fused.py``), which runs on the device too.
+``tci_tpu`` traces one XLA program per sweep (a ``lax.scan`` over bonds)
+and keeps it in ``DeviceSweepEngine._sweeps``. Here each body is a host
+loop over bonds that queues launches: the bond index is a Python int, every
+shape is fixed by the capacity Imax, nothing reads a device value until the
+sweep's single fetch, and the tolerances and the rank cap are device
+scalars. So a body bakes in nothing that changes between calls, and on a
+CUDA device the engine records it once into a CUDA graph (``_Program``),
+keeps the graph in ``_sweeps`` under the reference's keys and replays it on
+every later call of that key: one copy in, one replay, one copy out. On the
+CPU the same bodies run eagerly through the same holder.
+
+The capacity grows when a sweep saturates it (a new capacity is a new key);
+above ``imax_cap`` or ``max_panel_edge`` the engine declines and TensorCI2
+falls back to the per-bond fused tier (``ops/fused.py``), which runs on the
+device too.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Sequence, Tuple
+import sys
+import time
+import weakref
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..ops import lu_cuda
 from ..ops.fused import ci_factors, panel_solve_pinv, sample_panel
 from ..ops.lu_kernel import rrlu_panel_batched
-from ..utils.device import (FETCHES, fetch, resolve_device, to_device,
-                            torch_dtype)
+from ..utils.device import (FETCHES, capture_graph, fetch, resolve_device,
+                            to_device, torch_dtype)
 
 __all__ = ["DeviceSweepEngine", "FETCHES"]
 
@@ -113,7 +125,9 @@ class _Layout:
     history rows, ``site`` (2, R) holds the site value s of the R = Imax
     dmax kron rows, and ``pad[b]`` (2, C) marks the site values at or above
     d_b (I side) and d_{b+1} (J side). ``ar`` is arange(C) and ``keep``
-    arange(Imax) as a column, for the masks."""
+    arange(Imax) as a column, for the masks, and ``dims`` the local
+    dimensions. Everything uploaded from the host lives here, outside any
+    body: a graph replays a body's launches, not its uploads."""
 
     def __init__(self, localdims: Sequence[int], Imax: int, device):
         dmax = max(localdims)
@@ -126,11 +140,11 @@ class _Layout:
                                 torch.cat([r % Imax, e])])
         self.src = self.row + Imax * self.extra
         self.site = torch.stack([r % dmax, r // Imax])
-        dims = to_device(np.asarray(localdims, dtype=np.int64), device)
+        self.dims = to_device(np.asarray(localdims, dtype=np.int64), device)
         site = torch.cat([self.site, torch.zeros_like(self.site[:, :Imax])],
                          dim=1)
-        self.pad = torch.stack([site[0] >= dims[:-1, None],
-                                site[1] >= dims[1:, None]], dim=1)
+        self.pad = torch.stack([site[0] >= self.dims[:-1, None],
+                                site[1] >= self.dims[1:, None]], dim=1)
         self.keep = e[:, None]
 
 
@@ -155,18 +169,21 @@ def _bond_writeback(lay, Iset, Ilen, Jset, Jlen, perrs, bi: int, bj: int,
 
 
 def _sweep(f, localdims, dtype, lay, Iset, Ilen, Jset, Jlen, eI, eIlen, eJ,
-           eJlen, forward: bool, reltol: float, abstol: float,
-           maxbonddim: int):
+           eJlen, forward: bool, reltol, abstol, maxbond):
     """One 2-site sweep (``_make_sweep_scan``'s bond body). The Π panel of
-    every bond is padded to Icap x Jcap = Imax (dmax + 1) square. Updates
-    the index buffers in place; returns (pivot errors (L-1, Imax+1),
-    max |sample|), both on the device."""
+    every bond is padded to Icap x Jcap = Imax (dmax + 1) square. `reltol`
+    and `abstol` are (1,) tensors and `maxbond` (the rank cap, at most
+    Imax) a 0-d integer tensor on the device, as ``tci_tpu``'s program
+    takes them as traced arguments. Updates the index buffers in place;
+    returns (pivot errors (L-1, Imax+1), max |sample|), both on the
+    device."""
     L, (Imax, dev) = len(localdims), (Iset.shape[1], Iset.device)
     R = lay.site.shape[1]
     perrs = torch.zeros((L - 1, Imax + 1), dtype=torch.float64, device=dev)
     maxsample = torch.zeros((), dtype=dtype, device=dev)
     # the history sets' sizes at each bond: (|extraIset[b+1]|, |extraJset[b]|)
     exlens = torch.stack([eIlen[1:], eJlen[:-1]], dim=1)[:, :, None]
+    cap = maxbond.to(torch.int32)
     for b in (range(L - 1) if forward else range(L - 2, -1, -1)):
         # the valid candidates of both sides, moved to the front in a
         # stable order; their counts are the panel's extents (mI, mJ)
@@ -190,7 +207,7 @@ def _sweep(f, localdims, dtype, lay, Iset, Ilen, Jset, Jlen, eI, eIlen, eJ,
         maxsample = torch.maximum(
             maxsample, torch.linalg.vector_norm(Pi, float("inf")))
         mn = m.amin()
-        maxrank = torch.clamp(mn, max=min(maxbonddim, Imax))
+        maxrank = torch.minimum(mn, cap)
         _, rowperm, colperm, k, mags, err = _rrlu(
             Pi, m[0:1], m[1:2], maxrank[None], reltol, abstol, forward)
         err_final = torch.where(k >= mn, 0.0, err)
@@ -199,7 +216,7 @@ def _sweep(f, localdims, dtype, lay, Iset, Ilen, Jset, Jlen, eI, eIlen, eJ,
     return perrs, maxsample
 
 
-def _fill(f, localdims, dtype, Iset, Ilen, Jset, Jlen):
+def _fill(f, localdims, dtype, lay, Iset, Ilen, Jset, Jlen):
     """All L site tensors T_b = Π₁ P^{-1} (tensorci2.jl:599-629;
     ``_make_fillsitetensors_scan``). The L-1 bonds' Π₁ and P panels and the
     last site's samples come from one call of f, the L-1 P blocks from one
@@ -210,7 +227,7 @@ def _fill(f, localdims, dtype, Iset, Ilen, Jset, Jlen):
     B, R = L - 1, Imax * dmax
     bidx = torch.arange(B, device=dev)
     pos = torch.arange(L, device=dev)
-    dims = to_device(np.asarray(localdims[:B], dtype=np.int64), dev)
+    dims = lay.dims[:B]
     # Π₁ rows: kron(Iset[b], dmax) with the site index at position b, the
     # valid ones first; P rows: Iset[b+1]
     s = torch.arange(dmax, device=dev)
@@ -251,8 +268,9 @@ def _fill(f, localdims, dtype, Iset, Ilen, Jset, Jlen):
 
 
 def _sweep1(f, localdims, dtype, lay, Iset, Ilen, Jset, Jlen, forward: bool,
-            reltol: float, abstol: float, maxbonddim: int):
-    """One 1-site sweep (tensorci2.jl:659-725; ``_make_sweep1site_scan``).
+            reltol, abstol, maxbond):
+    """One 1-site sweep (tensorci2.jl:659-725; ``_make_sweep1site_scan``);
+    `reltol`, `abstol` and `maxbond` on the device as for ``_sweep``.
     Updates the index buffers in place; returns (tensors (L, Imax, dmax,
     Imax), pivot errors (L-1, Imax+1), max |sample|), on the device."""
     L, dmax, (Imax, dev) = len(localdims), max(localdims), (Iset.shape[1],
@@ -284,7 +302,7 @@ def _sweep1(f, localdims, dtype, lay, Iset, Ilen, Jset, Jlen, forward: bool,
             Pi = _panel(f, Is, Js, b, L - b, mIs, mJs, dtype)
         maxsample = torch.maximum(maxsample, Pi.abs().amax())
         mn = torch.minimum(mIs, mJs)
-        maxrank = torch.clamp(mn, max=min(maxbonddim, Imax))
+        maxrank = torch.minimum(mn, maxbond)
         A, rowperm, colperm, k, mags, err = _rrlu(
             Pi, mIs[None], mJs[None], maxrank[None], reltol, abstol, forward)
         left, right = ci_factors(A, rowperm, colperm, k, forward)
@@ -312,12 +330,12 @@ def _sweep1(f, localdims, dtype, lay, Iset, Ilen, Jset, Jlen, forward: bool,
     return tensors, perrs, maxsample
 
 
-def _nan_sites(tensors, Ilen, Jlen, localdims) -> torch.Tensor:
-    """(L,) flags: NaN in the true block of site tensor b."""
+def _nan_sites(tensors, Ilen, Jlen, dims) -> torch.Tensor:
+    """(L,) flags: NaN in the true block of site tensor b; `dims` are the
+    local dimensions on the device."""
     L, Imax, dmax, _ = tensors.shape
     dev = tensors.device
     ar = torch.arange(Imax, device=dev)
-    dims = to_device(np.asarray(localdims, dtype=np.int64), dev)
     ncols = torch.cat([Ilen[1:], Jlen[-1:]])
     valid = ((ar[None, :, None, None] < Ilen[:, None, None, None])
              & (torch.arange(dmax, device=dev)[None, None, :, None]
@@ -326,16 +344,172 @@ def _nan_sites(tensors, Ilen, Jlen, localdims) -> torch.Tensor:
     return (torch.isnan(tensors) & valid).flatten(1).any(1)
 
 
+def _packed(*tensors):
+    """The tensors as one float64 record (integers up to 2^53 are exact),
+    built on the device so that a sweep ends in one fetch, and their
+    shapes."""
+    return (torch.cat([t.reshape(-1).to(torch.float64) for t in tensors]),
+            [tuple(t.shape) for t in tensors])
+
+
+def _unpacked(rec: np.ndarray, shapes) -> List[np.ndarray]:
+    """The arrays of a fetched ``_packed`` record."""
+    out, o = [], 0
+    for shape in shapes:
+        n = int(np.prod(shape, dtype=np.int64))
+        out.append(rec[o:o + n].reshape(shape))
+        o += n
+    return out
+
+
+def _pack_into(buf: np.ndarray, lens: np.ndarray,
+               sets: List[List[MultiIndex]]) -> None:
+    """Pack ragged index-set lists into an (L, Imax, L) buffer (each
+    multi-index stored left-aligned in row[:len]) and (L,) lengths."""
+    buf[...] = 0
+    for b, s in enumerate(sets):
+        lens[b] = len(s)
+        for r, idx in enumerate(s):
+            if len(idx) > 0:
+                buf[b, r, :len(idx)] = idx
+
+
+class _Program:
+    """One body of the engine at one capacity, as ``tci_tpu`` keeps a jitted
+    program: the body, the input record it reads, and, once captured, its
+    CUDA graph.
+
+    The input record is one int64 device array that the program owns: the
+    index buffers and lengths (``Iset``, ``Ilen``, ``Jset``, ``Jlen`` and,
+    for a 2-site sweep, the history sets ``eI``, ``eIlen``, ``eJ``,
+    ``eJlen``), then ``reltol`` and ``abstol`` (float64 bits, (1,) views)
+    and ``maxbond``. ``load`` writes a call's values into a pinned staging
+    array and copies it over in one transfer; the body reads only views of
+    the record, so a graph recorded once follows every later call's values.
+
+    ``run`` captures the body at the key's ``engine.capture_at``-th use
+    when the engine captures at all (``engine.cuda_graphs``), replays the
+    graph from then on, and otherwise calls the body. A body returns
+    (record, shapes, *device tensors): ``_packed`` results for the one
+    fetch, and what stays on the device. Under a graph these are static
+    tensors that the next replay overwrites, so ``run`` hands out copies of
+    the device tensors; the record is copied by the fetch."""
+
+    def __init__(self, engine: "DeviceSweepEngine", key, history: bool, body,
+                 rrlu_launches: int):
+        # the engine owns its programs; a reference back that counted would
+        # keep an engine that is dropped, and its graphs' memory, until
+        # the garbage collector finds the cycle
+        self.engine, self.key, self.body = weakref.proxy(engine), key, body
+        # rrLU launches one run of the body makes, by the engine's count
+        self.rrlu_launches = rrlu_launches
+        L, Imax, dev = len(engine.localdims), engine.Imax, engine.device
+        shapes = [("Iset", (L, Imax, L)), ("Ilen", (L,)),
+                  ("Jset", (L, Imax, L)), ("Jlen", (L,))]
+        if history:
+            shapes += [("eI", (L, Imax, L)), ("eIlen", (L,)),
+                       ("eJ", (L, Imax, L)), ("eJlen", (L,))]
+        n = sum(int(np.prod(shape)) for _, shape in shapes) + 3
+        self._stage = torch.zeros(n, dtype=torch.int64,
+                                  pin_memory=dev.type == "cuda")
+        self._record = torch.zeros(n, dtype=torch.int64, device=dev)
+        host = self._stage.numpy()
+        self._host, o = [], 0
+        for name, shape in shapes:
+            size = int(np.prod(shape))
+            self._host.append(host[o:o + size].reshape(shape))
+            setattr(self, name, self._record[o:o + size].view(shape))
+            o += size
+        self._host_tol = host[o:o + 2].view(np.float64)
+        self._host_maxbond = host[o + 2:]
+        self.reltol = self._record[o:o + 1].view(torch.float64)
+        self.abstol = self._record[o + 1:o + 2].view(torch.float64)
+        self.maxbond = self._record[o + 2]
+        # the last copy out of the staging array, which must have finished
+        # before the next call's values are written there
+        self._copied = torch.cuda.Event() if dev.type == "cuda" else None
+        self._pending = False
+        self.uses = 0
+        self.replays = 0
+        self._replay = None
+        self._outputs = None
+        # filled at the capture: launches of the kernel the graph holds,
+        # and the host time the capture and its instantiation took
+        self.captured_launches = 0
+        self.capture_seconds = None
+
+    @property
+    def captured(self) -> bool:
+        return self._replay is not None
+
+    def load(self, *sets, reltol: float = 0.0, abstol: float = 0.0,
+             maxbonddim: int = 0) -> None:
+        """A call's inputs into the record, in one transfer: the index-set
+        lists (in the record's order), the tolerances, and the rank cap
+        clamped to the capacity."""
+        if self._pending:
+            self._copied.synchronize()
+        for i, s in enumerate(sets):
+            _pack_into(self._host[2 * i], self._host[2 * i + 1], s)
+        self._host_tol[:] = (reltol, abstol)
+        self._host_maxbond[0] = min(int(maxbonddim), self.engine.Imax)
+        self._record.copy_(self._stage, non_blocking=True)
+        if self._copied is not None:
+            self._copied.record(torch.cuda.current_stream(self._record.device))
+            self._pending = True
+
+    def run(self):
+        """The body's results on the loaded inputs: replayed from the graph,
+        or computed eagerly."""
+        eng = self.engine
+        self.uses += 1
+        if (eng.cuda_graphs and self._replay is None
+                and self.key not in eng.declined
+                and self.uses >= eng.capture_at):
+            before = lu_cuda.CAPTURED["rrlu"]
+            t0 = time.perf_counter()
+            try:
+                self._replay, self._outputs = eng._capture(
+                    lambda: self.body(self))
+            except Exception as exc:  # anything f or the capture raises
+                eng._decline(self.key, exc)
+            else:
+                self.capture_seconds = time.perf_counter() - t0
+                self.captured_launches = lu_cuda.CAPTURED["rrlu"] - before
+                eng.captures += 1
+        if not eng.cuda_graphs or self._replay is None:
+            return self.body(self)
+        self._replay()
+        lu_cuda.count_replay(self.captured_launches)
+        self.replays += 1
+        eng.replays += 1
+        rec, shapes, *kept = self._outputs
+        return (rec, shapes, *(t.clone() for t in kept))
+
+
 class DeviceSweepEngine:
     """Host wrapper: uploads TCI2 index sets into padded device buffers, runs
     a sweep on the device, and writes the results back after one fetch.
     Grows the buffer capacity when the rank saturates it.
 
-    `f` maps an (N, L) int64 tensor on `device` to (N,) values there."""
+    `f` maps an (N, L) int64 tensor on `device` to (N,) values there.
+
+    On a CUDA device each body (2-site sweep, with and without the fill;
+    the fill; the 1-site sweep) is recorded into a CUDA graph at the first
+    use of its key (``capture_at``) and replayed from then on
+    (``cuda_graphs=False``, or setting the attribute later, runs every body
+    eagerly). `f` is recorded with the body, so it has to be a pure function
+    of its index tensor, written with torch operations: no ``.item()`` or
+    other read of a device value, no shape that depends on the data, and
+    the tensors it closes over stay alive and are only updated in place.
+    When the capture of a body fails, that key runs eagerly from then on,
+    on the same device and through the same kernel; the engine says so once
+    on stderr and keeps the reason in ``declined[key]``. ``captures`` and
+    ``replays`` count what happened; ``programs()`` describes every key."""
 
     def __init__(self, f: Callable, localdims: Sequence[int], imax: int = 32,
                  imax_cap: int = 256, dtype=torch.float64, device=None,
-                 max_panel_edge: int = 4096):
+                 max_panel_edge: int = 4096, cuda_graphs: bool = True):
         self.f = f
         self.localdims = tuple(int(d) for d in localdims)
         self.dtype = torch_dtype(dtype)
@@ -350,6 +524,25 @@ class DeviceSweepEngine:
         # rrLU launches this engine made (one a bond, one a fill)
         self.rrlu_calls = 0
         self._layouts = {}
+        # the programs, by the keys of tci_tpu's engine: (forward, Imax) a
+        # 2-site sweep, (forward, Imax, "fused_full") with the fill,
+        # ("fill", Imax), ("sweep1", forward, Imax)
+        self._sweeps: Dict[tuple, _Program] = {}
+        self.cuda_graphs = cuda_graphs and self.device.type == "cuda"
+        # the use of a key at which it is recorded. 1, as tci_tpu compiles a
+        # sweep when it first runs it: an evaluator that is kept replays
+        # from its second call on. (Measured on an H100 with a new evaluator
+        # a run: recording at the first use beat the second at 39 bonds a
+        # sweep and lost at 9 bonds with a capacity growth; PERF.md.)
+        self.capture_at = 1
+        self.captures = 0
+        self.replays = 0
+        # keys whose capture failed, with the reason; they run eagerly
+        self.declined: Dict[tuple, str] = {}
+        # all graphs of an engine share one memory pool (they never run
+        # together) and are captured on one side stream
+        self._pool = None
+        self._stream = None
 
     def _layout(self) -> _Layout:
         """The index layout of the current capacity (built at its first
@@ -358,6 +551,52 @@ class DeviceSweepEngine:
             self._layouts[self.Imax] = _Layout(self.localdims, self.Imax,
                                                self.device)
         return self._layouts[self.Imax]
+
+    def _capture(self, body):
+        """Record body() into a CUDA graph of this engine's pool; returns
+        (replay, the body's static outputs). What a launch sets up once (the
+        kernel's build and load, cuBLAS's handle for the triangular solves)
+        happens before, outside the capture."""
+        dev = self.device
+        lu_cuda.warm_up(dev.index, self.dtype)
+        eye = torch.eye(2, dtype=self.dtype, device=dev)
+        torch.linalg.solve_triangular(eye, eye, upper=True)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(dev)
+        graph, outputs = capture_graph(body, self._pool, self._stream)
+        return graph.replay, outputs
+
+    def _decline(self, key, exc: BaseException) -> None:
+        """Note that `key` could not be captured; say so at the first."""
+        if not self.declined:
+            print(f"tci_tpu_torch: the whole-sweep engine could not record "
+                  f"program {key} into a CUDA graph and runs it eagerly on "
+                  f"{self.device} instead ({type(exc).__name__}: {exc}); see "
+                  f"DeviceSweepEngine.declined", file=sys.stderr, flush=True)
+        self.declined[key] = f"{type(exc).__name__}: {exc}"
+        # a capture that CUDA invalidated can leave the allocator recording
+        # into the pool; later captures of this engine start a new one
+        self._pool = None
+
+    def programs(self) -> List[dict]:
+        """One entry per program key: whether it is a graph, how often it
+        was used and replayed, the rrLU launches its graph holds and the
+        host time of its capture."""
+        return [{"key": key, "captured": p.captured, "uses": p.uses,
+                 "replays": p.replays, "declined": self.declined.get(key),
+                 "captured_launches": p.captured_launches,
+                 "capture_seconds": p.capture_seconds}
+                for key, p in self._sweeps.items()]
+
+    def graph_pool_bytes(self):
+        """Device memory the graphs' pool holds, from the allocator's
+        snapshot; None before the first capture."""
+        if self._pool is None:
+            return None
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == tuple(self._pool))
 
     def _reserve(self, needed: int) -> bool:
         """Set the capacity for sets of up to `needed` entries; False when
@@ -379,18 +618,73 @@ class DeviceSweepEngine:
         self.Imax = nxt
         return True
 
-    def _pack(self, sets: List[List[MultiIndex]]) -> Tuple[np.ndarray, ...]:
-        """Pack ragged index-set lists into an (L, Imax, L) buffer (each
-        multi-index stored left-aligned in row[:len]) and (L,) lengths."""
-        L = len(self.localdims)
-        buf = np.zeros((L, self.Imax, L), dtype=np.int64)
-        lens = np.zeros((L,), dtype=np.int64)
-        for b, s in enumerate(sets):
-            lens[b] = len(s)
-            for r, idx in enumerate(s):
-                if len(idx) > 0:
-                    buf[b, r, :len(idx)] = idx
-        return buf, lens
+    def _get_sweep(self, forward: bool, fill: bool) -> _Program:
+        """The 2-site sweep at the current capacity; with `fill`, the sweep
+        and the site-tensor fill on the same device state as one program
+        (``_get_sweep_fused``)."""
+        key = ((forward, self.Imax, "fused_full") if fill
+               else (forward, self.Imax))
+        if key not in self._sweeps:
+            f, dims, dtype, lay = (self.f, self.localdims, self.dtype,
+                                   self._layout())
+
+            def body(p):
+                perrs, maxsample = _sweep(
+                    f, dims, dtype, lay, p.Iset, p.Ilen, p.Jset, p.Jlen, p.eI,
+                    p.eIlen, p.eJ, p.eJlen, forward, p.reltol, p.abstol,
+                    p.maxbond)
+                kept = ()
+                if fill:
+                    tensors, fill_max = _fill(f, dims, dtype, lay, p.Iset,
+                                              p.Ilen, p.Jset, p.Jlen)
+                    maxsample = torch.maximum(maxsample, fill_max)
+                    kept = (tensors,)
+                return (*_packed(p.Iset, p.Ilen, p.Jset, p.Jlen, perrs,
+                                 maxsample), *kept)
+
+            self._sweeps[key] = _Program(self, key, True, body,
+                                         len(dims) - 1 + int(fill))
+        return self._sweeps[key]
+
+    def _get_fill(self) -> _Program:
+        key = ("fill", self.Imax)
+        if key not in self._sweeps:
+            f, dims, dtype, lay = (self.f, self.localdims, self.dtype,
+                                   self._layout())
+
+            def body(p):
+                return (None, None, *_fill(f, dims, dtype, lay, p.Iset,
+                                           p.Ilen, p.Jset, p.Jlen))
+
+            self._sweeps[key] = _Program(self, key, False, body, 1)
+        return self._sweeps[key]
+
+    def _get_sweep1(self, forward: bool) -> _Program:
+        key = ("sweep1", forward, self.Imax)
+        if key not in self._sweeps:
+            f, dims, dtype, lay = (self.f, self.localdims, self.dtype,
+                                   self._layout())
+
+            def body(p):
+                tensors, perrs, maxsample = _sweep1(
+                    f, dims, dtype, lay, p.Iset, p.Ilen, p.Jset, p.Jlen,
+                    forward, p.reltol, p.abstol, p.maxbond)
+                nan = _nan_sites(tensors, p.Ilen, p.Jlen, lay.dims)
+                return (*_packed(p.Iset, p.Ilen, p.Jset, p.Jlen, perrs,
+                                 maxsample, nan), tensors)
+
+            self._sweeps[key] = _Program(self, key, False, body,
+                                         len(dims) - 1)
+        return self._sweeps[key]
+
+    def _run(self, program: _Program):
+        """Run a loaded program: (the fetched record's arrays or None, the
+        tensors that stay on the device)."""
+        rec, shapes, *kept = program.run()
+        self.rrlu_calls += program.rrlu_launches
+        if rec is None:
+            return None, kept
+        return _unpacked(fetch(rec, "engine"), shapes), kept
 
     def _unpack(self, buf: np.ndarray, lens: np.ndarray,
                 lengths_per_site: List[int]) -> List[List[MultiIndex]]:
@@ -401,40 +695,21 @@ class DeviceSweepEngine:
                         for r in range(int(lens[b]))])
         return out
 
-    def _upload(self, *sets) -> List[torch.Tensor]:
-        """Index sets to the device in one transfer: (buffer, lengths) per
-        set list, as views of one device array."""
-        parts = [a for s in sets for a in self._pack(s)]
-        flat = to_device(np.concatenate([a.ravel() for a in parts]),
-                         self.device)
-        out, o = [], 0
-        for a in parts:
-            out.append(flat[o:o + a.size].view(a.shape))
-            o += a.size
-        return out
-
-    def _fetch(self, *tensors) -> List[np.ndarray]:
-        """The sweep's results in one fetch, as float64 arrays of the
-        tensors' shapes (integers up to 2^53 are exact)."""
-        rec = fetch(torch.cat([t.reshape(-1).to(torch.float64)
-                               for t in tensors]), "engine")
-        out, o = [], 0
-        for t in tensors:
-            out.append(rec[o:o + t.numel()].reshape(t.shape))
-            o += t.numel()
-        return out
-
     def _store_sitetensors(self, tci, tensors: torch.Tensor) -> None:
-        """Site tensors of a fill into tci._sitetensors, each cut to its
-        true (|I_b|, d_b, |I_{b+1}|) block; they stay on the device."""
+        """The true (|I_b|, d_b, |I_{b+1}|) block of each site tensor into
+        tci._sitetensors; they stay on the device, as views of `tensors`,
+        which is the engine's no longer."""
         L = len(self.localdims)
         for b in range(L):
             d_b = self.localdims[b]
             ncols = len(tci.Iset[b + 1]) if b < L - 1 else len(tci.Jset[b])
             tci._sitetensors[b] = to_device(
                 tensors[b, :len(tci.Iset[b]), :d_b, :ncols], tci.device)
+
+    def _count_fill(self) -> None:
+        for b, d_b in enumerate(self.localdims):
             self.nevals += self.Imax * d_b * self.Imax
-            if b < L - 1:
+            if b < len(self.localdims) - 1:
                 self.nevals += self.Imax * self.Imax
 
     def _write_sets(self, tci, Iset, Ilen, Jset, Jlen, maxsample) -> None:
@@ -459,21 +734,10 @@ class DeviceSweepEngine:
                      + [len(s) for s in extraJset] + [1])
         if not self._reserve(needed):
             return False
-        Iset, Ilen, Jset, Jlen, eI, eIlen, eJ, eJlen = self._upload(
-            tci.Iset, tci.Jset, extraIset, extraJset)
-        perrs, maxsample = _sweep(
-            self.f, self.localdims, self.dtype, self._layout(), Iset, Ilen,
-            Jset, Jlen, eI, eIlen, eJ, eJlen, forward, reltol, abstol,
-            maxbonddim)
-        self.rrlu_calls += L - 1
-        tensors = None
-        if fill_sites:
-            tensors, fill_max = _fill(self.f, self.localdims, self.dtype,
-                                      Iset, Ilen, Jset, Jlen)
-            self.rrlu_calls += 1
-            maxsample = torch.maximum(maxsample, fill_max)
-        Iset, Ilen, Jset, Jlen, perrs, maxsample = self._fetch(
-            Iset, Ilen, Jset, Jlen, perrs, maxsample)
+        program = self._get_sweep(forward, fill_sites)
+        program.load(tci.Iset, tci.Jset, extraIset, extraJset, reltol=reltol,
+                     abstol=abstol, maxbonddim=maxbonddim)
+        (Iset, Ilen, Jset, Jlen, perrs, maxsample), kept = self._run(program)
         # a bond at the cap with more rank allowed: grow and re-run this
         # sweep with larger buffers (until imax_cap, then hand back)
         if Ilen.max() >= self.Imax and self.Imax < maxbonddim:
@@ -486,8 +750,9 @@ class DeviceSweepEngine:
             tci.updateerrors(b, list(perrs[b][:int(Ilen[b + 1]) + 1]))
             self.nevals += ((self.Imax * self.localdims[b] + self.Imax)
                             * (self.localdims[b + 1] * self.Imax + self.Imax))
-        if tensors is not None:
-            self._store_sitetensors(tci, tensors)
+        if fill_sites:
+            self._store_sitetensors(tci, kept[0])
+            self._count_fill()
         return True
 
     def fillsitetensors(self, tci) -> bool:
@@ -498,12 +763,12 @@ class DeviceSweepEngine:
                      + [1])
         if not self._reserve(needed):
             return False
-        Iset, Ilen, Jset, Jlen = self._upload(tci.Iset, tci.Jset)
-        tensors, maxsample = _fill(self.f, self.localdims, self.dtype, Iset,
-                                   Ilen, Jset, Jlen)
-        self.rrlu_calls += 1
+        program = self._get_fill()
+        program.load(tci.Iset, tci.Jset)
+        _, (tensors, maxsample) = self._run(program)
         tci.updatemaxsample(maxsample)
         self._store_sitetensors(tci, tensors)
+        self._count_fill()
         return True
 
     def sweep1site(self, tci, forward: bool, reltol: float, abstol: float,
@@ -516,14 +781,11 @@ class DeviceSweepEngine:
         if not self._reserve(needed):
             return False
         while True:
-            Iset, Ilen, Jset, Jlen = self._upload(tci.Iset, tci.Jset)
-            tensors, perrs, maxsample = _sweep1(
-                self.f, self.localdims, self.dtype, self._layout(), Iset,
-                Ilen, Jset, Jlen, forward, reltol, abstol, maxbonddim)
-            self.rrlu_calls += L - 1
-            nan = _nan_sites(tensors, Ilen, Jlen, self.localdims)
-            Iset, Ilen, Jset, Jlen, perrs, maxsample, nan = self._fetch(
-                Iset, Ilen, Jset, Jlen, perrs, maxsample, nan)
+            program = self._get_sweep1(forward)
+            program.load(tci.Iset, tci.Jset, reltol=reltol, abstol=abstol,
+                         maxbonddim=maxbonddim)
+            (Iset, Ilen, Jset, Jlen, perrs, maxsample, nan), (tensors,) = (
+                self._run(program))
             if (max(Ilen.max(), Jlen.max()) >= self.Imax
                     and self.Imax < maxbonddim):
                 if not self._grow():
@@ -535,12 +797,7 @@ class DeviceSweepEngine:
             bad = np.flatnonzero(nan)
             if bad.size:
                 raise ValueError(f"Error: NaN in tensor T[{int(bad[0])}]")
-            for b in range(L):
-                d_b = self.localdims[b]
-                ncols = (len(tci.Iset[b + 1]) if b < L - 1
-                         else len(tci.Jset[b]))
-                tci._sitetensors[b] = to_device(
-                    tensors[b, :len(tci.Iset[b]), :d_b, :ncols], tci.device)
+            self._store_sitetensors(tci, tensors)
         for b in range(L - 1):
             k = int(Ilen[b + 1]) if forward else int(Jlen[b])
             tci.updateerrors(b, list(perrs[b][:k + 1]))

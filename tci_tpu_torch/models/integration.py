@@ -5,23 +5,25 @@ src/integration.jl). The GK nodes and weights come from ``ops/kronrod.py``.
 
 ``torch_native=True`` takes the place of ``jax_native=True``: the weighted
 integrand is sampled on the device through a ``TorchBatchEvaluator``, so
-TCI2 runs it on the whole-sweep engine by default. Three things of
+TCI2 runs it on the whole-sweep engine by default. Like ``tci_tpu``
+(``_GK_EVAL_CACHE``) it keeps the evaluator across calls: the engine's CUDA
+graphs belong to the evaluator, so a second ``integrate`` on the same f,
+bounds, GK order, type and device only replays them. The cache is keyed
+weakly on f and drops an entry when f is collected. Two things of
 ``tci_tpu``'s jax-native branch have no counterpart here:
 
 - the one-hot node and weight lookup, a workaround for slow table gathers
   on a TPU: the nodes and weights are gathered by index;
 - ``fused_panel_capacity=True``, which bounds the number of programs XLA
   compiles for the fused tier: eager PyTorch compiles nothing per shape and
-  the port's fused tier has no such mode;
-- the cache of evaluators across calls, which exists because a new jit
-  closure uploads its compiled programs again: an evaluator here holds two
-  small tables and builds nothing.
+  the port's fused tier has no such mode.
 
 ``mesh=`` is refused until the multi-GPU slice (ROADMAP A14).
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import Callable, Sequence
 
 import numpy as np
@@ -31,6 +33,40 @@ from ..ops.kronrod import kronrod
 from ..parallel.batcheval import TorchBatchEvaluator, VectorizedBatchEvaluator
 from ..utils.device import resolve_device, to_device
 from .tensorci2 import crossinterpolate2
+
+# torch_native evaluators by integrand (weakly), then by (GK order, bounds,
+# value type, device, engine on or off): one slot per signature, so two
+# grids on one f keep both evaluators
+_GK_EVAL_CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _torch_native_evaluator(f, nodes, weights, normalization, localdims,
+                            valuetype, device, enable_device_sweep):
+    """The weighted integrand on the GK grid as a ``TorchBatchEvaluator``.
+    It refers to f weakly: the cache that holds it is keyed weakly on f, and
+    an entry whose value kept its key alive would never go."""
+    nodes_d = to_device(nodes, device)
+    weights_d = to_device(weights, device)
+    dims_d = torch.arange(nodes.shape[0], device=device)
+    try:
+        fref = weakref.ref(f)
+    except TypeError:  # not cached either (see integrate)
+        def fref():
+            return f
+
+    def Ftorch(idx):
+        x = nodes_d[dims_d, idx]  # (B, N) coordinates
+        wn = weights_d[dims_d, idx]
+        # the product in a fixed left-to-right order; a zero weight
+        # (degenerate bounds a_n == b_n) gives an exact zero
+        w = wn[:, 0]
+        for n in range(1, wn.shape[1]):
+            w = w * wn[:, n]
+        return w * fref()(x) * normalization
+
+    return TorchBatchEvaluator(Ftorch, localdims, dtype=valuetype,
+                               device=device,
+                               enable_device_sweep=enable_device_sweep)
 
 
 def integrate(
@@ -92,23 +128,20 @@ def integrate(
 
     if torch_native:
         device = resolve_device(device)
-        nodes_d = to_device(nodes, device)
-        weights_d = to_device(weights, device)
-        dims_d = torch.arange(len(a), device=device)
-
-        def Ftorch(idx):
-            x = nodes_d[dims_d, idx]  # (B, N) coordinates
-            wn = weights_d[dims_d, idx]
-            # the product in a fixed left-to-right order; a zero weight
-            # (degenerate bounds a_n == b_n) gives an exact zero
-            w = wn[:, 0]
-            for n in range(1, wn.shape[1]):
-                w = w * wn[:, n]
-            return w * f(x) * normalization
-
-        F = TorchBatchEvaluator(Ftorch, localdims, dtype=valuetype,
-                                device=device,
-                                enable_device_sweep=enable_device_sweep)
+        cache_key = (GKorder, tuple(a.tolist()), tuple(b.tolist()),
+                     np.dtype(valuetype).str, str(device),
+                     enable_device_sweep)
+        try:
+            slots = _GK_EVAL_CACHE.setdefault(f, {})
+        except TypeError:  # an integrand that cannot be referenced weakly
+            slots = {}
+        F = slots.get(cache_key)
+        if F is None:
+            F = slots[cache_key] = _torch_native_evaluator(
+                f, nodes, weights, normalization, localdims, valuetype,
+                device, enable_device_sweep)
+        else:
+            F.reset_nevals()
     elif vectorized:
         dims = np.arange(len(a))
 

@@ -26,8 +26,14 @@ import torch
 
 from . import _build
 
-# Kernel launches, counted where the kernel is launched and nowhere else.
+# Kernel launches, counted where the kernel is launched and nowhere else: in
+# ``_launch`` for a launch the host queues, in ``count_replay`` for the
+# launches of a CUDA graph that is replayed.
 LAUNCHES: Counter = Counter()
+# Launches recorded into a CUDA graph while a stream was capturing. Nothing
+# runs then, so they are not launches; whoever owns the graph reads how many
+# it holds here and reports them at each replay (``count_replay``).
+CAPTURED: Counter = Counter()
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _LAUNCH_ARGTYPES = [_P] * 13 + [_I, _I, _I, _D, _D, _I, _I, _I, _I, _P]
@@ -86,10 +92,44 @@ def _scratch_bytes(device_index: int, mp: int, npd: int, elsize: int) -> int:
     return nbytes
 
 
+def count_replay(launches: int) -> None:
+    """A CUDA graph that holds `launches` captured launches of the kernel
+    was replayed: each of them ran."""
+    LAUNCHES["rrlu"] += launches
+
+
+# (device index, dtype, multi-block?) of the launches made so far outside
+# any capture
+_WARM = set()
+
+
+def warm_up(device_index: int, dtype: torch.dtype) -> None:
+    """Everything of a launch that happens once and may not happen while a
+    stream is capturing: the build, the load of both kernels' code onto the
+    device and the resident kernel's shared-memory attribute. Makes one
+    small launch of each mode that this process has not yet launched on
+    this device in this dtype; call it before the first capture of a body
+    that launches the kernel."""
+    dev = torch.device("cuda", device_index)
+    # 8 x 8 takes the resident mode, 256 x 256 the multi-block mode
+    for n, multiblock in ((8, False), (256, True)):
+        if (device_index, dtype, multiblock) not in _WARM:
+            rrlu_call(torch.zeros((n, n), dtype=dtype, device=dev), n, n, 1,
+                      0.0, 0.0, leftorthogonal=True)
+
+
 def _launch(A, B, mp, npd, leftorthogonal, scalars, arrays):
     """Allocate the outputs and launch B panels; `scalars` are
     (m, n, maxrank, reltol, abstol), `arrays` the per-panel device arrays
-    (m, n, maxrank int32 (B,), tol (B, 2)) or Nones."""
+    (m, n, maxrank int32 (B,), tol (B, 2)) or Nones.
+
+    A launch can be captured into a CUDA graph: it runs on the current
+    stream, the outputs and the scratch then come from the graph's memory
+    pool, and the zeroing of the barrier words is a node of the graph that
+    runs at every replay. (The barrier would survive without it: the last
+    block to arrive resets `arrived`, and the others wait for a change of
+    `generation`, whatever its value.) The cooperative launch of the
+    multi-block mode is captured as a kernel node like any other."""
     lib = _lib()
     dev, dt = A.device, A.dtype
     rmax = min(mp, npd)
@@ -133,7 +173,11 @@ def _launch(A, B, mp, npd, leftorthogonal, scalars, arrays):
     if rc != 0:
         raise RuntimeError(f"rrLU kernel launch failed with CUDA error {rc} "
                            f"(B={B}, panel {mp}x{npd}, {dt})")
-    LAUNCHES["rrlu"] += 1
+    if torch.cuda.is_current_stream_capturing():
+        CAPTURED["rrlu"] += 1
+    else:
+        LAUNCHES["rrlu"] += 1
+        _WARM.add((dev.index, dt, nbytes > 0))
     return A_sw, rowperm, colperm, k, mags, err
 
 

@@ -201,17 +201,33 @@ class TorchBatchEvaluator(BatchEvaluator):
     ``enable_device_sweep=False``), the per-bond fused update
     (``fused_updater``) and the fused site tensors
     (``fused_site_tensors``). ``nevals`` counts the samples of all of them;
-    the tiers count padded panels, as ``tci_tpu`` does."""
+    the tiers count padded panels, as ``tci_tpu`` does.
+
+    On a CUDA device the engine records each of its sweeps, `f` included,
+    into a CUDA graph at the sweep's first use and replays it afterwards
+    (unless ``cuda_graphs=False``), as ``tci_tpu`` keeps its jitted sweeps.
+    The graphs belong to the engine, hence to this evaluator: reuse one
+    evaluator across ``crossinterpolate2`` calls on the same function and
+    the later calls only replay. For that `f` has to be a pure function of
+    its index tensor: no ``.item()``, ``.cpu()`` or other read of a device
+    value, no output or intermediate whose shape depends on the data, no
+    new random numbers; tensors it closes over must stay alive and change
+    only in place (a replay reads their current values). An `f` that cannot
+    be recorded still works: the engine then runs that sweep eagerly, says
+    so once on stderr, and lists the reasons in
+    ``device_sweep_engine.declined``."""
 
     def __init__(self, f: Callable[[torch.Tensor], torch.Tensor], localdims,
                  dtype=torch.float64,
                  device: Optional[Union[str, torch.device]] = None,
-                 enable_device_sweep: bool = True):
+                 enable_device_sweep: bool = True,
+                 cuda_graphs: bool = True):
         self.f = f
         self.localdims = list(localdims)
         self.dtype = torch_dtype(dtype)
         self.device = resolve_device(device)
         self.enable_device_sweep = enable_device_sweep
+        self.cuda_graphs = cuda_graphs
         self._nevals = 0
         self._fused_updater = None
         self._fused_site_tensors = None
@@ -249,7 +265,7 @@ class TorchBatchEvaluator(BatchEvaluator):
 
             self._device_sweep_engine = DeviceSweepEngine(
                 self._values, self.localdims, dtype=self._tier_dtype(),
-                device=self.device)
+                device=self.device, cuda_graphs=self.cuda_graphs)
         return self._device_sweep_engine
 
     @property
@@ -271,15 +287,33 @@ class TorchBatchEvaluator(BatchEvaluator):
                                      self._device_sweep_engine)
             if tier is not None)
 
-    def _values(self, indices: torch.Tensor) -> torch.Tensor:
+    def reset_nevals(self) -> None:
+        """Start the sample counts anew (an evaluator that is reused counts
+        each call on its own)."""
+        self._nevals = 0
+        for tier in (self._fused_updater, self._fused_site_tensors,
+                     self._device_sweep_engine):
+            if tier is not None:
+                tier.nevals = 0
+
+    @property
+    def _values(self) -> Callable[[torch.Tensor], torch.Tensor]:
         """f on an (N, L) int64 index tensor on the device, checked and
-        cast; the tiers call it and count their own samples."""
-        vals = self.f(indices)
-        if vals.shape != (indices.shape[0],) or vals.device != self.device:
-            raise ValueError(
-                f"f must return ({indices.shape[0]},) values on {self.device},"
-                f" got shape {tuple(vals.shape)} on {vals.device}")
-        return vals.to(self.dtype)
+        cast; the tiers call it and count their own samples. A function
+        that does not refer to this evaluator: the tiers keep it, and the
+        evaluator keeps the tiers, so an evaluator that is dropped is freed
+        at once, with its engine and the engine's CUDA graphs."""
+        f, device, dtype = self.f, self.device, self.dtype
+
+        def values(indices: torch.Tensor) -> torch.Tensor:
+            vals = f(indices)
+            if vals.shape != (indices.shape[0],) or vals.device != device:
+                raise ValueError(
+                    f"f must return ({indices.shape[0]},) values on {device},"
+                    f" got shape {tuple(vals.shape)} on {vals.device}")
+            return vals.to(dtype)
+
+        return values
 
     def _eval(self, indices: torch.Tensor) -> torch.Tensor:
         self._nevals += int(indices.shape[0])

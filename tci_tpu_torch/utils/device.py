@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import gc
 from collections import Counter
 from typing import Optional, Union
 
@@ -64,3 +65,42 @@ def fetch(t: torch.Tensor, tier: str) -> np.ndarray:
     done.record(torch.cuda.current_stream(t.device))
     done.synchronize()
     return host.numpy()
+
+
+def capture_graph(body, pool, stream: "torch.cuda.Stream"):
+    """Record the launches of body() into a ``torch.cuda.CUDAGraph`` whose
+    memory comes from `pool` (``torch.cuda.graph_pool_handle()``). Nothing
+    runs during the capture; ``graph.replay()`` then queues the whole body
+    on the current stream in one call, reading and writing the same device
+    addresses as recorded. Returns (graph, what body returned: tensors of
+    the pool that every replay overwrites).
+
+    The capture runs on `stream`, a side stream, in the "thread_local" error
+    mode: a call that may not be captured (a synchronization, a read of a
+    device value) raises here and leaves the device usable. body() must
+    have done its one-time set-up (kernel builds, library handles) before.
+
+    The garbage collector is held off meanwhile: it runs when it likes, and
+    what it frees may not be freed during a capture (destroying another
+    CUDA graph is "not permitted when stream is capturing" and invalidates
+    this one)."""
+    graph = torch.cuda.CUDAGraph()
+    stream.wait_stream(torch.cuda.current_stream(stream.device))
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.stream(stream):
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                out = body()
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass  # an invalidated capture ends with its own error
+                raise
+            graph.capture_end()
+    finally:
+        if collecting:
+            gc.enable()
+    return graph, out

@@ -1,7 +1,9 @@
 """tci_tpu_torch on a CUDA device: the rrLU kernel and the six batched-grid
 probe kernels against their plain PyTorch versions on the card, and the main
 path through the kernel: the host tier, the fused tier and the whole-sweep
-engine, which syncs only at its fetch; ``integrate`` on the card.
+engine, which syncs only at its fetch and replays its sweeps from CUDA
+graphs (held bitwise against the same sweeps queued eagerly); ``integrate``
+on the card.
 
 Every test needs a CUDA device and skips without one: the CUDA kernel has
 no CPU mode. This file imports neither jax nor tci_tpu, so it runs on a
@@ -330,8 +332,15 @@ def test_engine_sweep_syncs_only_at_its_fetch(cuda):
     tci = tci_tpu_torch.TensorCI2.from_function(bf, dims, device=cuda)
     engine = bf.device_sweep_engine
     empty = [[] for _ in dims]
+    # each key once before: its first use records the graph, and the
+    # capture's end synchronizes; the sweep under the debug mode is a replay
+    assert engine.sweep2site(tci, True, 1e-14, 0.0, 2**62, empty, empty)
+    assert engine.sweep2site(tci, False, 1e-14, 0.0, 2**62, empty, empty,
+                             fill_sites=True)
     assert engine.sweep2site(tci, True, 1e-14, 0.0, 2**62, empty, empty)
     torch.cuda.synchronize()
+    assert engine.captures == 2 and not engine.declined
+    replays = engine.replays
     fetches, launches = device_sweep.FETCHES["engine"], lu_cuda.LAUNCHES["rrlu"]
     plain = lu_kernel.PLAIN_CALLS["cuda"]
     torch.cuda.set_sync_debug_mode("error")
@@ -341,6 +350,7 @@ def test_engine_sweep_syncs_only_at_its_fetch(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert device_sweep.FETCHES["engine"] == fetches + 1
+    assert engine.replays == replays + 1 and engine.captures == 2
     assert lu_cuda.LAUNCHES["rrlu"] == launches + len(dims)
     assert lu_kernel.PLAIN_CALLS["cuda"] == plain
     assert engine.Imax == 32
@@ -451,3 +461,206 @@ def test_integrate_torch_native_on_the_card(cuda):
                                   rng=np.random.default_rng(0))
     assert np.isclose(val, exact)
     assert abs(val - ref) <= 1e-12 * abs(ref)
+
+
+def _quantics_f(R, device):
+    w = torch.tensor([2.0 ** -(r + 1) for r in range(R)], dtype=torch.float64,
+                     device=device)
+
+    def f(bits):
+        x = (bits.to(torch.float64) * w).sum(dim=1)
+        return torch.cos(100.0 * x) * torch.exp(-x)
+
+    return f
+
+
+def _graph_problem(name, device):
+    if name == "4^5":
+        return [4] * 5, _lorentz, 1e-10
+    return [2] * 12, _quantics_f(12, device), 1e-10
+
+
+def _same_result(a, b):
+    (ta, ranks_a, errs_a), (tb, ranks_b, errs_b) = a, b
+    assert ranks_a == ranks_b and errs_a == errs_b
+    assert ta.Iset == tb.Iset and ta.Jset == tb.Jset
+    assert ta.pivoterrors == tb.pivoterrors
+    assert ta.maxsamplevalue == tb.maxsamplevalue
+    for x, y in zip(ta.sitetensors(), tb.sitetensors()):
+        assert x.device.type == "cuda" and torch.equal(x, y)
+
+
+@pytest.mark.parametrize("capture_at", [1, 2])
+@pytest.mark.parametrize("problem", ["4^5", "R12"])
+def test_graph_matches_eager_bitwise(cuda, problem, capture_at):
+    """crossinterpolate2 with the engine's sweeps replayed from CUDA graphs
+    against the same sweeps queued eagerly: index sets, ranks, error series
+    and every site tensor bit for bit, on a fresh evaluator and again on the
+    same one, where nothing is captured any more; every launch counted."""
+    dims, f, tol = _graph_problem(problem, cuda)
+
+    def solve(bf):
+        calls = bf.device_sweep_engine.rrlu_calls
+        launches = lu_cuda.LAUNCHES["rrlu"]
+        plain = lu_kernel.PLAIN_CALLS["cuda"]
+        out = tci_tpu_torch.crossinterpolate2(
+            np.float64, bf, dims, tolerance=tol, device=cuda,
+            rng=np.random.default_rng(0))
+        torch.cuda.synchronize()
+        assert (lu_cuda.LAUNCHES["rrlu"] - launches
+                == bf.device_sweep_engine.rrlu_calls - calls > 0)
+        assert lu_kernel.PLAIN_CALLS["cuda"] == plain
+        return out
+
+    eager = tci_tpu_torch.TorchBatchEvaluator(f, dims, device=cuda,
+                                              cuda_graphs=False)
+    ref = solve(eager)
+    assert eager.device_sweep_engine.captures == 0
+    bf = tci_tpu_torch.TorchBatchEvaluator(f, dims, device=cuda)
+    engine = bf.device_sweep_engine
+    engine.capture_at = capture_at
+    first = solve(bf)
+    _same_result(first, ref)
+    assert engine.captures > 0 and engine.replays > 0 and not engine.declined
+    held = [t.clone() for t in first[0].sitetensors()]
+    captures, replays = engine.captures, engine.replays
+    second = solve(bf)
+    _same_result(second, ref)
+    if capture_at == 1:
+        assert engine.captures == captures
+        assert all(p["captured"] and p["replays"] == p["uses"]
+                   for p in engine.programs())
+    assert engine.replays > replays
+    # the first result's site tensors are not the graphs' storage
+    for t, h in zip(first[0].sitetensors(), held):
+        assert torch.equal(t, h)
+    assert engine.graph_pool_bytes() > 0
+
+
+@pytest.mark.parametrize("N", [96, 160])
+def test_captured_launch_replays_bitwise(cuda, N):
+    """One launch of the kernel recorded into a CUDA graph (160^2: the
+    cooperative launch of the multi-block mode; 96^2: the resident mode) and
+    replayed 20 times against one plain result; the sizes are read from the
+    device at each replay, and a replay counts as a launch."""
+    from tci_tpu_torch.utils.device import capture_graph
+
+    A = _panel(N, N, N, N - 3, N - 5, 40, torch.float64, cuda)[None]
+    m = torch.tensor([N - 3], dtype=torch.int32, device=cuda)
+    n = torch.tensor([N - 5], dtype=torch.int32, device=cuda)
+    cap = torch.tensor([N], dtype=torch.int32, device=cuda)
+    rt = torch.tensor([1e-12], dtype=torch.float64, device=cuda)
+    at = torch.tensor([0.0], dtype=torch.float64, device=cuda)
+    lu_cuda.warm_up(torch.cuda.current_device(), torch.float64)
+    assert (lu_cuda._scratch_bytes(torch.cuda.current_device(), N, N, 8)
+            > 0) == (N == 160)
+    ref = lu_kernel.rrlu_plain_batched(A, m, n, cap, rt, at,
+                                       leftorthogonal=True)
+    launches, captured = lu_cuda.LAUNCHES["rrlu"], lu_cuda.CAPTURED["rrlu"]
+    graph, out = capture_graph(
+        lambda: lu_cuda.rrlu_batched(A, m, n, cap, rt, at,
+                                     leftorthogonal=True),
+        torch.cuda.graph_pool_handle(), torch.cuda.Stream(cuda))
+    assert lu_cuda.CAPTURED["rrlu"] == captured + 1
+    assert lu_cuda.LAUNCHES["rrlu"] == launches
+    for _ in range(20):
+        for o in out:
+            o.fill_(3)
+        graph.replay()
+        lu_cuda.count_replay(1)
+        torch.cuda.synchronize()
+        for o, r in zip(out, ref):
+            assert _equal(o, r)
+    assert lu_cuda.LAUNCHES["rrlu"] == launches + 20
+    cap.fill_(5)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert int(out[3][0]) == 5
+    ref5 = lu_kernel.rrlu_plain_batched(A, m, n, cap, rt, at,
+                                        leftorthogonal=True)
+    for o, r in zip(out, ref5):
+        assert _equal(o, r)
+
+
+def test_replayed_program_follows_abstol_and_maxbonddim(cuda):
+    """One 2-site sweep program replayed with two abstol / maxbonddim pairs
+    gives what the eager body gives for each: nothing is baked in."""
+    dims = [10] * 6
+    empty = [[] for _ in dims]
+    states = {}
+    for graphs in (False, True):
+        bf = tci_tpu_torch.TorchBatchEvaluator(_lorentz, dims, device=cuda,
+                                               cuda_graphs=graphs)
+        tci = tci_tpu_torch.TensorCI2.from_function(bf, dims, device=cuda)
+        engine = bf.device_sweep_engine
+        seen = []
+        for abstol, maxbonddim in ((1e-3, 2), (1e-12, 2 ** 62), (1e-6, 5)):
+            tci.flushpivoterror()
+            assert engine.sweep2site(tci, True, 1e-14, abstol, maxbonddim,
+                                     empty, empty)
+            seen.append(([list(s) for s in tci.Iset],
+                         [list(s) for s in tci.Jset], list(tci.pivoterrors)))
+        states[graphs] = seen
+        assert engine.captures == int(graphs)
+        assert engine.replays == (3 if graphs else 0)
+    assert states[True] == states[False]
+    assert max(len(s) for s in states[True][0][0]) == 2
+    assert max(len(s) for s in states[True][1][0]) > 5
+
+
+def test_failed_capture_runs_eagerly_on_the_card(cuda, capsys):
+    """An f that reads a device value cannot be recorded: the capture
+    fails, the engine runs that key eagerly on the card through the kernel,
+    says so once, and keeps the reasons; the device stays usable."""
+    dims = [4] * 5
+
+    def f(idx):
+        if torch.cuda.is_current_stream_capturing():
+            idx.sum().item()
+        return _lorentz(idx)
+
+    def solve(bf):
+        return tci_tpu_torch.crossinterpolate2(
+            np.float64, bf, dims, tolerance=1e-10, device=cuda,
+            rng=np.random.default_rng(0))
+
+    ref = solve(tci_tpu_torch.TorchBatchEvaluator(_lorentz, dims, device=cuda,
+                                                  cuda_graphs=False))
+    bf = tci_tpu_torch.TorchBatchEvaluator(f, dims, device=cuda)
+    launches, plain = lu_cuda.LAUNCHES["rrlu"], lu_kernel.PLAIN_CALLS["cuda"]
+    out = solve(bf)
+    torch.cuda.synchronize()
+    engine = bf.device_sweep_engine
+    _same_result(out, ref)
+    assert engine.captures == 0 and engine.replays == 0
+    assert set(engine.declined) == set(engine._sweeps)
+    assert lu_cuda.LAUNCHES["rrlu"] - launches == engine.rrlu_calls > 0
+    assert lu_kernel.PLAIN_CALLS["cuda"] == plain
+    assert capsys.readouterr().err.count("runs it eagerly") == 1
+    # a capture still works afterwards
+    good = tci_tpu_torch.TorchBatchEvaluator(_lorentz, dims, device=cuda)
+    _same_result(solve(good), ref)
+    assert good.device_sweep_engine.captures > 0
+    assert not good.device_sweep_engine.declined
+
+
+def test_integrate_reuses_its_graphs(cuda):
+    """A second integrate(torch_native=True) on the same f only replays:
+    no new capture, the same integral bit for bit."""
+    from tci_tpu_torch.models import integration
+
+    def f(X):
+        return torch.cos(X.sum(dim=1)) * torch.exp(-(X ** 2).sum(dim=1))
+
+    def run():
+        return tci_tpu_torch.integrate(
+            np.float64, f, [0.0] * 4, [1.0] * 4, GKorder=7, tolerance=1e-9,
+            torch_native=True, rng=np.random.default_rng(0))
+
+    first = run()
+    F, = integration._GK_EVAL_CACHE[f].values()
+    engine = F.device_sweep_engine
+    captures, replays = engine.captures, engine.replays
+    assert captures > 0 and not engine.declined
+    assert run() == first
+    assert engine.captures == captures and engine.replays == 2 * replays

@@ -3,6 +3,7 @@
 
     python3 tools/config1_ab.py --parent DIR [--change DIR] [--pairs 10]
                                 [--runs 10] [--out FILE] [--config {1,3,4}]
+                                [--reuse-evaluator] [--no-fused]
 
 Config 1 is BASELINE's 8-D Lorentzian on {0..9}^8 at tolerance 1e-8, run as
 a user runs it: ``crossinterpolate2`` with a default ``TorchBatchEvaluator``
@@ -18,7 +19,16 @@ host or the card falls on both sides alike. Each process builds its
 checkout's kernel, runs config 1 once cold and then ``--runs`` times warm,
 and reports the median warm wall; the change's processes also time the
 fused tier (``enable_device_sweep=False``) in the same way, its runs
-alternating with the default's.
+alternating with the default's, unless ``--no-fused`` is given (at config 4
+the interleaved fused runs slow the default ones, which shows as a ratio
+above 1 between two copies of one tree).
+
+By default every run builds a new evaluator. With ``--reuse-evaluator`` a
+process builds one evaluator a tier in its cold run and its warm runs reuse
+it, so that an engine which keeps CUDA graphs only replays them (for config
+4, ``integrate`` is given the same integrand every time and keeps the
+evaluator itself; without the flag it gets a new function object a run). A
+checkout that keeps nothing just runs as before.
 
 Printed: one line a pair (both medians and their ratio), nvidia-smi's card
 line, and a summary line: the median and range of the pair ratios, how many
@@ -82,19 +92,28 @@ def worker(opts):
         return 1000 * torch.cos(10 * (X ** 2).sum(dim=1)) * torch.exp(
             -X.sum(dim=1) ** 4 / 1000)
 
+    kept = {}
+
     def solve(tier):
         kw = {"enable_device_sweep": False} if tier == "fused" else {}
         sync()
         t0 = time.perf_counter()
         if opts.config == 4:
+            # a new function object is a new key of integrate's evaluator
+            # cache, hence a new evaluator
+            integrand = f4 if opts.reuse_evaluator else (lambda X: f4(X))
             val = tci_tpu_torch.integrate(
-                np.float64, f4, [-1.0] * 10, [1.0] * 10, GKorder=15,
+                np.float64, integrand, [-1.0] * 10, [1.0] * 10, GKorder=15,
                 tolerance=1e-8, maxbonddim=64, torch_native=True,
                 rng=np.random.default_rng(0), device=dev, **kw)
             ranks, errors = [], [val]
         else:
-            f = tci_tpu_torch.TorchBatchEvaluator(fdev, dims, device=dev,
-                                                  **kw)
+            f = kept.get(tier)
+            if f is None:
+                f = tci_tpu_torch.TorchBatchEvaluator(fdev, dims, device=dev,
+                                                      **kw)
+                if opts.reuse_evaluator:
+                    kept[tier] = f
             _, ranks, errors = tci_tpu_torch.crossinterpolate2(
                 np.float64, f, dims, tolerance=tol,
                 rng=np.random.default_rng(0), device=dev)
@@ -123,6 +142,8 @@ def run_side(opts, checkout, tiers):
     cmd = [sys.executable, os.path.abspath(__file__), "--worker", checkout,
            "--runs", str(opts.runs), "--tiers", tiers, "--device",
            opts.device, "--dims", opts.dims, "--config", str(opts.config)]
+    if opts.reuse_evaluator:
+        cmd.append("--reuse-evaluator")
     proc = subprocess.run(cmd, capture_output=True, text=True,
                           timeout=opts.side_timeout)
     if proc.returncode != 0:
@@ -150,6 +171,10 @@ def main():
     parser.add_argument("--dims", default=",".join(["10"] * 8))
     parser.add_argument("--config", type=int, choices=(1, 3, 4), default=1,
                         help="BASELINE config to run (default 1)")
+    parser.add_argument("--reuse-evaluator", action="store_true",
+                        help="warm runs reuse the cold run's evaluator")
+    parser.add_argument("--no-fused", action="store_true",
+                        help="do not time the change's fused tier")
     parser.add_argument("--side-timeout", type=float, default=300.0)
     parser.add_argument("--worker", help=argparse.SUPPRESS)
     parser.add_argument("--tiers", default="default", help=argparse.SUPPRESS)
@@ -178,9 +203,10 @@ def main():
         for side in order:
             res[side] = run_side(
                 opts, opts.parent if side == "parent" else opts.change,
-                "default" if side == "parent" else "default,fused")
+                "default" if side == "parent" or opts.no_fused
+                else "default,fused")
         p, c = res["parent"]["default"], res["change"]["default"]
-        for tier in ("default", "fused"):
+        for tier in res["change"]:
             t = res["change"][tier]
             if t["ranks"] != p["ranks"] or max(
                     abs(a - b) for a, b in zip(t["errors"], p["errors"])
@@ -189,14 +215,17 @@ def main():
                      f"errors {t['errors']}; parent {p['ranks']}, "
                      f"{p['errors']}")
         ratio = c["median"] / p["median"]
-        fused = res["change"]["fused"]["median"]
         pairs.append({"order": order, "parent": p, "change": c,
-                      "fused": res["change"]["fused"], "ratio": ratio})
-        print(f"[pair {i}] {order[0]} first: parent median "
-              f"{p['median']:.4f} s (cold {p['cold']:.4f}), change "
-              f"{c['median']:.4f} s (cold {c['cold']:.4f}), ratio "
-              f"{ratio:.4f}; change's fused tier {fused:.4f} s "
-              f"(ratio {fused / p['median']:.4f})", flush=True)
+                      "fused": res["change"].get("fused"), "ratio": ratio})
+        line = (f"[pair {i}] {order[0]} first: parent median "
+                f"{p['median']:.4f} s (cold {p['cold']:.4f}), change "
+                f"{c['median']:.4f} s (cold {c['cold']:.4f}), ratio "
+                f"{ratio:.4f}")
+        if not opts.no_fused:
+            fused = res["change"]["fused"]["median"]
+            line += (f"; change's fused tier {fused:.4f} s "
+                     f"(ratio {fused / p['median']:.4f})")
+        print(line, flush=True)
 
     def quartiles(side):
         """Quartiles (q1, median, q3) of one side's per-process medians."""
@@ -205,19 +234,23 @@ def main():
                 else meds * 3)
 
     ratios = [q["ratio"] for q in pairs]
-    fratios = [q["fused"]["median"] / q["parent"]["median"] for q in pairs]
     wins = sum(r < 1.0 for r in ratios)
     summary = {
         "card": card, "pairs": len(pairs), "runs": opts.runs,
+        "reuse_evaluator": opts.reuse_evaluator,
         "ratio_median": statistics.median(ratios),
         "ratio_min": min(ratios), "ratio_max": max(ratios),
         "change_wins": wins, "sign_test_p": sign_test(wins, len(ratios)),
         "parent_quartiles": quartiles("parent"),
         "change_quartiles": quartiles("change"),
-        "fused_quartiles": quartiles("fused"),
-        "fused_ratio_median": statistics.median(fratios),
-        "fused_wins": sum(r < 1.0 for r in fratios),
     }
+    if not opts.no_fused:
+        fratios = [q["fused"]["median"] / q["parent"]["median"]
+                   for q in pairs]
+        summary.update({
+            "fused_quartiles": quartiles("fused"),
+            "fused_ratio_median": statistics.median(fratios),
+            "fused_wins": sum(r < 1.0 for r in fratios)})
     if opts.out:
         os.makedirs(os.path.dirname(os.path.abspath(opts.out)), exist_ok=True)
         with open(opts.out, "w") as fh:
