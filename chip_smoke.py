@@ -88,6 +88,23 @@ line or more each:
    the rrLU kernel's time inside it, and the memory the graphs' pool holds.
    One program replayed with three (abstol, maxbonddim) pairs must give what
    the eager body gives for each;
+4e. tci_tpu's default protocol, which ``optimize`` runs unless the engine's
+   ``use_sweep_pair`` / ``use_optimize_loop`` are off (phases 4-4d switch
+   them off, so that what they hold and time is the per-sweep protocol):
+   the sweep pair with its in-program global search and the optimize loop,
+   for configs 1, 3 and 4 at full width. The per-sweep result on a new
+   evaluator, then the loop's on a new evaluator (it records the loop's
+   step and the 1-site sweep) and ten runs on that kept evaluator, which
+   only replay: each bit for bit the per-sweep one (ranks, error series,
+   index sets and their history, site tensors; config 4: the integral, and
+   the capacities [32, 64] with a new evaluator), no key declined, launches
+   equal to the engine's rrLU calls, no plain call, the host finder never
+   called. Printed: loop blocks, steps, status reads and fetches a run, the
+   recording run's wall and launches, the median of the ten walls beside
+   phase 4d's per-sweep median, the device busy time of one replayed run
+   (profiler) and the idle share against that median, the graphs' pool,
+   and for the loop step's program its device items, device time and the
+   host time of its launch;
 5. the kernel against the plain version on every launch the cold runs of
    phases 4, 4b and 4c made; its times on the engines' bond panels (Imax
    (d + 1) square: 352^2 for config 1, 96^2 for config 3, 512^2 and 1024^2
@@ -95,8 +112,9 @@ line or more each:
    launch);
 6. with ``--profile DIR`` only: for config 1's host and fused tiers, and
    for the engine on configs 1, 3 and 4 on an evaluator that is kept, once
-   replaying its graphs and once queuing eagerly, the median of 10 warm
-   walls, then one run under
+   replaying its graphs and once queuing eagerly (per-sweep protocol), and
+   once replaying under the default protocol (the optimize loop), the
+   median of 10 warm walls, then one run under
    ``torch.profiler`` with a span around each layer (Π sampling, rrlu_raw,
    the CI-factor solves, sweep2site, fillsitetensors, the global search,
    sweep1site, and the device tiers' sweeps, a program's upload and run,
@@ -607,11 +625,14 @@ def main():
     # (one fetch a sweep)
     TIERS = ("host", "fused", "engine")
 
-    def solve_config1(tier, imax=None, f=None, graphs=True, capture_at=None):
+    def solve_config1(tier, imax=None, f=None, graphs=True, capture_at=None,
+                      loop=False):
         """One run of config 1 through a tier: with a new evaluator, or on
         the evaluator `f` of an earlier run (which keeps its engine and the
         engine's CUDA graphs). graphs=False queues every sweep eagerly;
-        capture_at sets the use of a key at which the engine records it."""
+        capture_at sets the use of a key at which the engine records it;
+        loop=True runs the engine's default protocol (phase 4e), False the
+        per-sweep one."""
         if f is not None:
             set_graphs(f, graphs)
         elif tier == "host":
@@ -625,6 +646,7 @@ def main():
                     f._values, localdims, imax=imax, cuda_graphs=graphs)
             if capture_at is not None:
                 f.device_sweep_engine.capture_at = capture_at
+        set_protocol(f, loop)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         tci, ranks, errors = tci_tpu_torch.crossinterpolate2(
@@ -639,6 +661,15 @@ def main():
         f.cuda_graphs = graphs
         if f._device_sweep_engine is not None:
             f._device_sweep_engine.cuda_graphs = graphs
+
+    def set_protocol(f, loop):
+        """The engine of evaluator f (if it has one) on tci_tpu's default
+        protocol, the sweep pair and the optimize loop (loop=True, phase
+        4e), or on the per-sweep one that phases 4-4d hold and time, as PR
+        7 measured it."""
+        engine = getattr(f, "device_sweep_engine", None)
+        if engine is not None:
+            engine.use_sweep_pair = engine.use_optimize_loop = loop
 
     def all_replayed(engine):
         """Every program of the engine was recorded at its capture_at-th
@@ -885,7 +916,7 @@ def main():
         x = (bits.to(torch.float64) * qweights).sum(dim=1)
         return torch.cos(100.0 * x) * torch.exp(-x)
 
-    def solve_config3(f=None, graphs=True, capture_at=None):
+    def solve_config3(f=None, graphs=True, capture_at=None, loop=False):
         if f is not None:
             set_graphs(f, graphs)
         else:
@@ -893,6 +924,7 @@ def main():
                                                   cuda_graphs=graphs)
             if capture_at is not None:
                 f.device_sweep_engine.capture_at = capture_at
+        set_protocol(f, loop)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         tci, ranks, errors = tci_tpu_torch.crossinterpolate2(
@@ -901,7 +933,7 @@ def main():
         torch.cuda.synchronize()
         return tci, ranks, errors, time.perf_counter() - t0, f
 
-    def check_config3(tag, tci, ranks, errors, counts, f):
+    def check_config3(tag, tci, ranks, errors, counts, f, per_sweep=True):
         grid = DiscretizedGrid(R3, 0.0, 1.0)
         spot = 0.0
         for x in [0.1, 0.25, 0.5, 0.75, 0.9]:
@@ -913,7 +945,8 @@ def main():
                  f"{ranks}, errors {errors}, spot-check error {spot}")
         if tci.device.type != "cuda":
             fail(f"config 3 {tag}: ran on {tci.device}")
-        check_engine_run(f"config 3 {tag}", counts, f, 2 * len(ranks) + 1)
+        check_engine_run(f"config 3 {tag}", counts, f,
+                         2 * len(ranks) + 1 if per_sweep else None)
         return spot
 
     res3, counts3 = run_counted(
@@ -949,35 +982,42 @@ def main():
             -np.sum(X, axis=1) ** 4 / 1000)
 
     def solve_config4(vectorized=False, fresh=True, graphs=True,
-                      capture_at=None):
+                      capture_at=None, loop=False):
         """integrate() as a user calls it; what it hands to and gets from
-        TCI2, and the engine's capacity after each sweep, are recorded on
-        the way. integrate keeps its evaluator by integrand: fresh=True
-        drops it first, so that the run builds a new one, fresh=False runs
-        on the one the last run left. Returns (integral, tci, ranks,
-        errors, capacities, declined, wall, evaluator)."""
+        TCI2, and the engine's capacity after each of its calls, are
+        recorded on the way. integrate keeps its evaluator by integrand:
+        fresh=True drops it first, so that the run builds a new one,
+        fresh=False runs on the one the last run left. Returns (integral,
+        tci, ranks, errors, capacities, declined, wall, evaluator)."""
         seen, sweeps = [], []
-        tci2, sweep2site = (integration.crossinterpolate2,
-                            device_sweep.DeviceSweepEngine.sweep2site)
+        tci2 = integration.crossinterpolate2
+        entries = {name: getattr(device_sweep.DeviceSweepEngine, name)
+                   for name in ("sweep2site", "sweep2site_pair",
+                                "optimize_loop", "fillsitetensors",
+                                "sweep1site")}
         if fresh:
             integration._GK_EVAL_CACHE.pop(f4torch, None)
 
         def recording_tci2(valuetype, F, localdims, **kwargs):
             if not vectorized:
                 set_graphs(F, graphs)
+                set_protocol(F, loop)
                 if capture_at is not None:
                     F.device_sweep_engine.capture_at = capture_at
             out = tci2(valuetype, F, localdims, **kwargs)
             seen.append((F, *out))
             return out
 
-        def recording_sweep(self, *args, **kwargs):
-            done = sweep2site(self, *args, **kwargs)
-            sweeps.append((self.Imax, done))
-            return done
+        def recording(fn):
+            def call(self, *args, **kwargs):
+                res = fn(self, *args, **kwargs)
+                sweeps.append((self.Imax, res is not None and res is not False))
+                return res
+            return call
 
         integration.crossinterpolate2 = recording_tci2
-        device_sweep.DeviceSweepEngine.sweep2site = recording_sweep
+        for name, fn in entries.items():
+            setattr(device_sweep.DeviceSweepEngine, name, recording(fn))
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -990,7 +1030,8 @@ def main():
             wall = time.perf_counter() - t0
         finally:
             integration.crossinterpolate2 = tci2
-            device_sweep.DeviceSweepEngine.sweep2site = sweep2site
+            for name, fn in entries.items():
+                setattr(device_sweep.DeviceSweepEngine, name, fn)
         (F, tci, ranks, errors), = seen
         capacities = list(dict.fromkeys(c for c, _ in sweeps))
         declined = any(not done for _, done in sweeps)
@@ -1085,20 +1126,26 @@ def main():
     def spread(xs):
         return f"{med(xs):.4f} s ({min(xs):.4f}-{max(xs):.4f})"
 
-    def replay_trace(engine):
-        """Per program of the engine, one replay under torch.profiler: the
+    def replay_trace(engine, keep=lambda key: True):
+        """Per program of the engine (whose key `keep` accepts), one replay
+        under torch.profiler: the
         device items (kernels, copies, memsets) the graph holds, and the
-        rrLU kernels' durations by launch grid."""
+        rrLU kernels' durations by launch grid; and the host time of one
+        replay's launch (cudaGraphLaunch), unprofiled."""
         from torch.profiler import ProfilerActivity, profile
         out = {}
         for key, prog in engine._sweeps.items():
-            if not prog.captured:
+            if not prog.captured or not keep(key):
                 continue
 
             def once(prog=prog):
                 prog._replay()
                 lu_cuda.count_replay(prog.captured_launches)
             once()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            once()
+            launch_ms = (time.perf_counter() - t0) * 1e3
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 once()
@@ -1115,26 +1162,37 @@ def main():
                 if "rrlu" in e.get("name", ""):
                     grid = str(e.get("args", {}).get("grid"))
                     rrlu.setdefault(grid, []).append(e["dur"])
-            out[key] = {"nodes": len(items),
+            out[key] = {"nodes": len(items), "launch_ms": launch_ms,
                         "device_ms": sum(e["dur"] for e in items) / 1e3,
                         "rrlu_us_by_grid": {
                             g: (len(d), sum(d) / len(d))
                             for g, d in rrlu.items()}}
         return out
 
-    def same_tci(tag, a, b):
+    def print_program(tag, p, tr):
+        print(f"[graphs] {tag}: program {p['key']}: {p['uses']} uses, "
+              f"{p['replays']} replays, capture and instantiation "
+              f"{p['capture_seconds'] * 1e3:.2f} ms, "
+              f"{p['captured_launches']} rrLU launches, "
+              f"{tr.get('nodes')} device items a replay taking "
+              f"{tr.get('device_ms', float('nan')):.3f} ms on the device, "
+              f"its launch {tr.get('launch_ms', float('nan')):.3f} ms of "
+              f"host time; rrLU kernel (count, mean us) by grid: "
+              f"{tr.get('rrlu_us_by_grid')}", flush=True)
+
+    def same_tci(tag, a, b, what="graph and eager"):
         """Index sets, error series and every site tensor of two TensorCI2
         bit for bit."""
         if a.Iset != b.Iset or a.Jset != b.Jset:
-            fail(f"{tag}: index sets differ between graph and eager")
+            fail(f"{tag}: index sets differ between {what}")
         if (a.pivoterrors != b.pivoterrors
                 or list(a.bonderrors) != list(b.bonderrors)
                 or a.maxsamplevalue != b.maxsamplevalue):
             fail(f"{tag}: pivot errors, bond errors or max sample differ")
         for i, (x, y) in enumerate(zip(a.sitetensors(), b.sitetensors())):
             if x.shape != y.shape or not torch.equal(x, y):
-                fail(f"{tag}: site tensor {i} differs between graph and "
-                     f"eager (bound: bitwise)")
+                fail(f"{tag}: site tensor {i} differs between {what} "
+                     f"(bound: bitwise)")
 
     def graphs_phase(tag, solve, key_of, sweeps_of):
         """`solve(f=None, graphs=True, capture_at=None)` runs the config
@@ -1244,14 +1302,7 @@ def main():
               f"memory pool holds {pool_txt}", flush=True)
         for p in progs:
             tr = trace.get(p["key"], {})
-            print(f"[graphs] {tag}: program {p['key']}: {p['uses']} uses, "
-                  f"{p['replays']} replays, capture and instantiation "
-                  f"{p['capture_seconds'] * 1e3:.2f} ms, "
-                  f"{p['captured_launches']} rrLU launches, "
-                  f"{tr.get('nodes')} device items a replay taking "
-                  f"{tr.get('device_ms', float('nan')):.3f} ms on the device"
-                  f"; rrLU kernel (count, mean us) by grid: "
-                  f"{tr.get('rrlu_us_by_grid')}", flush=True)
+            print_program(tag, p, tr)
         return {"fresh_eager_median": med(out["fresh_eager"]),
                 "fresh_capture_at_1_median": med(out["fresh_capture_at_1"]),
                 "fresh_capture_at_2_median": med(out["fresh_capture_at_2"]),
@@ -1320,6 +1371,162 @@ def main():
           f"integral {fresh4[0]!r}, ranks {fresh4[2]} and capacities "
           f"{fresh4[3]} equal, tensor train identical bit for bit",
           flush=True)
+
+    # -- 4e. tci_tpu's default protocol: the sweep pair and the optimize loop --
+    # For configs 1, 3 and 4, at full width: the per-sweep protocol's result
+    # on a new evaluator (what phases 4-4d run), then the default protocol
+    # on a new evaluator (the run that records the loop's step), then ten
+    # runs on that kept evaluator that only replay; every result bit for bit
+    # the per-sweep one, and the host finder never called.
+    from tci_tpu_torch.models.globalpivotfinder import DefaultGlobalPivotFinder
+
+    host_finder = DefaultGlobalPivotFinder.__call__
+    finder_calls = [0]
+
+    def counting_finder(self, *args, **kwargs):
+        finder_calls[0] += 1
+        return host_finder(self, *args, **kwargs)
+
+    def device_busy_ms(solve):
+        """Device busy time of one run of solve(), in ms: the union of the
+        kernels, copies and memsets of a torch.profiler trace of it."""
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            solve()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as fh:
+                events = json.load(fh)["traceEvents"]
+        spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                       if e.get("ph") == "X" and e.get("cat") in (
+                           "kernel", "gpu_memcpy", "gpu_memset"))
+        busy, end = 0.0, float("-inf")
+        for a, b in spans:
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        return busy / 1e3 if spans else None
+
+    def loop_phase(tag, solve, key_of, tci_of, check):
+        """`solve(f=None, loop=False)` runs the config (f: the evaluator to
+        reuse) and returns (..., wall, f); key_of maps a result to what must
+        be identical between the protocols, tci_of to its TensorCI2; check
+        holds a loop run's result and counts."""
+        ref = solve()
+        DefaultGlobalPivotFinder.__call__ = counting_finder
+        finder_calls[0] = 0
+        try:
+            res, counts = run_counted(f"{tag} loop", lambda: solve(loop=True))
+            f = res[-1]
+            engine = f.device_sweep_engine
+            check(f"{tag} loop, recording run", res, counts)
+            recording = (res[-2], counts["launches"])
+            if key_of(res) != key_of(ref):
+                fail(f"{tag}: the loop protocol's recording run gave "
+                     f"{key_of(res)}, the per-sweep one {key_of(ref)}")
+            same_tci(f"{tag} loop against per sweep", tci_of(res),
+                     tci_of(ref), "the loop and the per-sweep protocol")
+            if (tci_of(res).Iset_history != tci_of(ref).Iset_history
+                    or tci_of(res).Jset_history != tci_of(ref).Jset_history):
+                fail(f"{tag}: the set histories of the two protocols differ")
+            if not engine.loop_blocks or any(
+                    key[0] not in ("oloop", "sweep1")
+                    for key in engine._sweeps):
+                fail(f"{tag}: the loop protocol ran {list(engine._sweeps)}")
+            blocks0, steps0 = engine.loop_blocks, engine.loop_steps
+            walls = []
+            for _ in range(10):
+                res, counts = run_counted(tag, lambda: solve(f=f, loop=True),
+                                          f=f)
+                check(f"{tag} loop, replayed run", res, counts)
+                if key_of(res) != key_of(ref):
+                    fail(f"{tag}: a replayed loop run gave {key_of(res)}")
+                walls.append(res[-2])
+            same_tci(f"{tag} replayed loop against per sweep", tci_of(res),
+                     tci_of(ref), "the loop and the per-sweep protocol")
+        finally:
+            DefaultGlobalPivotFinder.__call__ = host_finder
+        if finder_calls[0]:
+            fail(f"{tag}: the host finder ran {finder_calls[0]} times under "
+                 f"the loop protocol")
+        if engine.captures != sum(1 for p in engine.programs()
+                                  if p["captured"]) or not all(
+                p["captured"] for p in engine.programs()):
+            fail(f"{tag}: loop programs {engine.programs()}")
+        blocks = (engine.loop_blocks - blocks0) / 10
+        steps = (engine.loop_steps - steps0) / 10
+        busy = device_busy_ms(lambda: solve(f=f, loop=True))
+        pool = engine.graph_pool_bytes()
+        # the loop step's programs (phase 4d traced the 1-site sweep's key)
+        trace = replay_trace(engine, lambda key: key[0] == "oloop")
+        # the loop step's program that the replayed runs used
+        step_key = max((p for p in engine.programs()
+                        if p["key"][0] == "oloop"),
+                       key=lambda p: p["uses"])["key"]
+        wall = med(walls)
+        idle = None if busy is None else 1 - busy / (wall * 1e3)
+        per_sweep = graph_results[tag]["kept_graphs_median"]
+        print(f"[loop] {tag}: identical to the per-sweep protocol bit for bit "
+              f"({key_of(ref)}, index sets and their history, error series, "
+              f"site tensors); a run: {blocks:g} loop blocks, {steps:g} "
+              f"steps, {counts['fetches'].get('engine_status', 0)} status "
+              f"reads, {counts['fetches'].get('engine', 0)} fetches, "
+              f"{counts['launches']} rrLU launches, 0 host-finder calls; a "
+              f"new evaluator's run (it records): {recording[0]:.4f} s, "
+              f"{recording[1]} rrLU launches; one "
+              f"evaluator kept: 10 replayed runs {spread(walls)} against "
+              f"{per_sweep:.4f} s per sweep (phase 4d); device busy "
+              f"{'not measured' if busy is None else f'{busy:.3f} ms'} "
+              f"(profiler), idle share {'not measured' if idle is None else f'{idle:.4f}'}; "
+              f"graphs' pool {pool / 2 ** 20:.1f} MiB", flush=True)
+        for p in engine.programs():
+            if p["key"] in trace:
+                print_program(f"{tag} loop", p, trace[p["key"]])
+        return {"kept_graphs_median": wall, "per_sweep_median": per_sweep,
+                "blocks": blocks, "steps": steps,
+                "status_reads": counts["fetches"].get("engine_status", 0),
+                "fetches": counts["fetches"].get("engine", 0),
+                "launches": counts["launches"], "device_busy_ms": busy,
+                "recording_run": recording[0],
+                "recording_run_launches": recording[1],
+                "idle_share": idle, "pool_bytes": pool,
+                "step": {name: trace[step_key][name] for name in (
+                    "nodes", "device_ms", "launch_ms")}}
+
+    def check_loop1(tag, res, counts):
+        check_config1(tag, *res[:3], counts)
+        check_engine_run(tag, counts, res[-1], None)
+
+    def check_loop3(tag, res, counts):
+        check_config3(tag, *res[:3], counts, res[-1], per_sweep=False)
+
+    def check_loop4(tag, res, counts):
+        check_config4(tag, res[0], res[1], counts, res[-1], res[5])
+
+    loop_results = {
+        "config1": loop_phase(
+            "config1",
+            lambda f=None, loop=False: solve_config1("engine", None, f,
+                                                     loop=loop),
+            lambda res: (res[1], res[2]), lambda res: res[0], check_loop1),
+        "config3": loop_phase(
+            "config3", lambda f=None, loop=False: solve_config3(f=f, loop=loop),
+            lambda res: (res[1], res[2]), lambda res: res[0], check_loop3),
+        "config4": loop_phase(
+            "config4",
+            lambda f=None, loop=False: solve_config4(fresh=f is None,
+                                                     loop=loop),
+            # the integral, the ranks and the error series; with a new
+            # evaluator the capacities [32, 64] (a kept one stays at 64)
+            lambda res: (res[0], res[2], res[3]), lambda res: res[1],
+            check_loop4),
+    }
+    caps_loop = solve_config4(loop=True)[4]
+    if caps_loop != [32, 64]:
+        fail(f"config 4: the loop protocol's capacities {caps_loop}, "
+             f"expected [32, 64]")
 
     # -- 5. kernel vs plain on every launch of the cold runs -------------------
     # for their times: config 1's first fill (its P blocks in one launch),
@@ -1429,6 +1636,19 @@ def main():
                     lambda: solve_config4(fresh=False)[-2])
         profile_run(opts.profile, "config4_eager",
                     lambda: solve_config4(fresh=False, graphs=False)[-2])
+        # the default protocol (phase 4e) on a kept evaluator, replayed
+        kept = solve_config1("engine", loop=True)[-1]
+        solve_config1("engine", f=kept, loop=True)
+        profile_run(opts.profile, "config1_loop_replayed",
+                    lambda: solve_config1("engine", f=kept, loop=True)[3])
+        kept3 = solve_config3(loop=True)[-1]
+        solve_config3(f=kept3, loop=True)
+        profile_run(opts.profile, "config3_loop_replayed",
+                    lambda: solve_config3(f=kept3, loop=True)[-2])
+        solve_config4(loop=True)
+        solve_config4(fresh=False, loop=True)
+        profile_run(opts.profile, "config4_loop_replayed",
+                    lambda: solve_config4(fresh=False, loop=True)[-2])
 
     if any(m == "jax" or m.startswith(("jax.", "tci_tpu."))
            or m == "tci_tpu" for m in sys.modules):
@@ -1437,9 +1657,11 @@ def main():
     print(smi_line, flush=True)
     # The rrLU entry's "launches", "ms", "plain_ms" and "bound_ms" are all
     # config 1's engine's, the default path of a TorchBatchEvaluator: its
-    # launches in one config-1 run and the kernel's device time a launch on
-    # its bond panel; each path's launches are beside them (configs 3 and 4
-    # among them, with their bond panels under config3_panel_* and
+    # launches in one config-1 run under the default protocol (phase 4e,
+    # the optimize loop) and the kernel's device time a launch on its bond
+    # panel; each path's launches are beside them (the per-sweep protocol
+    # under "engine", "config3" and "config4", the loop under "*_loop"; the
+    # bond panels of configs 3 and 4 under config3_panel_* and
     # config4_panel_*), and the host tier's 128^2 panel under host_panel_*.
     # A probe entry's "launches" is its count in run_probes. No PyTorch call
     # computes a complete-pivot rrLU (torch.linalg.lu_factor pivots
@@ -1450,10 +1672,12 @@ def main():
         "route": "cuda",
         "source": "tci_tpu_torch/csrc/rrlu.cu",
         "replaces": "tci_tpu/ops/pallas_lu.py:133",
-        "launches": results["engine"]["launches"],
+        "launches": loop_results["config1"]["launches"],
         "launches_by_path": {**{t: results[t]["launches"] for t in TIERS},
                              "config3": counts3["launches"],
                              "config4": counts4["launches"],
+                             **{f"{c}_loop": r["launches"]
+                                for c, r in loop_results.items()},
                              "run_probes": probe_rrlu_launches},
         "max_abs_err": max_err,
         "ms": ms if ms is not None else eng["engine_panel_wrapper_ms"],
@@ -1463,6 +1687,7 @@ def main():
         "bound_by": eng["engine_panel_bound_by"],
         "library_ms": None,
         "cuda_graphs": graph_results,
+        "optimize_loop": loop_results,
         **host_panel,
         **eng,
         **n2000,
@@ -1503,6 +1728,13 @@ def profile_run(outdir, tier, solve):
         # the device tiers: the host time that queues a sweep's launches
         # (engine_*_queue) apart from the wait at its fetch
         (engine, "sweep2site", "engine_sweep2site"),
+        # the default protocol: a block of the optimize loop (its steps'
+        # runs and status reads within), and the sweep pair
+        (tensorci2.TensorCI2, "_optimize_device_block",
+         "optimize_device_block"),
+        (engine, "optimize_loop", "engine_optimize_loop"),
+        (engine, "sweep2site_pair", "engine_sweep2site_pair"),
+        (device_sweep, "peek", "status_read"),
         (device_sweep, "_sweep", "engine_sweep_queue"),
         (device_sweep, "_fill", "engine_fill_queue"),
         (device_sweep, "_sweep1", "engine_sweep1site_queue"),

@@ -29,6 +29,16 @@ keeps the graph in ``_sweeps`` under the reference's keys and replays it on
 every later call of that key: one copy in, one replay, one copy out. On the
 CPU the same bodies run eagerly through the same holder.
 
+As in ``tci_tpu``, ``TensorCI2.optimize`` runs by default the two larger
+programs built from the same bodies: ``sweep2site_pair`` (an optimize
+iteration's two sweeps, the fill and the global-pivot candidate search
+against the filled cores, ``_tt_search_on_cores``, one fetch) and
+``optimize_loop`` (blocks of such iterations with the convergence test on
+the device; a graph holds no loop, so the host replays one step's program
+an iteration and reads a few status bytes after each, and fetches the
+block's stacked outputs once at its end). ``use_sweep_pair`` and
+``use_optimize_loop`` switch them off.
+
 The capacity grows when a sweep saturates it (a new capacity is a new key);
 above ``imax_cap`` or ``max_panel_edge`` the engine declines and TensorCI2
 falls back to the per-bond fused tier (``ops/fused.py``), which runs on the
@@ -48,8 +58,8 @@ import torch
 from ..ops import lu_cuda
 from ..ops.fused import ci_factors, panel_solve_pinv, sample_panel
 from ..ops.lu_kernel import rrlu_panel_batched
-from ..utils.device import (FETCHES, capture_graph, fetch, resolve_device,
-                            to_device, torch_dtype)
+from ..utils.device import (FETCHES, capture_graph, fetch, peek,
+                            resolve_device, to_device, torch_dtype)
 
 __all__ = ["DeviceSweepEngine", "FETCHES"]
 
@@ -330,6 +340,68 @@ def _sweep1(f, localdims, dtype, lay, Iset, Ilen, Jset, Jlen, forward: bool,
     return tensors, perrs, maxsample
 
 
+def _iteration(f, localdims, dtype, lay, p, eIlen, eJlen, abstol, fwd1: bool,
+               fwd2: bool):
+    """An optimize iteration's two 2-site sweeps and the fill on program p's
+    record (``_get_sweep_pair``'s body): sweep `fwd1` with the history sets
+    (lengths `eIlen`, `eJlen`) as extras, then sweep `fwd2` with the
+    iteration's input sets as extras (times ``p.use_extra2``, 0 under
+    strict nesting), then the fill. The sweeps update copies of the
+    record's sets: the second sweep and the history read the inputs.
+    Returns (the sets after both sweeps and after the first, each (Iset,
+    Ilen, Jset, Jlen); the second sweep's pivot errors; the max |sample| of
+    both sweeps and the fill; the site tensors), on the device."""
+    I, Il, J, Jl = (t.clone() for t in (p.Iset, p.Ilen, p.Jset, p.Jlen))
+    _, ms1 = _sweep(f, localdims, dtype, lay, I, Il, J, Jl, p.eI, eIlen,
+                    p.eJ, eJlen, fwd1, p.reltol, abstol, p.maxbond)
+    mid = tuple(t.clone() for t in (I, Il, J, Jl))
+    perrs, ms2 = _sweep(f, localdims, dtype, lay, I, Il, J, Jl, p.Iset,
+                        p.Ilen * p.use_extra2, p.Jset, p.Jlen * p.use_extra2,
+                        fwd2, p.reltol, abstol, p.maxbond)
+    tensors, fill_max = _fill(f, localdims, dtype, lay, I, Il, J, Jl)
+    return ((I, Il, J, Jl), mid, perrs,
+            torch.stack([ms1, ms2, fill_max]).amax(), tensors)
+
+
+def _tt_search_on_cores(f, dtype, lay, cores, Ilen, Jlen, starts):
+    """The global-pivot candidate search against a fill's padded cores
+    (``tci_tpu``'s ``_tt_search_on_cores``, globalpivotfinder.jl:217-252),
+    on the device with no read-back, so that a graph can hold it.
+
+    |f - tt| on every single-coordinate variant of each of the S start
+    points (`starts` (S, L)): the variant of leg p takes every value below
+    dmax, clamped to d_p - 1, and the clamped duplicates are masked to -inf.
+    f is sampled once on all S L dmax rows; the tt is L batched products of
+    (N, 1, Imax) by (N, Imax, Imax), the site's core gathered at each row's
+    local index (the reference's one-hot contraction was a TPU workaround
+    against slow gathers). Rows of a core past |Iset[b]| meet zeros of the
+    carried vector, which is cut to the true right bond length after every
+    site. Returns, per start, the first maximum in (leg, value) order:
+    (best_flat (S,) = leg dmax + value, best_err (S,) float64)."""
+    L, Imax, dmax, _ = cores.shape
+    dev = cores.device
+    S = starts.shape[0]
+    vgrid = torch.arange(dmax, device=dev)
+    vclamped = torch.minimum(vgrid[None, :], lay.dims[:, None] - 1)
+    legsel = torch.eye(L, dtype=torch.bool, device=dev)[None, :, None, :]
+    rows = torch.where(legsel, vclamped[None, :, :, None],
+                       starts[:, None, None, :]).reshape(S * L * dmax, L)
+    fv = f(rows).to(dtype)
+    v = torch.zeros((rows.shape[0], 1, Imax), dtype=dtype, device=dev)
+    v[:, 0, 0] = 1
+    lens_r = torch.cat([Ilen[1:], Jlen[-1:]])
+    col = torch.arange(Imax, device=dev)
+    by_value = cores.permute(0, 2, 1, 3)
+    for b in range(L):
+        v = torch.bmm(v, by_value[b][rows[:, b]])
+        v = torch.where(col < lens_r[b], v, 0)
+    err = (fv - v[:, 0, 0]).abs().to(torch.float64).reshape(S, L, dmax)
+    valid = vgrid[None, None, :] < lay.dims[None, :, None]
+    flat = torch.where(valid, err, float("-inf")).reshape(S, L * dmax)
+    best = flat.argmax(1)
+    return best, flat.gather(1, best[:, None])[:, 0]
+
+
 def _nan_sites(tensors, Ilen, Jlen, dims) -> torch.Tensor:
     """(L,) flags: NaN in the true block of site tensor b; `dims` are the
     local dimensions on the device."""
@@ -382,10 +454,13 @@ class _Program:
     The input record is one int64 device array that the program owns: the
     index buffers and lengths (``Iset``, ``Ilen``, ``Jset``, ``Jlen`` and,
     for a 2-site sweep, the history sets ``eI``, ``eIlen``, ``eJ``,
-    ``eJlen``), then ``reltol`` and ``abstol`` (float64 bits, (1,) views)
-    and ``maxbond``. ``load`` writes a call's values into a pinned staging
-    array and copies it over in one transfer; the body reads only views of
-    the record, so a graph recorded once follows every later call's values.
+    ``eJlen``), then ``reltol`` and ``abstol`` (float64 bits, (1,) views),
+    ``maxbond``, and the program's own `fields` ((name, shape, "i" for
+    int64 or "f" for float64) each). ``load`` writes a call's values into a
+    pinned staging array and copies it over in one transfer; the body reads
+    only views of the record, so a graph recorded once follows every later
+    call's values. A body may also write the record: the optimize loop's
+    step keeps its carried state there.
 
     ``run`` captures the body at the key's ``engine.capture_at``-th use
     when the engine captures at all (``engine.cuda_graphs``), replays the
@@ -396,7 +471,7 @@ class _Program:
     the device tensors; the record is copied by the fetch."""
 
     def __init__(self, engine: "DeviceSweepEngine", key, history: bool, body,
-                 rrlu_launches: int):
+                 rrlu_launches: int, fields=()):
         # the engine owns its programs; a reference back that counted would
         # keep an engine that is dropped, and its graphs' memory, until
         # the garbage collector finds the cycle
@@ -404,27 +479,31 @@ class _Program:
         # rrLU launches one run of the body makes, by the engine's count
         self.rrlu_launches = rrlu_launches
         L, Imax, dev = len(engine.localdims), engine.Imax, engine.device
-        shapes = [("Iset", (L, Imax, L)), ("Ilen", (L,)),
-                  ("Jset", (L, Imax, L)), ("Jlen", (L,))]
+        sets = [("Iset", (L, Imax, L)), ("Ilen", (L,)),
+                ("Jset", (L, Imax, L)), ("Jlen", (L,))]
         if history:
-            shapes += [("eI", (L, Imax, L)), ("eIlen", (L,)),
-                       ("eJ", (L, Imax, L)), ("eJlen", (L,))]
-        n = sum(int(np.prod(shape)) for _, shape in shapes) + 3
+            sets += [("eI", (L, Imax, L)), ("eIlen", (L,)),
+                     ("eJ", (L, Imax, L)), ("eJlen", (L,))]
+        layout = ([(name, shape, "i") for name, shape in sets]
+                  + [("reltol", (1,), "f"), ("abstol", (1,), "f"),
+                     ("maxbond", (), "i"), *fields])
+        n = sum(int(np.prod(shape)) for _, shape, _ in layout)
         self._stage = torch.zeros(n, dtype=torch.int64,
                                   pin_memory=dev.type == "cuda")
         self._record = torch.zeros(n, dtype=torch.int64, device=dev)
         host = self._stage.numpy()
-        self._host, o = [], 0
-        for name, shape in shapes:
+        # host staging view and record offset of every field, by name
+        self._host, self._offset, o = {}, {}, 0
+        for name, shape, kind in layout:
             size = int(np.prod(shape))
-            self._host.append(host[o:o + size].reshape(shape))
-            setattr(self, name, self._record[o:o + size].view(shape))
+            h, d = host[o:o + size], self._record[o:o + size]
+            if kind == "f":
+                h, d = h.view(np.float64), d.view(torch.float64)
+            self._host[name] = h.reshape(shape)
+            self._offset[name] = o
+            setattr(self, name, d.view(shape))
             o += size
-        self._host_tol = host[o:o + 2].view(np.float64)
-        self._host_maxbond = host[o + 2:]
-        self.reltol = self._record[o:o + 1].view(torch.float64)
-        self.abstol = self._record[o + 1:o + 2].view(torch.float64)
-        self.maxbond = self._record[o + 2]
+        self._sets = [name for name, _ in sets]
         # the last copy out of the staging array, which must have finished
         # before the next call's values are written there
         self._copied = torch.cuda.Event() if dev.type == "cuda" else None
@@ -443,16 +522,19 @@ class _Program:
         return self._replay is not None
 
     def load(self, *sets, reltol: float = 0.0, abstol: float = 0.0,
-             maxbonddim: int = 0) -> None:
+             maxbonddim: int = 0, **values) -> None:
         """A call's inputs into the record, in one transfer: the index-set
-        lists (in the record's order), the tolerances, and the rank cap
-        clamped to the capacity."""
+        lists (in the record's order), the tolerances, the rank cap clamped
+        to the capacity, and the program's own fields by name."""
         if self._pending:
             self._copied.synchronize()
         for i, s in enumerate(sets):
-            _pack_into(self._host[2 * i], self._host[2 * i + 1], s)
-        self._host_tol[:] = (reltol, abstol)
-        self._host_maxbond[0] = min(int(maxbonddim), self.engine.Imax)
+            _pack_into(self._host[self._sets[2 * i]],
+                       self._host[self._sets[2 * i + 1]], s)
+        values.update(reltol=reltol, abstol=abstol,
+                      maxbond=min(int(maxbonddim), self.engine.Imax))
+        for name, value in values.items():
+            self._host[name][...] = value
         self._record.copy_(self._stage, non_blocking=True)
         if self._copied is not None:
             self._copied.record(torch.cuda.current_stream(self._record.device))
@@ -495,7 +577,8 @@ class DeviceSweepEngine:
     `f` maps an (N, L) int64 tensor on `device` to (N,) values there.
 
     On a CUDA device each body (2-site sweep, with and without the fill;
-    the fill; the 1-site sweep) is recorded into a CUDA graph at the first
+    the fill; the 1-site sweep; the sweep pair; the optimize loop's step)
+    is recorded into a CUDA graph at the first
     use of its key (``capture_at``) and replayed from then on
     (``cuda_graphs=False``, or setting the attribute later, runs every body
     eagerly). `f` is recorded with the body, so it has to be a pure function
@@ -526,7 +609,9 @@ class DeviceSweepEngine:
         self._layouts = {}
         # the programs, by the keys of tci_tpu's engine: (forward, Imax) a
         # 2-site sweep, (forward, Imax, "fused_full") with the fill,
-        # ("fill", Imax), ("sweep1", forward, Imax)
+        # ("fill", Imax), ("sweep1", forward, Imax), (fwd1, fwd2, Imax,
+        # "pair_full", nsearch) and ("oloop", fwd1, fwd2, Imax, nsearch,
+        # nch, loop_kmax)
         self._sweeps: Dict[tuple, _Program] = {}
         self.cuda_graphs = cuda_graphs and self.device.type == "cuda"
         # the use of a key at which it is recorded. 1, as tci_tpu compiles a
@@ -543,6 +628,22 @@ class DeviceSweepEngine:
         # together) and are captured on one side stream
         self._pool = None
         self._stream = None
+        # tci_tpu's protocol, with its names and defaults: both sweeps of an
+        # optimize iteration, the fill and the global-pivot search as one
+        # program (sweep2site_pair), and blocks of up to loop_kmax such
+        # iterations that return to the host only for a global pivot, a
+        # capacity growth, convergence or the end of the budget
+        # (optimize_loop). False runs the per-sweep programs.
+        self.use_sweep_pair = True
+        self.use_optimize_loop = True
+        self.loop_kmax = 32
+        # (best_flat, best_err) of the last pair's search, and whether the
+        # last pair or loop block left filled site tensors on the TCI
+        self.last_search = None
+        self.last_sweep_filled = False
+        # optimize_loop calls that ran a block, and the steps they ran
+        self.loop_blocks = 0
+        self.loop_steps = 0
 
     def _layout(self) -> _Layout:
         """The index layout of the current capacity (built at its first
@@ -555,12 +656,13 @@ class DeviceSweepEngine:
     def _capture(self, body):
         """Record body() into a CUDA graph of this engine's pool; returns
         (replay, the body's static outputs). What a launch sets up once (the
-        kernel's build and load, cuBLAS's handle for the triangular solves)
-        happens before, outside the capture."""
+        kernel's build and load, cuBLAS's handle for the triangular solves
+        and the search's products) happens before, outside the capture."""
         dev = self.device
         lu_cuda.warm_up(dev.index, self.dtype)
         eye = torch.eye(2, dtype=self.dtype, device=dev)
         torch.linalg.solve_triangular(eye, eye, upper=True)
+        torch.bmm(eye[None], eye[None])
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         if self._stream is None:
@@ -677,6 +779,153 @@ class DeviceSweepEngine:
                                          len(dims) - 1)
         return self._sweeps[key]
 
+    def _get_sweep_pair(self, fwd1: bool, fwd2: bool, nsearch: int
+                        ) -> _Program:
+        """One optimize iteration as one program (``_get_sweep_pair``, full
+        pivoting): ``_iteration``, and with nsearch > 0 the candidate search
+        from the (nsearch, L) ``starts`` against the filled cores."""
+        key = (fwd1, fwd2, self.Imax, "pair_full", nsearch)
+        if key not in self._sweeps:
+            f, dims, dtype, lay = (self.f, self.localdims, self.dtype,
+                                   self._layout())
+            fields = [("use_extra2", (), "i")]
+            if nsearch:
+                fields.append(("starts", (nsearch, len(dims)), "i"))
+
+            def body(p):
+                sets, mid, perrs, maxsample, tensors = _iteration(
+                    f, dims, dtype, lay, p, p.eIlen, p.eJlen, p.abstol, fwd1,
+                    fwd2)
+                search = (_tt_search_on_cores(f, dtype, lay, tensors,
+                                              sets[1], sets[3], p.starts)
+                          if nsearch else ())
+                return (*_packed(*sets, perrs, maxsample, *mid, *search),
+                        tensors)
+
+            self._sweeps[key] = _Program(self, key, True, body,
+                                         2 * (len(dims) - 1) + 1, fields)
+        return self._sweeps[key]
+
+    def _get_optimize_loop(self, fwd1: bool, fwd2: bool, nsearch: int,
+                           nch: int) -> _Program:
+        """One step of the optimize loop (``_get_optimize_loop``'s
+        while-loop body, full pivoting) as one program: ``_iteration`` and
+        the search (at ``starts[k]``), then the convergence windows of
+        tensorci2.jl:947-966 over the last `nch` iterations (the
+        global-pivot column from ``ngp_ok``, since iterations inside a block
+        add none) and the step's outputs at position k. A CUDA graph holds
+        no loop, so the host replays this step and reads ``status`` (k,
+        done, code) after each.
+
+        The carried state lives in the record: the sets (``Iset`` ...), the
+        history sets (``eI`` ..., the last mid-point), ``ms``, ``abstol``,
+        the windows ``werr`` / ``wrank`` / ``count`` and the status; the
+        per-iteration outputs and the last committed pivot errors, cores
+        and search result in the program's buffers ``out``, which need no
+        upload. A step that saturates the capacity commits nothing and does
+        not advance k (code 2); otherwise code 1 means a start's best
+        candidate passed abstol * tolmargin, 0 convergence, and 3, the
+        initial value, that the budget ran out."""
+        Kmax = self.loop_kmax
+        key = ("oloop", fwd1, fwd2, self.Imax, nsearch, nch, Kmax)
+        if key not in self._sweeps:
+            f, dims, dtype, lay, Imax, dev = (
+                self.f, self.localdims, self.dtype, self._layout(),
+                self.Imax, self.device)
+            L, dmax, S = len(dims), max(dims), max(nsearch, 1)
+            fields = [("use_extra2", (), "i"), ("maxbond_full", (), "i"),
+                      ("use_norm", (), "i"), ("check_ngp", (), "i"),
+                      ("count", (), "i"), ("starts", (Kmax, S, L), "i"),
+                      ("ngp_ok", (nch,), "i"), ("wrank", (nch,), "i"),
+                      ("tol", (1,), "f"), ("tolmargin", (1,), "f"),
+                      ("ms", (1,), "f"), ("werr", (nch,), "f"),
+                      ("k", (), "i"), ("done", (), "i"), ("code", (), "i")]
+            f64, i64 = torch.float64, torch.int64
+            out = {"oerr": torch.zeros(Kmax, dtype=f64, device=dev),
+                   "orank": torch.zeros(Kmax, dtype=i64, device=dev),
+                   "hI": torch.zeros((Kmax, 2, L, Imax, L), dtype=i64,
+                                     device=dev),
+                   "hIl": torch.zeros((Kmax, 2, L), dtype=i64, device=dev),
+                   "hJ": torch.zeros((Kmax, 2, L, Imax, L), dtype=i64,
+                                     device=dev),
+                   "hJl": torch.zeros((Kmax, 2, L), dtype=i64, device=dev),
+                   "perrs": torch.zeros((L - 1, Imax + 1), dtype=f64,
+                                        device=dev),
+                   "cores": torch.zeros((L, Imax, dmax, Imax), dtype=dtype,
+                                        device=dev),
+                   "bflat": torch.zeros(S, dtype=i64, device=dev),
+                   "berr": torch.full((S,), float("-inf"), dtype=f64,
+                                      device=dev)}
+
+            def body(p):
+                o = p.out
+                abstol = p.tol * torch.where(p.use_norm > 0, p.ms, 1.0)
+                (I, Il, J, Jl), (I1, Il1, J1, Jl1), perrs, maxsample, cores = (
+                    _iteration(f, dims, dtype, lay, p,
+                               p.eIlen * p.use_extra2, p.eJlen * p.use_extra2,
+                               abstol, fwd1, fwd2))
+                ms = torch.maximum(p.ms, maxsample.to(f64))
+                # the iteration's error (the bond errors of the second
+                # sweep) and rank, as the host reads them off the sets
+                err = perrs.gather(1, Il[1:, None]).amax()
+                rank = Il[1:].amax()
+                sat = ((torch.maximum(Il.amax(), Il1.amax()) >= Imax)
+                       & (p.maxbond_full > Imax))
+                k1 = p.k.view(1)
+                if nsearch:
+                    bflat, berr = _tt_search_on_cores(
+                        f, dtype, lay, cores, Il, Jl,
+                        p.starts.index_select(0, k1)[0])
+                    found = (berr > abstol * p.tolmargin).any()
+                else:
+                    bflat, berr = o["bflat"], o["berr"]
+                    found = torch.zeros((), dtype=torch.bool, device=dev)
+                werr = torch.cat([p.werr[1:], err.view(1)])
+                wrank = torch.cat([p.wrank[1:], rank.view(1)])
+                count = p.count + 1
+                full = count >= nch
+                ngp_ok = p.ngp_ok.gather(0, p.k.clamp(max=nch - 1).view(1))
+                conv = ((full & (werr < abstol).all()
+                         & ((p.check_ngp == 0) | (ngp_ok[0] > 0))
+                         & (wrank.amin() == wrank[-1]))
+                        | (full & (wrank >= p.maxbond_full).all()))
+                done = sat | found | conv
+                code = torch.where(sat, 2, torch.where(
+                    found, 1, torch.where(conv, 0, p.code)))
+                # the outputs at position k, read from the inputs before
+                # the commit below overwrites them (a saturated step leaves
+                # k where it is, so the next step writes there again)
+                o["oerr"].index_copy_(0, k1, err.view(1))
+                o["orank"].index_copy_(0, k1, rank.view(1))
+                for name, (a, b) in (("hI", (p.Iset, I1)),
+                                     ("hIl", (p.Ilen, Il1)),
+                                     ("hJ", (p.Jset, J1)),
+                                     ("hJl", (p.Jlen, Jl1))):
+                    o[name].index_copy_(0, k1, torch.stack([a, b])[None])
+                for dst, new in ((p.Iset, I), (p.Ilen, Il), (p.Jset, J),
+                                 (p.Jlen, Jl), (p.eI, I1), (p.eIlen, Il1),
+                                 (p.eJ, J1), (p.eJlen, Jl1), (p.ms, ms),
+                                 (p.abstol, abstol), (p.werr, werr),
+                                 (p.wrank, wrank), (p.count, count),
+                                 (o["perrs"], perrs), (o["cores"], cores),
+                                 (o["bflat"], bflat), (o["berr"], berr)):
+                    dst.copy_(torch.where(sat, dst, new))
+                p.k.add_((~sat).to(i64))
+                p.done.copy_(done)
+                p.code.copy_(code)
+                return None, None
+
+            program = _Program(self, key, True, body, 2 * (L - 1) + 1, fields)
+            program.out = out
+            o = program._offset["k"]
+            program.status = program._record[o:o + 3]
+            program._status_host = torch.zeros(
+                3, dtype=i64, pin_memory=dev.type == "cuda")
+            program._status_read = (torch.cuda.Event() if dev.type == "cuda"
+                                    else None)
+            self._sweeps[key] = program
+        return self._sweeps[key]
+
     def _run(self, program: _Program):
         """Run a loaded program: (the fetched record's arrays or None, the
         tensors that stay on the device)."""
@@ -729,10 +978,7 @@ class DeviceSweepEngine:
         when the required capacity exceeds imax_cap or max_panel_edge (the
         caller falls back to the per-bond tier)."""
         L = len(self.localdims)
-        needed = max([len(s) for s in tci.Iset] + [len(s) for s in tci.Jset]
-                     + [len(s) for s in extraIset]
-                     + [len(s) for s in extraJset] + [1])
-        if not self._reserve(needed):
+        if not self._reserve(self._needed(tci, extraIset, extraJset)):
             return False
         program = self._get_sweep(forward, fill_sites)
         program.load(tci.Iset, tci.Jset, extraIset, extraJset, reltol=reltol,
@@ -748,8 +994,7 @@ class DeviceSweepEngine:
         self._write_sets(tci, Iset, Ilen, Jset, Jlen, maxsample)
         for b in range(L - 1):
             tci.updateerrors(b, list(perrs[b][:int(Ilen[b + 1]) + 1]))
-            self.nevals += ((self.Imax * self.localdims[b] + self.Imax)
-                            * (self.localdims[b + 1] * self.Imax + self.Imax))
+        self._count_sweeps(1)
         if fill_sites:
             self._store_sitetensors(tci, kept[0])
             self._count_fill()
@@ -759,9 +1004,7 @@ class DeviceSweepEngine:
         """Compute all site tensors on the device from tci's index sets;
         the host knows their sizes, so nothing is fetched (the max |sample|
         is folded into tci's on the device)."""
-        needed = max([len(s) for s in tci.Iset] + [len(s) for s in tci.Jset]
-                     + [1])
-        if not self._reserve(needed):
+        if not self._reserve(self._needed(tci)):
             return False
         program = self._get_fill()
         program.load(tci.Iset, tci.Jset)
@@ -776,9 +1019,7 @@ class DeviceSweepEngine:
         """One 1-site sweep on the device, updating tci in place, with one
         fetch at its end (and one more sweep after each capacity growth)."""
         L = len(self.localdims)
-        needed = max([len(s) for s in tci.Iset] + [len(s) for s in tci.Jset]
-                     + [1])
-        if not self._reserve(needed):
+        if not self._reserve(self._needed(tci)):
             return False
         while True:
             program = self._get_sweep1(forward)
@@ -804,3 +1045,153 @@ class DeviceSweepEngine:
         for b in range(L):
             self.nevals += self.Imax * self.localdims[b] * self.Imax
         return True
+
+    def _needed(self, tci, *extra) -> int:
+        """The capacity tci's sets (and the history sets `extra`) need."""
+        return max([len(s) for s in tci.Iset] + [len(s) for s in tci.Jset]
+                   + [len(s) for sets in extra for s in sets] + [1])
+
+    def _count_sweeps(self, n: int) -> None:
+        """The padded Π samples of n 2-site sweeps at the capacity."""
+        d, Imax = self.localdims, self.Imax
+        self.nevals += n * sum((Imax * d[b] + Imax) * (d[b + 1] * Imax + Imax)
+                               for b in range(len(d) - 1))
+
+    def sweep2site_pair(self, tci, fwd1: bool, fwd2: bool, reltol: float,
+                        abstol: float, maxbonddim: int,
+                        extraIset: List[List[MultiIndex]],
+                        extraJset: List[List[MultiIndex]],
+                        strictlynested: bool = False,
+                        search_starts=None) -> bool:
+        """One optimize iteration, two 2-site sweeps and the fill, as one
+        program with one fetch (``tci_tpu``'s ``sweep2site_pair``, full
+        pivoting). Updates tci as two sweep2site calls with the fill on the
+        second do: the history gets the pair's input sets, then the
+        mid-point sets; the error series is the second sweep's. With
+        `search_starts` ((S, L) start points) the global-pivot candidate
+        search runs in the same program against the filled cores and
+        (best_flat, best_err) lands on ``last_search``. A saturated sweep
+        grows the capacity and both sweeps run again; the discarded attempt
+        counts no samples. Returns False when the capacity guards
+        decline."""
+        L = len(self.localdims)
+        self.last_sweep_filled = False
+        self.last_search = None
+        if not self._reserve(self._needed(tci, extraIset, extraJset)):
+            return False
+        nsearch = 0 if search_starts is None else len(search_starts)
+        values = {"use_extra2": 0 if strictlynested else 1}
+        if nsearch:
+            values["starts"] = np.asarray(search_starts, dtype=np.int64)
+        while True:
+            program = self._get_sweep_pair(fwd1, fwd2, nsearch)
+            program.load(tci.Iset, tci.Jset, extraIset, extraJset,
+                         reltol=reltol, abstol=abstol, maxbonddim=maxbonddim,
+                         **values)
+            (Iset, Ilen, Jset, Jlen, perrs, maxsample, I1, Il1, J1, Jl1,
+             *search), (tensors,) = self._run(program)
+            if (max(Ilen.max(), Il1.max()) < self.Imax
+                    or self.Imax >= maxbonddim):
+                break
+            if not self._grow():
+                return False
+        self._count_sweeps(2)
+        prefix, suffix = list(range(L)), [L - b - 1 for b in range(L)]
+        tci.Iset_history.append([list(s) for s in tci.Iset])
+        tci.Jset_history.append([list(s) for s in tci.Jset])
+        tci.Iset_history.append(self._unpack(I1, Il1, prefix))
+        tci.Jset_history.append(self._unpack(J1, Jl1, suffix))
+        self._write_sets(tci, Iset, Ilen, Jset, Jlen, maxsample)
+        for b in range(L - 1):
+            tci.updateerrors(b, list(perrs[b][:int(Ilen[b + 1]) + 1]))
+        self._store_sitetensors(tci, tensors)
+        self._count_fill()
+        self.last_sweep_filled = True
+        if nsearch:
+            self.last_search = (search[0].astype(np.int64), search[1])
+            self.nevals += nsearch * L * max(self.localdims)
+        return True
+
+    def optimize_loop(self, tci, fwd1: bool, fwd2: bool, reltol: float,
+                      tol: float, use_norm: bool, maxbonddim: int,
+                      extraIset, extraJset, strictlynested: bool,
+                      starts_block, tolmargin: float, prev_errors,
+                      prev_ranks, prev_ngp, nch: int, check_ngp: bool,
+                      k_budget: int):
+        """Up to min(k_budget, loop_kmax) optimize iterations on the device
+        (``tci_tpu``'s ``optimize_loop``, full pivoting): one upload of the
+        state, then the loop step's program once an iteration, each followed
+        by a read of its status (k, done, code) through a pinned buffer,
+        until the step says done or k reaches the budget; then one fetch of
+        the stacked outputs. Returns the reference's result dict (numpy
+        values; ``cores`` the last committed site tensors on the device), or
+        None when the capacity, panel-edge or history guards decline, as
+        the reference's do. tci is not changed: TensorCI2 replays the
+        per-iteration bookkeeping from the result."""
+        L, dmax = len(self.localdims), max(self.localdims)
+        needed = self._needed(tci, extraIset, extraJset)
+        if needed > self.imax_cap or k_budget <= 0 or nch < 1:
+            return None
+        target = _imax_target(self.Imax, needed)
+        if target * (dmax + 1) > self.max_panel_edge:
+            return None
+        # the reference's guard on its stacked history (int32 there),
+        # computed the same way so that both packages decline alike
+        if 2 * self.loop_kmax * 2 * L * target * L * 4 > 64 * 2**20:
+            return None
+        self.Imax = target
+        Kmax = self.loop_kmax
+        nsearch = 0 if starts_block is None else int(starts_block.shape[1])
+        sb = np.zeros((Kmax, max(nsearch, 1), L), dtype=np.int64)
+        if nsearch:
+            kfill = min(Kmax, starts_block.shape[0])
+            sb[:kfill] = starts_block[:kfill]
+        # the convergence windows, seeded with the host's last nch - 1
+        # entries and left-padded so that an unfilled window cannot pass
+        win_err = np.full(nch, np.inf)
+        win_rank = np.full(nch, 2**30, dtype=np.int64)
+        if nch > 1:
+            tail_e, tail_r = list(prev_errors)[1 - nch:], list(prev_ranks)[1 - nch:]
+            if tail_e:
+                win_err[nch - len(tail_e):] = tail_e
+            if tail_r:
+                win_rank[nch - len(tail_r):] = tail_r
+        # ngp_ok[j]: with j + 1 iterations of the block appended (no global
+        # pivots in any), is the last-nch window of pivot counts all zero?
+        ngp = list(prev_ngp)
+        ngp_ok = [all(g == 0 for g in (ngp[-(nch - 1 - j):]
+                                       if nch - 1 - j > 0 else []))
+                  for j in range(nch)]
+        program = self._get_optimize_loop(fwd1, fwd2, nsearch, nch)
+        program.load(
+            tci.Iset, tci.Jset, extraIset, extraJset, reltol=reltol,
+            abstol=0.0, maxbonddim=maxbonddim,
+            use_extra2=0 if strictlynested else 1,
+            maxbond_full=min(int(maxbonddim), 2**62),
+            use_norm=int(bool(use_norm)), check_ngp=int(bool(check_ngp)),
+            count=len(prev_errors), starts=sb, ngp_ok=ngp_ok, wrank=win_rank,
+            tol=tol, tolmargin=tolmargin, ms=tci.maxsamplevalue, werr=win_err,
+            k=0, done=0, code=3)
+        budget = min(k_budget, Kmax)
+        self.loop_blocks += 1
+        while True:
+            self._run(program)
+            self.loop_steps += 1
+            k, done, code = peek(program.status, program._status_host,
+                                 program._status_read, "engine_status")
+            if done or k >= budget:
+                break
+        res = {"k": k, "code": code}
+        if k == 0:
+            return res
+        o = program.out
+        names = ("I", "Il", "J", "Jl", "ms", "abstol", "perrs", "hI", "hIl",
+                 "hJ", "hJl", "oerr", "orank", "bflat", "berr")
+        rec, shapes = _packed(
+            program.Iset, program.Ilen, program.Jset, program.Jlen,
+            program.ms, program.abstol, o["perrs"], o["hI"][:k],
+            o["hIl"][:k], o["hJ"][:k], o["hJl"][:k], o["oerr"][:k],
+            o["orank"][:k], o["bflat"], o["berr"])
+        res.update(zip(names, _unpacked(fetch(rec, "engine"), shapes)))
+        res["cores"] = o["cores"].clone()
+        return res

@@ -89,6 +89,32 @@ class DefaultGlobalPivotFinder(AbstractGlobalPivotFinder):
             for _ in range(self.nsearch)
         ]
 
+    def select_device_result(
+        self,
+        starts: Sequence[MultiIndex],
+        best_flat: np.ndarray,
+        best_err: np.ndarray,
+        dmax: int,
+        abstol: float,
+        verbosity: int = 0,
+    ) -> List[MultiIndex]:
+        """The pivots of the engine's in-program search
+        (``device_sweep._tt_search_on_cores``: per start, the first maximum
+        as leg * dmax + value, and its error), with the threshold and the
+        cap of ``__call__``."""
+        found: List[MultiIndex] = []
+        for s, point in enumerate(starts):
+            if float(best_err[s]) > abstol * self.tolmarginglobalsearch:
+                p, v = divmod(int(best_flat[s]), dmax)
+                best_point = list(point)
+                best_point[p] = v
+                found.append(tuple(best_point))
+        if len(found) > self.maxnglobalpivot:
+            found = found[: self.maxnglobalpivot]
+        if verbosity > 0:
+            print(f"Found {len(found)} global pivots")
+        return found
+
     def __call__(
         self,
         input: GlobalPivotSearchInput,

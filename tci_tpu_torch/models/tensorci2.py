@@ -10,7 +10,9 @@ the caller passes ``device`` (``device="cpu"`` for the CPU).
 Like ``tci_tpu``, it takes the device tiers an evaluator offers
 (``TorchBatchEvaluator``): the whole-sweep engine (``device_sweep_engine``:
 a 2-site sweep, the site-tensor fill and the 1-site sweep with one fetch
-each), else the per-bond fused update (``fused_updater``) and the fused
+each; by default, as in ``tci_tpu``, an optimize iteration's two sweeps,
+fill and global-pivot search as one program, and blocks of such iterations
+on the device, ``_optimize_device_block``), else the per-bond fused update (``fused_updater``) and the fused
 site tensors (``fused_site_tensors``). Without them (a plain f or a
 ``VectorizedBatchEvaluator``) it runs the host tier: each bond's Π panel is
 sampled where the evaluator lives and moved to the TCI's device in one
@@ -448,11 +450,34 @@ class TensorCI2(AbstractTensorTrain):
         verbosity: int = 0,
         strictlynested: bool = False,
         fillsitetensors: bool = True,
+        _search_starts=None,
     ) -> None:
         self.invalidatesitetensors()
         n = len(self)
         engine = getattr(f, "device_sweep_engine", None)
         engine_filled = False
+        self._pair_search = None
+        if (niter == 2 and engine is not None and engine.use_sweep_pair
+                and pivotsearch == "full" and fillsitetensors):
+            # one optimize iteration, both sweeps and the fill, as one
+            # program with one fetch (DeviceSweepEngine.sweep2site_pair),
+            # which keeps the history itself; with _search_starts (from
+            # optimize) the global-pivot candidate search runs in it too.
+            # When the engine declines, the per-sweep loop below runs.
+            extraIset: List[List[MultiIndex]] = [[] for _ in range(n)]
+            extraJset: List[List[MultiIndex]] = [[] for _ in range(n)]
+            if not strictlynested and len(self.Iset_history) > 0:
+                extraIset = self.Iset_history[-1]
+                extraJset = self.Jset_history[-1]
+            self.flushpivoterror()
+            if engine.sweep2site_pair(
+                self, forwardsweep(sweepstrategy, iter1),
+                forwardsweep(sweepstrategy, iter1 + 1), 1e-14, abstol,
+                maxbonddim, extraIset, extraJset,
+                strictlynested=strictlynested, search_starts=_search_starts,
+            ):
+                self._pair_search = engine.last_search
+                return
         for it in range(iter1, iter1 + niter):
             extraIset: List[List[MultiIndex]] = [[] for _ in range(n)]
             extraJset: List[List[MultiIndex]] = [[] for _ in range(n)]
@@ -495,6 +520,109 @@ class TensorCI2(AbstractTensorTrain):
                 )
         if fillsitetensors and not engine_filled:
             self.fillsitetensors(f)
+
+    def _optimize_device_block(self, engine, finder, tol, normalizeerror,
+                               maxbonddim, strictlynested, sweepstrategy,
+                               all_starts, it, maxiter, errors, ranks,
+                               nglobalpivots, ncheckhistory,
+                               checkconvglobalpivot):
+        """Up to ``engine.loop_kmax`` optimize iterations as one block on
+        the device (``DeviceSweepEngine.optimize_loop``), then the
+        per-iteration bookkeeping replayed from its stacked outputs.
+
+        Returns None when the engine declines (the caller runs this
+        iteration on the per-iteration path), else (niter, stop): niter
+        iterations were accounted for (0: the first one saturated the
+        capacity, which grew, so try again) and stop says the convergence
+        criterion held."""
+        n = len(self)
+        k_budget = min(maxiter - it + 1, engine.loop_kmax)
+        sb = None
+        if all_starts is not None:
+            sb = np.asarray(all_starts[it - 1:it - 1 + k_budget],
+                            dtype=np.int64)
+        extraIset: List[List[MultiIndex]] = [[] for _ in range(n)]
+        extraJset: List[List[MultiIndex]] = [[] for _ in range(n)]
+        if not strictlynested and len(self.Iset_history) > 0:
+            extraIset = self.Iset_history[-1]
+            extraJset = self.Jset_history[-1]
+        t0 = time.time()
+        res = engine.optimize_loop(
+            self, forwardsweep(sweepstrategy, 1),
+            forwardsweep(sweepstrategy, 2), 1e-14, tol, normalizeerror,
+            maxbonddim, extraIset, extraJset, strictlynested, sb,
+            finder.tolmarginglobalsearch, errors, ranks, nglobalpivots,
+            ncheckhistory, checkconvglobalpivot, k_budget,
+        )
+        if res is None:
+            return None
+        wall = time.time() - t0
+        K_done, code = res["k"], res["code"]
+        if K_done == 0:
+            # the first iteration saturated the capacity: grow and retry;
+            # when it cannot grow the block declines
+            if code == 2 and engine._grow():
+                return (0, False)
+            return None
+
+        prefix = list(range(n))
+        suffix = [n - b - 1 for b in range(n)]
+        for j in range(K_done):
+            for h in (0, 1):
+                self.Iset_history.append(engine._unpack(
+                    res["hI"][j, h], res["hIl"][j, h], prefix))
+                self.Jset_history.append(engine._unpack(
+                    res["hJ"][j, h], res["hJl"][j, h], suffix))
+        self.Iset = engine._unpack(res["I"], res["Il"], prefix)
+        self.Jset = engine._unpack(res["J"], res["Jl"], suffix)
+        self.maxsamplevalue = max(self.maxsamplevalue, float(res["ms"][0]))
+        self.invalidatesitetensors()
+        self.flushpivoterror()
+        for b in range(n - 1):
+            self.updateerrors(
+                b, list(res["perrs"][b][:int(res["Il"][b + 1]) + 1]))
+        engine._store_sitetensors(self, res["cores"])
+        engine.last_sweep_filled = True
+        # every iteration of the block ran two sweeps, a fill and, with
+        # start points, the search
+        engine._count_sweeps(2 * K_done)
+        for _ in range(K_done):
+            engine._count_fill()
+        if sb is not None:
+            engine.nevals += (K_done * finder.nsearch * n
+                              * max(self.localdims))
+
+        abstol_exit = float(res["abstol"][0])
+        for j in range(K_done):
+            errors.append(float(res["oerr"][j]))
+            if code == 1 and j == K_done - 1:
+                pivots = finder.select_device_result(
+                    all_starts[it - 1 + j], res["bflat"], res["berr"],
+                    max(self.localdims), abstol_exit)
+                self.addglobalpivots(pivots)
+                nglobalpivots.append(len(pivots))
+                ranks.append(self.rank())
+            else:
+                nglobalpivots.append(0)
+                ranks.append(int(res["orank"][j]))
+            self.stats["sweep_walltime"].append(wall / K_done)
+            self.stats["globalsearch_walltime"].append(0.0)
+            self.stats["iteration_walltime"].append(wall / K_done)
+            self.stats["ranks"].append(ranks[-1])
+            self.stats["errors"].append(errors[-1])
+            self.stats["nglobalpivots"].append(nglobalpivots[-1])
+        stop = False
+        if code == 0:
+            stop = True
+        elif code == 1:
+            stop = convergencecriterion(
+                ranks, errors, nglobalpivots, abstol_exit, maxbonddim,
+                ncheckhistory, checkconvglobalpivot=checkconvglobalpivot)
+        elif code == 2:
+            # saturated after at least one whole iteration: those are
+            # accounted for above; grow (if it can) and enter again
+            engine._grow()
+        return (K_done, stop)
 
     # -- main optimization loop (tensorci2.jl:1018-1172) ----------------------
 
@@ -571,42 +699,70 @@ class TensorCI2(AbstractTensorTrain):
         }
         # With the stock finder all start points are drawn upfront, in the
         # finder's own per-iteration rng order, exactly as tci_tpu does, so
-        # a shared seed gives both packages the same start points.
+        # a shared seed gives both packages, and every tier (the host
+        # finder, the search in the sweep pair, the optimize loop), the same
+        # start points for an iteration.
+        default_finder = type(finder) is DefaultGlobalPivotFinder
         all_starts = (
             [finder.draw_starts(self.localdims, rng) for _ in range(maxiter)]
-            if type(finder) is DefaultGlobalPivotFinder and finder.nsearch > 0
-            else None
+            if default_finder and finder.nsearch > 0 else None
         )
+        engine = getattr(f, "device_sweep_engine", None)
+        # iterations that add no global pivot are state transitions on the
+        # device: the engine runs blocks of them and returns to the host
+        # for a global pivot, a capacity growth or convergence
+        fused_loop_ok = (verbosity == 0 and default_finder
+                         and pivotsearch == "full" and engine is not None
+                         and engine.use_optimize_loop)
 
         errors: List[float] = []
         ranks: List[int] = []
         nglobalpivots: List[int] = []
-        for it in range(1, maxiter + 1):
+        it = 1
+        while it <= maxiter:
             titer = time.time()
             errornormalization = self.maxsamplevalue if normalizeerror else 1.0
             abstol = tol * errornormalization
 
+            if fused_loop_ok:
+                blk = self._optimize_device_block(
+                    engine, finder, tol, normalizeerror, maxbonddim,
+                    strictlynested, sweepstrategy, all_starts, it, maxiter,
+                    errors, ranks, nglobalpivots, ncheckhistory,
+                    checkconvglobalpivot)
+                if blk is not None:
+                    it += blk[0]
+                    if blk[1]:
+                        break
+                    continue
+
             if verbosity > 1:
                 print(f"  Walltime {time.time() - tstart:.3f} sec: "
                       "starting 2site sweep")
+            starts = all_starts[it - 1] if all_starts is not None else None
             tsweep = time.time()
             self.sweep2site(
                 f, 2, iter1=1,
                 abstol=abstol, maxbonddim=maxbonddim, pivotsearch=pivotsearch,
                 strictlynested=strictlynested, verbosity=verbosity,
                 sweepstrategy=sweepstrategy, fillsitetensors=True,
+                _search_starts=starts,
             )
             self.stats["sweep_walltime"].append(time.time() - tsweep)
             errors.append(self.pivoterror())
 
             tsearch = time.time()
-            input_ = GlobalPivotSearchInput.from_tci(self)
-            if all_starts is not None:
-                globalpivots = finder(input_, f, abstol, verbosity=verbosity,
-                                      rng=rng, initial_points=all_starts[it - 1])
+            if starts is not None and self._pair_search is not None:
+                # the search already ran inside the sweep pair's program
+                best_flat, best_err = self._pair_search
+                globalpivots = finder.select_device_result(
+                    starts, best_flat, best_err, max(self.localdims), abstol,
+                    verbosity=verbosity)
             else:
+                input_ = GlobalPivotSearchInput.from_tci(self)
+                points = {} if starts is None else {"initial_points": starts}
                 globalpivots = finder(input_, f, abstol, verbosity=verbosity,
-                                      rng=rng)
+                                      rng=rng, **points)
             self.addglobalpivots(globalpivots)
             nglobalpivots.append(len(globalpivots))
             self.stats["globalsearch_walltime"].append(time.time() - tsearch)
@@ -628,6 +784,7 @@ class TensorCI2(AbstractTensorTrain):
                 ncheckhistory, checkconvglobalpivot=checkconvglobalpivot,
             ):
                 break
+            it += 1
 
         # Remove unnecessary pivots added by global pivot insertion and
         # compute site tensors (tensorci2.jl:1157-1167)

@@ -67,6 +67,20 @@ def fetch(t: torch.Tensor, tier: str) -> np.ndarray:
     return host.numpy()
 
 
+def peek(t: torch.Tensor, host: torch.Tensor, done, tier: str) -> list:
+    """A few values of a device tensor, read through the preallocated
+    pinned `host` buffer and the event `done` (None on the CPU), counted in
+    ``FETCHES[tier]``: the host waits for the work queued before and reads
+    nothing else."""
+    FETCHES[tier] += 1
+    if t.device.type != "cuda":
+        return t.tolist()
+    host.copy_(t, non_blocking=True)
+    done.record(torch.cuda.current_stream(t.device))
+    done.synchronize()
+    return host.tolist()
+
+
 def capture_graph(body, pool, stream: "torch.cuda.Stream"):
     """Record the launches of body() into a ``torch.cuda.CUDAGraph`` whose
     memory comes from `pool` (``torch.cuda.graph_pool_handle()``). Nothing

@@ -664,3 +664,112 @@ def test_integrate_reuses_its_graphs(cuda):
     assert captures > 0 and not engine.declined
     assert run() == first
     assert engine.captures == captures and engine.replays == 2 * replays
+
+
+def _protocol_run(f, dims, tol, device, pair, loop, graphs=True, bf=None):
+    """crossinterpolate2 under one protocol of the engine (the default: the
+    pair and the loop on), on a new evaluator or on `bf`, with the launches
+    it made checked against the engine's rrLU calls."""
+    if bf is None:
+        bf = tci_tpu_torch.TorchBatchEvaluator(f, dims, device=device,
+                                               cuda_graphs=graphs)
+    engine = bf.device_sweep_engine
+    engine.use_sweep_pair, engine.use_optimize_loop = pair, loop
+    bf.reset_nevals()
+    calls, launches = engine.rrlu_calls, lu_cuda.LAUNCHES["rrlu"]
+    plain = lu_kernel.PLAIN_CALLS["cuda"]
+    out = tci_tpu_torch.crossinterpolate2(
+        np.float64, bf, dims, tolerance=tol, device=device,
+        rng=np.random.default_rng(0))
+    torch.cuda.synchronize()
+    assert (lu_cuda.LAUNCHES["rrlu"] - launches
+            == engine.rrlu_calls - calls > 0)
+    assert lu_kernel.PLAIN_CALLS["cuda"] == plain
+    assert not engine.declined
+    return out, bf
+
+
+@pytest.mark.parametrize("problem", ["4^5", "R12"])
+def test_loop_and_pair_match_per_sweep_protocol(cuda, problem):
+    """crossinterpolate2 under the default protocol (optimize loop), the
+    sweep pair alone and the per-sweep protocol on the card: index sets,
+    their history, ranks, error series, every site tensor and the sample
+    count bit for bit."""
+    dims, f, tol = _graph_problem(problem, cuda)
+    runs = [_protocol_run(f, dims, tol, cuda, pair, loop)
+            for pair, loop in ((True, True), (True, False), (False, False))]
+    (ref, ref_bf), others = runs[-1], runs[:-1]
+    for out, bf in others:
+        _same_result(out, ref)
+        assert out[0].Iset_history == ref[0].Iset_history
+        assert out[0].Jset_history == ref[0].Jset_history
+        assert bf.nevals == ref_bf.nevals
+    loop_engine = runs[0][1].device_sweep_engine
+    assert loop_engine.loop_blocks >= 1
+    assert {key[0] for key in loop_engine._sweeps} == {"oloop", "sweep1"}
+    assert any(key[3] == "pair_full"
+               for key in runs[1][1].device_sweep_engine._sweeps)
+
+
+@pytest.mark.parametrize("pair_only", [False, True])
+@pytest.mark.parametrize("problem", ["4^5", "R12"])
+def test_pair_and_loop_graphs_match_eager(cuda, problem, pair_only):
+    """The sweep pair's and the loop step's programs replayed from CUDA
+    graphs against the same bodies queued eagerly, on a new evaluator (the
+    first use records) and again on the same one (every use replays): bit
+    for bit."""
+    dims, f, tol = _graph_problem(problem, cuda)
+    loop = not pair_only
+    ref, _ = _protocol_run(f, dims, tol, cuda, True, loop, graphs=False)
+    first, bf = _protocol_run(f, dims, tol, cuda, True, loop)
+    _same_result(first, ref)
+    engine = bf.device_sweep_engine
+    captures, replays = engine.captures, engine.replays
+    assert captures > 0 and replays > 0
+    second, _ = _protocol_run(f, dims, tol, cuda, True, loop, bf=bf)
+    _same_result(second, ref)
+    assert engine.captures == captures and engine.replays == 2 * replays
+    kind = "pair_full" if pair_only else "oloop"
+    assert any(kind in key and p["captured"] and p["replays"] == p["uses"]
+               for key, p in ((p["key"], p) for p in engine.programs()))
+
+
+def test_loop_block_syncs_only_at_status_reads_and_fetch(cuda):
+    """One block of the optimize loop at config 1's widths, its step
+    replayed from a graph: torch's sync debug mode sees no synchronization;
+    the host waits only at a status read a step and the block's one fetch
+    (waits on events, counted in FETCHES)."""
+    from tci_tpu_torch.models.globalpivotfinder import (
+        DefaultGlobalPivotFinder)
+    from tci_tpu_torch.utils.device import FETCHES
+
+    dims = [10] * 8
+    bf = tci_tpu_torch.TorchBatchEvaluator(_lorentz, dims, device=cuda)
+    # records the loop's step (the end of a capture synchronizes)
+    _protocol_run(_lorentz, dims, 1e-8, cuda, True, True, bf=bf)
+    engine = bf.device_sweep_engine
+    captures = engine.captures
+    tci = tci_tpu_torch.TensorCI2.from_function(bf, dims, device=cuda)
+    maxsample = tci.maxsamplevalue
+    finder = DefaultGlobalPivotFinder()
+    rng = np.random.default_rng(0)
+    starts = np.asarray([finder.draw_starts(dims, rng) for _ in range(20)])
+    empty = [[] for _ in dims]
+    fetches, status = FETCHES["engine"], FETCHES["engine_status"]
+    steps, launches = engine.loop_steps, lu_cuda.LAUNCHES["rrlu"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = engine.optimize_loop(
+            tci, True, False, 1e-14, 1e-8, True, 2**62, empty, empty, False,
+            starts, 10.0, [], [], [], 3, True, 20)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert res["code"] == 0 and res["k"] == engine.loop_steps - steps >= 3
+    assert FETCHES["engine_status"] - status == res["k"]
+    assert FETCHES["engine"] - fetches == 1
+    assert engine.captures == captures
+    assert (lu_cuda.LAUNCHES["rrlu"] - launches
+            == res["k"] * (2 * (len(dims) - 1) + 1))
+    assert float(res["ms"][0]) >= maxsample
+    assert res["cores"].device.type == "cuda"

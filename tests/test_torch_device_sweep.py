@@ -4,8 +4,9 @@ tci_tpu's, on the CPU.
 
 Both packages run ``crossinterpolate2`` with their device evaluator
 (``TorchBatchEvaluator(device="cpu")`` and ``JaxBatchEvaluator``) and the
-same ``rng`` seed. tci_tpu's engine runs with ``use_sweep_pair`` and
-``use_optimize_loop`` off, the per-sweep protocol the port's engine has.
+same ``rng`` seed. Both engines run with ``use_sweep_pair`` and
+``use_optimize_loop`` off: the per-sweep protocol, which
+tests/test_torch_optimize_loop.py holds against the default one.
 
 Tolerances: ranks, pivot sets and sample counts identical; errors to 1e-15
 absolute (normalized), the rounding of the Schur updates
@@ -79,8 +80,9 @@ def test_crossinterpolate2_matches_tci_tpu(case):
         bt._device_sweep_engine = DeviceSweepEngine(
             bt._values, dims, imax=imax, imax_cap=imax_cap, device="cpu")
     if sweep:
-        bj.device_sweep_engine.use_sweep_pair = False
-        bj.device_sweep_engine.use_optimize_loop = False
+        for b in (bj, bt):
+            b.device_sweep_engine.use_sweep_pair = False
+            b.device_sweep_engine.use_optimize_loop = False
     ref, rranks, rerrs = tci_tpu.crossinterpolate2(
         np.float64, bj, dims, rng=np.random.default_rng(0), **kwargs)
     out, oranks, oerrs = tci_tpu_torch.crossinterpolate2(
