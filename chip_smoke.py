@@ -105,8 +105,35 @@ line or more each:
    (profiler) and the idle share against that median, the graphs' pool,
    and for the loop step's program its device items, device time and the
    host time of its launch;
+4f. the TT algebra, the caches and the floating-zone search, on config 1's
+   converged train (rank 12, a new evaluator under the default protocol)
+   and config 3's: ``estimatetrueerror(tt, f, nsearch=100)`` through the
+   engine's floating-zone program (cold: it records the program; warm:
+   median of 10 replayed searches; its sweeps = status reads, one fetch,
+   captures, replays, the device busy time of a search) against the host
+   lock-step search on the card from the same starts (best pivot identical,
+   error within 1e-10 relative plus 1e-15 max|f|; each start whose result
+   differs parted from the host search's at a tie within 1e-15 max|f|,
+   found sweep by sweep and leg by leg), every returned error
+   |f - tt| within 1e-9 relative plus 1e-15 max|f|, sorted, and the largest
+   within 1e-15 max|f|
+   of tci_tpu's on the CPU (``RECORDED_FZONE``); config 1 at maxbonddim 6,
+   ``searchglobalpivots(nsearch=100)`` and ``addglobalpivots2sitesweep``
+   on the engine and on the host tier: the same pivots, none left, the
+   same grown index sets; ``compress`` by LU, CI and SVD at 1e-12 (linkdims
+   no larger, values at 10^4 seeded points within 1e-10 max|tt|, one
+   kernel launch per LU / CI ``factorize`` call, 2 (L - 1) of them, no
+   plain call; the kernel's device time on the compressions' bond
+   matrices), ``add`` (rank 24 stacked, 12 at 1e-12, 2 tt) and
+   ``subtract`` (norm <= 1e-12 |tt|); ``fulltensor`` of config 1, 10^8
+   values, against f on every grid point (< 1e-7) and its Frobenius norm
+   against ``tt.norm()`` (1e-12 relative); ``TTCache`` over the TCI's own
+   index sets against ``evaluate_batch`` (1e-13 max|tt|), and a
+   ``CachedFunction`` around the scalar f through the host tier (the host
+   tier's result; one cached value per distinct point). Each step's cold
+   and warm walls are printed;
 5. the kernel against the plain version on every launch the cold runs of
-   phases 4, 4b and 4c made; its times on the engines' bond panels (Imax
+   phases 4, 4b, 4c and 4f made; its times on the engines' bond panels (Imax
    (d + 1) square: 352^2 for config 1, 96^2 for config 3, 512^2 and 1024^2
    for config 4) and on config 1's fill (its P blocks in one batched
    launch);
@@ -142,6 +169,12 @@ import warnings
 RECORDED_RANKS = [12, 12, 12]
 RECORDED_ERRORS = [8.648364589823703e-09, 4.396554474387151e-09,
                    4.396554474387151e-09]
+
+# tci_tpu's largest error of estimatetrueerror(tt, f, nsearch=100,
+# rng=default_rng(0)) on the CPU, for config 1's train (at (5, 8, 2, 3, 3, 3,
+# 6, 7)) and config 3's, each from tci_tpu's host tier with the same seed
+RECORDED_FZONE = {"config1": 8.041161582081346e-10,
+                  "config3": 8.95363869851673e-11}
 
 # where each probe kernel's Pallas original starts in
 # benchmarks/probe_pallas_batched.py
@@ -1528,6 +1561,441 @@ def main():
         fail(f"config 4: the loop protocol's capacities {caps_loop}, "
              f"expected [32, 64]")
 
+    # -- 4f. the TT algebra, the caches and the floating-zone search --------
+    # On config 1's converged tensor train (an evaluator kept, the default
+    # protocol) and config 3's: estimatetrueerror through the engine's
+    # floating-zone program against the host lock-step search on the card;
+    # global pivots on config 1 truncated at maxbonddim 6, the engine
+    # against the host tier; compress (LU, CI, SVD), add and subtract;
+    # fulltensor of config 1 (10^8 values) against f on every grid point;
+    # TTCache and CachedFunction. The cold runs keep every kernel launch's
+    # inputs for phase 5.
+    from tci_tpu_torch.models import globalsearch, tensortrain as tt_mod
+    from tci_tpu_torch.models.tteval import chi_bucket, max_bond
+
+    def timed(fn):
+        """fn()'s result and its wall, from a synchronized start to a
+        synchronized end."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def tt_points(tt, n=10**4, seed=7):
+        dims = [d[0] for d in tt.sitedims()]
+        pts = np.random.default_rng(seed).integers(0, dims, (n, len(dims)))
+        return pts, tt.evaluate_batch(pts)
+
+    tt_entry = {}
+
+    def parted_at_ties(engine, tt, f, starts, per_start, host, margin):
+        """Each start where the program's (pivot, error) differs from the
+        host lock-step search's: the two searches ran again for k = 1, 2,
+        ... sweeps find the first sweep after which its pivots differ; from
+        the pivot both held before it, leg by leg, |f - tt| on that leg's
+        variants shows where the two chose differently, and the gap between
+        their choices' errors there must be within `margin` (a tie, which
+        rounding may break either way; where the host search had frozen the
+        start, its choice is the coordinate it kept). A start whose pivots
+        never part differs in its error alone, which must be within
+        `margin` too. Returns (starts that differ, largest gap)."""
+        differ = [s for s, (p, e) in enumerate(zip(*per_start))
+                  if (tuple(p), e) != host[s]]
+        if not differ:
+            return 0, 0.0
+        progs, hosts = [np.asarray(starts)], [np.asarray(starts)]
+        while not (np.array_equal(progs[-1], per_start[0])
+                   and [tuple(p) for p in hosts[-1].tolist()]
+                   == [p for p, _ in host]):
+            k = len(progs)
+            if k > 100:
+                fail("4f: the searches run again do not reach their results")
+            progs.append(engine.floatingzone(tt.sitetensors(),
+                                             np.asarray(starts), nsweeps=k)[0])
+            hosts.append(np.asarray([p for p, _ in globalsearch
+                                     ._floatingzone_batch(tt, f, starts,
+                                                          nsweeps=k)]))
+        worst = 0.0
+        for s in differ:
+            k = next((k for k in range(1, len(progs))
+                      if not np.array_equal(progs[k][s], hosts[k][s])), None)
+            if k is None:
+                gap = abs(per_start[1][s] - host[s][1])
+            else:
+                cur, gap = hosts[k - 1][s].copy(), float("inf")
+                for i, d in enumerate(tt.sitedims()):
+                    rows = np.repeat(cur[None], d[0], axis=0)
+                    rows[:, i] = np.arange(d[0])
+                    e = (f.evaluate_many(rows)
+                         - tt.evaluate_batch(rows)).abs().cpu().numpy()
+                    pc, hc = progs[k][s][i], hosts[k][s][i]
+                    if pc != hc:
+                        gap = abs(float(e[pc] - e[hc]))
+                        break
+                    cur[i] = pc
+            if gap > margin:
+                fail(f"4f: start {s} parted from the host search at a gap "
+                     f"{gap!r}, more than a tie ({margin:.3e})")
+            worst = max(worst, float(gap))
+        return len(differ), worst
+
+    def fzone_phase(tag, tci, f, recorded):
+        """estimatetrueerror(tt, f, nsearch=100, rng=default_rng(0)) on the
+        engine (cold: the program's first use, which records it; warm: a
+        replay) against the host lock-step search from the same starts;
+        recorded: tci_tpu's largest error on the CPU for those starts."""
+        tt = tci_tpu_torch.tensortrain(tci)
+        engine = f.device_sweep_engine
+        dims = [d[0] for d in tt.sitedims()]
+        rng = np.random.default_rng(0)
+        starts = [tuple(int(rng.integers(0, d)) for d in dims)
+                  for _ in range(100)]
+        key = ("fzone", 100, chi_bucket(max_bond(tt.sitetensors())))
+
+        def search():
+            return tci_tpu_torch.estimatetrueerror(
+                tt, f, nsearch=100, rng=np.random.default_rng(0))
+
+        FETCHES.clear()
+        captures0, nevals0 = engine.captures, f.nevals
+        dev, cold = timed(search)
+        reads, fetches = FETCHES["engine_status"], FETCHES["engine"]
+        nevals = f.nevals - nevals0
+        if key not in engine._sweeps or engine.captures != captures0 + 1:
+            fail(f"{tag}: the floating-zone program {key} was not recorded "
+                 f"({engine.programs()})")
+        walls = [timed(search)[1] for _ in range(10)]
+        again = search()
+        prog = engine._sweeps[key]
+        if again != dev or not prog.captured or engine.declined:
+            fail(f"{tag}: a replayed search differs or the program "
+                 f"declined ({engine.declined})")
+
+        def host_search():
+            out = globalsearch._floatingzone_batch(tt, f, starts)
+            return sorted(dict.fromkeys(out), key=lambda pe: -pe[1])
+
+        # the same program queued eagerly: what a one-off search pays with
+        # no capture
+        engine.cuda_graphs = False
+        eager_walls = [timed(search)[1] for _ in range(3)]
+        engine.cuda_graphs = True
+        host, host_cold = timed(host_search)
+        host_walls = [timed(host_search)[1] for _ in range(3)]
+        (bp, be), (hp, he) = dev[0], host[0]
+        # an error is the difference of f and tt values of up to max|f|:
+        # the program and the host search batch the train's products
+        # differently (S dmax rows a leg against the active starts' rows),
+        # and cuBLAS may round them an ulp apart
+        ms = tci.maxsamplevalue
+        if bp != hp or abs(be - he) > 1e-10 * he + 1e-15 * ms:
+            fail(f"{tag}: the program's best {bp} {be!r}, the host search's "
+                 f"{hp} {he!r}")
+        errs = [e for _, e in dev]
+        if errs != sorted(errs, reverse=True):
+            fail(f"{tag}: errors not sorted descending")
+        piv = np.asarray([p for p, _ in dev])
+        true = (f.evaluate_many(piv) - tt.evaluate_batch(piv)).abs().cpu()
+        # |f - tt| recomputed through the train's own evaluation
+        dev_err = (true - torch.tensor(errs)).abs()
+        if bool((dev_err > 1e-9 * true + 1e-15 * ms).any()):
+            fail(f"{tag}: a returned error is not |f - tt| "
+                 f"(max deviation {float(dev_err.max())})")
+        rec_dev = abs(be - recorded)
+        if rec_dev > 1e-15 * ms:
+            fail(f"{tag}: largest error {be!r}, tci_tpu's {recorded!r} "
+                 f"(bound 1e-15 max|f| = {1e-15 * ms:.3e})")
+        busy = device_busy_ms(search)
+        tr = replay_trace(engine, keep=lambda k: k == key).get(key, {})
+        print_program(f"{tag} fzone", [p for p in engine.programs()
+                                       if p["key"] == key][0], tr)
+        # per start, the program against the host search; each that
+        # differs must have parted from it at a tie
+        per_start = engine.floatingzone(tt.sitetensors(), np.asarray(starts))
+        ndiffer, gap = parted_at_ties(
+            engine, tt, f, starts, per_start,
+            globalsearch._floatingzone_batch(tt, f, starts), 1e-15 * ms)
+        res = {"cold_s": cold, "warm_s": med(walls), "sweep_graph": tr,
+               "eager_s": med(eager_walls),
+               "host_cold_s": host_cold, "host_warm_s": med(host_walls),
+               "sweeps": reads, "fetches": fetches,
+               "capture_s": prog.capture_seconds, "nevals": nevals,
+               "device_busy_ms": busy, "best": [list(bp), be],
+               "recorded_abs_diff": rec_dev,
+               "differing_starts": ndiffer, "largest_tie_gap": gap}
+        print(f"[fzone] {tag}: estimatetrueerror(nsearch=100) through the "
+              f"engine's program {key}: cold {cold:.4f} s (records it, "
+              f"capture {prog.capture_seconds * 1e3:.2f} ms), warm "
+              f"{spread(walls)} (replays), queued eagerly "
+              f"{spread(eager_walls)}; host lock-step search on the "
+              f"card: cold {host_cold:.4f} s, warm {spread(host_walls)}; a "
+              f"search: {reads} sweeps (status reads), {fetches} fetch, "
+              f"nevals {nevals}; program uses {prog.uses}, replays "
+              f"{prog.replays}, engine captures {engine.captures}; device "
+              f"busy {'not measured' if busy is None else f'{busy:.3f} ms'} "
+              f"a warm search (profiler); best {bp} error {be!r} (host "
+              f"search {he!r}; {ndiffer} of 100 starts differ from it, each "
+              f"parted at a tie, largest gap {gap:.3e}); "
+              f"tci_tpu's on the CPU {recorded!r}, |diff| {rec_dev:.3e}; "
+              f"{len(dev)} unique points, every error |f - tt| within "
+              f"{float(dev_err.max()):.3e}", flush=True)
+        return res
+
+    tci1, ranks1, errors1, _, f1 = solve_config1("engine", loop=True)
+    tci3, ranks3, errors3, _, f3 = solve_config3(loop=True)
+    tt_entry["fzone"] = {
+        "config1": fzone_phase("config1", tci1, f1, RECORDED_FZONE["config1"]),
+        "config3": fzone_phase("config3", tci3, f3, RECORDED_FZONE["config3"])}
+
+    # global pivots: config 1 truncated at rank 6, searched and inserted on
+    # the engine and on the host tier (a plain f)
+    def gp_solve(tier, f=None, graphs=True):
+        if f is None:
+            f = fscalar if tier == "host" else (
+                tci_tpu_torch.TorchBatchEvaluator(fdev, localdims,
+                                                  cuda_graphs=graphs))
+        tci, _, _ = tci_tpu_torch.crossinterpolate2(
+            np.float64, f, localdims, tolerance=1e-8, maxbonddim=6,
+            rng=np.random.default_rng(0))
+        rank0 = tci.rank()
+        abstol = 1e-8 * tci.maxsamplevalue
+        pivots, t_search = timed(lambda: tci_tpu_torch.searchglobalpivots(
+            tci, f, abstol, nsearch=100, rng=np.random.default_rng(1)))
+        nleft, t_add = timed(lambda: tci.addglobalpivots2sitesweep(
+            f, pivots, tolerance=1e-8))
+        return tci, rank0, pivots, nleft, t_search, t_add, t_search + t_add, f
+
+    gp = {}
+    for tier in ("engine", "host"):
+        cold, counts = run_counted(f"4f globalpivots {tier}",
+                                   lambda: gp_solve(tier, graphs=False),
+                                   record=True)
+        n = counts["rrlu_raw"] + counts["tier_calls"]
+        if (counts["launches"] == 0 or counts["launches"] != n
+                or counts["plain_cuda"] or cold[0].device != dev):
+            fail(f"4f globalpivots {tier}: {counts}; every elimination should "
+                 f"launch the kernel on the card")
+        rec = (gp_solve(tier) if tier == "engine" else cold)
+        kept = gp_solve(tier, f=rec[-1]) if tier == "engine" else gp_solve(
+            tier)
+        for run in (rec, kept):
+            if (run[2] != cold[2] or run[3] != cold[3]
+                    or run[0].Iset != cold[0].Iset):
+                fail(f"4f globalpivots {tier}: a warm run differs")
+        tci, rank0, pivots, nleft = cold[:4]
+        if not pivots or nleft != 0 or not tci.rank() > rank0:
+            fail(f"4f globalpivots {tier}: {len(pivots)} pivots found, "
+                 f"{nleft} left after insertion, rank {rank0} -> "
+                 f"{tci.rank()}")
+        gp[tier] = {"tci": tci, "pivots": pivots, "launches":
+                    counts["launches"], "cold": cold[4:6],
+                    "warm": kept[4:6]}
+        print(f"[globalpivots] {tier}: config 1 at maxbonddim 6 (rank "
+              f"{rank0}): searchglobalpivots(nsearch=100) found "
+              f"{len(pivots)} pivots, addglobalpivots2sitesweep left "
+              f"{nleft}, rank {rank0} -> {tci.rank()}, linkdims "
+              f"{tci.linkdims()}; search cold {cold[4]:.4f} s / warm "
+              f"{kept[4]:.4f} s, insertion cold {cold[5]:.4f} s / warm "
+              f"{kept[5]:.4f} s (cold: queued eagerly; warm: "
+              f"{'an evaluator kept, replayed' if tier == 'engine' else 'again'}"
+              f"); the run's {counts['launches']} rrLU launches "
+              f"({counts['rrlu_raw']} rrlu_raw, {counts['tier_calls']} tier "
+              f"calls), {counts['plain_cuda']} plain calls on CUDA",
+              flush=True)
+    if (gp["engine"]["pivots"] != gp["host"]["pivots"]
+            or gp["engine"]["tci"].Iset != gp["host"]["tci"].Iset
+            or gp["engine"]["tci"].Jset != gp["host"]["tci"].Jset):
+        fail(f"4f globalpivots: the engine's pivots {gp['engine']['pivots']} "
+             f"or index sets differ from the host tier's "
+             f"{gp['host']['pivots']}")
+    tt_entry["globalpivots"] = {t: {"pivots": len(g["pivots"]),
+                                    "rank": g["tci"].rank(),
+                                    "launches": g["launches"],
+                                    "search_cold_s": g["cold"][0],
+                                    "insert_cold_s": g["cold"][1],
+                                    "search_warm_s": g["warm"][0],
+                                    "insert_warm_s": g["warm"][1]}
+                                for t, g in gp.items()}
+
+    # compress, add, subtract on config 1's train
+    tt1 = tci_tpu_torch.tensortrain(tci1)
+    pts, vals1 = tt_points(tt1)
+    scale1 = float(vals1.abs().max())
+    fact_calls = [0]
+    factorize = tt_mod.factorize
+
+    def counting_factorize(*args, **kwargs):
+        fact_calls[0] += 1
+        return factorize(*args, **kwargs)
+
+    tt_mod.factorize = counting_factorize
+    compress = {}
+    try:
+        for method in ("LU", "CI", "SVD"):
+            def solve(method=method):
+                c = tt1.copy()
+                fact_calls[0] = 0
+                _, wall = timed(lambda: c.compress(method, tolerance=1e-12))
+                return c, fact_calls[0], wall, None
+
+            (c, calls, cold, _), counts = run_counted(
+                f"4f compress {method}", solve, record=True)
+            (_, _, warm, _), _ = run_counted(f"4f compress {method}", solve)
+            diff = float((c.evaluate_batch(pts) - vals1).abs().max())
+            want = calls if method != "SVD" else 0
+            if (calls != 2 * (len(tt1) - 1) or counts["launches"] != want
+                    or counts["rrlu_raw"] != want or counts["plain_cuda"]
+                    or any(a > b for a, b in zip(c.linkdims(),
+                                                 tt1.linkdims()))
+                    or not diff <= 1e-10 * scale1):
+                fail(f"4f compress {method}: {calls} factorize calls, "
+                     f"{counts}, linkdims {c.linkdims()} (before "
+                     f"{tt1.linkdims()}), max diff {diff} at 10^4 points")
+            compress[method] = {"cold_s": cold, "warm_s": warm,
+                                "factorize_calls": calls,
+                                "launches": counts["launches"],
+                                "max_diff": diff}
+            print(f"[compress] {method}: config 1's train, tolerance 1e-12: "
+                  f"linkdims {tt1.linkdims()} -> {c.linkdims()}, max |diff| "
+                  f"{diff:.3e} at 10^4 points (bound 1e-10 max|tt| = "
+                  f"{1e-10 * scale1:.3e}); {calls} factorize calls, "
+                  f"{counts['launches']} rrLU launches, "
+                  f"{counts['plain_cuda']} plain calls on CUDA; cold "
+                  f"{cold:.4f} s, warm {warm:.4f} s", flush=True)
+    finally:
+        tt_mod.factorize = factorize
+    # the kernel on the compressions' bond matrices: its device time a
+    # launch over one LU compression's launches, and on the largest
+    # recorded one (config 1: 120 x 12 in a 128 x 16 bucket) against the
+    # plain version
+    comp_ms = kernel_device_ms(
+        lambda: tt1.copy().compress("LU", tolerance=1e-12), 3)
+    _, _, args, kw = max((rec for rec in launch_inputs
+                          if rec[0] == "4f compress LU"),
+                         key=lambda rec: rec[2][0].numel())
+    mp, npd = args[0].shape
+    k_panel = int(originals[1](*args, **kw)[3])
+    panel_ms = kernel_device_ms(lambda: originals[1](*args, **kw), 20)
+    panel_plain = cuda_ms(lambda: lu_kernel.rrlu_plain(*args, **kw), 3)
+    panel_bound, panel_by = bound_ms(*args[0].shape, int(args[1]),
+                                     int(args[2]), k_panel,
+                                     args[0].element_size())
+    tt_entry["compress"] = {**compress, "rrlu_ms_mean": comp_ms,
+                            "panel": f"{mp}x{npd} ({int(args[1])}x"
+                                     f"{int(args[2])})",
+                            "panel_k": k_panel, "panel_ms": panel_ms,
+                            "panel_plain_ms": panel_plain,
+                            "panel_bound_ms": panel_bound,
+                            "panel_bound_by": panel_by}
+    print(f"[compress] the rrLU kernel in an LU compression: "
+          f"{'not measured' if comp_ms is None else f'{comp_ms:.5f} ms'} a "
+          f"launch (profiler, mean of {compress['LU']['launches']} "
+          f"launches); one {mp}x{npd} launch ({int(args[1])}x{int(args[2])}"
+          f", k = {k_panel}): kernel {panel_ms} ms (profiler), plain "
+          f"{panel_plain:.4f} ms, bound {panel_bound:.6f} ms ({panel_by})",
+          flush=True)
+
+    add0 = tci_tpu_torch.add(tt1, tt1)
+    (add1, add_wall) = timed(lambda: tci_tpu_torch.add(tt1, tt1,
+                                                       tolerance=1e-12))
+    add_diff = float((add1.evaluate_batch(pts) - 2 * vals1).abs().max())
+    sub, sub_wall = timed(lambda: tci_tpu_torch.subtract(tt1, tt1))
+    n1, nsub = tt1.norm(), sub.norm()
+    if (max(add0.linkdims()) != 2 * tt1.rank()
+            or add1.linkdims() != tt1.linkdims()
+            or not add_diff <= 2e-10 * scale1 or not nsub <= 1e-12 * n1):
+        fail(f"4f add/subtract: add linkdims {add0.linkdims()} untruncated, "
+             f"{add1.linkdims()} at 1e-12, max |add - 2 tt| {add_diff}, "
+             f"|tt - tt| {nsub} against |tt| {n1}")
+    tt_entry["add"] = {"rank_stacked": max(add0.linkdims()),
+                       "rank": max(add1.linkdims()), "max_diff": add_diff,
+                       "wall_s": add_wall, "subtract_norm": nsub,
+                       "subtract_wall_s": sub_wall}
+    print(f"[add] add(tt, tt): rank {max(add0.linkdims())} stacked (SVD at "
+          f"tolerance 0 keeps it), {max(add1.linkdims())} at tolerance "
+          f"1e-12 ({add_wall:.4f} s), max |add - 2 tt| {add_diff:.3e} at "
+          f"10^4 points; |subtract(tt, tt)| {nsub:.3e} against |tt| "
+          f"{n1:.6f} ({sub_wall:.4f} s)", flush=True)
+
+    # fulltensor of config 1 against f on all 10^8 grid points
+    full, full_cold = timed(lambda: tci_tpu_torch.fulltensor(tt1))
+    del full
+    full, full_warm = timed(lambda: tci_tpu_torch.fulltensor(tt1))
+    L1 = len(localdims)
+    s = torch.zeros((1,) * L1, dtype=torch.float64, device=dev)
+    for ax, d in enumerate(localdims):
+        sq = (torch.arange(d, dtype=torch.float64, device=dev) + 1.0) ** 2
+        s = s + sq.reshape([d if a == ax else 1 for a in range(L1)])
+    full_err = float((full - 1.0 / (1.0 + s)).abs().max())
+    fro = float(torch.linalg.vector_norm(full))
+    del s, full
+    full_busy = device_busy_ms(lambda: tci_tpu_torch.fulltensor(tt1))
+    if not full_err < 1e-7 or abs(n1 - fro) > 1e-12 * fro:
+        fail(f"4f fulltensor: max |tt - f| {full_err} over the grid, "
+             f"|tt| {n1!r} against the full tensor's {fro!r}")
+    tt_entry["fulltensor"] = {"cold_s": full_cold, "warm_s": full_warm,
+                              "device_busy_ms": full_busy,
+                              "max_err": full_err,
+                              "norm_rel_diff": abs(n1 - fro) / fro}
+    print(f"[fulltensor] config 1: 10^8 float64 values (800 MB) on the card "
+          f"in {full_cold:.4f} s cold, {full_warm:.4f} s warm, device busy "
+          f"{'not measured' if full_busy is None else f'{full_busy:.3f} ms'} "
+          f"(profiler); max |tt - f| "
+          f"over every grid point {full_err:.3e}; tt.norm() {n1!r}, the full "
+          f"tensor's Frobenius norm {fro!r} (relative diff "
+          f"{abs(n1 - fro) / fro:.3e})", flush=True)
+
+    # the caches
+    cache = tci_tpu_torch.TTCache(tt1)
+    cache_diff = 0.0
+    for b in range(len(localdims)):
+        panel_c = cache.batch_evaluate(tci1.Iset[b], tci1.Jset[b], 1)
+        rows = [tuple(I) + (v,) + tuple(J) for I in tci1.Iset[b]
+                for v in range(localdims[b]) for J in tci1.Jset[b]]
+        ref_c = tt1.evaluate_batch(rows).reshape(panel_c.shape)
+        cache_diff = max(cache_diff, float((panel_c - ref_c).abs().max()))
+    if panel_c.device != dev or cache_diff > 1e-13 * scale1:
+        fail(f"4f TTCache: max |cache - tt| {cache_diff}")
+    seen = set()
+
+    def fseen(x):
+        seen.add(tuple(x))
+        return fscalar(x)
+
+    def cf_solve():
+        cf = tci_tpu_torch.CachedFunction(fseen, localdims)
+        seen.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tci, ranks, errors = tci_tpu_torch.crossinterpolate2(
+            np.float64, cf, localdims, tolerance=1e-8,
+            rng=np.random.default_rng(0))
+        torch.cuda.synchronize()
+        return tci, ranks, errors, cf, time.perf_counter() - t0, None
+
+    (tci_cf, ranks_cf, errors_cf, cf, cf_cold, _), counts_cf = run_counted(
+        "4f cachedfunction", cf_solve, record=True)
+    check_config1("4f cachedfunction", tci_cf, ranks_cf, errors_cf,
+                  counts_cf)
+    cf_warm = cf_solve()[-2]
+    if ((tci_cf.Iset, tci_cf.Jset) != results["host"]["sets"]
+            or cf.ncacheddata() != len(seen) or cf.device != dev):
+        fail(f"4f CachedFunction: sets differ from the host tier's, or "
+             f"{cf.ncacheddata()} cached for {len(seen)} distinct points")
+    tt_entry["caches"] = {"ttcache_max_diff": cache_diff,
+                          "cachedfunction_cold_s": cf_cold,
+                          "cachedfunction_warm_s": cf_warm,
+                          "cached": cf.ncacheddata(),
+                          "launches": counts_cf["launches"]}
+    print(f"[caches] TTCache(tt).batch_evaluate over the TCI's own (Iset, "
+          f"Jset): max |diff| {cache_diff:.3e} against tt.evaluate_batch; "
+          f"CachedFunction around config 1's scalar f, host tier: ranks "
+          f"{ranks_cf}, errors {[f'{e:.6e}' for e in errors_cf]} (the host "
+          f"tier's), {cf.ncacheddata()} cached = {len(seen)} distinct points "
+          f"sampled, cold {cf_cold:.4f} s, warm {cf_warm:.4f} s, "
+          f"{counts_cf['launches']} rrLU launches", flush=True)
+
     # -- 5. kernel vs plain on every launch of the cold runs -------------------
     # for their times: config 1's first fill (its P blocks in one launch),
     # and of each engine run the square bond panel of each size with the most
@@ -1678,6 +2146,11 @@ def main():
                              "config4": counts4["launches"],
                              **{f"{c}_loop": r["launches"]
                                 for c, r in loop_results.items()},
+                             **{f"4f_compress_{m}": r["launches"]
+                                for m, r in compress.items()},
+                             **{f"4f_globalpivots_{t}": r["launches"]
+                                for t, r in tt_entry["globalpivots"].items()},
+                             "4f_cachedfunction": counts_cf["launches"],
                              "run_probes": probe_rrlu_launches},
         "max_abs_err": max_err,
         "ms": ms if ms is not None else eng["engine_panel_wrapper_ms"],
@@ -1688,6 +2161,7 @@ def main():
         "library_ms": None,
         "cuda_graphs": graph_results,
         "optimize_loop": loop_results,
+        "tt_algebra": tt_entry,
         **host_panel,
         **eng,
         **n2000,

@@ -3,10 +3,11 @@
 The port of ``tci_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100. It keeps
 ``tci_tpu``'s layout, names, 0-based indices and float64 default. Its entry
 points run on the card: ``crossinterpolate2``, ``integrate``, ``TensorCI2``,
-``TorchBatchEvaluator``, and ``rrlu`` / ``MatrixLUCI`` on a numpy array take
-``device=None`` to mean the current CUDA device, and raise without one
-unless the caller passes ``device="cpu"``; nothing falls back to the CPU by
-itself. A tensor handed to ``rrlu`` / ``MatrixLUCI`` stays on its device.
+``TorchBatchEvaluator``, ``CachedFunction``, and ``rrlu``, ``MatrixLUCI``,
+``factorize``, ``TensorTrain``, ``TTCache`` and ``estimatetrueerror`` on
+numpy arrays take ``device=None`` to mean the current CUDA device, and
+raise without one unless the caller passes ``device="cpu"``; nothing falls
+back to the CPU by itself. A tensor handed to them stays on its device.
 A panel on a CUDA device is factorized by the hand-written CUDA rrLU kernel
 (``csrc/rrlu.cu``), a panel on the CPU by its plain PyTorch version. This
 package imports neither ``jax`` nor ``tci_tpu``.
@@ -25,30 +26,79 @@ from .utils.util import (
 )
 from .utils.indexset import IndexSet, isnested
 from .utils.sweep import forwardsweep
-from .ops.lu import rrLU, rrlu, submatrixargmax
+from .ops.lu import (
+    rrLU,
+    rrlu,
+    submatrixargmax,
+    cols2Lmatrix,
+    rows2Umatrix,
+    lu_solve,
+)
 from .ops.luci import MatrixLUCI
+from .ops.factorize import factorize
 from .ops.kronrod import kronrod
 from .parallel.batcheval import (
     BatchEvaluator,
+    BatchEvaluatorAdapter,
+    ThreadedBatchEvaluator,
     TorchBatchEvaluator,
     VectorizedBatchEvaluator,
+    makebatchevaluatable,
     isbatchevaluable,
 )
-from .models.tensortrain import AbstractTensorTrain, TensorTrain, tensortrain
+from .parallel.cachedfunction import CachedFunction
+from .models.tensortrain import (
+    AbstractTensorTrain,
+    TensorTrain,
+    TensorTrainFit,
+    tensortrain,
+    sitedims,
+    evaluate,
+    add,
+    subtract,
+    norm,
+    norm2,
+    fulltensor,
+    tt_reverse,
+)
+from .models.ttcache import TTCache
 from .models.globalpivotfinder import (
+    AbstractGlobalPivotFinder,
     DefaultGlobalPivotFinder,
     GlobalPivotSearchInput,
 )
-from .models.tensorci2 import TensorCI2, crossinterpolate2
+from .models.tensorci2 import (
+    TensorCI2,
+    crossinterpolate2,
+    filltensor,
+    kronecker,
+    convergencecriterion,
+    searchglobalpivots,
+)
+from .models.globalsearch import estimatetrueerror
 from .models.integration import integrate
 
 __all__ = [
+    # L0 utils
     "maxabs", "padzero", "pushunique", "isconstant", "randomsubset",
     "pushrandomsubset", "optfirstpivot", "replacenothing",
     "projector_to_slice", "IndexSet", "isnested", "forwardsweep",
-    "rrLU", "rrlu", "submatrixargmax", "MatrixLUCI",
-    "BatchEvaluator", "TorchBatchEvaluator", "VectorizedBatchEvaluator",
-    "isbatchevaluable", "AbstractTensorTrain", "TensorTrain", "tensortrain",
-    "DefaultGlobalPivotFinder", "GlobalPivotSearchInput",
-    "TensorCI2", "crossinterpolate2", "integrate", "kronrod",
+    # L1 matrix engines
+    "rrLU", "rrlu", "submatrixargmax", "cols2Lmatrix", "rows2Umatrix",
+    "lu_solve", "MatrixLUCI", "factorize", "kronrod",
+    # L2 runtime
+    "BatchEvaluator", "BatchEvaluatorAdapter", "ThreadedBatchEvaluator",
+    "TorchBatchEvaluator", "VectorizedBatchEvaluator",
+    "makebatchevaluatable", "isbatchevaluable", "CachedFunction",
+    # L3 tensor train
+    "AbstractTensorTrain", "TensorTrain", "TensorTrainFit", "tensortrain",
+    "sitedims", "evaluate", "add", "subtract", "norm", "norm2", "fulltensor",
+    "tt_reverse", "TTCache",
+    # L4 TCI
+    "TensorCI2", "crossinterpolate2", "filltensor", "kronecker",
+    "convergencecriterion", "searchglobalpivots", "GlobalPivotSearchInput",
+    "AbstractGlobalPivotFinder", "DefaultGlobalPivotFinder",
+    "estimatetrueerror",
+    # L5 applications
+    "integrate",
 ]

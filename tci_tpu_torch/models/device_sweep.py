@@ -60,6 +60,7 @@ from ..ops.fused import ci_factors, panel_solve_pinv, sample_panel
 from ..ops.lu_kernel import rrlu_panel_batched
 from ..utils.device import (FETCHES, capture_graph, fetch, peek,
                             resolve_device, to_device, torch_dtype)
+from .tteval import chi_bucket, max_bond, tt_evaluate_batched
 
 __all__ = ["DeviceSweepEngine", "FETCHES"]
 
@@ -402,6 +403,53 @@ def _tt_search_on_cores(f, dtype, lay, cores, Ilen, Jlen, starts):
     return best, flat.gather(1, best[:, None])[:, 0]
 
 
+def _fzone_abs_err(f, dtype, cores, rows) -> torch.Tensor:
+    """|f - tt| (float64) at the (N, L) `rows`, the TT through
+    ``tt_evaluate_batched`` on the floating-zone program's padded `cores`,
+    as in the host lock-step search, so that both round alike."""
+    fv = f(rows).to(dtype)
+    return (fv - tt_evaluate_batched(cores.to(dtype), rows)).abs().to(
+        torch.float64)
+
+
+def _fzone_sweep(f, localdims, dtype, p) -> None:
+    """One sweep of the floating-zone search (``tci_tpu``'s
+    ``_make_floatingzone`` while-loop body, globalsearch.jl:119-186) for all
+    S starts in lock-step, on program p's record: ``pivots`` (S, L),
+    ``maxerr`` (S,), ``active`` (S,), ``k``, ``nactive`` and the
+    zero-padded cores ``cores`` (L, chi, dmax, chi) (float64 field).
+
+    Leg by leg, every start's dmax single-coordinate variants (values past
+    d_leg clamped to d_leg - 1, their errors masked to -inf) go through f
+    in one call and through the TT as L batched products of the cores
+    gathered at each row's local index, as ``_tt_search_on_cores`` does;
+    an active start takes the first maximum as its new coordinate and folds
+    it into its running max. Then a start freezes when the sweep left its
+    max unchanged or pushed it past ``earlystoptol``. Writes the state back
+    into the record; reads no device value."""
+    L, _, dmax, _ = p.cores.shape
+    S = p.pivots.shape[0]
+    vgrid = torch.arange(dmax, device=p.cores.device)
+    pivots = p.pivots.clone()
+    active = p.active > 0
+    maxerr = prev = p.maxerr
+    for ipos, d in enumerate(localdims):
+        cand = pivots[:, None, :].repeat(1, dmax, 1)
+        cand[:, :, ipos] = vgrid.clamp(max=d - 1)
+        err = _fzone_abs_err(f, dtype, p.cores, cand.reshape(S * dmax, L))
+        err = torch.where(vgrid < d, err.reshape(S, dmax), float("-inf"))
+        best = err.argmax(1)
+        pivots[:, ipos] = torch.where(active, best, pivots[:, ipos])
+        maxerr = torch.where(active, torch.maximum(maxerr, err.amax(1)),
+                             maxerr)
+    active = active & ~((maxerr == prev) | (maxerr > p.earlystoptol))
+    p.pivots.copy_(pivots)
+    p.maxerr.copy_(maxerr)
+    p.active.copy_(active)
+    p.k.add_(1)
+    p.nactive.copy_(active.sum())
+
+
 def _nan_sites(tensors, Ilen, Jlen, dims) -> torch.Tensor:
     """(L,) flags: NaN in the true block of site tensor b; `dims` are the
     local dimensions on the device."""
@@ -452,12 +500,16 @@ class _Program:
     CUDA graph.
 
     The input record is one int64 device array that the program owns: the
-    index buffers and lengths (``Iset``, ``Ilen``, ``Jset``, ``Jlen`` and,
-    for a 2-site sweep, the history sets ``eI``, ``eIlen``, ``eJ``,
-    ``eJlen``), then ``reltol`` and ``abstol`` (float64 bits, (1,) views),
-    ``maxbond``, and the program's own `fields` ((name, shape, "i" for
-    int64 or "f" for float64) each). ``load`` writes a call's values into a
-    pinned staging array and copies it over in one transfer; the body reads
+    `sets` groups of index buffers and lengths (0: none; 1: ``Iset``,
+    ``Ilen``, ``Jset``, ``Jlen``; 2: those and a 2-site sweep's history
+    sets ``eI``, ``eIlen``, ``eJ``, ``eJlen``), then ``reltol`` and
+    ``abstol`` (float64 bits, (1,) views), ``maxbond``, and the program's
+    own `fields` ((name, shape, "i" for int64 or "f" for float64) each).
+    A program whose host loop reads a status between runs names it as
+    `status` (the first field and the count of int64 fields that follow
+    it from there), and ``read_status`` reads them. ``load`` writes a
+    call's values into a pinned staging array and copies it over in one
+    transfer; the body reads
     only views of the record, so a graph recorded once follows every later
     call's values. A body may also write the record: the optimize loop's
     step keeps its carried state there.
@@ -470,8 +522,8 @@ class _Program:
     tensors that the next replay overwrites, so ``run`` hands out copies of
     the device tensors; the record is copied by the fetch."""
 
-    def __init__(self, engine: "DeviceSweepEngine", key, history: bool, body,
-                 rrlu_launches: int, fields=()):
+    def __init__(self, engine: "DeviceSweepEngine", key, sets: int, body,
+                 rrlu_launches: int, fields=(), status=None):
         # the engine owns its programs; a reference back that counted would
         # keep an engine that is dropped, and its graphs' memory, until
         # the garbage collector finds the cycle
@@ -480,10 +532,9 @@ class _Program:
         self.rrlu_launches = rrlu_launches
         L, Imax, dev = len(engine.localdims), engine.Imax, engine.device
         sets = [("Iset", (L, Imax, L)), ("Ilen", (L,)),
-                ("Jset", (L, Imax, L)), ("Jlen", (L,))]
-        if history:
-            sets += [("eI", (L, Imax, L)), ("eIlen", (L,)),
-                     ("eJ", (L, Imax, L)), ("eJlen", (L,))]
+                ("Jset", (L, Imax, L)), ("Jlen", (L,)),
+                ("eI", (L, Imax, L)), ("eIlen", (L,)),
+                ("eJ", (L, Imax, L)), ("eJlen", (L,))][:4 * sets]
         layout = ([(name, shape, "i") for name, shape in sets]
                   + [("reltol", (1,), "f"), ("abstol", (1,), "f"),
                      ("maxbond", (), "i"), *fields])
@@ -504,6 +555,13 @@ class _Program:
             setattr(self, name, d.view(shape))
             o += size
         self._sets = [name for name, _ in sets]
+        if status is not None:
+            name, n = status
+            self.status = self._record[self._offset[name]:][:n]
+            self._status_host = torch.zeros(n, dtype=torch.int64,
+                                            pin_memory=dev.type == "cuda")
+            self._status_read = (torch.cuda.Event() if dev.type == "cuda"
+                                 else None)
         # the last copy out of the staging array, which must have finished
         # before the next call's values are written there
         self._copied = torch.cuda.Event() if dev.type == "cuda" else None
@@ -516,6 +574,12 @@ class _Program:
         # and the host time the capture and its instantiation took
         self.captured_launches = 0
         self.capture_seconds = None
+
+    def read_status(self) -> list:
+        """The status fields of the record, after the work queued before:
+        one read through a pinned buffer, counted as ``engine_status``."""
+        return peek(self.status, self._status_host, self._status_read,
+                    "engine_status")
 
     @property
     def captured(self) -> bool:
@@ -744,7 +808,7 @@ class DeviceSweepEngine:
                 return (*_packed(p.Iset, p.Ilen, p.Jset, p.Jlen, perrs,
                                  maxsample), *kept)
 
-            self._sweeps[key] = _Program(self, key, True, body,
+            self._sweeps[key] = _Program(self, key, 2, body,
                                          len(dims) - 1 + int(fill))
         return self._sweeps[key]
 
@@ -758,7 +822,7 @@ class DeviceSweepEngine:
                 return (None, None, *_fill(f, dims, dtype, lay, p.Iset,
                                            p.Ilen, p.Jset, p.Jlen))
 
-            self._sweeps[key] = _Program(self, key, False, body, 1)
+            self._sweeps[key] = _Program(self, key, 1, body, 1)
         return self._sweeps[key]
 
     def _get_sweep1(self, forward: bool) -> _Program:
@@ -775,7 +839,7 @@ class DeviceSweepEngine:
                 return (*_packed(p.Iset, p.Ilen, p.Jset, p.Jlen, perrs,
                                  maxsample, nan), tensors)
 
-            self._sweeps[key] = _Program(self, key, False, body,
+            self._sweeps[key] = _Program(self, key, 1, body,
                                          len(dims) - 1)
         return self._sweeps[key]
 
@@ -802,7 +866,7 @@ class DeviceSweepEngine:
                 return (*_packed(*sets, perrs, maxsample, *mid, *search),
                         tensors)
 
-            self._sweeps[key] = _Program(self, key, True, body,
+            self._sweeps[key] = _Program(self, key, 2, body,
                                          2 * (len(dims) - 1) + 1, fields)
         return self._sweeps[key]
 
@@ -915,16 +979,79 @@ class DeviceSweepEngine:
                 p.code.copy_(code)
                 return None, None
 
-            program = _Program(self, key, True, body, 2 * (L - 1) + 1, fields)
+            program = _Program(self, key, 2, body, 2 * (L - 1) + 1, fields,
+                               status=("k", 3))
             program.out = out
-            o = program._offset["k"]
-            program.status = program._record[o:o + 3]
-            program._status_host = torch.zeros(
-                3, dtype=i64, pin_memory=dev.type == "cuda")
-            program._status_read = (torch.cuda.Event() if dev.type == "cuda"
-                                    else None)
             self._sweeps[key] = program
         return self._sweeps[key]
+
+    def _get_floatingzone(self, S: int, chi: int) -> _Program:
+        """The floating-zone search's sweep (``_fzone_sweep``) for S starts
+        and cores padded to bond dimension chi, as one program whose record
+        carries the search's state from one replay to the next."""
+        key = ("fzone", S, chi)
+        if key not in self._sweeps:
+            f, dims, dtype = self.f, self.localdims, self.dtype
+            L = len(dims)
+            fields = [("pivots", (S, L), "i"), ("active", (S,), "i"),
+                      ("k", (), "i"), ("nactive", (), "i"),
+                      ("maxerr", (S,), "f"), ("earlystoptol", (1,), "f"),
+                      ("cores", (L, chi, max(dims), chi), "f")]
+
+            def body(p):
+                _fzone_sweep(f, dims, dtype, p)
+                return None, None
+
+            self._sweeps[key] = _Program(self, key, 0, body, 0, fields,
+                                         status=("k", 2))
+        return self._sweeps[key]
+
+    def floatingzone(self, sitetensors, starts, nsweeps: int = 10**9,
+                     earlystoptol: float = float("inf")):
+        """The whole floating-zone search (estimatetrueerror's and
+        searchglobalpivots' engine, ``tci_tpu``'s ``floatingzone``) on the
+        device, against any tensor train of this engine's local dimensions.
+
+        The ragged (χl, d, χr) cores are zero-padded into an (L, χ_b, dmax,
+        χ_b) stack, χ_b = max(8, the next power of two ≥ χ), so that one
+        program serves trains of similar rank. A CUDA graph holds no loop:
+        the host replays the program's sweep and reads (k, active starts)
+        after each, until no start is active or k reaches `nsweeps`, then
+        fetches the result once. Returns (pivots (S, L) int64, maxerr (S,)
+        float64) as numpy, or None where ``tci_tpu``'s engine declines (the
+        caller then runs the host lock-step search): a train of another
+        length or other local dimensions, a complex train (the engine is
+        real), no start or no sweep."""
+        L = len(self.localdims)
+        if len(sitetensors) != L:
+            return None
+        for b, t in enumerate(sitetensors):
+            if t.dim() != 3 or t.shape[1] != self.localdims[b]:
+                return None
+            if t.is_complex():
+                return None
+        S = int(len(starts))
+        if S == 0 or nsweeps < 1:
+            return None
+        program = self._get_floatingzone(S, chi_bucket(max_bond(sitetensors)))
+        program.load(pivots=np.asarray(starts, dtype=np.int64), active=1,
+                     k=0, nactive=S, maxerr=0.0, earlystoptol=earlystoptol)
+        # the cores go from the train's device into the record's field (left
+        # at zero by the upload), after the upload in stream order; then the
+        # errors at the starts, once, eagerly: every sweep starts from maxerr
+        for b, t in enumerate(sitetensors):
+            program.cores[b, :t.shape[0], :t.shape[1], :t.shape[2]] = t
+        program.maxerr.copy_(_fzone_abs_err(self.f, self.dtype,
+                                            program.cores, program.pivots))
+        while True:
+            self._run(program)
+            k, nactive = program.read_status()
+            if nactive == 0 or k >= nsweeps:
+                break
+        rec, shapes = _packed(program.pivots, program.maxerr)
+        pivots, maxerr = _unpacked(fetch(rec, "engine"), shapes)
+        self.nevals += S + k * S * L * max(self.localdims)
+        return pivots.astype(np.int64), maxerr
 
     def _run(self, program: _Program):
         """Run a loaded program: (the fetched record's arrays or None, the
@@ -1177,8 +1304,7 @@ class DeviceSweepEngine:
         while True:
             self._run(program)
             self.loop_steps += 1
-            k, done, code = peek(program.status, program._status_host,
-                                 program._status_read, "engine_status")
+            k, done, code = program.read_status()
             if done or k >= budget:
                 break
         res = {"k": k, "code": code}

@@ -34,12 +34,16 @@ import numpy as np
 import torch
 
 from ..ops.luci import MatrixLUCI
-from ..parallel.batcheval import _batchevaluate_dispatch, isbatchevaluable
+from ..parallel.batcheval import (
+    _batchevaluate_dispatch,
+    evaluate_rows,
+    isbatchevaluable,
+)
 from ..utils.device import resolve_device, to_device, torch_dtype
 from ..utils.sweep import forwardsweep
 from ..utils.util import padzero, pushunique
 from .globalpivotfinder import DefaultGlobalPivotFinder, GlobalPivotSearchInput
-from .tensortrain import AbstractTensorTrain
+from .tensortrain import AbstractTensorTrain, TensorTrain
 
 _INTMAX = 2**62
 
@@ -56,6 +60,14 @@ def kronecker_sj(localdim: int, Jset: Sequence[MultiIndex]) -> List[MultiIndex]:
     """Product {0..d-1} ⊗ Jset, prepended on the left; position p = i*|J| + j
     matches a C-order reshape of (d, |J|) (tensorci2.jl:524-529)."""
     return [(i,) + tuple(j) for i in range(localdim) for j in Jset]
+
+
+def kronecker(a, b) -> List[MultiIndex]:
+    """The reference's two kronecker methods: kronecker(Iset, d) appends a
+    site index, kronecker(d, Jset) prepends one."""
+    if isinstance(a, (int, np.integer)):
+        return kronecker_sj(int(a), b)
+    return kronecker_is(a, int(b))
 
 
 def _union(a: Sequence[MultiIndex], b: Sequence[MultiIndex]) -> List[MultiIndex]:
@@ -246,6 +258,76 @@ class TensorCI2(AbstractTensorTrain):
         if len(pivots) > 0:
             self.invalidatesitetensors()
 
+    def existaspivot(self, indexset: Sequence[int]) -> List[bool]:
+        indexset = tuple(int(v) for v in indexset)
+        return [
+            indexset[:b] in self.Iset[b] and indexset[b + 1 :] in self.Jset[b]
+            for b in range(len(self))
+        ]
+
+    def addglobalpivots1sitesweep(
+        self,
+        f,
+        pivots: Sequence[MultiIndex],
+        reltol: float = 1e-14,
+        abstol: float = 0.0,
+        maxbonddim: int = _INTMAX,
+    ) -> None:
+        self.addglobalpivots(pivots)
+        self.makecanonical(f, reltol=reltol, abstol=abstol,
+                           maxbonddim=maxbonddim)
+
+    def addglobalpivots2sitesweep(
+        self,
+        f,
+        pivots: Sequence[MultiIndex],
+        tolerance: float = 1e-8,
+        normalizeerror: bool = True,
+        maxbonddim: int = _INTMAX,
+        pivotsearch: str = "full",
+        verbosity: int = 0,
+        ntry: int = 10,
+        strictlynested: bool = False,
+    ) -> int:
+        """Add pivots, then 2-site sweeps until each pivot is interpolated
+        within the tolerance (or ntry attempts); returns the number of
+        pivots still above it (tensorci2.jl:400-453). The sweeps take the
+        tiers f offers, as ``optimize``'s do."""
+        if any(len(self) != len(p) for p in pivots):
+            raise ValueError(
+                "Please specify a pivot as one index per leg of the MPS."
+            )
+        if pivotsearch == "rook":
+            raise NotImplementedError(
+                "pivotsearch='rook' is not ported yet (ROADMAP A9)")
+        # every try checks all the given pivots and adds those still off
+        given = [tuple(int(v) for v in p) for p in pivots]
+        pivmat = np.asarray(given, dtype=np.int64).reshape(len(given),
+                                                           len(self))
+        pivots_ = given
+        for _ in range(ntry):
+            errornormalization = self.maxsamplevalue if normalizeerror else 1.0
+            abstol = tolerance * errornormalization
+            self.addglobalpivots(pivots_)
+            self.sweep2site(
+                f, 2,
+                abstol=abstol, maxbonddim=maxbonddim, pivotsearch=pivotsearch,
+                strictlynested=strictlynested, verbosity=verbosity,
+            )
+            ttvals = TensorTrain(self.sitetensors()).evaluate_batch(pivmat)
+            fvals = evaluate_rows(f, pivmat, dtype=self.dtype)
+            off = ((ttvals - fvals.to(ttvals.device)).abs() > abstol).tolist()
+            newpivots = [p for p, o in zip(given, off) if o]
+            if verbosity > 0:
+                print(
+                    f"Trying to add {len(pivots_)} global pivots, "
+                    f"{len(newpivots)} still remain."
+                )
+            if len(newpivots) == 0 or set(newpivots) == set(pivots_):
+                return len(newpivots)
+            pivots_ = newpivots
+        return len(pivots_)
+
     # -- site tensors --------------------------------------------------------
 
     def setsitetensor(self, b: int, T: torch.Tensor) -> None:
@@ -297,6 +379,28 @@ class TensorCI2(AbstractTensorTrain):
             return
         for b in range(len(self)):
             self.setsitetensor_from_f(f, b)
+
+    # -- 0-site sweep (bad pivot removal, tensorci2.jl:559-586) --------------
+
+    def sweep0site(self, f, b: int, reltol: float = 1e-14,
+                   abstol: float = 0.0) -> None:
+        self.invalidatesitetensors()
+        P = filltensor(
+            self.dtype, f, self.localdims, self.Iset[b + 1], self.Jset[b], 0,
+            self.device,
+        ).reshape(len(self.Iset[b + 1]), len(self.Jset[b]))
+        self.updatemaxsample(P)
+        F = MatrixLUCI(P, reltol=reltol, abstol=abstol, leftorthogonal=True)
+        # the pivots, fetched with the permutations: diag[0] is U[0, 0]
+        diag = np.abs(F.lu.diag())
+        if len(diag) > 0:
+            ndiag = int(np.sum((diag > abstol) & (diag / diag[0] > reltol)))
+        else:
+            ndiag = 0
+        self.Iset[b + 1] = [
+            self.Iset[b + 1][i] for i in F.rowindices()[:ndiag]
+        ]
+        self.Jset[b] = [self.Jset[b][j] for j in F.colindices()[:ndiag]]
 
     # -- 1-site sweep (tensorci2.jl:659-725) ----------------------------------
 
@@ -360,6 +464,22 @@ class TensorCI2(AbstractTensorTrain):
                 self.Iset[lastindex], self.Jset[lastindex], 1, self.device,
             ).reshape(shape)
             self.setsitetensor(lastindex, localtensor)
+
+    def makecanonical(
+        self,
+        f,
+        reltol: float = 1e-14,
+        abstol: float = 0.0,
+        maxbonddim: int = _INTMAX,
+    ) -> None:
+        """Exact forward pass, truncating backward pass, truncating forward
+        pass with tensors (tensorci2.jl:738-749)."""
+        self.sweep1site(f, "forward", reltol=0.0, abstol=0.0,
+                        maxbonddim=_INTMAX, updatetensors=False)
+        self.sweep1site(f, "backward", reltol=reltol, abstol=abstol,
+                        maxbonddim=maxbonddim, updatetensors=False)
+        self.sweep1site(f, "forward", reltol=reltol, abstol=abstol,
+                        maxbonddim=maxbonddim, updatetensors=True)
 
     # -- 2-site pivot update (tensorci2.jl:825-930) ---------------------------
 
@@ -864,3 +984,56 @@ def crossinterpolate2(
                                   device=device)
     ranks, errors = tci.optimize(f, **kwargs)
     return tci, ranks, errors
+
+
+def searchglobalpivots(
+    tci: TensorCI2,
+    f,
+    abstol: float,
+    verbosity: int = 0,
+    nsearch: int = 100,
+    maxnglobalpivot: int = 5,
+    rng: Optional[np.random.Generator] = None,
+) -> List[MultiIndex]:
+    """Find pivots where the interpolation error exceeds abstol
+    (tensorci2.jl:1344-1384).
+
+    All nsearch starts run in lock-step: with an evaluator that has the
+    engine, the whole floating-zone search is the engine's program
+    (``DeviceSweepEngine.floatingzone``); otherwise, or when the engine
+    declines, the host lock-step search (``globalsearch._floatingzone_batch``,
+    one batched f call and one batched TT evaluation a leg round). Results
+    are taken in start order with the reference's maxnglobalpivot early
+    stop."""
+    from .globalsearch import _floatingzone_search
+
+    if nsearch == 0 or maxnglobalpivot == 0:
+        return []
+    if not tci.issitetensorsavailable():
+        tci.fillsitetensors(f)
+    if rng is None:
+        rng = np.random.default_rng()
+
+    initps = [
+        tuple(int(rng.integers(0, d)) for d in tci.localdims)
+        for _ in range(nsearch)
+    ]
+    results = _floatingzone_search(
+        TensorTrain(tci.sitetensors()), f, initps,
+        earlystoptol=10 * abstol, nsweeps=100,
+    )
+    pivots = {}
+    for pivot, error in results:
+        if error > abstol:
+            pivots[error] = pivot
+        if len(pivots) == maxnglobalpivot:
+            break
+
+    if len(pivots) == 0:
+        if verbosity > 1:
+            print("  No global pivot found")
+        return []
+    if verbosity > 1:
+        maxerr = max(pivots.keys())
+        print(f"  Found {len(pivots)} global pivots: max error {maxerr}")
+    return list(pivots.values())

@@ -13,14 +13,26 @@ from typing import Sequence
 import torch
 
 
-def pad_cores(sitetensors: Sequence[torch.Tensor], dtype=None) -> torch.Tensor:
+def chi_bucket(chi: int) -> int:
+    """The padded bond dimension of the floating-zone search: max(8, the
+    next power of two >= chi), so that one program serves trains of similar
+    rank (``tci_tpu``'s engine pads the same way)."""
+    return max(8, 1 << (chi - 1).bit_length())
+
+
+def max_bond(sitetensors: Sequence[torch.Tensor]) -> int:
+    return max(max(t.shape[0], t.shape[-1]) for t in sitetensors)
+
+
+def pad_cores(sitetensors: Sequence[torch.Tensor], dtype=None,
+              chi: int = 0) -> torch.Tensor:
     """Stack ragged (χl, d, χr) cores into one (L, χ, d, χ) tensor on the
-    cores' device, zero-padded to the max bond/site dimension. Boundary
-    bonds embed at index 0."""
+    cores' device, zero-padded to the max bond/site dimension (or to `chi`
+    when that is larger). Boundary bonds embed at index 0."""
     first = sitetensors[0]
     dtype = first.dtype if dtype is None else dtype
     L = len(sitetensors)
-    chi = max(max(t.shape[0], t.shape[-1]) for t in sitetensors)
+    chi = max(chi, max_bond(sitetensors))
     d = max(t.shape[1] for t in sitetensors)
     out = torch.zeros((L, chi, d, chi), dtype=dtype, device=first.device)
     for l, t in enumerate(sitetensors):

@@ -18,7 +18,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from ..utils.device import to_device
+from ..utils.device import resolve_device, to_device
 from .lu_kernel import rrlu_raw, submatrixargmax_colmajor
 
 _INTMAX = 2**62
@@ -178,6 +178,10 @@ class rrLU:
     def T(self) -> "rrLU":
         return self.transpose()
 
+    def solve(self, b) -> torch.Tensor:
+        """Solve A x = b via the factorization; requires square full rank."""
+        return lu_solve(self, b)
+
     def __repr__(self):
         return (
             f"rrLU(shape={self.shape}, npivot={self.npivot}, "
@@ -249,3 +253,67 @@ def rrlu(
     )
     return _finalize(LUmat, rowperm, colperm, k, err, leftorthogonal,
                      diag, nanflags)
+
+
+def _on(X, like: Optional[torch.Tensor], device) -> torch.Tensor:
+    """X as a tensor: a tensor stays where it is, a numpy array goes to the
+    device of `like` when given, else to ``resolve_device(device)``."""
+    if isinstance(X, torch.Tensor):
+        return X
+    dev = like.device if like is not None else resolve_device(device)
+    return to_device(np.asarray(X), dev)
+
+
+def cols2Lmatrix(C, P, leftorthogonal: bool, device=None) -> torch.Tensor:
+    """Transform sampled columns C into L-matrix rows: C <- C · P^{-1} with P
+    upper-triangular (matrixlu.jl:627-647, as a triangular solve on P's
+    device). Numpy input goes to `device` (the current CUDA device by
+    default; ``device="cpu"`` for the CPU)."""
+    P = _on(P, C if isinstance(C, torch.Tensor) else None, device)
+    C = _on(C, P, device)
+    if C.shape[1] != P.shape[1]:
+        raise ValueError("C and P must have the same number of columns")
+    if P.shape[0] != P.shape[1]:
+        raise ValueError("P must be square")
+    if P.shape[0] == 0:
+        return C
+    # X · P = C with P upper triangular
+    return torch.linalg.solve_triangular(P, C, upper=True, left=False)
+
+
+def rows2Umatrix(R, P, leftorthogonal: bool, device=None) -> torch.Tensor:
+    """Transform sampled rows R into U-matrix columns: R <- P^{-1} · R with P
+    lower-triangular (matrixlu.jl:654-674), on P's device."""
+    P = _on(P, R if isinstance(R, torch.Tensor) else None, device)
+    R = _on(R, P, device)
+    if R.shape[0] != P.shape[0]:
+        raise ValueError("R and P must have the same number of rows")
+    if P.shape[0] != P.shape[1]:
+        raise ValueError("P must be square")
+    if P.shape[0] == 0:
+        return R
+    return torch.linalg.solve_triangular(P, R, upper=False)
+
+
+def lu_solve(lu: rrLU, b) -> torch.Tensor:
+    """Solve A x = b given the rrLU of A (square, full rank), on the
+    factors' device (a numpy b is moved there).
+
+    Parity: matrixlu.jl:839-905 (forward then backward substitution with the
+    row/column permutations applied)."""
+    if lu.shape[0] != lu.shape[1]:
+        raise ValueError("Matrix must be square.")
+    if lu.npivot != lu.shape[0]:
+        raise ValueError("rank-deficient matrix is not supported!")
+    b = _on(b, lu.L, None)
+    dtype = torch.promote_types(lu.L.dtype, b.dtype)
+    b = b.to(dtype)
+    squeeze = b.dim() == 1
+    if squeeze:
+        b = b[:, None]
+    b_perm = b[lu._rowperm_dev, :]
+    y = torch.linalg.solve_triangular(lu.L.to(dtype), b_perm, upper=False)
+    x_perm = torch.linalg.solve_triangular(lu.U.to(dtype), y, upper=True)
+    x = torch.empty_like(x_perm)
+    x[lu._colperm_dev, :] = x_perm
+    return x[:, 0] if squeeze else x

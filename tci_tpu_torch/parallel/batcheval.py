@@ -16,12 +16,13 @@ the device.
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from ..utils.device import resolve_device, to_device, torch_dtype
+from ..utils.device import numpy_dtype, resolve_device, to_device, torch_dtype
 
 MultiIndex = tuple
 
@@ -58,7 +59,7 @@ def evaluate_rows(f, indices, dtype=np.float64) -> torch.Tensor:
     if hasattr(f, "evaluate_many"):
         return torch.as_tensor(f.evaluate_many(indices))
     call = f.evaluate_single if hasattr(f, "evaluate_single") else f
-    out = np.empty(indices.shape[0], dtype=dtype)
+    out = np.empty(indices.shape[0], dtype=numpy_dtype(dtype))
     for r in range(indices.shape[0]):
         out[r] = call(tuple(int(x) for x in indices[r]))
     return torch.from_numpy(out)
@@ -159,6 +160,62 @@ def _batchevaluate_dispatch(
                         dtype=torch_dtype(valuetype))
     return vals.reshape(
         _result_shape(localdims, leftindexset, rightindexset, ncent))
+
+
+class BatchEvaluatorAdapter(BatchEvaluator):
+    """Wrap a plain callable of one multi-index into the batch protocol
+    (batcheval.jl:32-57); its panels are host (CPU) tensors."""
+
+    def __init__(self, f: Callable, localdims: Sequence[int], dtype=np.float64):
+        self.f = f
+        self.localdims = list(localdims)
+        self.dtype = dtype
+
+    def evaluate_single(self, indexset):
+        return self.f(indexset)
+
+    def _rows(self, Iset, Jset, ncent):
+        """The panel's multi-indices as tuples of ints, in C order."""
+        return [tuple(row) for row in _assemble_indices(
+            self.localdims, Iset, Jset, ncent, torch.device("cpu")).tolist()]
+
+    def _panel(self, vals, Iset, Jset, ncent) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(vals, dtype=self.dtype)).reshape(
+            _result_shape(self.localdims, Iset, Jset, ncent))
+
+    def batch_evaluate(self, Iset, Jset, ncent=None):
+        ncent = _infer_ncent(self.localdims, Iset, Jset, ncent)
+        if len(Iset) * len(Jset) == 0:
+            return _empty_panel(self.localdims, Iset, Jset, ncent, self.dtype,
+                                torch.device("cpu"))
+        return self._panel([self.f(row) for row in self._rows(Iset, Jset,
+                                                               ncent)],
+                           Iset, Jset, ncent)
+
+
+def makebatchevaluatable(valuetype, f, localdims) -> BatchEvaluatorAdapter:
+    return BatchEvaluatorAdapter(f, localdims, dtype=valuetype)
+
+
+class ThreadedBatchEvaluator(BatchEvaluatorAdapter):
+    """Thread-pool fan-out of a plain callable over the rows of a panel
+    (parity with the reference's Threads.@threads loop,
+    batcheval.jl:247-308). The wrapped f must be thread-safe; threads
+    overlap only where f releases the interpreter lock. Prefer
+    TorchBatchEvaluator for a function written with torch operations."""
+
+    def __init__(self, f: Callable, localdims, dtype=np.float64, nthreads=None):
+        super().__init__(f, localdims, dtype=dtype)
+        self.nthreads = nthreads
+
+    def batch_evaluate(self, Iset, Jset, ncent=None):
+        ncent = _infer_ncent(self.localdims, Iset, Jset, ncent)
+        if len(Iset) * len(Jset) == 0:
+            return _empty_panel(self.localdims, Iset, Jset, ncent, self.dtype,
+                                torch.device("cpu"))
+        with ThreadPoolExecutor(max_workers=self.nthreads) as pool:
+            vals = list(pool.map(self.f, self._rows(Iset, Jset, ncent)))
+        return self._panel(vals, Iset, Jset, ncent)
 
 
 class VectorizedBatchEvaluator(BatchEvaluator):

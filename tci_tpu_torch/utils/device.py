@@ -38,6 +38,13 @@ def torch_dtype(dtype) -> torch.dtype:
     return torch.from_numpy(np.zeros(0, dtype=dtype)).dtype
 
 
+def numpy_dtype(dtype) -> np.dtype:
+    """The numpy dtype of a torch or numpy dtype (torch.float64 -> float64)."""
+    if isinstance(dtype, torch.dtype):
+        return torch.empty(0, dtype=dtype).numpy().dtype
+    return np.dtype(dtype)
+
+
 def to_device(a: Union[np.ndarray, torch.Tensor],
               device: torch.device) -> torch.Tensor:
     """Move a host array or tensor to `device`; a host upload to a CUDA

@@ -3,7 +3,8 @@ probe kernels against their plain PyTorch versions on the card, and the main
 path through the kernel: the host tier, the fused tier and the whole-sweep
 engine, which syncs only at its fetch and replays its sweeps from CUDA
 graphs (held bitwise against the same sweeps queued eagerly); ``integrate``
-on the card.
+on the card; ``compress`` through the kernel, the engine's floating-zone
+program against its eager body, and the caches' values on the card.
 
 Every test needs a CUDA device and skips without one: the CUDA kernel has
 no CPU mode. This file imports neither jax nor tci_tpu, so it runs on a
@@ -773,3 +774,110 @@ def test_loop_block_syncs_only_at_status_reads_and_fetch(cuda):
             == res["k"] * (2 * (len(dims) - 1) + 1))
     assert float(res["ms"][0]) >= maxsample
     assert res["cores"].device.type == "cuda"
+
+
+def _config_tt(dims, f, tol, device, maxbonddim=2**62):
+    bf = tci_tpu_torch.TorchBatchEvaluator(f, dims, device=device)
+    tci, _, _ = tci_tpu_torch.crossinterpolate2(
+        np.float64, bf, dims, tolerance=tol, maxbonddim=maxbonddim,
+        device=device, rng=np.random.default_rng(0))
+    return tci, bf
+
+
+@pytest.mark.parametrize("method", ["LU", "CI"])
+def test_compress_launches_the_kernel_per_factorize(cuda, method, monkeypatch):
+    """compress of a TT on the card: one kernel launch per factorize call,
+    2 (L - 1) of them, none a plain call; the train keeps its values."""
+    from tci_tpu_torch.models import tensortrain
+
+    tci, _ = _config_tt([4] * 5, _lorentz, 1e-10, cuda)
+    tt = tci_tpu_torch.tensortrain(tci)
+    calls = [0]
+    factorize = tensortrain.factorize
+
+    def counting(*args, **kwargs):
+        calls[0] += 1
+        return factorize(*args, **kwargs)
+
+    monkeypatch.setattr(tensortrain, "factorize", counting)
+    launches = lu_cuda.LAUNCHES["rrlu"]
+    plain = lu_kernel.PLAIN_CALLS["cuda"]
+    c = tt.copy()
+    c.compress(method, tolerance=1e-12)
+    torch.cuda.synchronize()
+    assert calls[0] == 2 * (len(tt) - 1)
+    assert lu_cuda.LAUNCHES["rrlu"] - launches == calls[0]
+    assert lu_kernel.PLAIN_CALLS["cuda"] == plain
+    assert all(a <= b for a, b in zip(c.linkdims(), tt.linkdims()))
+    assert all(t.device.type == "cuda" for t in c.sitetensors())
+    full, ref = tci_tpu_torch.fulltensor(c), tci_tpu_torch.fulltensor(tt)
+    assert float((full - ref).abs().max()) <= 1e-10 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("problem", ["4^5", "R12"])
+def test_floatingzone_graph_matches_eager_bitwise(cuda, problem):
+    """The floating-zone program replayed from its CUDA graph against its
+    body queued eagerly, and against the host lock-step search on the card:
+    pivots and errors bit for bit; one status read a sweep, one fetch."""
+    from tci_tpu_torch.models.globalsearch import _floatingzone_batch
+    from tci_tpu_torch.utils.device import FETCHES
+
+    dims, f, tol = _graph_problem(problem, cuda)
+    tci, bf = _config_tt(dims, f, tol, cuda, maxbonddim=3)
+    tt = tci_tpu_torch.tensortrain(tci)
+    starts = np.random.default_rng(1).integers(0, dims[0], (20, len(dims)))
+    engine = bf.device_sweep_engine
+    engine.cuda_graphs = False
+    eager = engine.floatingzone(tt.sitetensors(), starts)
+    engine.cuda_graphs = True
+    captures = engine.captures
+    reads, fetches = FETCHES["engine_status"], FETCHES["engine"]
+    graph = engine.floatingzone(tt.sitetensors(), starts)
+    again = engine.floatingzone(tt.sitetensors(), starts)
+    key = [p for p in engine.programs() if p["key"][0] == "fzone"][0]
+    assert engine.captures == captures + 1 and key["captured"]
+    assert key["replays"] >= 2 and not engine.declined
+    assert FETCHES["engine"] - fetches == 2
+    assert FETCHES["engine_status"] - reads == key["replays"]
+    for out in (graph, again):
+        assert np.array_equal(out[0], eager[0])
+        assert np.array_equal(out[1], eager[1])
+    host = _floatingzone_batch(tt, bf, [tuple(p) for p in starts])
+    assert [tuple(p) for p in eager[0].tolist()] == [p for p, _ in host]
+    assert eager[1].tolist() == [e for _, e in host]
+
+
+def test_caches_land_on_the_card(cuda):
+    """TTCache of a TT on the card and CachedFunction with no device
+    argument: their values are CUDA tensors, equal to the TT's / f's."""
+    dims = [4] * 5
+    tci, _ = _config_tt(dims, _lorentz, 1e-10, cuda)
+    tt = tci_tpu_torch.tensortrain(tci)
+    cache = tci_tpu_torch.TTCache(tt)
+    for b in range(len(dims)):
+        panel = cache.batch_evaluate(tci.Iset[b], tci.Jset[b], 1)
+        assert panel.device.type == "cuda"
+        rows = [tuple(I) + (s,) + tuple(J) for I in tci.Iset[b]
+                for s in range(dims[b]) for J in tci.Jset[b]]
+        ref = tt.evaluate_batch(rows).reshape(panel.shape)
+        assert float((panel - ref).abs().max()) <= 1e-13 * float(
+            ref.abs().max())
+    numpy_cache = tci_tpu_torch.TTCache([t.cpu().numpy()
+                                         for t in tt.sitetensors()])
+    assert numpy_cache.device.type == "cuda"
+
+    def g(x):
+        v = np.asarray(x, dtype=float) + 1.0
+        return 1.0 / (1.0 + v @ v)
+
+    cf = tci_tpu_torch.CachedFunction(g, dims)
+    assert cf.device.type == "cuda"
+    panel = cf.batch_evaluate([(0, 1)], [(2, 3)], 1)
+    assert panel.device.type == "cuda"
+    assert torch.equal(panel.cpu().reshape(-1), torch.tensor(
+        [g((0, 1, s, 2, 3)) for s in range(4)], dtype=torch.float64))
+    out = tci_tpu_torch.estimatetrueerror([t.cpu().numpy()
+                                           for t in tt.sitetensors()], g,
+                                          nsearch=4,
+                                          rng=np.random.default_rng(0))
+    assert len(out) > 0

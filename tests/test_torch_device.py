@@ -53,7 +53,22 @@ ENTRY_POINTS = {
         lorentzian_torch, DIMS),
     "rrlu": lambda: tci_tpu_torch.rrlu(np.eye(4)),
     "MatrixLUCI": lambda: tci_tpu_torch.MatrixLUCI(np.eye(4)),
+    "factorize": lambda: tci_tpu_torch.factorize(np.eye(4), "LU", 1e-12),
+    "TensorTrain": lambda: tci_tpu_torch.TensorTrain(_cores()),
+    "TTCache": lambda: tci_tpu_torch.TTCache(_cores()),
+    "CachedFunction": lambda: tci_tpu_torch.CachedFunction(
+        lorentzian_scalar, DIMS),
+    "estimatetrueerror": lambda: tci_tpu_torch.estimatetrueerror(
+        _cores(), lorentzian_scalar, nsearch=2),
 }
+
+
+def _cores():
+    """The numpy cores of a rank-2 tensor train on DIMS."""
+    rng = np.random.default_rng(3)
+    bonds = [1, 2, 2, 2, 1]
+    return [rng.standard_normal((bonds[i], d, bonds[i + 1]))
+            for i, d in enumerate(DIMS)]
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
@@ -98,6 +113,20 @@ def test_cpu_run_matches_tci_tpu(reference, kind):
     assert out.Iset == ref.Iset and out.Jset == ref.Jset
     np.testing.assert_allclose(errs, rerrs, rtol=0, atol=ERR_ATOL)
     assert all(t.device.type == "cpu" for t in out.sitetensors())
+
+
+def test_tensortrain_from_numpy_needs_a_device(no_card):
+    """numpy cores follow the device rule of rrlu (ROADMAP C-port-7): with
+    no card a TensorTrain of numpy cores raises unless device="cpu" is
+    given, instead of keeping CPU tensors that every later operation then
+    runs on."""
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tci_tpu_torch.TensorTrain(_cores())
+    tt = tci_tpu_torch.TensorTrain(_cores(), device="cpu")
+    assert all(t.device.type == "cpu" for t in tt.sitetensors())
+    # tensors stay where they are
+    again = tci_tpu_torch.TensorTrain(tt.sitetensors())
+    assert all(a is b for a, b in zip(again.sitetensors(), tt.sitetensors()))
 
 
 @pytest.mark.parametrize("entry", ["rrlu", "MatrixLUCI"])

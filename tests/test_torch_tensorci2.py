@@ -92,7 +92,7 @@ def test_state_carried_across():
         rng=np.random.default_rng(0))
 
     tt_ref = tci_tpu.TensorTrain(ref.sitetensors())
-    tt_port = tci_tpu_torch.TensorTrain(ref.sitetensors())
+    tt_port = tci_tpu_torch.TensorTrain(ref.sitetensors(), device="cpu")
     pts = np.asarray(_points(dims, n=64, seed=5))
     np.testing.assert_allclose(tt_port.evaluate_batch(pts).numpy(),
                                tt_ref.evaluate_batch(pts), rtol=0, atol=1e-14)
