@@ -157,6 +157,7 @@ Any failure exits non-zero; nothing falls back to the CPU.
 """
 
 import argparse
+import itertools
 import json
 import os
 import subprocess
@@ -182,6 +183,12 @@ PROBE_LINES = {"v1": 47, "v2": 63, "v3": 81, "v4": 108, "v4b": 143,
                "v4c": 168}
 # BASELINE config 4's integral (tests/test_integration.py)
 CONFIG4_INTEGRAL = -5.4960415218049
+# BASELINE config 5 (benchmarks/bench_feynman.py at N = 6, GK15, tolerance
+# 1e-7, nsearchglobalpivot=10): tci_tpu's ranks series, linkdims and
+# integral with its native-complex JaxBatchEvaluator on a CPU
+CONFIG5_RANKS = [20, 14, 14, 14]
+CONFIG5_LINKDIMS = [11, 13, 13, 13, 11]
+CONFIG5_INTEGRAL = complex(-3.6613855919222135e-07, 2.3438439003099826e-06)
 
 
 def fail(msg):
@@ -279,19 +286,25 @@ def main():
         return sum(durs) / len(durs) / 1e3 if durs else None
 
     # NVIDIA's H100 SXM data sheet: 3.35 TB/s of HBM3; 34 TFLOP/s f64 and
-    # 67 TFLOP/s f32 outside the tensor cores (the rates of a 700 W card)
+    # 67 TFLOP/s f32 outside the tensor cores (the rates of a 700 W card);
+    # a complex128 element (16 bytes) computes at the f64 rate
     HBM_BYTES_PER_S = 3.35e12
-    PEAK_FLOP_PER_S = {8: 34e12, 4: 67e12}
+    PEAK_FLOP_PER_S = {16: 34e12, 8: 34e12, 4: 67e12}
 
     def bound_parts(mp, npd, m, n, k, elsize):
         """The two lower bounds of one elimination, in ms: each input byte
         read once and each output byte written once (the panel in; the LU
         buffer, both permutations, mags, k and err out) over the HBM rate,
-        and the Schur updates this run's k needs, 2 sum_{j<k} (m-1-j)(n-1-j)
-        operations, over the peak rate."""
+        and the Schur updates this run's k needs, c sum_{j<k} (m-1-j)(n-1-j)
+        real operations, over the peak rate: c = 2 for a real update (a
+        multiply and a subtract), 8 for a complex one (four multiplies and
+        two adds for the product, two subtracts). A complex panel's mags
+        and err are real float64."""
+        real = min(elsize, 8)
         nbytes = (2 * mp * npd * elsize + 8 * (mp + npd + 1)
-                  + elsize * (min(mp, npd) + 1))
-        ops = sum(2.0 * (m - 1 - j) * (n - 1 - j) for j in range(k))
+                  + real * (min(mp, npd) + 1))
+        c = 8.0 if elsize == 16 else 2.0
+        ops = sum(c * (m - 1 - j) * (n - 1 - j) for j in range(k))
         return (nbytes / HBM_BYTES_PER_S * 1e3,
                 ops / PEAK_FLOP_PER_S[elsize] * 1e3)
 
@@ -443,6 +456,113 @@ def main():
               f"{out[3].tolist()} identical; kernel device time {dev_txt} a "
               f"launch (profiler), wrapper call {ms:.4f} ms (events), "
               f"plain {pms:.4f} ms, bound {bms:.6f} ms", flush=True)
+
+    # complex128: Lorentzian-times-phase panels at the bucket sizes (config
+    # 1's panel shapes, each entry turned by a phase of its row and its
+    # column, so the magnitudes keep the real panel's ties), both
+    # orientations and both stops, each with the mode it takes (a complex
+    # panel is resident up to 128 KB: 80^2 is, 96^2 is not); four 128^2
+    # panels in one (multi-block) launch; N = 1000 of rank 100
+    def lorentzian_phase(nI, nJ, seed):
+        A = lorentzian(nI, nJ, seed)
+        m, n = A.shape
+        return A * np.exp(1j * (0.3 * np.arange(m)[:, None]
+                                + 0.7 * np.arange(n)[None, :]))
+
+    complex_panels = {}
+    for nI, nJ in shapes:
+        if nI is None:
+            rng = np.random.default_rng(3)
+            A = ((rng.standard_normal((5, 3)) + 1j * rng.standard_normal(
+                (5, 3))) @ rng.standard_normal((3, 6)))
+        else:
+            A = lorentzian_phase(nI, nJ, seed=10 * nI + nJ)
+        m, n = A.shape
+        P = padded(A, torch.complex128)
+        mode = ("multi-block" if lu_cuda._lib().rrlu_scratch_bytes(
+            *P.shape, 16) > 0 else "resident")
+        stops = [("abstol", 1e-14, 1e-8 * float(np.abs(A).max()))]
+        if m >= 40:
+            stops.append(("reltol", 1e-6, 0.0))
+        for stop, reltol, abstol in stops:
+            for leftorth in (True, False):
+                args = (P, m, n, min(m, n), reltol, abstol)
+                kw = {"leftorthogonal": leftorth}
+                out = lu_cuda.rrlu_call(*args, **kw)
+                ref = lu_kernel.rrlu_plain(*args, **kw)
+                tag = (f"complex128 {m}x{n} (bucket {P.shape[0]}x"
+                       f"{P.shape[1]}, {mode}) {stop} "
+                       f"{'left' if leftorth else 'right'}")
+                max_err = max(max_err, compare(tag, out, ref, 1.0))
+                k = int(out[3])
+                ms = cuda_ms(lambda: lu_cuda.rrlu_call(*args, **kw), 20)
+                dms = kernel_device_ms(
+                    lambda: lu_cuda.rrlu_call(*args, **kw), 20)
+                pms = cuda_ms(lambda: lu_kernel.rrlu_plain(*args, **kw), 5)
+                bms, bby = bound_ms(*P.shape, m, n, k, 16)
+                complex_panels[f"{P.shape[0]}x{P.shape[1]} {stop} "
+                               f"{'left' if leftorth else 'right'}"] = {
+                    "mode": mode, "k": k, "ms": dms, "wrapper_ms": ms,
+                    "plain_ms": pms, "bound_ms": bms, "bound_by": bby}
+                dev_txt = ("not measured" if dms is None
+                           else f"{dms:.4f} ms")
+                print(f"[kernel] {tag}: k={k} identical; kernel device "
+                      f"time {dev_txt} a launch (profiler), wrapper call "
+                      f"{ms:.4f} ms (events), plain {pms:.4f} ms, bound "
+                      f"{bms:.6f} ms ({bby})", flush=True)
+    Ab = torch.stack([padded(lorentzian_phase(12, 12, seed=s),
+                             torch.complex128) for s in range(4)])
+    bargs = (Ab, mt, nt, mr, rt, at)
+    for leftorth in (True, False):
+        out = lu_cuda.rrlu_batched(*bargs, leftorthogonal=leftorth)
+        ref = lu_kernel.rrlu_plain_batched(*bargs, leftorthogonal=leftorth)
+        max_err = max(max_err, compare(
+            f"batched B=4 complex128 {'left' if leftorth else 'right'}",
+            out, ref, 1.0))
+    ms = cuda_ms(lambda: lu_cuda.rrlu_batched(*bargs, leftorthogonal=True),
+                 20)
+    dms = kernel_device_ms(
+        lambda: lu_cuda.rrlu_batched(*bargs, leftorthogonal=True), 20)
+    pms = cuda_ms(
+        lambda: lu_kernel.rrlu_plain_batched(*bargs, leftorthogonal=True), 3)
+    parts = [bound_parts(128, 128, int(mt[b]), int(nt[b]), int(out[3][b]),
+                         16) for b in range(4)]
+    t_b, t_o = (sum(p[i] for p in parts) for i in (0, 1))
+    complex_panels["batched B=4 128x128"] = {
+        "k": out[3].tolist(), "ms": dms, "wrapper_ms": ms, "plain_ms": pms,
+        "bound_ms": max(t_b, t_o),
+        "bound_by": "bytes" if t_b >= t_o else "operations"}
+    print(f"[kernel] batched B=4 complex128 128x128 (multi-block): k="
+          f"{out[3].tolist()} identical, both orientations; kernel device "
+          f"time {'not measured' if dms is None else f'{dms:.4f} ms'} a "
+          f"launch (profiler), wrapper call {ms:.4f} ms (events), plain "
+          f"{pms:.4f} ms, bound {max(t_b, t_o):.6f} ms", flush=True)
+    rng = np.random.default_rng(1000)
+
+    def cgauss(*shape):
+        return rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+
+    A = torch.as_tensor(cgauss(1000, 100) @ cgauss(100, 1000), device=dev)
+    P = padded(A, torch.complex128)
+    args = (P, 1000, 1000, 1000, 1e-12, 0.0)
+    out = lu_cuda.rrlu_call(*args, leftorthogonal=True)
+    ref = lu_kernel.rrlu_plain(*args, leftorthogonal=True)
+    max_err = max(max_err, compare("rrlu N=1000 complex128", out, ref, 1.0))
+    k = int(out[3])
+    lu = tci_tpu_torch.rrlu(A, reltol=1e-12)
+    rec = float((lu.left() @ lu.right() - A).abs().max())
+    if k != 100 or lu.npivots() != 100 or not rec < 1e-8 * float(
+            A.abs().max()):
+        fail(f"rrlu N=1000 complex128: npivot {k} / {lu.npivots()}, "
+             f"reconstruction {rec}")
+    kms = cuda_ms(lambda: lu_cuda.rrlu_call(*args, leftorthogonal=True), 3)
+    pms = cuda_ms(lambda: lu_kernel.rrlu_plain(*args, leftorthogonal=True), 3)
+    bms, bby = bound_ms(*P.shape, 1000, 1000, k, 16)
+    complex_panels["N=1000 rank 100"] = {
+        "k": k, "ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": bby}
+    print(f"[kernel] rrlu N=1000 complex128 rank {k} (bucket {P.shape[0]}): "
+          f"identical; kernel {kms:.3f} ms (events), plain {pms:.3f} ms, "
+          f"bound {bms:.4f} ms ({bby}), |LU - A| {rec:.3e}", flush=True)
 
     # the reference's rrLU benchmark sizes: N = 1000, 2000, rank 100
     n2000 = {}
@@ -1640,11 +1760,18 @@ def main():
             worst = max(worst, float(gap))
         return len(differ), worst
 
-    def fzone_phase(tag, tci, f, recorded):
+    def fzone_phase(tag, tci, f, recorded, rounding=None):
         """estimatetrueerror(tt, f, nsearch=100, rng=default_rng(0)) on the
         engine (cold: the program's first use, which records it; warm: a
         replay) against the host lock-step search from the same starts;
-        recorded: tci_tpu's largest error on the CPU for those starts."""
+        recorded: tci_tpu's largest error on the CPU for those starts (None:
+        not recorded, not compared). Two evaluations of the train at a
+        point may round apart (the program and the host search batch their
+        products differently); the margin for that is 1e-15 max|f|, or,
+        with `rounding`, the forward error bound of a train's evaluation:
+        twice 4 L chi_b u (u = 2^-53; complex arithmetic's constant
+        included) times the train evaluated with |cores|, at its largest
+        over the starts, the results and 10^4 seeded points."""
         tt = tci_tpu_torch.tensortrain(tci)
         engine = f.device_sweep_engine
         dims = [d[0] for d in tt.sitedims()]
@@ -1689,7 +1816,16 @@ def main():
         # differently (S dmax rows a leg against the active starts' rows),
         # and cuBLAS may round them an ulp apart
         ms = tci.maxsamplevalue
-        if bp != hp or abs(be - he) > 1e-10 * he + 1e-15 * ms:
+        margin = 1e-15 * ms
+        if rounding:
+            abs_tt = tci_tpu_torch.TensorTrain(
+                [c.abs() for c in tt.sitetensors()])
+            pts = np.concatenate([np.asarray(starts), np.asarray(
+                [p for p, _ in dev] + [p for p, _ in host]),
+                tt_points(tt)[0]])
+            margin = 2 * 4 * len(dims) * key[2] * 2.0 ** -53 * float(
+                abs_tt.evaluate_batch(pts).max())
+        if bp != hp or abs(be - he) > 1e-10 * he + margin:
             fail(f"{tag}: the program's best {bp} {be!r}, the host search's "
                  f"{hp} {he!r}")
         errs = [e for _, e in dev]
@@ -1699,11 +1835,11 @@ def main():
         true = (f.evaluate_many(piv) - tt.evaluate_batch(piv)).abs().cpu()
         # |f - tt| recomputed through the train's own evaluation
         dev_err = (true - torch.tensor(errs)).abs()
-        if bool((dev_err > 1e-9 * true + 1e-15 * ms).any()):
+        if bool((dev_err > 1e-9 * true + margin).any()):
             fail(f"{tag}: a returned error is not |f - tt| "
                  f"(max deviation {float(dev_err.max())})")
-        rec_dev = abs(be - recorded)
-        if rec_dev > 1e-15 * ms:
+        rec_dev = None if recorded is None else abs(be - recorded)
+        if rec_dev is not None and rec_dev > 1e-15 * ms:
             fail(f"{tag}: largest error {be!r}, tci_tpu's {recorded!r} "
                  f"(bound 1e-15 max|f| = {1e-15 * ms:.3e})")
         busy = device_busy_ms(search)
@@ -1715,14 +1851,14 @@ def main():
         per_start = engine.floatingzone(tt.sitetensors(), np.asarray(starts))
         ndiffer, gap = parted_at_ties(
             engine, tt, f, starts, per_start,
-            globalsearch._floatingzone_batch(tt, f, starts), 1e-15 * ms)
+            globalsearch._floatingzone_batch(tt, f, starts), margin)
         res = {"cold_s": cold, "warm_s": med(walls), "sweep_graph": tr,
                "eager_s": med(eager_walls),
                "host_cold_s": host_cold, "host_warm_s": med(host_walls),
                "sweeps": reads, "fetches": fetches,
                "capture_s": prog.capture_seconds, "nevals": nevals,
                "device_busy_ms": busy, "best": [list(bp), be],
-               "recorded_abs_diff": rec_dev,
+               "recorded_abs_diff": rec_dev, "margin": margin,
                "differing_starts": ndiffer, "largest_tie_gap": gap}
         print(f"[fzone] {tag}: estimatetrueerror(nsearch=100) through the "
               f"engine's program {key}: cold {cold:.4f} s (records it, "
@@ -1736,9 +1872,11 @@ def main():
               f"busy {'not measured' if busy is None else f'{busy:.3f} ms'} "
               f"a warm search (profiler); best {bp} error {be!r} (host "
               f"search {he!r}; {ndiffer} of 100 starts differ from it, each "
-              f"parted at a tie, largest gap {gap:.3e}); "
-              f"tci_tpu's on the CPU {recorded!r}, |diff| {rec_dev:.3e}; "
-              f"{len(dev)} unique points, every error |f - tt| within "
+              f"parted at a tie, largest gap {gap:.3e}; margin "
+              f"{margin:.3e}); "
+              + (f"tci_tpu's on the CPU {recorded!r}, |diff| {rec_dev:.3e}; "
+                 if recorded is not None else "")
+              + f"{len(dev)} unique points, every error |f - tt| within "
               f"{float(dev_err.max()):.3e}", flush=True)
         return res
 
@@ -1996,11 +2134,203 @@ def main():
           f"sampled, cold {cf_cold:.4f} s, warm {cf_warm:.4f} s, "
           f"{counts_cf['launches']} rrLU launches", flush=True)
 
+    # -- 4g. BASELINE config 5: the complex Feynman-type integrand -----------
+    # benchmarks/bench_feynman.py at full size: N = 6, GK15 on [0, 1],
+    # tolerance 1e-7, nsearchglobalpivot=10, through crossinterpolate2
+    # (np.complex128, ...) with a default TorchBatchEvaluator (the engine,
+    # tci_tpu's default protocol) of the integrand in native complex. Cold
+    # (recorded for phase 5: eager), warm (a new evaluator: records the
+    # graphs), the median of 10 warm walls on a kept evaluator, one counted
+    # run with its device busy time; once on the fused tier and once on the
+    # host tier (its numpy twin); then, on its train, the floating-zone
+    # program against the host search and compress (LU, CI, SVD).
+    from tci_tpu_torch.ops.kronrod import kronrod
+
+    x5, w5, _ = kronrod(15 // 2)
+    nodes5, weights5 = (x5 + 1) / 2, w5 / 2
+    norm5 = 15.0 ** 6
+    dims5 = [len(x5)] * 6
+    nodes5_d = torch.as_tensor(nodes5, device=dev)
+    weights5_d = torch.as_tensor(weights5, device=dev)
+
+    def f5torch(idx):
+        t = nodes5_d[idx]
+        damp = torch.exp(-((t[:, :, None] - t[:, None, :]) ** 2).sum((1, 2)))
+        return torch.polar(weights5_d[idx].prod(1) * damp * norm5,
+                           10.0 * t.sum(1))
+
+    def f5numpy(idx):
+        t = nodes5[idx]
+        damp = np.exp(-np.sum((t[:, :, None] - t[:, None, :]) ** 2,
+                              axis=(1, 2)))
+        return (np.prod(weights5[idx], axis=1) * damp * norm5
+                * np.exp(1j * 10.0 * np.sum(t, axis=1)))
+
+    # the dense Gauss-Kronrod sum over all 15^6 grid points, with plain
+    # torch on the card, 15^4 points a chunk: an independent reference
+    tail5 = torch.stack(torch.meshgrid(
+        *[torch.arange(15, device=dev)] * 4, indexing="ij"), -1).reshape(-1, 4)
+    dense5 = torch.zeros((), dtype=torch.complex128, device=dev)
+    for i, j in itertools.product(range(15), repeat=2):
+        head = torch.tensor([i, j], device=dev).expand(tail5.shape[0], 2)
+        dense5 += f5torch(torch.cat([head, tail5], 1)).sum()
+    dense5 = complex(dense5) / norm5
+    del tail5
+
+    def solve_config5(tier="engine", f=None, graphs=True):
+        if f is not None:
+            set_graphs(f, graphs)
+        elif tier == "host":
+            f = tci_tpu_torch.VectorizedBatchEvaluator(
+                f5numpy, dims5, dtype=np.complex128)
+        else:
+            f = tci_tpu_torch.TorchBatchEvaluator(
+                f5torch, dims5, dtype=torch.complex128,
+                enable_device_sweep=tier == "engine", cuda_graphs=graphs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tci, ranks, errors = tci_tpu_torch.crossinterpolate2(
+            np.complex128, f, dims5, tolerance=1e-7, nsearchglobalpivot=10,
+            rng=np.random.default_rng(0))
+        torch.cuda.synchronize()
+        return tci, ranks, errors, time.perf_counter() - t0, f
+
+    def check_config5(tag, tci, ranks, errors, counts, f, tier):
+        integral = tci.sum() / norm5
+        d_ref, d_dense = (abs(integral - CONFIG5_INTEGRAL),
+                          abs(integral - dense5))
+        if (ranks != CONFIG5_RANKS or not errors[-1] < 1e-7
+                or tci.linkdims() != CONFIG5_LINKDIMS):
+            fail(f"config 5 {tag}: ranks {ranks}, errors {errors}, linkdims "
+                 f"{tci.linkdims()}; expected {CONFIG5_RANKS}, < 1e-7, "
+                 f"{CONFIG5_LINKDIMS}")
+        if not (d_ref < 1e-9 and d_dense < 1e-9):
+            fail(f"config 5 {tag}: integral {integral!r}, |I - tci_tpu's| "
+                 f"{d_ref:.3e}, |I - dense GK sum| {d_dense:.3e} (bound 1e-9)")
+        if tci.device.type != "cuda" or not all(
+                t.device.type == "cuda" and t.dtype == torch.complex128
+                for t in tci.sitetensors()):
+            fail(f"config 5 {tag}: ran on {tci.device} or its site tensors "
+                 f"are not complex128 on the card")
+        n = counts["rrlu_raw"] + counts["tier_calls"]
+        if counts["launches"] == 0 or counts["launches"] != n or counts[
+                "plain_cuda"]:
+            fail(f"config 5 {tag}: {counts}; every elimination should launch "
+                 f"the complex kernel and none take the plain version")
+        if tier == "engine":
+            check_engine_run(f"config 5 {tag}", counts, f, None)
+        return integral, d_ref, d_dense
+
+    DefaultGlobalPivotFinder.__call__ = counting_finder
+    finder_calls[0] = 0
+    try:
+        res5, counts5c = run_counted(
+            "config5", lambda: solve_config5(graphs=False), record=True)
+        check_config5("cold", *res5[:3], counts5c, res5[-1], "engine")
+        cold5 = res5[3]
+        (tci5, ranks5, errors5, warm5, f5), counts5 = run_counted(
+            "config5", solve_config5)
+        int5, dref5, ddense5 = check_config5("warm", tci5, ranks5, errors5,
+                                             counts5, f5, "engine")
+        walls5 = [solve_config5(f=f5)[3] for _ in range(10)]
+        res, counts5k = run_counted("config5", lambda: solve_config5(f=f5),
+                                    f=f5)
+        check_config5("kept", *res[:3], counts5k, f5, "engine")
+        engine5 = f5.device_sweep_engine
+        if not all_replayed(engine5) or not engine5.loop_blocks:
+            fail(f"config 5: programs {engine5.programs()}, loop blocks "
+                 f"{engine5.loop_blocks}; every warm run should replay the "
+                 f"optimize loop's graphs")
+    finally:
+        DefaultGlobalPivotFinder.__call__ = host_finder
+    if finder_calls[0]:
+        fail(f"config 5: the host finder ran {finder_calls[0]} times on the "
+             f"engine")
+    busy5 = device_busy_ms(lambda: solve_config5(f=f5))
+    med5 = med(walls5)
+    idle5 = None if busy5 is None else 1 - busy5 / (med5 * 1e3)
+    config5 = {"cold_s": cold5, "warm_s": warm5, "kept_median_s": med5,
+               "kept_walls": walls5, "device_busy_ms": busy5,
+               "idle_share": idle5, "launches": counts5k["launches"],
+               "launches_cold": counts5c["launches"],
+               "fetches": counts5k["fetches"], "nevals": counts5k["nevals"],
+               "ranks": ranks5, "errors": errors5,
+               "linkdims": tci5.linkdims(), "integral": [int5.real, int5.imag],
+               "dense_gk_sum": [dense5.real, dense5.imag],
+               "abs_diff_tci_tpu": dref5, "abs_diff_dense": ddense5,
+               "imax": engine5.Imax}
+    print(f"[config5] crossinterpolate2(np.complex128, TorchBatchEvaluator), "
+          f"N = 6, GK15, tolerance 1e-7, the engine (default protocol): cold "
+          f"{cold5:.4f} s (queued eagerly), warm {warm5:.4f} s (records), "
+          f"one evaluator kept: 10 replayed runs {spread(walls5)}; ranks "
+          f"{ranks5}, errors {[f'{e:.6e}' for e in errors5]}, linkdims "
+          f"{tci5.linkdims()}; integral {int5!r}, |I - tci_tpu's| "
+          f"{dref5:.3e}, |I - dense GK sum {dense5!r}| {ddense5:.3e}; "
+          f"{counts5k['launches']} complex rrLU launches a run "
+          f"({counts5c['launches']} cold), fetches {counts5k['fetches']}, "
+          f"{counts5k['plain_cuda']} plain calls on CUDA, 0 host-finder "
+          f"calls, Imax {engine5.Imax}, nevals {counts5k['nevals']}; device "
+          f"busy {'not measured' if busy5 is None else f'{busy5:.3f} ms'} a "
+          f"kept run (profiler), idle share "
+          f"{'not measured' if idle5 is None else f'{idle5:.4f}'}",
+          flush=True)
+    for tier in ("fused", "host"):
+        res, counts = run_counted(f"config5_{tier}",
+                                  lambda: solve_config5(tier))
+        val, dref, ddense = check_config5(tier, *res[:3], counts, res[-1],
+                                          tier)
+        if tier == "fused" and not counts["fetches"].get("fused_bond"):
+            fail(f"config 5 fused: fetches {counts['fetches']}")
+        if tier == "host" and (counts["tier_calls"] or counts["fetches"]):
+            fail(f"config 5 host: device tiers ran ({counts})")
+        config5[tier] = {"wall_s": res[3], "launches": counts["launches"],
+                         "integral": [val.real, val.imag],
+                         "abs_diff_engine": abs(val - int5)}
+        print(f"[config5] {tier} tier: {res[3]:.4f} s, ranks {res[1]}, "
+              f"integral {val!r}, |I - the engine's| {abs(val - int5):.3e}; "
+              f"{counts['launches']} complex rrLU launches "
+              f"({counts['rrlu_raw']} rrlu_raw, {counts['tier_calls']} tier "
+              f"calls), {counts['plain_cuda']} plain calls on CUDA",
+              flush=True)
+    # the API after a run, on config 5's train
+    tt_entry["fzone"]["config5"] = fzone_phase("config5", tci5, f5, None,
+                                               rounding=True)
+    tt5 = tci_tpu_torch.tensortrain(tci5)
+    pts5, vals5 = tt_points(tt5)
+    scale5 = float(vals5.abs().max())
+    config5["compress"] = {}
+    for method in ("LU", "CI", "SVD"):
+        def solve(method=method):
+            c = tt5.copy()
+            _, wall = timed(lambda: c.compress(method, tolerance=1e-12))
+            return c, wall, None
+
+        (c, wall, _), counts = run_counted(f"4g compress {method}", solve,
+                                           record=True)
+        diff = float((c.evaluate_batch(pts5) - vals5).abs().max())
+        want = 2 * (len(tt5) - 1) if method != "SVD" else 0
+        if (counts["launches"] != want or counts["plain_cuda"]
+                or c.sitetensors()[0].dtype != torch.complex128
+                or any(a > b for a, b in zip(c.linkdims(), tt5.linkdims()))
+                or not diff <= 1e-10 * scale5):
+            fail(f"4g compress {method}: {counts}, linkdims {c.linkdims()} "
+                 f"(before {tt5.linkdims()}), max diff {diff} at 10^4 "
+                 f"points")
+        config5["compress"][method] = {"wall_s": wall,
+                                       "launches": counts["launches"],
+                                       "max_diff": diff,
+                                       "linkdims": c.linkdims()}
+        print(f"[compress] {method}: config 5's complex train, tolerance "
+              f"1e-12: linkdims {tt5.linkdims()} -> {c.linkdims()}, max "
+              f"|diff| {diff:.3e} at 10^4 points (bound 1e-10 max|tt| = "
+              f"{1e-10 * scale5:.3e}); {counts['launches']} complex rrLU "
+              f"launches, cold {wall:.4f} s", flush=True)
+
     # -- 5. kernel vs plain on every launch of the cold runs -------------------
     # for their times: config 1's first fill (its P blocks in one launch),
     # and of each engine run the square bond panel of each size with the most
     # pivots (among those, the largest true extents)
-    engine_fill = None
+    fills = {}
     bond_panels = {}
     for i, (tag, is_batched, args, kw) in enumerate(launch_inputs):
         kernel = originals[2] if is_batched else originals[1]
@@ -2009,11 +2339,11 @@ def main():
         out, ref = kernel(*args, **kw), plain(*args, **kw)
         max_err = max(max_err, compare(
             f"{tag} launch {i} {tuple(args[0].shape)}", out, ref, 1.0))
-        if tag in ("engine", "config3", "config4"):
+        if tag in ("engine", "config3", "config4", "config5"):
             ks = out[3].tolist()
             B, mp, npd = args[0].shape
-            if tag == "engine" and B > 1 and engine_fill is None:
-                engine_fill = (args, kw, ks)
+            if B > 1 and tag not in fills:
+                fills[tag] = (args, kw, ks)
             elif B == 1 and mp == npd:
                 # most pivots first, then the largest true extents
                 rank = (ks[0], int(args[1][0]) * int(args[2][0]))
@@ -2025,12 +2355,19 @@ def main():
         ntag[rec[0]] = ntag.get(rec[0], 0) + 1
     print(f"[kernel] every launch of the cold runs ({ntag}): kernel and plain "
           f"version identical (max |LU diff| {max_err})", flush=True)
-    for key in (("engine", 352), ("config3", 96), ("config4", 512)):
+    for key in (("engine", 352), ("config3", 96), ("config4", 512),
+                ("config5", 512)):
         if key not in bond_panels:
             fail(f"{key[0]}: no {key[1]}^2 bond panel among its launches "
                  f"({sorted(bond_panels)})")
-    if engine_fill is None:
-        fail("config 1 engine: no batched fill among its launches")
+    for tag in ("engine", "config5"):
+        if tag not in fills:
+            fail(f"{tag}: no batched fill among its launches")
+    engine_fill = fills["engine"]
+    ncomplex = sum(rec[2][0].is_complex() for rec in launch_inputs)
+    print(f"[kernel] of them complex128: {ncomplex} launches (config 5's "
+          f"cold runs and compressions), each identical to the plain "
+          f"version", flush=True)
 
     def time_engine_launch(name, rec):
         """Device, wrapper-call and plain times of one recorded engine
@@ -2070,6 +2407,9 @@ def main():
            **time_engine_launch("config3_panel", bond_panels["config3", 96]),
            **time_engine_launch("config4_panel_512",
                                 bond_panels["config4", 512])}
+    eng.update(time_engine_launch("config5_panel_512",
+                                  bond_panels["config5", 512]))
+    eng.update(time_engine_launch("config5_fill", fills["config5"]))
     if ("config4", 1024) in bond_panels:
         eng.update(time_engine_launch("config4_panel_1024",
                                       bond_panels["config4", 1024]))
@@ -2151,7 +2491,13 @@ def main():
                              **{f"4f_globalpivots_{t}": r["launches"]
                                 for t, r in tt_entry["globalpivots"].items()},
                              "4f_cachedfunction": counts_cf["launches"],
-                             "run_probes": probe_rrlu_launches},
+                             "run_probes": probe_rrlu_launches,
+                             "config5": config5["launches"],
+                             "config5_cold": config5["launches_cold"],
+                             **{f"config5_{t}": config5[t]["launches"]
+                                for t in ("fused", "host")},
+                             **{f"4g_compress_{m}": r["launches"]
+                                for m, r in config5["compress"].items()}},
         "max_abs_err": max_err,
         "ms": ms if ms is not None else eng["engine_panel_wrapper_ms"],
         "ms_from": "profiler" if ms is not None else "cuda events",
@@ -2162,6 +2508,10 @@ def main():
         "cuda_graphs": graph_results,
         "optimize_loop": loop_results,
         "tt_algebra": tt_entry,
+        # the complex128 instantiation: phase 3's panels, config 5's run
+        # and, under config5_panel_512_* / config5_fill_*, its bond panel
+        # and its fill on the card
+        "complex128": {"panels": complex_panels, "config5": config5},
         **host_panel,
         **eng,
         **n2000,

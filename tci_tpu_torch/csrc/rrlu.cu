@@ -28,6 +28,16 @@
 // in tci_tpu_torch/ops/lu_kernel.py (a multiply kernel, then a subtract
 // kernel). Pivot order, k, err and the LU buffer agree bitwise with it.
 //
+// Element types: float32, float64 and complex128 (the body is one template;
+// Ops<T> holds each type's arithmetic). For complex128 the pivot metric,
+// the magnitudes, err and the tolerances are real float64 (|z|^2 =
+// re re + im im, as tci_tpu's _abs2), and the product and the quotient are
+// written out on the real and imaginary parts in the formulas the plain
+// version uses, so the two agree bitwise there too. A complex element is
+// 16 bytes, twice a float64's: the resident mode, bounded in bytes, ends at
+// 128 KB panels (80 x 80 or 128 x 64 complex), and every pass moves twice
+// the bytes and does four multiplies where a real update does one.
+//
 // Two modes, one launch per call in both:
 //
 //   - resident (panels up to 128 x 128 f64, kResidentPanelBytes): one
@@ -78,25 +88,79 @@
 
 namespace {
 
+// Arithmetic of an element type T, and of its real type R (the pivot
+// metric |a|^2, the magnitudes, err and the tolerances). Every operation is
+// one correctly rounded intrinsic, so the plain version in
+// tci_tpu_torch/ops/lu_kernel.py, which computes the same formulas one
+// rounding at a time, agrees bitwise.
 template <typename T>
 struct Ops;
 
 template <>
 struct Ops<double> {
+  using R = double;
   __device__ static double mul(double a, double b) { return __dmul_rn(a, b); }
   __device__ static double sub(double a, double b) { return __dsub_rn(a, b); }
   __device__ static double div(double a, double b) { return __ddiv_rn(a, b); }
   __device__ static double sqrt(double a) { return __dsqrt_rn(a); }
   __device__ static double nan() { return __longlong_as_double(0x7ff8000000000000ULL); }
+  __device__ static double abs2(double a) { return __dmul_rn(a, a); }
+  __device__ static double zero() { return 0.0; }
+  __device__ static double one() { return 1.0; }
+  __device__ static bool nonzero(double a) { return a != 0.0; }
 };
 
 template <>
 struct Ops<float> {
+  using R = float;
   __device__ static float mul(float a, float b) { return __fmul_rn(a, b); }
   __device__ static float sub(float a, float b) { return __fsub_rn(a, b); }
   __device__ static float div(float a, float b) { return __fdiv_rn(a, b); }
   __device__ static float sqrt(float a) { return __fsqrt_rn(a); }
   __device__ static float nan() { return __int_as_float(0x7fc00000); }
+  __device__ static float abs2(float a) { return __fmul_rn(a, a); }
+  __device__ static float zero() { return 0.0f; }
+  __device__ static float one() { return 1.0f; }
+  __device__ static bool nonzero(float a) { return a != 0.0f; }
+};
+
+// complex128 as (re, im) = (x, y), the layout of torch.complex128. The
+// product is (ac - bd, ad + bc); the quotient is Smith's formula (no
+// overflow or underflow of c^2 + d^2 where the quotient itself is
+// representable); |z|^2 is re re + im im (tci_tpu's _abs2). Each is written
+// on the real and imaginary parts, so that it rounds as the plain version
+// does.
+template <>
+struct Ops<double2> {
+  using R = double;
+  __device__ static double2 mul(double2 a, double2 b) {
+    return make_double2(__dsub_rn(__dmul_rn(a.x, b.x), __dmul_rn(a.y, b.y)),
+                        __dadd_rn(__dmul_rn(a.x, b.y), __dmul_rn(a.y, b.x)));
+  }
+  __device__ static double2 sub(double2 a, double2 b) {
+    return make_double2(__dsub_rn(a.x, b.x), __dsub_rn(a.y, b.y));
+  }
+  __device__ static double2 div(double2 a, double2 b) {
+    double re, im, den;
+    if (fabs(b.x) >= fabs(b.y)) {
+      const double r = __ddiv_rn(b.y, b.x);
+      den = __dadd_rn(b.x, __dmul_rn(b.y, r));
+      re = __dadd_rn(a.x, __dmul_rn(a.y, r));
+      im = __dsub_rn(a.y, __dmul_rn(a.x, r));
+    } else {
+      const double r = __ddiv_rn(b.x, b.y);
+      den = __dadd_rn(__dmul_rn(b.x, r), b.y);
+      re = __dadd_rn(__dmul_rn(a.x, r), a.y);
+      im = __dsub_rn(__dmul_rn(a.y, r), a.x);
+    }
+    return make_double2(__ddiv_rn(re, den), __ddiv_rn(im, den));
+  }
+  __device__ static double abs2(double2 a) {
+    return __dadd_rn(__dmul_rn(a.x, a.x), __dmul_rn(a.y, a.y));
+  }
+  __device__ static double2 zero() { return make_double2(0.0, 0.0); }
+  __device__ static double2 one() { return make_double2(1.0, 0.0); }
+  __device__ static bool nonzero(double2 a) { return a.x != 0.0 || a.y != 0.0; }
 };
 
 constexpr int kBig = 1 << 30;  // "no position" (the TPU kernel's BIG)
@@ -107,9 +171,10 @@ constexpr unsigned kBulkChunk = 16384;   // bytes per bulk-copy request
 // Dynamic shared memory a block may request on sm_90, less room for the
 // kernel's static shared memory.
 constexpr size_t kSmemLimit = 232448 - 2048;
-// Largest panel the one-block mode takes: a 128 x 128 f64 panel. Above it the
-// multi-block mode is faster even where the panel would fit (at a 160^2 f64
-// bucket and 80 pivots, 0.93 ms against 2.16 ms on an H100).
+// Largest panel the one-block mode takes: a 128 x 128 f64 panel (128 KB; a
+// complex128 panel of the same bytes). Above it the multi-block mode is
+// faster even where the panel would fit (at a 160^2 f64 bucket and 80
+// pivots, 0.93 ms against 2.16 ms on an H100).
 constexpr size_t kResidentPanelBytes = 128 * 128 * 8;
 
 template <typename T>
@@ -291,30 +356,31 @@ template <typename T>
 __device__ void resident_pass(T* A, int np, int m, int n,
                               const PassLayout& L, const int* rkey,
                               const int* ckey, const T* x, const T* y,
-                              T* w_val, unsigned* w_key, bool update,
-                              bool leftorth, int pr, int pc) {
+                              typename Ops<T>::R* w_val, unsigned* w_key,
+                              bool update, bool leftorth, int pr, int pc) {
+  using R = typename Ops<T>::R;
   constexpr int U = kResidentUnroll;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int R = L.R;
+  const int nw = L.R;  // warps a chunk
   const int wsub = L.wsub;
   // shared-memory offsets fit 32 bits; the U rows of a step are `rstep`
   // elements apart
-  const int rstep = R * np;
-  T bv = T(-1);
+  const int rstep = nw * np;
+  R bv = R(-1);
   unsigned bkey = kNoKey;
   for (int c = L.wchunk; c < L.nchunks; c += L.cstride) {
     const int j = c * 32 + lane;
-    T cm = T(-1);
+    R cm = R(-1);
     int cp = kNoRow;
     const int cpos = j < n ? ckey[j] : -1;
     if (j < n) {
       const bool cf = cpos >= 0;
       const bool mcol = update && leftorth && j == pc;
       const bool mrow_col = update && !leftorth && cf;
-      const T yj = update && cf ? y[j] : T(0);
+      const T yj = update && cf ? y[j] : Ops<T>::zero();
       T* col = A + j;
-      for (int i0 = wsub; i0 < m; i0 += U * R) {
+      for (int i0 = wsub; i0 < m; i0 += U * nw) {
         T* p0 = col + i0 * np;
         // U rows loaded before any is stored: a store to A could alias a
         // later load, so the compiler would not hoist them itself
@@ -322,15 +388,15 @@ __device__ void resident_pass(T* A, int np, int m, int n,
         T xi[U], a[U];
 #pragma unroll
         for (int u = 0; u < U; ++u) {
-          const int i = i0 + u * R;
+          const int i = i0 + u * nw;
           const bool in = i < m;
           rk[u] = in ? rkey[i] : -1;
-          xi[u] = in && update ? x[i] : T(0);
-          a[u] = in ? p0[u * rstep] : T(0);
+          xi[u] = in && update ? x[i] : Ops<T>::zero();
+          a[u] = in ? p0[u * rstep] : Ops<T>::zero();
         }
 #pragma unroll
         for (int u = 0; u < U; ++u) {
-          const int i = i0 + u * R;
+          const int i = i0 + u * nw;
           if (rk[u] >= 0) {
             if (cf) {
               T v = a[u];
@@ -338,7 +404,7 @@ __device__ void resident_pass(T* A, int np, int m, int n,
                 v = Ops<T>::sub(v, Ops<T>::mul(xi[u], yj));
                 p0[u * rstep] = v;
               }
-              const T sq = Ops<T>::mul(v, v);
+              const R sq = Ops<T>::abs2(v);
               if (sq > cm || (sq == cm && rk[u] < cp)) {
                 cm = sq;
                 cp = rk[u];
@@ -360,7 +426,7 @@ __device__ void resident_pass(T* A, int np, int m, int n,
       }
     }
   }
-  warp_argmax<T>(bv, bkey);
+  warp_argmax<R>(bv, bkey);
   if (lane == 0) {
     w_val[warp] = bv;
     w_key[warp] = bkey;
@@ -371,15 +437,19 @@ template <typename T>
 __global__ void __launch_bounds__(kResidentThreads)
     rrlu_kernel(const T* __restrict__ A_in, T* __restrict__ A_sw,
                 int64_t* __restrict__ rowperm_out,
-                int64_t* __restrict__ colperm_out, T* __restrict__ mags_out,
-                int64_t* __restrict__ k_out, T* __restrict__ err_out,
-                const int* m_arr, const int* n_arr, const int* maxrank_arr,
-                const T* tol_arr, int m_s, int n_s, int maxrank_s, T reltol_s,
-                T abstol_s, int mp, int np, int leftorth_i) {
+                int64_t* __restrict__ colperm_out,
+                typename Ops<T>::R* __restrict__ mags_out,
+                int64_t* __restrict__ k_out,
+                typename Ops<T>::R* __restrict__ err_out, const int* m_arr,
+                const int* n_arr, const int* maxrank_arr,
+                const typename Ops<T>::R* tol_arr, int m_s, int n_s,
+                int maxrank_s, typename Ops<T>::R reltol_s,
+                typename Ops<T>::R abstol_s, int mp, int np, int leftorth_i) {
+  using R = typename Ops<T>::R;
   constexpr int NT = kResidentThreads;
   constexpr int kW = kResidentWarps;
   __shared__ unsigned long long load_bar;
-  __shared__ T w_val[kW];  // per-warp winners: value, position key
+  __shared__ R w_val[kW];  // per-warp winners: value, position key
   __shared__ unsigned w_key[kW];
   // the pivot warp 0 publishes: {stop, pc, pr, bestcolpos, bestrowpos,
   // r_at_k, c_at_k} and the pivot (1 where it is exactly 0)
@@ -394,8 +464,8 @@ __global__ void __launch_bounds__(kResidentThreads)
   int n = n_arr ? n_arr[b] : n_s;
   int maxrank = maxrank_arr ? maxrank_arr[b] : maxrank_s;
   clamp_extents(mp, np, m, n, maxrank);
-  const T reltol = tol_arr ? tol_arr[2 * b] : reltol_s;
-  const T abstol = tol_arr ? tol_arr[2 * b + 1] : abstol_s;
+  const R reltol = tol_arr ? tol_arr[2 * b] : reltol_s;
+  const R abstol = tol_arr ? tol_arr[2 * b + 1] : abstol_s;
   const bool leftorth = leftorth_i != 0;
   const int rmax = mp < np ? mp : np;
   const size_t panel = (size_t)mp * np;
@@ -426,15 +496,15 @@ __global__ void __launch_bounds__(kResidentThreads)
     colperm[j] = j;
     ckey[j] = j < n ? j : -1;
   }
-  for (int r = tid; r < rmax; r += NT) mags_out[b * rmax + r] = T(0);
+  for (int r = tid; r < rmax; r += NT) mags_out[b * rmax + r] = R(0);
   __syncthreads();  // the barrier's initialisation and the vectors
   mbar_wait(&load_bar, 0);
   resident_pass<T>(A, np, m, n, L, rkey, ckey, x, y, w_val, w_key, false,
                    leftorth, -1, -1);
 
   int k = 0;
-  T maxerror = T(0);
-  T err = Ops<T>::nan();
+  R maxerror = R(0);
+  R err = Ops<R>::nan();
   while (true) {
     __syncthreads();  // (1) the warps' candidates and the last swap
     if (k >= maxrank) break;  // uniform: k and maxrank are the same everywhere
@@ -444,24 +514,24 @@ __global__ void __launch_bounds__(kResidentThreads)
     // (One warp does it: 32 warps reducing at once contend for the shuffle
     // unit and take longer.)
     if (warp == 0) {
-      T cv = w_val[lane];
+      R cv = w_val[lane];
       unsigned key = w_key[lane];
-      warp_argmax<T>(cv, key);
+      warp_argmax<R>(cv, key);
       const int bestcolpos = (int)(key >> 16);
       const int bestrowpos = (int)(key & kNoRow);
       if (lane == 0) {
         int stop = 1;
-        T e = T(0);  // no valid column (or row) left: stop with err 0
+        R e = R(0);  // no valid column (or row) left: stop with err 0
         int pc = 0, pr = 0;
-        T safe = T(1);
-        if (cv >= T(0)) {
+        T safe = Ops<T>::one();
+        if (cv >= R(0)) {
           pc = colperm[bestcolpos];
           pr = rowperm[bestrowpos < mp - 1 ? bestrowpos : mp - 1];
-          e = Ops<T>::sqrt(cv);
-          stop = k > 0 && (e < Ops<T>::mul(reltol, maxerror) ||
-                           e < abstol || e == T(0));
+          e = Ops<R>::sqrt(cv);
+          stop = k > 0 && (e < Ops<R>::mul(reltol, maxerror) ||
+                           e < abstol || e == R(0));
           const T piv = A[pr * np + pc];
-          safe = piv != T(0) ? piv : T(1);
+          safe = Ops<T>::nonzero(piv) ? piv : Ops<T>::one();
           if (!stop) {
             maxerror = e > maxerror ? e : maxerror;
             mags_out[b * rmax + k] = e;
@@ -579,8 +649,9 @@ __device__ __forceinline__ void grid_sync(unsigned int* bar,
 // per-block shared memory.
 template <typename T>
 struct GridScratch {
+  using R = typename Ops<T>::R;
   T* A;       // (mp, np) work buffer, updated in place
-  T* pmax;    // (nbands, np) per-band column max |a|^2 over unpivoted rows
+  R* pmax;    // (nbands, np) per-band column max |a|^2 over unpivoted rows
   T* x;       // (mp,) scaled pivot column of the current pivot
   T* y;       // (np,) pivot row of the current pivot
   int* rf;    // (mp,) row unpivoted and inside the true extent
@@ -606,14 +677,15 @@ __host__ __device__ size_t grid_scratch(unsigned char* base, int mp, int np,
     return p;
   };
   unsigned char* a = take((size_t)mp * np * sizeof(T));
-  unsigned char* pm = take((size_t)nbands * np * sizeof(T));
+  unsigned char* pm = take((size_t)nbands * np *
+                           sizeof(typename Ops<T>::R));
   unsigned char* x = take((size_t)mp * sizeof(T));
   unsigned char* y = take((size_t)np * sizeof(T));
   unsigned char* ints = take((3 * (size_t)mp + 3 * (size_t)np + 4) *
                              sizeof(int));
   if (s) {
     s->A = reinterpret_cast<T*>(a);
-    s->pmax = reinterpret_cast<T*>(pm);
+    s->pmax = reinterpret_cast<typename Ops<T>::R*>(pm);
     s->x = reinterpret_cast<T*>(x);
     s->y = reinterpret_cast<T*>(y);
     s->rf = reinterpret_cast<int*>(ints);
@@ -649,7 +721,8 @@ template <typename T>
 __device__ void grid_pass(const T* __restrict__ src, GridScratch<T>& s,
                           int np, int m, int n, int tr, bool update,
                           bool leftorth, int pr, int pc, T* x_s, int* rf_s,
-                          T* y_s, int* cf_s, T* red) {
+                          T* y_s, int* cf_s, typename Ops<T>::R* red) {
+  using R = typename Ops<T>::R;
   constexpr int kWarps = kGridThreads / 32;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -662,18 +735,18 @@ __device__ void grid_pass(const T* __restrict__ src, GridScratch<T>& s,
     const int rows = min(tr, m - i0);
     for (int r = threadIdx.x; r < rows; r += kGridThreads) {
       rf_s[r] = update ? __ldcg(s.rf + i0 + r) : 1;
-      x_s[r] = update ? __ldcg(s.x + i0 + r) : T(0);
+      x_s[r] = update ? __ldcg(s.x + i0 + r) : Ops<T>::zero();
     }
     for (int c = threadIdx.x; c < kTileCols; c += kGridThreads) {
       const int j = j0 + c;
       cf_s[c] = update && j < n ? __ldcg(s.cf + j) : 0;
-      y_s[c] = update && j < n ? __ldcg(s.y + j) : T(0);
+      y_s[c] = update && j < n ? __ldcg(s.y + j) : Ops<T>::zero();
     }
     __syncthreads();
     // kUnroll rows of a warp are loaded before any is stored, so each
     // thread keeps 2 * kUnroll loads in flight (a store to A could alias a
     // later load, so the compiler would not hoist them itself).
-    T cm[2] = {T(-1), T(-1)};
+    R cm[2] = {R(-1), R(-1)};
     for (int r0 = warp; r0 < rows; r0 += kUnroll * kWarps) {
       T a[kUnroll][2];
 #pragma unroll
@@ -686,7 +759,8 @@ __device__ void grid_pass(const T* __restrict__ src, GridScratch<T>& s,
         for (int h = 0; h < 2; ++h) {
           const int j = j0 + h * 32 + lane;
           const size_t e = (size_t)(i0 + r) * np + j;
-          a[u][h] = live && j < n ? (update ? s.A[e] : src[e]) : T(0);
+          a[u][h] = live && j < n ? (update ? s.A[e] : src[e])
+                                  : Ops<T>::zero();
         }
       }
 #pragma unroll
@@ -714,7 +788,7 @@ __device__ void grid_pass(const T* __restrict__ src, GridScratch<T>& s,
             s.A[e] = v;
           }
           if (rf) {
-            const T sq = Ops<T>::mul(v, v);
+            const R sq = Ops<T>::abs2(v);
             cm[h] = sq > cm[h] ? sq : cm[h];
           }
         }
@@ -724,9 +798,9 @@ __device__ void grid_pass(const T* __restrict__ src, GridScratch<T>& s,
     red[warp * kTileCols + 32 + lane] = cm[1];
     __syncthreads();
     if (threadIdx.x < kTileCols && j0 + (int)threadIdx.x < n) {
-      T v = red[threadIdx.x];
+      R v = red[threadIdx.x];
       for (int w = 1; w < kWarps; ++w) {
-        const T u = red[w * kTileCols + threadIdx.x];
+        const R u = red[w * kTileCols + threadIdx.x];
         v = u > v ? u : v;
       }
       s.pmax[(size_t)band * np + j0 + threadIdx.x] = v;
@@ -741,20 +815,24 @@ __global__ void __launch_bounds__(kGridThreads)
                      unsigned int* bar, T* __restrict__ A_sw,
                      int64_t* __restrict__ rowperm_out,
                      int64_t* __restrict__ colperm_out,
-                     T* __restrict__ mags_out, int64_t* __restrict__ k_out,
-                     T* __restrict__ err_out, const int* m_arr,
-                     const int* n_arr, const int* maxrank_arr,
-                     const T* tol_arr, int m_s, int n_s, int maxrank_s,
-                     T reltol_s, T abstol_s, int B, int mp, int np,
+                     typename Ops<T>::R* __restrict__ mags_out,
+                     int64_t* __restrict__ k_out,
+                     typename Ops<T>::R* __restrict__ err_out,
+                     const int* m_arr, const int* n_arr,
+                     const int* maxrank_arr,
+                     const typename Ops<T>::R* tol_arr, int m_s, int n_s,
+                     int maxrank_s, typename Ops<T>::R reltol_s,
+                     typename Ops<T>::R abstol_s, int B, int mp, int np,
                      int leftorth_i, int tr) {
+  using R = typename Ops<T>::R;
   constexpr int NT = kGridThreads;
-  __shared__ T s_val[33];
+  __shared__ R s_val[33];
   __shared__ int s_pos[33];
   __shared__ T x_s[kMaxTileRows];
   __shared__ int rf_s[kMaxTileRows];
   __shared__ T y_s[kTileCols];
   __shared__ int cf_s[kTileCols];
-  __shared__ T red[(NT / 32) * kTileCols];
+  __shared__ R red[(NT / 32) * kTileCols];
 
   const int tid = threadIdx.x;
   const bool lead = blockIdx.x == 0;
@@ -773,8 +851,8 @@ __global__ void __launch_bounds__(kGridThreads)
     int n = n_arr ? n_arr[b] : n_s;
     int maxrank = maxrank_arr ? maxrank_arr[b] : maxrank_s;
     clamp_extents(mp, np, m, n, maxrank);
-    const T reltol = tol_arr ? tol_arr[2 * b] : reltol_s;
-    const T abstol = tol_arr ? tol_arr[2 * b + 1] : abstol_s;
+    const R reltol = tol_arr ? tol_arr[2 * b] : reltol_s;
+    const R abstol = tol_arr ? tol_arr[2 * b + 1] : abstol_s;
     const T* Ain = A_in + b * panel;
     const int nbm = (m + tr - 1) / tr;  // bands this panel's pass writes
 
@@ -797,15 +875,15 @@ __global__ void __launch_bounds__(kGridThreads)
         s.colperm[j] = j;
         s.cf[j] = j < n;
       }
-      for (int r = tid; r < rmax; r += NT) mags_out[b * rmax + r] = T(0);
+      for (int r = tid; r < rmax; r += NT) mags_out[b * rmax + r] = R(0);
     }
     grid_pass<T>(Ain, s, np, m, n, tr, false, leftorth, -1, -1, x_s, rf_s,
                  y_s, cf_s, red);
     grid_sync(bar, G);
 
     int k = 0;
-    T maxerror = T(0);  // block 0's
-    T err = Ops<T>::nan();
+    R maxerror = R(0);  // block 0's
+    R err = Ops<R>::nan();
     while (true) {
       if (lead) {
         // (a)-(d) on one block; the others wait at the barrier. Every
@@ -814,13 +892,13 @@ __global__ void __launch_bounds__(kGridThreads)
         bool stop = k >= maxrank;
         int pr = -1, pc = -1;
         if (!stop) {
-          T cv = T(-1);
+          R cv = R(-1);
           int cp = kBig;
           for (int j = tid; j < n; j += NT) {
             if (!s.cf[j]) continue;
-            T v = T(-1);
+            R v = R(-1);
             for (int bd = 0; bd < nbm; ++bd) {
-              const T u = __ldcg(s.pmax + (size_t)bd * np + j);
+              const R u = __ldcg(s.pmax + (size_t)bd * np + j);
               v = u > v ? u : v;
             }
             const int p = s.colpos[j];
@@ -829,32 +907,32 @@ __global__ void __launch_bounds__(kGridThreads)
               cp = p;
             }
           }
-          block_argmax<T, NT>(cv, cp, s_val, s_pos);
-          if (cv < T(0)) {  // no valid column left: stop with err 0
-            err = T(0);
+          block_argmax<R, NT>(cv, cp, s_val, s_pos);
+          if (cv < R(0)) {  // no valid column left: stop with err 0
+            err = R(0);
             stop = true;
           } else {
             const int bestcolpos = cp;
             pc = s.colperm[bestcolpos];
-            T rv = T(-1);
+            R rv = R(-1);
             int rp = kBig;
             for (int i = tid; i < m; i += NT) {
               if (!s.rf[i]) continue;
               const T a = __ldcg(s.A + (size_t)i * np + pc);
-              const T v = Ops<T>::mul(a, a);
+              const R v = Ops<T>::abs2(a);
               const int p = s.rowpos[i];
               if (better(v, p, rv, rp)) {
                 rv = v;
                 rp = p;
               }
             }
-            block_argmax<T, NT>(rv, rp, s_val, s_pos);
+            block_argmax<R, NT>(rv, rp, s_val, s_pos);
             const int bestrowpos = rp;
             pr = s.rowperm[bestrowpos < mp - 1 ? bestrowpos : mp - 1];
-            const T newerr = Ops<T>::sqrt(rv > T(0) ? rv : T(0));
-            stop = k > 0 && (newerr < Ops<T>::mul(reltol, maxerror) ||
+            const R newerr = Ops<R>::sqrt(rv > R(0) ? rv : R(0));
+            stop = k > 0 && (newerr < Ops<R>::mul(reltol, maxerror) ||
                              newerr < abstol);
-            stop = stop || rv < T(0) || (newerr == T(0) && k > 0);
+            stop = stop || rv < R(0) || (newerr == R(0) && k > 0);
             err = newerr;
             if (!stop) {
               __syncthreads();  // every thread has read rowperm[bestrowpos]
@@ -877,16 +955,16 @@ __global__ void __launch_bounds__(kGridThreads)
               maxerror = newerr > maxerror ? newerr : maxerror;
               __syncthreads();
               const T piv = __ldcg(s.A + (size_t)pr * np + pc);
-              const T safe = piv != T(0) ? piv : T(1);
+              const T safe = Ops<T>::nonzero(piv) ? piv : Ops<T>::one();
               for (int i = tid; i < m; i += NT) {
                 const T a = __ldcg(s.A + (size_t)i * np + pc);
                 s.x[i] = s.rf[i] ? (leftorth ? Ops<T>::div(a, safe) : a)
-                                 : T(0);
+                                 : Ops<T>::zero();
               }
               for (int j = tid; j < n; j += NT) {
                 const T a = __ldcg(s.A + (size_t)pr * np + j);
                 s.y[j] = s.cf[j] ? (leftorth ? a : Ops<T>::div(a, safe))
-                                 : T(0);
+                                 : Ops<T>::zero();
               }
             }
           }
@@ -990,6 +1068,7 @@ int launch(const void* A_in, void* scratch, void* bar, void* A_sw,
            const void* maxrank_arr, const void* tol_arr, int m, int n,
            int maxrank, double reltol, double abstol, int B, int mp, int np,
            int leftorth, void* stream) {
+  using R = typename Ops<T>::R;
   if (B <= 0 || mp <= 0 || np <= 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (is_resident<T>(mp, np)) {
@@ -1001,9 +1080,9 @@ int launch(const void* A_in, void* scratch, void* bar, void* A_sw,
     const size_t smem = smem_bytes<T>(mp, np);
     rrlu_kernel<T><<<B, kResidentThreads, smem, st>>>(
         (const T*)A_in, (T*)A_sw, (int64_t*)rowperm,
-        (int64_t*)colperm, (T*)mags, (int64_t*)k_out, (T*)err_out,
+        (int64_t*)colperm, (R*)mags, (int64_t*)k_out, (R*)err_out,
         (const int*)m_arr, (const int*)n_arr, (const int*)maxrank_arr,
-        (const T*)tol_arr, m, n, maxrank, (T)reltol, (T)abstol, mp, np,
+        (const R*)tol_arr, m, n, maxrank, (R)reltol, (R)abstol, mp, np,
         leftorth);
     return (int)cudaGetLastError();
   }
@@ -1017,14 +1096,14 @@ int launch(const void* A_in, void* scratch, void* bar, void* A_sw,
   T* a_sw = (T*)A_sw;
   int64_t* rp = (int64_t*)rowperm;
   int64_t* cp = (int64_t*)colperm;
-  T* mg = (T*)mags;
+  R* mg = (R*)mags;
   int64_t* ko = (int64_t*)k_out;
-  T* eo = (T*)err_out;
+  R* eo = (R*)err_out;
   const int* ma = (const int*)m_arr;
   const int* na = (const int*)n_arr;
   const int* ra = (const int*)maxrank_arr;
-  const T* ta = (const T*)tol_arr;
-  T rt = (T)reltol, at = (T)abstol;
+  const R* ta = (const R*)tol_arr;
+  R rt = (R)reltol, at = (R)abstol;
   void* args[] = {&a_in, &scr, &br, &a_sw, &rp, &cp, &mg, &ko, &eo,
                   &ma, &na, &ra, &ta, &m, &n, &maxrank, &rt, &at,
                   &B, &mp, &np, &leftorth, &tr};
@@ -1040,12 +1119,21 @@ int launch(const void* A_in, void* scratch, void* bar, void* A_sw,
 extern "C" {
 
 // Bytes of global scratch an (mp, np) panel of `elsize`-byte elements needs
-// on the current device: 0 when it is eliminated in shared memory, minus a
-// CUDA error code when the grid cannot be sized. The wrapper allocates it,
-// and a zeroed pair of 32-bit words for the grid barrier.
+// on the current device (4: float32, 8: float64, 16: complex128): 0 when it
+// is eliminated in shared memory, minus a CUDA error code when the grid
+// cannot be sized or the element size is none of these. The wrapper
+// allocates it, and a zeroed pair of 32-bit words for the grid barrier.
 long long rrlu_scratch_bytes(int mp, int np, int elsize) {
-  return elsize == 8 ? scratch_bytes<double>(mp, np)
-                     : scratch_bytes<float>(mp, np);
+  switch (elsize) {
+    case 4:
+      return scratch_bytes<float>(mp, np);
+    case 8:
+      return scratch_bytes<double>(mp, np);
+    case 16:
+      return scratch_bytes<double2>(mp, np);
+    default:
+      return -(long long)cudaErrorInvalidValue;
+  }
 }
 
 // B panels of (mp, np), contiguous. Per-panel sizes, rank caps and
@@ -1068,6 +1156,7 @@ long long rrlu_scratch_bytes(int mp, int np, int elsize) {
   }
 RRLU_LAUNCH(rrlu_launch_f64, double)
 RRLU_LAUNCH(rrlu_launch_f32, float)
+RRLU_LAUNCH(rrlu_launch_c128, double2)
 #undef RRLU_LAUNCH
 
 }  // extern "C"

@@ -191,7 +191,7 @@ def _sweep(f, localdims, dtype, lay, Iset, Ilen, Jset, Jlen, eI, eIlen, eJ,
     L, (Imax, dev) = len(localdims), (Iset.shape[1], Iset.device)
     R = lay.site.shape[1]
     perrs = torch.zeros((L - 1, Imax + 1), dtype=torch.float64, device=dev)
-    maxsample = torch.zeros((), dtype=dtype, device=dev)
+    maxsample = torch.zeros((), dtype=dtype.to_real(), device=dev)
     # the history sets' sizes at each bond: (|extraIset[b+1]|, |extraJset[b]|)
     exlens = torch.stack([eIlen[1:], eJlen[:-1]], dim=1)[:, :, None]
     cap = maxbond.to(torch.int32)
@@ -288,7 +288,7 @@ def _sweep1(f, localdims, dtype, lay, Iset, Ilen, Jset, Jlen, forward: bool,
                                                             Iset.device)
     tensors = torch.zeros((L, Imax, dmax, Imax), dtype=dtype, device=dev)
     perrs = torch.zeros((L - 1, Imax + 1), dtype=torch.float64, device=dev)
-    maxsample = torch.zeros((), dtype=dtype, device=dev)
+    maxsample = torch.zeros((), dtype=dtype.to_real(), device=dev)
     R = Imax * dmax
     for b in (range(L - 1) if forward else range(L - 1, 0, -1)):
         # the kron side's valid rows first, in a stable order: on the I
@@ -417,7 +417,8 @@ def _fzone_sweep(f, localdims, dtype, p) -> None:
     ``_make_floatingzone`` while-loop body, globalsearch.jl:119-186) for all
     S starts in lock-step, on program p's record: ``pivots`` (S, L),
     ``maxerr`` (S,), ``active`` (S,), ``k``, ``nactive`` and the
-    zero-padded cores ``cores`` (L, chi, dmax, chi) (float64 field).
+    zero-padded cores ``cores`` (L, chi, dmax, chi) (a field of the
+    engine's dtype).
 
     Leg by leg, every start's dmax single-coordinate variants (values past
     d_leg clamped to d_leg - 1, their errors masked to -inf) go through f
@@ -504,7 +505,9 @@ class _Program:
     ``Ilen``, ``Jset``, ``Jlen``; 2: those and a 2-site sweep's history
     sets ``eI``, ``eIlen``, ``eJ``, ``eJlen``), then ``reltol`` and
     ``abstol`` (float64 bits, (1,) views), ``maxbond``, and the program's
-    own `fields` ((name, shape, "i" for int64 or "f" for float64) each).
+    own `fields` ((name, shape, kind) each: "i" for int64, "f" for float64,
+    one slot an element; "c" for complex128, two slots an element, the real
+    part first, viewed as complex).
     A program whose host loop reads a status between runs names it as
     `status` (the first field and the count of int64 fields that follow
     it from there), and ``read_status`` reads them. ``load`` writes a
@@ -538,22 +541,30 @@ class _Program:
         layout = ([(name, shape, "i") for name, shape in sets]
                   + [("reltol", (1,), "f"), ("abstol", (1,), "f"),
                      ("maxbond", (), "i"), *fields])
-        n = sum(int(np.prod(shape)) for _, shape, _ in layout)
-        self._stage = torch.zeros(n, dtype=torch.int64,
+        # int64 slots an element; a complex field starts at an even slot,
+        # so that its view is 16-byte aligned
+        slots = {"i": 1, "f": 1, "c": 2}
+        offsets, o = [], 0
+        for _, shape, kind in layout:
+            o += o % slots[kind]
+            offsets.append(o)
+            o += int(np.prod(shape)) * slots[kind]
+        self._stage = torch.zeros(o, dtype=torch.int64,
                                   pin_memory=dev.type == "cuda")
-        self._record = torch.zeros(n, dtype=torch.int64, device=dev)
+        self._record = torch.zeros(o, dtype=torch.int64, device=dev)
         host = self._stage.numpy()
         # host staging view and record offset of every field, by name
-        self._host, self._offset, o = {}, {}, 0
-        for name, shape, kind in layout:
-            size = int(np.prod(shape))
+        self._host, self._offset = {}, {}
+        views = {"f": (np.float64, torch.float64),
+                 "c": (np.complex128, torch.complex128)}
+        for (name, shape, kind), o in zip(layout, offsets):
+            size = int(np.prod(shape)) * slots[kind]
             h, d = host[o:o + size], self._record[o:o + size]
-            if kind == "f":
-                h, d = h.view(np.float64), d.view(torch.float64)
+            if kind in views:
+                h, d = h.view(views[kind][0]), d.view(views[kind][1])
             self._host[name] = h.reshape(shape)
             self._offset[name] = o
             setattr(self, name, d.view(shape))
-            o += size
         self._sets = [name for name, _ in sets]
         if status is not None:
             name, n = status
@@ -996,7 +1007,8 @@ class DeviceSweepEngine:
             fields = [("pivots", (S, L), "i"), ("active", (S,), "i"),
                       ("k", (), "i"), ("nactive", (), "i"),
                       ("maxerr", (S,), "f"), ("earlystoptol", (1,), "f"),
-                      ("cores", (L, chi, max(dims), chi), "f")]
+                      ("cores", (L, chi, max(dims), chi),
+                       "c" if dtype.is_complex else "f")]
 
             def body(p):
                 _fzone_sweep(f, dims, dtype, p)
@@ -1020,15 +1032,16 @@ class DeviceSweepEngine:
         fetches the result once. Returns (pivots (S, L) int64, maxerr (S,)
         float64) as numpy, or None where ``tci_tpu``'s engine declines (the
         caller then runs the host lock-step search): a train of another
-        length or other local dimensions, a complex train (the engine is
-        real), no start or no sweep."""
+        length or other local dimensions, a complex train on a real engine,
+        no start or no sweep. A complex engine keeps the cores in a complex
+        field of the record."""
         L = len(self.localdims)
         if len(sitetensors) != L:
             return None
         for b, t in enumerate(sitetensors):
             if t.dim() != 3 or t.shape[1] != self.localdims[b]:
                 return None
-            if t.is_complex():
+            if t.is_complex() and not self.dtype.is_complex:
                 return None
         S = int(len(starts))
         if S == 0 or nsweeps < 1:

@@ -148,7 +148,9 @@ class DefaultGlobalPivotFinder(AbstractGlobalPivotFinder):
                     offsets.append((s, p, v))
         cands = np.asarray(cands, dtype=np.int64)
         ttvals = tt.evaluate_batch(cands)
-        fvals = evaluate_rows(f, cands, dtype=np.float64).to(ttvals.device)
+        # f's values in the train's dtype: a complex f keeps its imaginary
+        # part, and a real search is not promoted to complex
+        fvals = evaluate_rows(f, cands, dtype=ttvals.dtype).to(ttvals.device)
         errors = (fvals - ttvals).abs().cpu().numpy()
 
         found: List[MultiIndex] = []

@@ -4,14 +4,16 @@ Counterpart of ``tci_tpu/ops/pallas_lu.py``: ``rrlu_call`` and
 ``rrlu_batched`` take the arguments of ``pallas_rrlu_call`` /
 ``pallas_rrlu_batched`` and return the same 6-tuple (A_sw, rowperm, colperm,
 k, mags, err). Each call is one launch of B panels (B = 1 for
-``rrlu_call``): panels up to 128 x 128 f64 take one thread block each, with
+``rrlu_call``) of float32, float64 or complex128 (mags and err are then
+real float64): panels up to 128 KB (128 x 128 f64) take one thread block
+each, with
 the panel in shared memory (it must start on a 16-byte boundary and hold a
 multiple of 16 bytes, as every shape bucket does); larger ones take the
 whole card in turn, in a cooperative multi-block launch whose global
 scratch this module allocates.
 
 This module only launches the kernel: a panel that is not a contiguous
-float32/float64 CUDA tensor raises. Which of the kernel and its plain
+float32, float64 or complex128 CUDA tensor raises. Which of the kernel and its plain
 PyTorch version a panel takes is decided by where it lies, in
 ``lu_kernel.rrlu_panel`` / ``rrlu_panel_batched``.
 """
@@ -39,10 +41,16 @@ _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _LAUNCH_ARGTYPES = [_P] * 13 + [_I, _I, _I, _D, _D, _I, _I, _I, _I, _P]
 
 
+# the kernel's entry point for each element type it takes
+_ENTRY = {torch.float32: "rrlu_launch_f32", torch.float64: "rrlu_launch_f64",
+          torch.complex128: "rrlu_launch_c128"}
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("rrlu")
-    for fn in (lib.rrlu_launch_f64, lib.rrlu_launch_f32):
+    for name in _ENTRY.values():
+        fn = getattr(lib, name)
         fn.argtypes = _LAUNCH_ARGTYPES
         fn.restype = _I
     lib.rrlu_scratch_bytes.argtypes = [_I, _I, _I]
@@ -53,8 +61,9 @@ def _lib() -> ctypes.CDLL:
 def _check_panel(A: torch.Tensor, ndim: int) -> None:
     if A.device.type != "cuda":
         raise ValueError(f"rrLU kernel needs a CUDA tensor, got {A.device}")
-    if A.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"rrLU kernel takes float32/float64, got {A.dtype}")
+    if A.dtype not in _ENTRY:
+        raise TypeError(f"rrLU kernel takes float32, float64 or complex128, "
+                        f"got {A.dtype}")
     if A.dim() != ndim or 0 in A.shape:
         raise ValueError(f"rrLU kernel needs a non-empty {ndim}-D panel, "
                          f"got shape {tuple(A.shape)}")
@@ -130,21 +139,24 @@ def _launch(A, B, mp, npd, leftorthogonal, scalars, arrays):
     block to arrive resets `arrived`, and the others wait for a change of
     `generation`, whatever its value.) The cooperative launch of the
     multi-block mode is captured as a kernel node like any other."""
-    lib = _lib()
     dev, dt = A.device, A.dtype
+    fn = getattr(_lib(), _ENTRY[dt])
     rmax = min(mp, npd)
-    # two allocations: (A_sw, mags, err) in A's dtype, (rowperm, colperm, k)
-    # in int64
+    # A_sw in A's dtype; (mags, err) in its real dtype, in one allocation
+    # with A_sw for a real panel; (rowperm, colperm, k) in int64
     npanel = B * mp * npd
-    tbuf = torch.empty((npanel + B * rmax + B,), dtype=dt, device=dev)
+    if dt.is_complex:
+        A_sw = torch.empty((B, mp, npd), dtype=dt, device=dev)
+        rbuf = torch.empty((B * rmax + B,), dtype=dt.to_real(), device=dev)
+    else:
+        rbuf = torch.empty((npanel + B * rmax + B,), dtype=dt, device=dev)
+        A_sw, rbuf = rbuf[:npanel].view(B, mp, npd), rbuf[npanel:]
     ibuf = torch.empty((B * (mp + npd + 1),), dtype=torch.int64, device=dev)
-    A_sw = tbuf[:npanel].view(B, mp, npd)
-    mags = tbuf[npanel:npanel + B * rmax].view(B, rmax)
-    err = tbuf[npanel + B * rmax:]
+    mags = rbuf[:B * rmax].view(B, rmax)
+    err = rbuf[B * rmax:]
     rowperm = ibuf[:B * mp].view(B, mp)
     colperm = ibuf[B * mp:B * (mp + npd)].view(B, npd)
     k = ibuf[B * (mp + npd):]
-    fn = lib.rrlu_launch_f64 if dt == torch.float64 else lib.rrlu_launch_f32
     m, n, maxrank, reltol, abstol = scalars
 
     def ptr(t):
@@ -221,8 +233,10 @@ def rrlu_batched(A: torch.Tensor, m_true, n_true, maxrank, reltol, abstol,
 
     sizes = [per_panel(v, torch.int32) for v in (m_true, n_true, maxrank)]
     if isinstance(reltol, torch.Tensor) or isinstance(abstol, torch.Tensor):
-        tol = torch.stack([per_panel(reltol, A.dtype),
-                           per_panel(abstol, A.dtype)], dim=1).contiguous()
+        # the tolerances are real, in the panel's real dtype
+        rdt = A.dtype.to_real()
+        tol = torch.stack([per_panel(reltol, rdt),
+                           per_panel(abstol, rdt)], dim=1).contiguous()
         tols = (0.0, 0.0)
     else:
         tol, tols = None, (float(reltol), float(abstol))

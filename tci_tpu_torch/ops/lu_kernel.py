@@ -17,6 +17,12 @@ smallest swapped position; the pivot row has the largest |a|^2 in that
 column, ties likewise; the loop stops by the rule of matrixlu.jl:363. The
 Schur update is written as a multiply followed by a subtract, which is how
 the kernel rounds, so the two agree bitwise.
+
+Panels are float32, float64 or complex128. For complex128 the metric
+|a|^2 = re re + im im, the magnitudes, err and the tolerances are real, and
+the products and quotients are written out on the real and imaginary parts
+(``_cmul``, ``_cdiv``: the kernel's formulas), not left to torch's complex
+operators, whose rounding differs between devices and from the kernel's.
 """
 
 from __future__ import annotations
@@ -45,6 +51,40 @@ def bucket(n: int) -> int:
     return ((n + step - 1) // step) * step
 
 
+def _abs2(A: torch.Tensor) -> torch.Tensor:
+    """|a|^2 elementwise, real: re re + im im for a complex tensor."""
+    if A.is_complex():
+        return A.real * A.real + A.imag * A.imag
+    return A * A
+
+
+def _cmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a b for complex tensors (broadcast): (ac - bd) + (ad + bc) i, one
+    rounding an operation, as the kernel multiplies."""
+    return torch.complex(a.real * b.real - a.imag * b.imag,
+                         a.real * b.imag + a.imag * b.real)
+
+
+def _cdiv(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a / b for complex tensors by Smith's formula, as the kernel divides:
+    with r = d / c when |c| >= |d| (b = c + d i), else r = c / d."""
+    ar, ai, br, bi = a.real, a.imag, b.real, b.imag
+    big = br.abs() >= bi.abs()
+    r = torch.where(big, bi / br, br / bi)
+    den = torch.where(big, br + bi * r, br * r + bi)
+    re = torch.where(big, ar + ai * r, ar * r + ai)
+    im = torch.where(big, ai - ar * r, ai * r - ar)
+    return torch.complex(re / den, im / den)
+
+
+def _mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _cmul(a, b) if a.is_complex() else a * b
+
+
+def _div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _cdiv(a, b) if a.is_complex() else a / b
+
+
 def rrlu_plain(A: torch.Tensor, m_true: int, n_true: int, maxrank: int,
                reltol: float, abstol: float, *, leftorthogonal: bool):
     """Plain PyTorch elimination of one zero-padded (mp, np) panel.
@@ -54,11 +94,12 @@ def rrlu_plain(A: torch.Tensor, m_true: int, n_true: int, maxrank: int,
     original index, int64), the number of pivots, the pivot magnitudes
     (length min(mp, np), zero past k) and the magnitude of the first
     rejected pivot (NaN when maxrank is 0). Tolerances are compared in A's
-    dtype, and the sizes clamped to the panel, as the kernel does.
+    real dtype, and the sizes clamped to the panel, as the kernel does; the
+    magnitudes and err are in A's real dtype.
     """
     PLAIN_CALLS[A.device.type] += 1
     mp, npd = A.shape
-    dev, dt = A.device, A.dtype
+    dev, dt, rdt = A.device, A.dtype, A.dtype.to_real()
     m = min(max(int(m_true), 0), mp)
     n = min(max(int(n_true), 0), npd)
     maxrank = min(max(int(maxrank), 0), min(mp, npd))
@@ -67,15 +108,16 @@ def rrlu_plain(A: torch.Tensor, m_true: int, n_true: int, maxrank: int,
     cols = torch.arange(npd, device=dev)
     rowperm, colperm = rows.clone(), cols.clone()
     rowpos, colpos = rows.clone(), cols.clone()
-    rt = torch.tensor(reltol, dtype=dt, device=dev)
-    at = torch.tensor(abstol, dtype=dt, device=dev)
+    rt = torch.tensor(reltol, dtype=rdt, device=dev)
+    at = torch.tensor(abstol, dtype=rdt, device=dev)
     zero = torch.zeros((), dtype=dt, device=dev)
     one = torch.ones((), dtype=dt, device=dev)
-    neg1 = -one
-    mags = torch.zeros(min(mp, npd), dtype=dt, device=dev)
-    maxerror = zero
-    err = torch.full((), float("nan"), dtype=dt, device=dev)
-    colmax = torch.where((rows < m)[:, None], A * A, neg1).amax(0)
+    rzero = torch.zeros((), dtype=rdt, device=dev)
+    neg1 = -torch.ones((), dtype=rdt, device=dev)
+    mags = torch.zeros(min(mp, npd), dtype=rdt, device=dev)
+    maxerror = rzero
+    err = torch.full((), float("nan"), dtype=rdt, device=dev)
+    colmax = torch.where((rows < m)[:, None], _abs2(A), neg1).amax(0)
     k = 0
     while k < maxrank:
         validc = (colpos >= k) & (cols < n)
@@ -83,14 +125,14 @@ def rrlu_plain(A: torch.Tensor, m_true: int, n_true: int, maxrank: int,
         M = cm.max()
         if bool(M < 0):
             # no valid column left: stop with err 0, as the TPU kernel does
-            err = zero
+            err = rzero
             break
         bestcolpos = int(torch.where((cm == M) & validc, colpos, _BIG).min())
         pc = int(colperm[bestcolpos])
 
         validr = (rowpos >= k) & (rows < m)
         acol = A[:, pc]
-        met = torch.where(validr, acol * acol, neg1)
+        met = torch.where(validr, _abs2(acol), neg1)
         Mr = met.max()
         bestrowpos = int(torch.where((met == Mr) & validr, rowpos, _BIG).min())
         pr = int(rowperm[min(bestrowpos, mp - 1)])
@@ -119,19 +161,19 @@ def rrlu_plain(A: torch.Tensor, m_true: int, n_true: int, maxrank: int,
         urow = (rowpos >= k + 1) & (rows < m)
         ucol = (colpos >= k + 1) & (cols < n)
         if leftorthogonal:
-            mult = A[:, pc] / safe
+            mult = _div(A[:, pc], safe)
             x = torch.where(urow, mult, zero)
             y = torch.where(ucol, A[pr, :], zero)
-            Anew = A - x[:, None] * y[None, :]
+            Anew = A - _mul(x[:, None], y[None, :])
             Anew[:, pc] = torch.where(urow, mult, Anew[:, pc])
         else:
-            divr = A[pr, :] / safe
+            divr = _div(A[pr, :], safe)
             y = torch.where(ucol, divr, zero)
             x = torch.where(urow, A[:, pc], zero)
-            Anew = A - x[:, None] * y[None, :]
+            Anew = A - _mul(x[:, None], y[None, :])
             Anew[pr, :] = torch.where(ucol, divr, Anew[pr, :])
         A = Anew
-        colmax = torch.where(urow[:, None], A * A, neg1).amax(0)
+        colmax = torch.where(urow[:, None], _abs2(A), neg1).amax(0)
         mags[k] = newerr
         maxerror = torch.maximum(maxerror, newerr)
         k += 1
@@ -205,25 +247,28 @@ def rrlu_raw(
     the current CUDA device by default, and a RuntimeError without one
     unless ``device="cpu"`` is given). A tensor stays where the caller put
     it, unless `device` is given. A CUDA panel runs the kernel, a CPU panel
-    the plain version. Returns (LUmat (m, n) tensor on that device, rowperm
-    (m,), colperm (n,), npivot, diag (npivot,), err, nan_in_factors): the
-    permutations, the LU diagonal and the NaN flags of the L and U factors
-    come back to the host in ONE transfer, the LU buffer stays on the device.
+    the plain version. A real matrix is eliminated in float64, a complex one
+    in complex128 (complex64 is promoted, as ``tci_tpu`` promotes it).
+    Returns (LUmat (m, n) tensor on that device, rowperm (m,), colperm (n,),
+    npivot, diag (npivot,), err, nan_in_factors): the permutations, the LU
+    diagonal (complex for a complex matrix) and the NaN flags of the L and U
+    factors come back to the host in ONE transfer, the LU buffer stays on
+    the device.
     """
     if not isinstance(A, torch.Tensor):
         A = to_device(np.asarray(A), resolve_device(device))
     elif device is not None:
         A = A.to(resolve_device(device))
     m, n = A.shape
-    if A.is_complex():
-        raise NotImplementedError(
-            "complex rrLU is not ported yet (ROADMAP A10)")
+    dt = torch.complex128 if A.is_complex() else torch.float64
     if m == 0 or n == 0:
-        return (A.to(torch.float64), np.arange(m), np.arange(n), 0,
-                np.zeros((0,)), float("nan"), (False, False))
+        return (A.to(dt), np.arange(m), np.arange(n), 0,
+                np.zeros((0,), dtype=np.complex128 if dt.is_complex
+                         else np.float64),
+                float("nan"), (False, False))
     mp, npd = bucket(m), bucket(n)
     maxrank = min(int(maxrank), m, n)
-    Ap = torch.zeros((mp, npd), dtype=torch.float64, device=A.device)
+    Ap = torch.zeros((mp, npd), dtype=dt, device=A.device)
     Ap[:m, :n] = A
     A_sw, rowperm, colperm, k, mags, err = rrlu_panel(
         Ap, m, n, maxrank, reltol, abstol, leftorthogonal=leftorthogonal)
@@ -234,19 +279,25 @@ def rrlu_raw(
     nan = torch.isnan(LU)
     colnan = torch.tril(nan)[:, :r].any(0)
     rownan = torch.triu(nan)[:r, :].any(1)
+    # a complex diagonal travels as its real and imaginary halves
+    diag = torch.diagonal(LU)
+    parts = (diag.real, diag.imag) if diag.is_complex() else (diag,)
     host = torch.cat([
         rowperm[:m].to(torch.float64), colperm[:n].to(torch.float64),
         k.to(torch.float64)[None], err.to(torch.float64)[None],
-        torch.diagonal(LU).to(torch.float64),
         colnan.to(torch.float64), rownan.to(torch.float64),
+        *(p.to(torch.float64) for p in parts),
     ]).cpu().numpy()
     rp = host[:m].astype(np.int64)
     cp = host[m:m + n].astype(np.int64)
     k = int(host[m + n])
     err = float(host[m + n + 1])
     rest = host[m + n + 2:]
-    diag = rest[:k]
-    flags = (bool(rest[r:r + k].any()), bool(rest[2 * r:2 * r + k].any()))
+    flags = (bool(rest[:k].any()), bool(rest[r:r + k].any()))
+    diag = rest[2 * r:2 * r + k]
+    if len(parts) == 2:
+        diag = diag.astype(np.complex128)
+        diag.imag = rest[3 * r:3 * r + k]
     return LU, rp, cp, k, diag, err, flags
 
 

@@ -291,12 +291,10 @@ class TorchBatchEvaluator(BatchEvaluator):
         self._device_sweep_engine = None
 
     def _tier_dtype(self) -> torch.dtype:
-        """The value type of the device tiers, which take real values only
-        until complex is ported."""
-        if self.dtype.is_complex:
-            raise NotImplementedError(
-                "complex device tiers are not ported yet (ROADMAP A10)")
-        return self.dtype
+        """The value type of the device tiers: the evaluator's, with
+        complex64 promoted to complex128, the rrLU kernel's complex type
+        (as ``tci_tpu`` promotes it)."""
+        return torch.complex128 if self.dtype.is_complex else self.dtype
 
     @property
     def fused_updater(self):

@@ -881,3 +881,137 @@ def test_caches_land_on_the_card(cuda):
                                           nsearch=4,
                                           rng=np.random.default_rng(0))
     assert len(out) > 0
+
+
+# -- complex128 (bitwise: the kernel and the plain version compute complex
+#    products, Smith quotients and |z|^2 by the same formulas on the real
+#    and imaginary parts)
+
+def _cpanel(seed, mp, npd, m, n, rank, device):
+    rng = np.random.default_rng(seed)
+
+    def g(*shape):
+        return rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+
+    A = np.zeros((mp, npd), np.complex128)
+    A[:m, :n] = g(m, rank) @ g(rank, n)
+    return torch.from_numpy(A).to(device)
+
+
+@pytest.mark.parametrize("leftorthogonal", [True, False])
+@pytest.mark.parametrize("shape", [
+    # (mp, np, m, n, rank): resident complex panels up to 128 KB ...
+    (8, 8, 8, 5, 4), (32, 32, 30, 28, 12), (80, 80, 77, 80, 30),
+    (128, 64, 120, 60, 25), (64, 16, 60, 10, 16),
+    # ... multi-block from just above (96^2 complex is 144 KB) to config 5's
+    # 512^2 bond panels and beyond
+    (96, 96, 90, 96, 20), (128, 128, 120, 117, 30),
+    (512, 512, 480, 500, 40), (1024, 1024, 1000, 990, 100)])
+def test_complex_kernel_matches_plain(cuda, shape, leftorthogonal):
+    mp, npd, m, n, rank = shape
+    A = _cpanel(1, mp, npd, m, n, rank, cuda)
+    nbytes = lu_cuda._scratch_bytes(A.device.index, mp, npd, 16)
+    assert (nbytes == 0) == (mp * npd * 16 <= 128 * 128 * 8)
+    for reltol, abstol in ((1e-10, 0.0), (1e-14, 1e-3)):
+        args = (A, m, n, min(m, n), reltol, abstol)
+        out = lu_cuda.rrlu_call(*args, leftorthogonal=leftorthogonal)
+        ref = lu_kernel.rrlu_plain(*args, leftorthogonal=leftorthogonal)
+        torch.cuda.synchronize()
+        assert out[0].dtype == torch.complex128
+        assert out[4].dtype == out[5].dtype == torch.float64
+        for o, r in zip(out, ref):
+            assert _equal(o, r)
+
+
+@pytest.mark.parametrize("size", [32, 512])
+def test_complex_batched_matches_plain(cuda, size):
+    """Four complex panels in one launch (32^2: resident, the engine's fill
+    blocks; 512^2: multi-block), per-panel extents, rank caps and
+    tolerances on the card."""
+    A = torch.stack([_cpanel(s, size, size, size - s, size, size // 4, cuda)
+                     for s in range(4)])
+    mt = torch.tensor([size, size - 1, size - 2, size - 3], device=cuda)
+    nt = torch.tensor([size, size, size // 2, size], device=cuda)
+    mr = torch.tensor([size, 3, size // 2, size - 3], device=cuda)
+    rt = torch.tensor([1e-12, 0.0, 1e-3, 1e-14], dtype=torch.float64,
+                      device=cuda)
+    at = torch.tensor([0.0, 0.0, 0.0, 1e-2], dtype=torch.float64,
+                      device=cuda)
+    for leftorthogonal in (True, False):
+        out = lu_cuda.rrlu_batched(A, mt, nt, mr, rt, at,
+                                   leftorthogonal=leftorthogonal)
+        ref = lu_kernel.rrlu_plain_batched(A, mt, nt, mr, rt, at,
+                                           leftorthogonal=leftorthogonal)
+        for o, r in zip(out, ref):
+            assert _equal(o, r)
+
+
+def test_rrlu_kernel_rejects_other_element_types(cuda):
+    """An element size or dtype the kernel has no body for is refused, never
+    launched as another type."""
+    assert lu_cuda._lib().rrlu_scratch_bytes(256, 256, 2) < 0
+    for dtype in (torch.complex64, torch.float16):
+        with pytest.raises(TypeError):
+            lu_cuda.rrlu_call(torch.zeros((8, 8), dtype=dtype, device=cuda),
+                              8, 8, 8, 0.0, 0.0, leftorthogonal=True)
+
+
+def _feynman(N, GK, device):
+    """BASELINE config 5's integrand (benchmarks/bench_feynman.py) on a
+    GK grid over [0, 1]: a torch function of index rows on `device`, its
+    numpy twin, the local dimensions and the normalization."""
+    from tci_tpu_torch.ops.kronrod import kronrod
+
+    x, w, _ = kronrod(GK // 2)
+    nodes, weights = (x + 1) / 2, w / 2
+    norm = float(GK) ** N
+    nt = torch.as_tensor(nodes, device=device)
+    wt = torch.as_tensor(weights, device=device)
+
+    def ft(idx):
+        t = nt[idx]
+        damp = torch.exp(-((t[:, :, None] - t[:, None, :]) ** 2).sum((1, 2)))
+        return torch.polar(wt[idx].prod(1) * damp * norm, 10.0 * t.sum(1))
+
+    def fn(idx):
+        t = nodes[idx]
+        damp = np.exp(-np.sum((t[:, :, None] - t[:, None, :]) ** 2,
+                              axis=(1, 2)))
+        return (np.prod(weights[idx], axis=1) * damp * norm
+                * np.exp(1j * 10.0 * np.sum(t, axis=1)))
+
+    return ft, fn, [len(x)] * N, norm
+
+
+def test_complex_engine_on_the_card_matches_host_tier(cuda):
+    """Config 5's integrand at N = 4, GK7 on the engine (default protocol,
+    graphs) and on the host tier (a numpy integrand), both on the card:
+    ranks [12, 11, 11] on both, integrals within 1e-12, every elimination
+    a complex launch of the kernel, no plain call."""
+    ft, fn, dims, norm = _feynman(4, 7, cuda)
+    launches, plain = lu_cuda.LAUNCHES["rrlu"], lu_kernel.PLAIN_CALLS["cuda"]
+    bf = tci_tpu_torch.TorchBatchEvaluator(ft, dims, dtype=torch.complex128)
+    runs = [tci_tpu_torch.crossinterpolate2(
+        np.complex128, f, dims, tolerance=1e-7, nsearchglobalpivot=10,
+        rng=np.random.default_rng(0))
+        for f in (bf, tci_tpu_torch.VectorizedBatchEvaluator(
+            fn, dims, dtype=np.complex128))]
+    assert lu_cuda.LAUNCHES["rrlu"] > launches
+    assert lu_kernel.PLAIN_CALLS["cuda"] == plain
+    engine = bf.device_sweep_engine
+    assert engine.loop_blocks > 0 and not engine.declined
+    (te, re_, ee), (th, rh, eh) = runs
+    assert re_ == rh == [12, 11, 11]
+    assert te.sitetensors()[0].dtype == torch.complex128
+    assert abs(te.sum() - th.sum()) / norm <= 1e-12
+    # the floating-zone program on the complex train: replayed against
+    # its eager body, bit for bit
+    tt = tci_tpu_torch.tensortrain(te)
+    starts = np.random.default_rng(1).integers(0, dims[0], (20, len(dims)))
+    engine.cuda_graphs = False
+    eager = engine.floatingzone(tt.sitetensors(), starts)
+    engine.cuda_graphs = True
+    graph = engine.floatingzone(tt.sitetensors(), starts)
+    graph = engine.floatingzone(tt.sitetensors(), starts)
+    assert np.array_equal(graph[0], eager[0])
+    assert np.array_equal(graph[1], eager[1])

@@ -175,12 +175,33 @@ def test_engine_sweep_drops_site_tensors_of_a_per_bond_sweep():
 
 
 def test_complex_tiers_are_not_ported():
-    """A complex evaluator gets the same refusal from the device tiers as
-    from the host tier's rrLU (ROADMAP A10), not a failure deep inside."""
+    """(Named when the device tiers refused complex, ROADMAP A10.) A complex
+    evaluator now runs on them: the engine's and the fused tier's result is
+    the host tier's on the same complex f (ranks identical, the tensor
+    trains to 1e-12 of max|f|), with the engine's and the fused tier's own
+    eliminations."""
     dims = [3] * 4
-    bf = tci_tpu_torch.TorchBatchEvaluator(
-        lambda idx: (idx.sum(1) + 1.0j).to(torch.complex128), dims,
-        dtype=torch.complex128, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        tci_tpu_torch.crossinterpolate2(np.complex128, bf, dims,
-                                        device="cpu")
+
+    def g(idx):
+        return (idx.sum(1) + 1.0j).to(torch.complex128)
+
+    runs = []
+    for f in (tci_tpu_torch.TorchBatchEvaluator(
+                  g, dims, dtype=torch.complex128, device="cpu"),
+              tci_tpu_torch.TorchBatchEvaluator(
+                  g, dims, dtype=torch.complex128, device="cpu",
+                  enable_device_sweep=False),
+              lambda x: complex(sum(x) + 1.0j)):
+        t, ranks, _ = tci_tpu_torch.crossinterpolate2(
+            np.complex128, f, dims, device="cpu",
+            rng=np.random.default_rng(0))
+        runs.append((ranks, tci_tpu_torch.fulltensor(
+            tci_tpu_torch.tensortrain(t)), f))
+    (re, fe, bfe), (rf, ff, bff), (rh, fh, _) = runs
+    assert re == rf == rh
+    assert bfe.device_sweep_engine.rrlu_calls > 0
+    assert bff.fused_updater.rrlu_calls > 0
+    scale = float(fh.abs().max())
+    for full in (fe, ff):
+        assert full.dtype == torch.complex128
+        assert float((full - fh).abs().max()) <= 1e-12 * scale
