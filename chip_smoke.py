@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of tci_tpu_torch on one CUDA GPU.
 
-    python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py [--profile DIR | --phases]
 
 Run from the repository root (the package must sit beside this script). It
 needs one CUDA device and exits non-zero without one. Phases, one output
@@ -20,8 +20,14 @@ line or more each:
    16^2), four panels in one batched launch, ``rrlu`` at N = 1000 and 2000
    with numerical rank 100 (N = 2000 run 20 times against one plain
    result), the mode table
-   (f64 buckets 128^2 ... 4096^2: which mode the kernel takes, its time and
-   the plain version's), and the panels the one-block design could not
+   (f64 buckets 128^2 ... 4096^2: which mode the kernel reports, its time
+   and the plain version's; then the main path's panels at their true
+   extents: config 1's 352^2 (132^2, k = 12), config 4's 512^2 (480^2, k
+   = 32) and 1024^2 (960^2, k = 44), config 5's complex 512^2 (136 x 271,
+   k = 19) and B = 4 complex 128^2: the mode and the cluster size, the
+   device time a launch by kernel, the bound and the plain version's
+   time), the cluster mode's split on config 1's panel (rank capped at 0,
+   1, 2, 4, 12, 32, 64), and the panels the one-block design could not
    take, 64 x 10000 (rank 40) and 4200^2 (rank 100). Pivot order, npivot and
    err must be identical and the LU buffer equal; both times are printed;
 3b. BASELINE config 2: rrLU of a numpy-seeded 4096^2 f64 matrix
@@ -67,8 +73,9 @@ line or more each:
 4c. BASELINE config 4 (benchmarks/bench_integration.py: the 10-D integral
    of 1000 cos(10 sum x^2) exp(-(sum x)^4 / 1000) over [-1, 1]^10, GK15,
    tolerance 1e-8, maxbonddim 64) through ``integrate(torch_native=True)``:
-   the engine at d = 15, bond panels of 512^2 at a capacity of 32 and
-   1024^2 at 64 (multi-block). Cold, warm, median of 10, kernel count; the
+   the engine at d = 15, bond panels of 512^2 at a capacity of 32 (cluster
+   mode) and 1024^2 at 64 (grid mode). Cold, warm, median of 10, kernel
+   count; the
    integral within 1e-3 of -5.4960415218049, the engine's capacities and
    whether it declined, no plain call; and once through
    ``integrate(vectorized=True)`` (host sampling, factorization on the
@@ -140,7 +147,8 @@ line or more each:
 6. with ``--profile DIR`` only: for config 1's host and fused tiers, and
    for the engine on configs 1, 3 and 4 on an evaluator that is kept, once
    replaying its graphs and once queuing eagerly (per-sweep protocol), and
-   once replaying under the default protocol (the optimize loop), the
+   once replaying under the default protocol (the optimize loop; config 5
+   too), the
    median of 10 warm walls, then one run under
    ``torch.profiler`` with a span around each layer (Π sampling, rrlu_raw,
    the CI-factor solves, sweep2site, fillsitetensors, the global search,
@@ -151,6 +159,11 @@ line or more each:
    run, the largest device items, the spans and the CUDA runtime calls are
    printed.
 
+``--phases`` runs nothing of the above but the build: it builds the rrLU
+kernel once more with -DRRLU_PHASE_CLOCKS and prints, for the cluster
+mode on configs 1, 4 and 5's bond panels, the SM cycles of each phase of
+a CTA's work (``[phases]`` lines), then the card's line.
+
 The second-to-last lines are nvidia-smi's card line and a JSON object with
 every kernel's launches, error and times; the last line is the result object.
 Any failure exits non-zero; nothing falls back to the CPU.
@@ -160,6 +173,7 @@ import argparse
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -196,11 +210,128 @@ def fail(msg):
     sys.exit(1)
 
 
+def main_panel(dtype, mp, m, n, rank, seed, dev):
+    """An (mp, mp) panel on `dev`, zero but for a seeded (m, n) block of
+    rank `rank` (complex: real and imaginary parts of that rank each)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((m, rank)) @ rng.standard_normal((rank, n))
+    if dtype.is_complex:
+        A = A + 1j * (rng.standard_normal((m, rank))
+                      @ rng.standard_normal((rank, n)))
+    P = torch.zeros((mp, mp), dtype=dtype, device=dev)
+    P[:m, :n] = torch.as_tensor(A, device=dev)
+    return P
+
+
+def traced_kernels(fn, activities):
+    """(name, microseconds) of every device kernel that fn() launched, from
+    a torch.profiler trace of it."""
+    import torch
+    from torch.profiler import profile
+    with profile(activities=activities) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    return [(e.get("name", ""), e["dur"]) for e in events
+            if e.get("ph") == "X" and e.get("cat") == "kernel"]
+
+
+# the cluster kernel's phases (kPhaseLoad ... kPhaseWrite in csrc/rrlu.cu);
+# those of each pivot are printed a pivot
+PHASES = ("setup+load", "first pass+publish", "barrier", "decision",
+          "x/y", "pass", "publish", "flush+barrier", "write-out")
+PER_PIVOT = {"barrier", "decision", "x/y", "pass", "publish"}
+
+
+def run_phases(smi_line):
+    """--phases: the cluster kernel built with -DRRLU_PHASE_CLOCKS, on
+    config 1's, config 4's and config 5's bond panels at the [mode] rows'
+    true extents and pivot counts: the SM cycles (clock64, thread 0 of each
+    CTA) of each phase, the median of 10 launches, for CTA 0, the last CTA
+    that holds rows and the largest over the CTAs; each launch bitwise its
+    plain version. The instrumented cluster kernel's device time a launch
+    (torch.profiler) sets the cycles against time."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    from tci_tpu_torch.ops import lu_cuda, lu_kernel
+    dev = torch.device("cuda", 0)
+    phased = lu_cuda._lib(("RRLU_PHASE_CLOCKS",))
+    default_lib = lu_cuda._lib
+    lu_cuda._lib = lambda: phased
+    rows = {}
+    try:
+        for dtype, mp, m, n, k in ((torch.float64, 352, 132, 132, 12),
+                                   (torch.float64, 512, 480, 480, 32),
+                                   (torch.complex128, 512, 136, 271, 19)):
+            P = main_panel(dtype, mp, m, n, 2 * k, mp, dev)
+            C = lu_cuda.cluster_size(0, P.element_size())
+            last = (m - 1) // -(-m // C)
+            for lo in (True, False):
+                args = (P, m, n, k, 1e-14, 0.0)
+                ref = lu_kernel.rrlu_plain(*args, leftorthogonal=lo)
+                runs = []
+                for _ in range(10):
+                    out = lu_cuda.rrlu_call(*args, leftorthogonal=lo,
+                                            return_mode=True)
+                    torch.cuda.synchronize()
+                    if int(out[6]) != 1 or not all(
+                            torch.equal(o, r) for o, r in zip(out, ref)):
+                        fail(f"--phases {dtype} {mp}^2: not the cluster mode "
+                             f"or not bitwise its plain version")
+                    cyc = torch.zeros((16, len(PHASES)), dtype=torch.int64)
+                    rc = phased.rrlu_phase_cycles_read(cyc.data_ptr())
+                    if rc != 0:
+                        fail(f"--phases: CUDA error {rc} reading the clocks")
+                    runs.append(cyc[:C].to(torch.float64))
+                cyc = torch.stack(runs).median(dim=0).values
+
+                def launches():
+                    for _ in range(20):
+                        lu_cuda.rrlu_call(*args, leftorthogonal=lo)
+                durs = [dur for name, dur in
+                        traced_kernels(launches, [ProfilerActivity.CUDA])
+                        if "rrlu_cluster_kernel" in name]
+                if len(durs) != 20:
+                    fail(f"--phases: {len(durs)} cluster kernels traced")
+                ms = sum(durs) / 20 / 1e3
+
+                def show(v):
+                    return {p: round(float(c) / (k if p in PER_PIVOT else 1),
+                                     1) for p, c in zip(PHASES, v)}
+                tag = (f"{str(dtype)[6:]} {mp}^2 true {m}x{n} k={k} "
+                       f"{'left' if lo else 'right'}")
+                rows[tag] = {"C": C, "last_cta": last, "ms": ms,
+                             "cta0": show(cyc[0]), "cta_last": show(cyc[last]),
+                             "max": show(cyc.max(dim=0).values),
+                             "cta0_total": float(cyc[0].sum())}
+                print(f"[phases] {tag} (C = {C}; the instrumented cluster "
+                      f"kernel {ms:.4f} ms a launch, profiler; CTA 0's "
+                      f"phases sum to {float(cyc[0].sum()):.0f} cycles): "
+                      f"cycles, those of "
+                      f"each pivot a pivot: CTA 0 {rows[tag]['cta0']}; CTA "
+                      f"{last} (the last with rows) {rows[tag]['cta_last']}; "
+                      f"largest over the CTAs {rows[tag]['max']}", flush=True)
+    finally:
+        lu_cuda._lib = default_lib
+    print(f"[phases] {json.dumps(rows)}", flush=True)
+    print(smi_line, flush=True)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
                         help="also profile configs 1, 3 and 4 and write their traces "
                         "here")
+    parser.add_argument("--phases", action="store_true",
+                        help="only time the phases of the rrLU kernel's "
+                        "cluster mode (an instrumented build) and exit")
     opts = parser.parse_args()
     try:
         import torch
@@ -241,6 +372,19 @@ def main():
           f"{time.perf_counter() - t0:.3f} s (nvcc: rrlu "
           f"{_build.BUILD_SECONDS['rrlu']:.3f} s, probe_batched "
           f"{_build.BUILD_SECONDS['probe_batched']:.3f} s)", flush=True)
+    if opts.phases:
+        run_phases(smi_line)
+        return
+    # the rrLU kernel's cluster mode: CTAs a cluster for each element size
+    # (16 where cudaOccupancyMaxActiveClusters can place one such cluster
+    # at the largest shared memory a CTA may take, else 8)
+    cluster_cfg = {"C": {str(dt)[6:]: lu_cuda.cluster_size(0, es)
+                         for dt, es in ((torch.float32, 4),
+                                        (torch.float64, 8),
+                                        (torch.complex128, 16))}}
+    print(f"[cluster] rrLU cluster mode: CTAs a cluster {cluster_cfg['C']} "
+          f"(the rule: 16 where the card can schedule a 16-CTA cluster, "
+          f"else 8)", flush=True)
 
     def cuda_ms(fn, reps):
         fn()
@@ -254,25 +398,13 @@ def main():
         end.synchronize()
         return start.elapsed_time(end) / reps
 
-    def traced_kernels(fn, activities):
-        """(name, microseconds) of every device kernel that fn() launched,
-        from a torch.profiler trace of it."""
-        from torch.profiler import profile
-        with profile(activities=activities) as prof:
-            fn()
-            torch.cuda.synchronize()
-        with tempfile.TemporaryDirectory() as tmp:
-            path = os.path.join(tmp, "trace.json")
-            prof.export_chrome_trace(path)
-            with open(path) as fh:
-                events = json.load(fh)["traceEvents"]
-        return [(e.get("name", ""), e["dur"]) for e in events
-                if e.get("ph") == "X" and e.get("cat") == "kernel"]
-
-    def kernel_device_ms(fn, reps, match="rrlu"):
+    def kernel_device_ms(fn, reps, match="rrlu", by_name=False):
         """Mean device time per launch of the kernels whose name holds
         `match` over `reps` calls of fn, from a torch.profiler trace (host
-        time excluded); None when the trace holds no such kernel."""
+        time excluded); None when the trace holds no such kernel. An rrLU
+        launch is a call of the wrapper (lu_cuda.LAUNCHES): where a call
+        runs the cluster kernel and then the grid kernel, both count in its
+        time. With by_name, also each kernel's share a launch, in us."""
         from torch.profiler import ProfilerActivity
         fn()
         torch.cuda.synchronize()
@@ -280,10 +412,22 @@ def main():
         def calls():
             for _ in range(reps):
                 fn()
-        durs = [dur for name, dur in
-                traced_kernels(calls, [ProfilerActivity.CUDA])
-                if match in name]
-        return sum(durs) / len(durs) / 1e3 if durs else None
+        before = lu_cuda.LAUNCHES["rrlu"]
+        found = [(name, dur) for name, dur in
+                 traced_kernels(calls, [ProfilerActivity.CUDA])
+                 if match in name]
+        durs = [dur for _, dur in found]
+        nlaunch = (lu_cuda.LAUNCHES["rrlu"] - before if match == "rrlu"
+                   else len(durs))
+        ms = sum(durs) / nlaunch / 1e3 if durs and nlaunch else None
+        if not by_name:
+            return ms
+        names = {}
+        for name, dur in found:
+            hit = re.search(r"rrlu_\w*kernel", name)
+            key = hit.group(0) if hit else name
+            names[key] = names.get(key, 0.0) + dur / max(nlaunch, 1)
+        return ms, names
 
     # NVIDIA's H100 SXM data sheet: 3.35 TB/s of HBM3; 34 TFLOP/s f64 and
     # 67 TFLOP/s f32 outside the tensor cores (the rates of a 700 W card);
@@ -462,7 +606,7 @@ def main():
     # column, so the magnitudes keep the real panel's ties), both
     # orientations and both stops, each with the mode it takes (a complex
     # panel is resident up to 128 KB: 80^2 is, 96^2 is not); four 128^2
-    # panels in one (multi-block) launch; N = 1000 of rank 100
+    # panels in one launch, a cluster each; N = 1000 of rank 100
     def lorentzian_phase(nI, nJ, seed):
         A = lorentzian(nI, nJ, seed)
         m, n = A.shape
@@ -479,8 +623,9 @@ def main():
             A = lorentzian_phase(nI, nJ, seed=10 * nI + nJ)
         m, n = A.shape
         P = padded(A, torch.complex128)
-        mode = ("multi-block" if lu_cuda._lib().rrlu_scratch_bytes(
-            *P.shape, 16) > 0 else "resident")
+        mode = lu_cuda.PANEL_MODES[int(lu_cuda.rrlu_call(
+            P, m, n, 1, 0.0, 0.0, leftorthogonal=True,
+            return_mode=True)[6])]
         stops = [("abstol", 1e-14, 1e-8 * float(np.abs(A).max()))]
         if m >= 40:
             stops.append(("reltol", 1e-6, 0.0))
@@ -532,7 +677,7 @@ def main():
         "k": out[3].tolist(), "ms": dms, "wrapper_ms": ms, "plain_ms": pms,
         "bound_ms": max(t_b, t_o),
         "bound_by": "bytes" if t_b >= t_o else "operations"}
-    print(f"[kernel] batched B=4 complex128 128x128 (multi-block): k="
+    print(f"[kernel] batched B=4 complex128 128x128 (cluster): k="
           f"{out[3].tolist()} identical, both orientations; kernel device "
           f"time {'not measured' if dms is None else f'{dms:.4f} ms'} a "
           f"launch (profiler), wrapper call {ms:.4f} ms (events), plain "
@@ -610,16 +755,81 @@ def main():
         P = torch.as_tensor(rng.standard_normal((N, rank))
                             @ rng.standard_normal((rank, N)), device=dev)
         args = (P, N, N, N, 1e-12, 0.0)
-        out = lu_cuda.rrlu_call(*args, leftorthogonal=True)
+        out = lu_cuda.rrlu_call(*args, leftorthogonal=True, return_mode=True)
         ref = lu_kernel.rrlu_plain(*args, leftorthogonal=True)
-        max_err = max(max_err, compare(f"mode table {N}^2", out, ref, 1.0))
-        mode = ("multi-block" if lib.rrlu_scratch_bytes(N, N, 8) > 0
-                else "resident")
+        max_err = max(max_err, compare(f"mode table {N}^2", out[:6], ref,
+                                       1.0))
+        mode = lu_cuda.PANEL_MODES[int(out[6])]
         kms = cuda_ms(lambda: lu_cuda.rrlu_call(*args, leftorthogonal=True), 3)
         pms = cuda_ms(lambda: lu_kernel.rrlu_plain(*args, leftorthogonal=True),
                       3)
         print(f"[mode] f64 {N}x{N} rank {int(out[3])}: {mode}, kernel "
               f"{kms:.4f} ms, plain {pms:.4f} ms (identical)", flush=True)
+
+    # the main path's panels above the resident limit, at their true
+    # extents and pivot counts (config 1's bond panel, config 4's at Imax 32
+    # and 64, config 5's complex one; a batched fill-sized complex launch):
+    # the mode the kernel reports, the cluster size, the device time a
+    # launch and how the cluster and grid kernels share it, the bound, the
+    # plain version's time
+    mode_rows = []
+
+    for dtype, mp, m, n, k, B in (
+            (torch.float64, 352, 132, 132, 12, 1),
+            (torch.float64, 512, 480, 480, 32, 1),
+            (torch.complex128, 512, 136, 271, 19, 1),
+            (torch.float64, 1024, 960, 960, 44, 1),
+            (torch.complex128, 128, 120, 120, 30, 4)):
+        A = torch.stack([main_panel(dtype, mp, m - b, n, 2 * k, mp + b, dev)
+                         for b in range(B)])
+        bargs = (A, torch.tensor([m - b for b in range(B)], device=dev),
+                 n, k, 1e-14, 0.0)
+        out = lu_cuda.rrlu_batched(*bargs, leftorthogonal=True,
+                                   return_mode=True)
+        ref = lu_kernel.rrlu_plain_batched(*bargs, leftorthogonal=True)
+        tag = f"{str(dtype)[6:]} {B} x {mp}^2 true {m}x{n} k={k}"
+        max_err = max(max_err, compare(f"[mode] {tag}", out[:6], ref, 1.0))
+        modes = [lu_cuda.PANEL_MODES[v] for v in out[6].tolist()]
+        C = cluster_cfg["C"][str(dtype)[6:]]
+        dms, names = kernel_device_ms(
+            lambda: lu_cuda.rrlu_batched(*bargs, leftorthogonal=True), 20,
+            by_name=True)
+        pms = cuda_ms(
+            lambda: lu_kernel.rrlu_plain_batched(*bargs, leftorthogonal=True),
+            3)
+        parts = [bound_parts(mp, mp, m - b, n, int(out[3][b]),
+                             A.element_size()) for b in range(B)]
+        t_b, t_o = (sum(p[i] for p in parts) for i in (0, 1))
+        bms, bby = max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+        row = {"shape": tag, "mode": modes, "C": C,
+               "plan": lu_cuda.host_mode(0, mp, mp, dtype), "ms": dms,
+               "kernels_us": names, "bound_ms": bms, "bound_by": bby,
+               "plain_ms": pms, "k": out[3].tolist()}
+        mode_rows.append(row)
+        print(f"[mode] {tag}: {modes} ({row['plan']} launch, C = {C}), "
+              f"kernel device time {dms:.4f} ms a launch (profiler; us by "
+              f"kernel {json.dumps({k2: round(v, 3) for k2, v in names.items()})}), "
+              f"bound {bms:.6f} ms ({bby}), plain {pms:.4f} ms, identical",
+              flush=True)
+
+    # the cluster mode's split on config 1's bond panel (352^2, 132^2 true,
+    # full rank): device time with the rank capped at 0, 1, 2, 4, 12, 32, 64
+    P = main_panel(torch.float64, 352, 132, 132, 132, 7, dev)
+    ctimes = {}
+    for cap in (0, 1, 2, 4, 12, 32, 64):
+        ctimes[cap] = kernel_device_ms(
+            lambda: lu_cuda.rrlu_call(P, 132, 132, cap, 0.0, 0.0,
+                                      leftorthogonal=True), 20)
+    if any(t is None for t in ctimes.values()):
+        fail("[split] cluster mode: no device time in the trace")
+    cluster_split = {"fixed_us": ctimes[0] * 1e3,
+                     "per_pivot_us": (ctimes[64] - ctimes[0]) / 64 * 1e3,
+                     "by_cap_us": {c: t * 1e3 for c, t in ctimes.items()}}
+    print(f"[split] cluster f64 132x132 (bucket 352x352) device time by "
+          f"rank cap: " + ", ".join(f"{c}: {t * 1e3:.2f} us"
+                                    for c, t in ctimes.items())
+          + f"; fixed {cluster_split['fixed_us']:.2f} us, "
+          f"{cluster_split['per_pivot_us']:.3f} us a pivot", flush=True)
 
     # panels whose vectors overflowed the one-block design's shared memory
     for m, n, rank in ((64, 10000, 40), (4200, 4200, 100)):
@@ -2332,11 +2542,17 @@ def main():
     # pivots (among those, the largest true extents)
     fills = {}
     bond_panels = {}
+    by_mode = {}  # tag -> {mode: panels}
     for i, (tag, is_batched, args, kw) in enumerate(launch_inputs):
         kernel = originals[2] if is_batched else originals[1]
         plain = (lu_kernel.rrlu_plain_batched if is_batched
                  else lu_kernel.rrlu_plain)
-        out, ref = kernel(*args, **kw), plain(*args, **kw)
+        out, ref = kernel(*args, **kw, return_mode=True), plain(*args, **kw)
+        for v in out[6].reshape(-1).tolist():
+            mode = lu_cuda.PANEL_MODES[v]
+            by_mode.setdefault(tag, {}).setdefault(mode, 0)
+            by_mode[tag][mode] += 1
+        out = out[:6]
         max_err = max(max_err, compare(
             f"{tag} launch {i} {tuple(args[0].shape)}", out, ref, 1.0))
         if tag in ("engine", "config3", "config4", "config5"):
@@ -2354,7 +2570,12 @@ def main():
     for rec in launch_inputs:
         ntag[rec[0]] = ntag.get(rec[0], 0) + 1
     print(f"[kernel] every launch of the cold runs ({ntag}): kernel and plain "
-          f"version identical (max |LU diff| {max_err})", flush=True)
+          f"version identical (max |LU diff| {max_err}); panels by mode "
+          f"{json.dumps(by_mode)}", flush=True)
+    for tag in ("engine", "config4", "config5"):
+        if by_mode.get(tag, {}).get("cluster", 0) == 0:
+            fail(f"{tag}: no panel of its cold run took the cluster mode "
+                 f"({by_mode.get(tag)})")
     for key in (("engine", 352), ("config3", 96), ("config4", 512),
                 ("config5", 512)):
         if key not in bond_panels:
@@ -2388,8 +2609,9 @@ def main():
                f"{name}_bound_ms": max(t_bytes, t_ops),
                f"{name}_bound_by": ("bytes" if t_bytes >= t_ops
                                     else "operations")}
-        mode = ("multi-block" if lu_cuda._lib().rrlu_scratch_bytes(
-            mp, npd, args[0].element_size()) > 0 else "resident")
+        modes = originals[2](*args, **kw, return_mode=True)[6].tolist()
+        mode = "/".join(sorted({lu_cuda.PANEL_MODES[v] for v in modes}))
+        res[f"{name}_mode"] = mode
         print(f"[kernel] {name} {B} x {mp}x{npd} {str(args[0].dtype)[6:]} "
               f"(k={ks}, true extents {args[1].tolist()} x "
               f"{args[2].tolist()}, {mode}): kernel device time "
@@ -2410,6 +2632,10 @@ def main():
     eng.update(time_engine_launch("config5_panel_512",
                                   bond_panels["config5", 512]))
     eng.update(time_engine_launch("config5_fill", fills["config5"]))
+    for name in ("engine_panel", "config4_panel_512", "config5_panel_512"):
+        if eng[f"{name}_mode"] != "cluster":
+            fail(f"{name}: the kernel reported {eng[name + '_mode']}, not "
+                 f"the cluster mode")
     if ("config4", 1024) in bond_panels:
         eng.update(time_engine_launch("config4_panel_1024",
                                       bond_panels["config4", 1024]))
@@ -2457,6 +2683,10 @@ def main():
         solve_config4(fresh=False, loop=True)
         profile_run(opts.profile, "config4_loop_replayed",
                     lambda: solve_config4(fresh=False, loop=True)[-2])
+        kept5 = solve_config5()[-1]
+        solve_config5(f=kept5)
+        profile_run(opts.profile, "config5_loop_replayed",
+                    lambda: solve_config5(f=kept5)[3])
 
     if any(m == "jax" or m.startswith(("jax.", "tci_tpu."))
            or m == "tci_tpu" for m in sys.modules):
@@ -2512,6 +2742,10 @@ def main():
         # and, under config5_panel_512_* / config5_fill_*, its bond panel
         # and its fill on the card
         "complex128": {"panels": complex_panels, "config5": config5},
+        # the cluster mode: its configuration, its split on config
+        # 1's panel, and the mode table at the main path's true extents
+        "cluster_mode": {**cluster_cfg, "split": cluster_split,
+                         "mode_rows": mode_rows},
         **host_panel,
         **eng,
         **n2000,
@@ -2524,7 +2758,7 @@ def main():
 
 def profile_run(outdir, tier, solve):
     """Warm walls of one workload (`tier` names it: config 1 through one
-    tier, config 3 or config 4; `solve` runs it and returns its wall), then
+    tier, config 3, 4 or 5; `solve` runs it and returns its wall), then
     one run under torch.profiler with a span around each layer of the path;
     prints the breakdown."""
     import torch

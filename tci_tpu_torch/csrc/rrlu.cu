@@ -38,7 +38,15 @@
 // 128 KB panels (80 x 80 or 128 x 64 complex), and every pass moves twice
 // the bytes and does four multiplies where a real update does one.
 //
-// Two modes, one launch per call in both:
+// NaN: a NaN metric ranks above every value, equal NaNs by position (the
+// rule of jnp.argmax, which tci_tpu's _rrlu_state_small follows), and the
+// column maxima propagate NaN as torch's amax does. So the first NaN in the
+// swapped column-major order becomes the pivot, err and the magnitudes turn
+// NaN, the next update spreads it over the trailing block, and rrlu's check
+// raises. The pivot is always a valid row and column, so no swap moves a
+// line outside the true extents, and lines outside them are never written.
+//
+// Three modes, chosen per panel; a call is one launch, or two (below):
 //
 //   - resident (panels up to 128 x 128 f64, kResidentPanelBytes): one
 //     1024-thread block per panel holds it in shared memory, so device memory
@@ -62,27 +70,50 @@
 //         columns;
 //       * the swapped-layout write-out gives rows to warps and columns to
 //         lanes (coalesced stores, no 64-bit division).
-//     What is left is the chain itself: every pivot runs selection on one
-//     warp, the x/y phase and a pass in turn, and even on a 16^2 panel that
-//     costs microseconds; at 128^2 the pass adds its shared-memory and issue
-//     work (chip_smoke.py's [split] lines measure the fixed and per-pivot
-//     costs). Larger panels, bound by one SM's shared-memory bandwidth,
-//     leave;
-//   - multi-block (everything larger): one cooperative launch of as many
-//     1024-thread blocks as fit on the card at once. The true extents are cut
-//     into tiles (a band of up to 256 rows x 64 columns), each owned by one
-//     block for the whole elimination. Per pivot, block 0 reduces the
-//     per-band column maxima, finds the pivot, tests the stop rule and
-//     publishes the pivot column and row (x, y); a grid barrier; every block
-//     updates its tiles and writes their column maxima; a grid barrier. Each
-//     pivot reads and writes the trailing matrix once, over all SMs: a panel
-//     up to ~40 MB stays in the 50 MB L2 between pivots, a larger one streams
-//     from HBM, and the serial part on block 0 plus two grid barriers (about
-//     10 us a pivot) bounds small panels. Per-block shared memory is fixed;
-//     the state that grows with the panel lives in global scratch the
+//     What is left is the chain itself (chip_smoke.py's [split] lines
+//     measure the fixed and per-pivot costs);
+//   - cluster (larger panels whose true rows fit the shared memory of one
+//     thread-block cluster, fits_cluster): one cluster of C CTAs per panel
+//     (C = 16 where the card can schedule it, else 8; non-portable sizes),
+//     batched panels side by side. The true rows are split over the C CTAs
+//     and held, full width, in each CTA's shared memory for the whole
+//     elimination (one cp.async.bulk on an mbarrier per CTA); each CTA keeps
+//     its own copy of the permutations and keys. Per pivot: every CTA's pass
+//     updates its rows and leaves per warp its best candidate and the entry
+//     itself in a slot; one cluster barrier (barrier.cluster arrive.release /
+//     wait.acquire); then every CTA reads all slots through distributed
+//     shared memory, takes the same decision and the same stop test, swaps
+//     its own copy, builds x from its own rows and y from the pivot row,
+//     which it reads from the owner's shared memory. The right-orthogonal
+//     multipliers of row pr are stored by the owner one pivot later, after
+//     the next cluster barrier, so no CTA can still be reading the row
+//     (a deferred write, not a second barrier). Slots alternate between two
+//     sets, so a CTA that runs ahead never overwrites what another still
+//     reads. Device memory sees one read of the true rows, one write of the
+//     output and one read of the padding rows; no global atomics, no polling.
+//     What bounds it is the per-pivot chain: the pass over a few rows, one
+//     cluster barrier, the distributed-shared-memory reads;
+//   - grid (everything else): one cooperative launch of as many 1024-thread
+//     blocks as fit on the card at once. The true extents are cut into tiles
+//     (a band of up to 256 rows x 64 columns), each owned by one block for
+//     the whole elimination. Per pivot, block 0 reduces the per-band column
+//     maxima, finds the pivot, tests the stop rule and publishes the pivot
+//     column and row (x, y); a grid barrier; every block updates its tiles
+//     and writes their column maxima; a grid barrier. A panel up to ~40 MB
+//     stays in the 50 MB L2 between pivots, a larger one streams from HBM.
+//     The state that grows with the panel lives in global scratch the
 //     wrapper allocates, so no panel size is refused. Batched panels take
 //     the whole grid in turn.
+//
+// The choice: resident by the padded shape, on the host. Otherwise, where the
+// padded panel fits a cluster, only the cluster kernel is launched; where it
+// may not (the true extents live on the device), the cluster kernel and then
+// the grid kernel are launched, both read the clamped extents and apply
+// fits_cluster, and each panel is eliminated by exactly one of them (the
+// other returns at once). Each panel's mode is written to an output word:
+// 0 resident, 1 cluster, 2 grid.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -172,14 +203,27 @@ constexpr unsigned kBulkChunk = 16384;   // bytes per bulk-copy request
 // kernel's static shared memory.
 constexpr size_t kSmemLimit = 232448 - 2048;
 // Largest panel the one-block mode takes: a 128 x 128 f64 panel (128 KB; a
-// complex128 panel of the same bytes). Above it the multi-block mode is
-// faster even where the panel would fit (at a 160^2 f64 bucket and 80
-// pivots, 0.93 ms against 2.16 ms on an H100).
+// complex128 panel of the same bytes). Above it the grid mode (then the only
+// other mode) was faster even where the panel would fit (at a 160^2 f64
+// bucket and 80 pivots, 0.93 ms against 2.16 ms on an H100); such panels now
+// take the cluster mode.
 constexpr size_t kResidentPanelBytes = 128 * 128 * 8;
 
-template <typename T>
-__device__ __forceinline__ bool better(T v, int p, T bv, int bp) {
+// The order of pivot candidates (metric v, position p): NaN above every
+// value, then the larger value, then (equal values, or two NaNs) the
+// smaller position. A strict total order, so every reduction tree picks the
+// same winner.
+template <typename R, typename P>
+__device__ __forceinline__ bool ranks_above(R v, P p, R bv, P bp) {
+  const bool vn = v != v, bn = bv != bv;
+  if (vn || bn) return vn && (!bn || p < bp);
   return v > bv || (v == bv && p < bp);
+}
+
+// max(a, b) that propagates NaN, as torch's maximum and amax do.
+template <typename R>
+__device__ __forceinline__ R nan_max(R a, R b) {
+  return (b > a || b != b) ? b : a;
 }
 
 // One panel's true extents and rank cap, clamped to the (mp, np) panel on the
@@ -205,7 +249,7 @@ __device__ void block_argmax(T& val, int& pos, T* s_val, int* s_pos) {
   for (int off = 16; off > 0; off >>= 1) {
     const T v = __shfl_down_sync(0xffffffffu, val, off);
     const int p = __shfl_down_sync(0xffffffffu, pos, off);
-    if (better(v, p, val, pos)) {
+    if (ranks_above(v, p, val, pos)) {
       val = v;
       pos = p;
     }
@@ -222,7 +266,7 @@ __device__ void block_argmax(T& val, int& pos, T* s_val, int* s_pos) {
     for (int off = 16; off > 0; off >>= 1) {
       const T v = __shfl_down_sync(0xffffffffu, val, off);
       const int p = __shfl_down_sync(0xffffffffu, pos, off);
-      if (better(v, p, val, pos)) {
+      if (ranks_above(v, p, val, pos)) {
         val = v;
         pos = p;
       }
@@ -238,16 +282,16 @@ __device__ void block_argmax(T& val, int& pos, T* s_val, int* s_pos) {
   __syncthreads();  // the scratch is reused by the next reduction
 }
 
-// How the resident pass spreads the true extents over the 32 warps: columns
+// How a pass spreads the true extents over a block's `nwarps` warps: columns
 // in chunks of 32 (one per lane), R warps per chunk, each taking every R-th
 // row. Computed once per panel (it holds integer divisions).
 struct PassLayout {
   int nchunks, R, cstride, wchunk, wsub;
-  __device__ PassLayout(int n, int warp) {
+  __device__ PassLayout(int n, int warp, int nwarps) {
     nchunks = (n + 31) >> 5;
-    R = nchunks > 0 ? kResidentWarps / nchunks : kResidentWarps;
+    R = nchunks > 0 ? nwarps / nchunks : nwarps;
     if (R < 1) R = 1;
-    cstride = kResidentWarps / R;
+    cstride = nwarps / R;
     wchunk = warp / R;
     wsub = warp % R;
   }
@@ -321,12 +365,6 @@ __device__ __forceinline__ unsigned pos_key(int col, unsigned row) {
   return ((unsigned)col << 16) | row;
 }
 
-template <typename T>
-__device__ __forceinline__ bool better_key(T v, unsigned key, T bv,
-                                           unsigned bkey) {
-  return v > bv || (v == bv && key < bkey);
-}
-
 // Warp-wide argmax of candidates: every lane ends with the winner (a
 // butterfly over a total order, so the lanes agree).
 template <typename T>
@@ -335,40 +373,41 @@ __device__ __forceinline__ void warp_argmax(T& v, unsigned& key) {
   for (int off = 16; off > 0; off >>= 1) {
     const T ov = __shfl_xor_sync(0xffffffffu, v, off);
     const unsigned okey = __shfl_xor_sync(0xffffffffu, key, off);
-    if (better_key(ov, okey, v, key)) {
+    if (ranks_above(ov, okey, v, key)) {
       v = ov;
       key = okey;
     }
   }
 }
 
-// One pass over the true extents of the panel. Columns go to lanes (a warp
-// reads 32 neighbouring entries of a row); the R warps of a chunk split its
-// rows. rkey/ckey hold the swapped position of an unpivoted row/column and
-// -1 otherwise. With update set, the pass applies the rank-1 Schur update
-// on unpivoted rows x unpivoted columns and stores the multipliers (pivot
-// column when left-orthogonal, pivot row otherwise). In every case each
-// thread ends with its best pivot candidate over its columns and its row
-// group's unpivoted rows ((-1, kNoKey) when it has none), and the warp's
-// best candidate goes to w_val/w_key[warp]. That is the whole reduction a
-// barrier needs: no per-column partials are stored.
+// One pass over the first m rows of A (row stride np) and its first n
+// columns: the resident panel, or a cluster CTA's share of one. Columns go to
+// lanes (a warp reads 32 neighbouring entries of a row); the R warps of a
+// chunk split its rows. rkey/ckey hold the swapped position of an unpivoted
+// row/column and -1 otherwise. With update set, the pass applies the rank-1
+// Schur update on unpivoted rows x unpivoted columns and stores the
+// multipliers (pivot column pc when left-orthogonal, pivot row pr otherwise;
+// -1 for none). In every case each thread ends with its best pivot candidate
+// over its columns and its row group's unpivoted rows ((-1, kNoKey) when it
+// has none), and every lane of a warp returns the warp's best in bv / bkey.
+// That is the whole reduction a barrier needs: no per-column partials are
+// stored.
 template <typename T>
 __device__ void resident_pass(T* A, int np, int m, int n,
                               const PassLayout& L, const int* rkey,
                               const int* ckey, const T* x, const T* y,
-                              typename Ops<T>::R* w_val, unsigned* w_key,
+                              typename Ops<T>::R& bv, unsigned& bkey,
                               bool update, bool leftorth, int pr, int pc) {
   using R = typename Ops<T>::R;
   constexpr int U = kResidentUnroll;
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
   const int nw = L.R;  // warps a chunk
   const int wsub = L.wsub;
   // shared-memory offsets fit 32 bits; the U rows of a step are `rstep`
   // elements apart
   const int rstep = nw * np;
-  R bv = R(-1);
-  unsigned bkey = kNoKey;
+  bv = R(-1);
+  bkey = kNoKey;
   for (int c = L.wchunk; c < L.nchunks; c += L.cstride) {
     const int j = c * 32 + lane;
     R cm = R(-1);
@@ -405,7 +444,7 @@ __device__ void resident_pass(T* A, int np, int m, int n,
                 p0[u * rstep] = v;
               }
               const R sq = Ops<T>::abs2(v);
-              if (sq > cm || (sq == cm && rk[u] < cp)) {
+              if (ranks_above(sq, rk[u], cm, cp)) {
                 cm = sq;
                 cp = rk[u];
               }
@@ -420,17 +459,13 @@ __device__ void resident_pass(T* A, int np, int m, int n,
     }
     if (cpos >= 0) {
       const unsigned key = pos_key(cpos, (unsigned)cp);
-      if (better_key(cm, key, bv, bkey)) {
+      if (ranks_above(cm, key, bv, bkey)) {
         bv = cm;
         bkey = key;
       }
     }
   }
   warp_argmax<R>(bv, bkey);
-  if (lane == 0) {
-    w_val[warp] = bv;
-    w_key[warp] = bkey;
-  }
 }
 
 template <typename T>
@@ -440,7 +475,8 @@ __global__ void __launch_bounds__(kResidentThreads)
                 int64_t* __restrict__ colperm_out,
                 typename Ops<T>::R* __restrict__ mags_out,
                 int64_t* __restrict__ k_out,
-                typename Ops<T>::R* __restrict__ err_out, const int* m_arr,
+                typename Ops<T>::R* __restrict__ err_out,
+                int64_t* __restrict__ mode_out, const int* m_arr,
                 const int* n_arr, const int* maxrank_arr,
                 const typename Ops<T>::R* tol_arr, int m_s, int n_s,
                 int maxrank_s, typename Ops<T>::R reltol_s,
@@ -469,7 +505,7 @@ __global__ void __launch_bounds__(kResidentThreads)
   const bool leftorth = leftorth_i != 0;
   const int rmax = mp < np ? mp : np;
   const size_t panel = (size_t)mp * np;
-  const PassLayout L(n, warp);
+  const PassLayout L(n, warp, kW);
 
   extern __shared__ __align__(128) unsigned char smem_raw[];
   T* A = reinterpret_cast<T*>(smem_raw);
@@ -499,8 +535,14 @@ __global__ void __launch_bounds__(kResidentThreads)
   for (int r = tid; r < rmax; r += NT) mags_out[b * rmax + r] = R(0);
   __syncthreads();  // the barrier's initialisation and the vectors
   mbar_wait(&load_bar, 0);
-  resident_pass<T>(A, np, m, n, L, rkey, ckey, x, y, w_val, w_key, false,
+  R bv;
+  unsigned bkey;
+  resident_pass<T>(A, np, m, n, L, rkey, ckey, x, y, bv, bkey, false,
                    leftorth, -1, -1);
+  if (lane == 0) {
+    w_val[warp] = bv;
+    w_key[warp] = bkey;
+  }
 
   int k = 0;
   R maxerror = R(0);
@@ -524,7 +566,7 @@ __global__ void __launch_bounds__(kResidentThreads)
         R e = R(0);  // no valid column (or row) left: stop with err 0
         int pc = 0, pr = 0;
         T safe = Ops<T>::one();
-        if (cv >= R(0)) {
+        if (!(cv < R(0))) {  // a candidate: a value or a NaN
           pc = colperm[bestcolpos];
           pr = rowperm[bestrowpos < mp - 1 ? bestrowpos : mp - 1];
           e = Ops<R>::sqrt(cv);
@@ -533,7 +575,7 @@ __global__ void __launch_bounds__(kResidentThreads)
           const T piv = A[pr * np + pc];
           safe = Ops<T>::nonzero(piv) ? piv : Ops<T>::one();
           if (!stop) {
-            maxerror = e > maxerror ? e : maxerror;
+            maxerror = nan_max(maxerror, e);
             mags_out[b * rmax + k] = e;
             // a valid row and column sit at position k or later
             s_piv[5] = rowperm[k];
@@ -590,8 +632,12 @@ __global__ void __launch_bounds__(kResidentThreads)
       colperm[bestcolpos] = c_at_k;
       colperm[k] = pc;
     }
-    resident_pass<T>(A, np, m, n, L, rkey, ckey, x, y, w_val, w_key, true,
+    resident_pass<T>(A, np, m, n, L, rkey, ckey, x, y, bv, bkey, true,
                      leftorth, pr, pc);
+    if (lane == 0) {
+      w_val[warp] = bv;
+      w_key[warp] = bkey;
+    }
     ++k;
   }
   __syncthreads();
@@ -599,6 +645,7 @@ __global__ void __launch_bounds__(kResidentThreads)
   if (tid == 0) {
     k_out[b] = k;
     err_out[b] = err;
+    mode_out[b] = 0;
   }
   for (int i = tid; i < mp; i += NT) rowperm_out[b * mp + i] = rowperm[i];
   for (int j = tid; j < np; j += NT) colperm_out[b * np + j] = colperm[j];
@@ -612,8 +659,363 @@ __global__ void __launch_bounds__(kResidentThreads)
 }
 
 // ---------------------------------------------------------------------------
-// Multi-block mode: one cooperative launch, every block of the grid works on
-// one panel at a time (batched panels take the grid in turn).
+// Cluster mode: one thread-block cluster per panel, its true rows in the
+// CTAs' shared memory (distributed shared memory across the cluster).
+
+namespace cg = cooperative_groups;
+
+constexpr int kMaxCluster = 16;
+// Threads of a cluster CTA. 512 was the fastest of 256, 512 and 1024 on the
+// main path's panels (PERF.md, the cluster mode's rows).
+constexpr int kClusterThreads = 512;
+// Dynamic shared memory a CTA of the cluster mode may take, less room for
+// the kernel's static shared memory.
+constexpr size_t kClusterSmem = 232448 - 2048;
+
+// Dynamic shared memory of a cluster CTA that holds `rows` panel rows: the
+// rows (np wide), y (np), x (rows); rowperm (mp); colperm, ckey (np); rkey,
+// rpos (rows).
+__host__ __device__ inline size_t cluster_smem(int rows, int mp, int np,
+                                               int elsize) {
+  return (size_t)rows * np * elsize + ((size_t)np + rows) * elsize +
+         ((size_t)mp + 2 * (size_t)np + 2 * (size_t)rows) * sizeof(int);
+}
+
+// Rows of the panel each CTA of a C-CTA cluster holds (the last ones fewer).
+__host__ __device__ inline int cluster_rows(int m, int C) {
+  return (m + C - 1) / C;
+}
+
+// The one rule that sends a panel to the cluster mode: its m true rows,
+// split over the C CTAs of a cluster, fit one CTA's shared memory. The
+// kernels apply it to the clamped extents on the device, the host to the
+// padded shape; C = 0 means no cluster kernel runs.
+__host__ __device__ inline bool fits_cluster(int m, int mp, int np, int C,
+                                             int elsize) {
+  return C > 0 &&
+         cluster_smem(cluster_rows(m, C), mp, np, elsize) <= kClusterSmem;
+}
+
+// A CTA's best candidate and the entry it names, as it publishes it to the
+// cluster.
+template <typename T>
+struct Slot {
+  typename Ops<T>::R val;
+  unsigned key;
+  T piv;
+};
+
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n\t"
+      "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ float shfl_from(float v, int src) {
+  return __shfl_sync(0xffffffffu, v, src);
+}
+__device__ __forceinline__ double shfl_from(double v, int src) {
+  return __shfl_sync(0xffffffffu, v, src);
+}
+__device__ __forceinline__ double2 shfl_from(double2 v, int src) {
+  return make_double2(__shfl_sync(0xffffffffu, v.x, src),
+                      __shfl_sync(0xffffffffu, v.y, src));
+}
+
+// Per-phase clocks of the cluster kernel, compiled in only with
+// -DRRLU_PHASE_CLOCKS (chip_smoke.py --phases builds such a library):
+// thread 0 of each CTA of panel 0 adds up the SM cycles (clock64) of each
+// phase of its CTA's work, and stores them at the end. Without the macro
+// PHASE_MARK is empty.
+enum {
+  kPhaseLoad,     // set-up and the bulk load of the CTA's rows
+  kPhaseFirst,    // the first pass and its publish
+  kPhaseBarrier,  // the cluster barrier of each pivot
+  kPhaseDecide,   // reading the C slots, the decision, the swaps
+  kPhaseXY,       // x, y and the deferred multipliers
+  kPhasePass,     // the pass of each pivot
+  kPhasePublish,  // the CTA's winner to its slot
+  kPhaseFlush,    // the last multipliers and the final cluster barrier
+  kPhaseWrite,    // the write-out
+  kPhases
+};
+#ifdef RRLU_PHASE_CLOCKS
+__device__ long long rrlu_phase_cycles[kMaxCluster * kPhases];
+#define PHASE_MARK(i)                   \
+  do {                                  \
+    if (tid == 0) {                     \
+      const long long now_ = clock64(); \
+      ph[i] += now_ - ph_t;             \
+      ph_t = now_;                      \
+    }                                   \
+  } while (0)
+#else
+#define PHASE_MARK(i) \
+  do {                \
+  } while (0)
+#endif
+
+// Grid: B clusters of C CTAs (cluster dims (C, 1, 1)) of kClusterThreads
+// threads. Cluster b eliminates panel b if fits_cluster holds
+// for its clamped extents, and returns at once otherwise (before any cluster
+// barrier, the same way in every CTA).
+template <typename T>
+__global__ void __launch_bounds__(kClusterThreads)
+    rrlu_cluster_kernel(const T* __restrict__ A_in, T* __restrict__ A_sw,
+                        int64_t* __restrict__ rowperm_out,
+                        int64_t* __restrict__ colperm_out,
+                        typename Ops<T>::R* __restrict__ mags_out,
+                        int64_t* __restrict__ k_out,
+                        typename Ops<T>::R* __restrict__ err_out,
+                        int64_t* __restrict__ mode_out, const int* m_arr,
+                        const int* n_arr, const int* maxrank_arr,
+                        const typename Ops<T>::R* tol_arr, int m_s, int n_s,
+                        int maxrank_s, typename Ops<T>::R reltol_s,
+                        typename Ops<T>::R abstol_s, int mp, int np,
+                        int leftorth_i) {
+  using R = typename Ops<T>::R;
+  __shared__ unsigned long long load_bar;
+  __shared__ R w_val[32];  // per-warp winners
+  __shared__ unsigned w_key[32];
+  __shared__ Slot<T> slots[2];  // this CTA's winner, two sets in turn
+  __shared__ int s_piv[3];  // {stop, pc, pr}
+  __shared__ T s_safe;
+
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = (int)cl.num_blocks();
+  const int rank = (int)cl.block_rank();
+  const int b = blockIdx.x / C;
+  const int tid = threadIdx.x;
+  constexpr int NT = kClusterThreads;
+  constexpr int W = NT / 32;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  int m = m_arr ? m_arr[b] : m_s;
+  int n = n_arr ? n_arr[b] : n_s;
+  int maxrank = maxrank_arr ? maxrank_arr[b] : maxrank_s;
+  clamp_extents(mp, np, m, n, maxrank);
+  if (!fits_cluster(m, mp, np, C, (int)sizeof(T))) return;
+#ifdef RRLU_PHASE_CLOCKS
+  long long ph[kPhases] = {};
+  long long ph_t = clock64();
+#endif
+  const R reltol = tol_arr ? tol_arr[2 * b] : reltol_s;
+  const R abstol = tol_arr ? tol_arr[2 * b + 1] : abstol_s;
+  const bool leftorth = leftorth_i != 0;
+  const int rmax = mp < np ? mp : np;
+  const size_t panel = (size_t)mp * np;
+  const T* Ain = A_in + b * panel;
+  // this CTA's rows [r0, r0 + nr) of the true extents
+  const int rows = cluster_rows(m, C);
+  const int r0 = min(rank * rows, m);
+  const int nr = min(rows, m - r0);
+  const PassLayout L(n, warp, W);
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* A = reinterpret_cast<T*>(smem_raw);  // (rows, np), local row li
+  T* y = A + (size_t)rows * np;
+  T* x = y + np;
+  int* rowperm = reinterpret_cast<int*>(x + rows);
+  int* colperm = rowperm + mp;
+  int* ckey = colperm + np;
+  int* rkey = ckey + np;
+  int* rpos = rkey + rows;
+
+  if (tid == 0 && nr > 0)
+    bulk_load(A, Ain + (size_t)r0 * np, (unsigned)((size_t)nr * np * sizeof(T)),
+              &load_bar);
+  for (int i = tid; i < mp; i += NT) rowperm[i] = i;
+  for (int j = tid; j < np; j += NT) {
+    colperm[j] = j;
+    ckey[j] = j < n ? j : -1;
+  }
+  for (int li = tid; li < nr; li += NT) {
+    rkey[li] = r0 + li;
+    rpos[li] = r0 + li;
+  }
+  if (rank == 0)
+    for (int r = tid; r < rmax; r += NT) mags_out[b * rmax + r] = R(0);
+  __syncthreads();  // the barrier's initialisation and the vectors
+  if (nr > 0) mbar_wait(&load_bar, 0);
+  PHASE_MARK(kPhaseLoad);
+
+  // After a pass: warp 0 reduces the warp winners and publishes the CTA's
+  // best candidate and the entry it names (the pivot itself, should it win)
+  // in slot set `set`.
+  auto publish = [&](int set, R bv, unsigned bkey) {
+    if (lane == 0) {
+      w_val[warp] = bv;
+      w_key[warp] = bkey;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      bv = lane < W ? w_val[lane] : R(-1);
+      bkey = lane < W ? w_key[lane] : kNoKey;
+      warp_argmax<R>(bv, bkey);
+      if (lane == 0) {
+        T piv = Ops<T>::zero();
+        if (!(bv < R(0)))
+          piv = A[(size_t)(rowperm[bkey & kNoRow] - r0) * np +
+                  colperm[bkey >> 16]];
+        slots[set].val = bv;
+        slots[set].key = bkey;
+        slots[set].piv = piv;
+      }
+    }
+  };
+  R bv;
+  unsigned bkey;
+  resident_pass<T>(A, np, nr, n, L, rkey, ckey, x, y, bv, bkey, false,
+                   leftorth, -1, -1);
+  publish(0, bv, bkey);
+  PHASE_MARK(kPhaseFirst);
+
+  int k = 0;
+  R maxerror = R(0);
+  R err = Ops<R>::nan();
+  int prev_lr = -1;  // local row whose multipliers are still to be stored
+  while (true) {
+    cluster_barrier();  // every CTA's slots; every read of the last pivot row
+    PHASE_MARK(kPhaseBarrier);
+    if (k >= maxrank) break;
+
+    // Every CTA reduces the C slots itself (lane r reads CTA r's) and takes
+    // the same decision.
+    if (warp == 0) {
+      R v = R(-1);
+      unsigned key = kNoKey;
+      T piv = Ops<T>::zero();
+      if (lane < C) {
+        const Slot<T>* p = cl.map_shared_rank(&slots[k & 1], lane);
+        v = p->val;
+        key = p->key;
+        piv = p->piv;
+      }
+      const unsigned mine = key;
+      warp_argmax<R>(v, key);
+      const unsigned holder = __ballot_sync(0xffffffffu, mine == key);
+      piv = shfl_from(piv, __ffs(holder) - 1);
+      if (lane == 0) {
+        int stop = 1;
+        R e = R(0);  // no valid column (or row) left: stop with err 0
+        int pc = 0, pr = 0;
+        T safe = Ops<T>::one();
+        if (!(v < R(0))) {  // a candidate: a value or a NaN
+          const int bestcolpos = (int)(key >> 16);
+          const int bestrowpos = (int)(key & kNoRow);
+          pc = colperm[bestcolpos];
+          pr = rowperm[bestrowpos];
+          e = Ops<R>::sqrt(v);
+          stop = k > 0 && (e < Ops<R>::mul(reltol, maxerror) ||
+                           e < abstol || e == R(0));
+          safe = Ops<T>::nonzero(piv) ? piv : Ops<T>::one();
+          if (!stop) {
+            maxerror = nan_max(maxerror, e);
+            if (rank == 0) mags_out[b * rmax + k] = e;
+            // the virtual swaps on this CTA's copy; only the two rows and
+            // the two columns that move change their keys
+            const int r_at_k = rowperm[k], c_at_k = colperm[k];
+            rowperm[bestrowpos] = r_at_k;
+            rowperm[k] = pr;
+            colperm[bestcolpos] = c_at_k;
+            colperm[k] = pc;
+            if (r_at_k >= r0 && r_at_k < r0 + nr) {
+              rkey[r_at_k - r0] = bestrowpos;
+              rpos[r_at_k - r0] = bestrowpos;
+            }
+            if (pr >= r0 && pr < r0 + nr) {
+              rkey[pr - r0] = -1;
+              rpos[pr - r0] = k;
+            }
+            ckey[c_at_k] = bestcolpos;
+            ckey[pc] = -1;
+          }
+        }
+        err = e;
+        s_piv[0] = stop;
+        s_piv[1] = pc;
+        s_piv[2] = pr;
+        s_safe = safe;
+      }
+    }
+    __syncthreads();  // the decision
+    PHASE_MARK(kPhaseDecide);
+    if (s_piv[0]) break;
+    const int pc = s_piv[1], pr = s_piv[2];
+    const T safe = s_safe;
+    const int owner = pr / rows;
+    const int lr = pr - owner * rows;
+    // x from this CTA's rows; left-orthogonal multipliers go to column pc
+    for (int li = tid; li < nr; li += NT) {
+      if (rkey[li] < 0) continue;
+      T* e = A + (size_t)li * np + pc;
+      const T xv = leftorth ? Ops<T>::div(*e, safe) : *e;
+      x[li] = xv;
+      if (leftorth) *e = xv;
+    }
+    // y from the pivot row, in the owner's shared memory. First the
+    // previous pivot row's multipliers (right-orthogonal): its columns were
+    // the unpivoted ones now and pc.
+    const T* prow = cl.map_shared_rank(A + (size_t)lr * np, owner);
+    T* prev = prev_lr >= 0 ? A + (size_t)prev_lr * np : nullptr;
+    for (int j = (tid + NT / 2) % NT; j < n; j += NT) {
+      const bool cf = ckey[j] >= 0;
+      if (prev && (cf || j == pc)) prev[j] = y[j];
+      if (cf) y[j] = leftorth ? prow[j] : Ops<T>::div(prow[j], safe);
+    }
+    prev_lr = (!leftorth && owner == rank) ? lr : -1;
+    __syncthreads();  // x, y, the multipliers
+    PHASE_MARK(kPhaseXY);
+    resident_pass<T>(A, np, nr, n, L, rkey, ckey, x, y, bv, bkey, true,
+                     leftorth, -1, -1);
+    PHASE_MARK(kPhasePass);
+    ++k;
+    publish(k & 1, bv, bkey);
+    PHASE_MARK(kPhasePublish);
+  }
+  if (prev_lr >= 0) {
+    T* prev = A + (size_t)prev_lr * np;
+    for (int j = tid; j < n; j += NT)
+      if (ckey[j] >= 0) prev[j] = y[j];
+  }
+  // no CTA leaves (or writes over its rows) while another may still read
+  // its slots or its pivot row
+  cluster_barrier();
+  PHASE_MARK(kPhaseFlush);
+
+  T* out = A_sw + b * panel;
+  // A_sw[i, j] = A[rowperm[i], colperm[j]]: this CTA's rows ...
+  for (int li = warp; li < nr; li += W) {
+    const T* src = A + (size_t)li * np;
+    T* dst = out + (size_t)rpos[li] * np;
+    for (int j = lane; j < np; j += 32) dst[j] = src[colperm[j]];
+  }
+  // ... and the padding rows, which never move, straight from A_in
+  for (int i = m + rank * W + warp; i < mp; i += C * W) {
+    const T* src = Ain + (size_t)i * np;
+    T* dst = out + (size_t)i * np;
+    for (int j = lane; j < np; j += 32) dst[j] = src[colperm[j]];
+  }
+  if (rank == 0) {
+    if (tid == 0) {
+      k_out[b] = k;
+      err_out[b] = err;
+      mode_out[b] = 1;
+    }
+    for (int i = tid; i < mp; i += NT) rowperm_out[b * mp + i] = rowperm[i];
+    for (int j = tid; j < np; j += NT) colperm_out[b * np + j] = colperm[j];
+  }
+#ifdef RRLU_PHASE_CLOCKS
+  PHASE_MARK(kPhaseWrite);
+  if (tid == 0 && b == 0)
+    for (int i = 0; i < kPhases; ++i)
+      rrlu_phase_cycles[rank * kPhases + i] = ph[i];
+#endif
+}
+
+// ---------------------------------------------------------------------------
+// Grid mode: one cooperative launch, every block of the grid works on one
+// panel at a time (batched panels take the grid in turn).
 
 constexpr int kGridThreads = 1024;
 constexpr int kTileCols = 64;      // two 32-lane chunks: 512 B of an f64 row
@@ -644,7 +1046,7 @@ __device__ __forceinline__ void grid_sync(unsigned int* bar,
   __syncthreads();
 }
 
-// Global scratch of the multi-block mode, carved from one byte buffer that
+// Global scratch of the grid mode, carved from one byte buffer that
 // the wrapper allocates (rrlu_scratch_bytes). Nothing here grows the
 // per-block shared memory.
 template <typename T>
@@ -787,10 +1189,7 @@ __device__ void grid_pass(const T* __restrict__ src, GridScratch<T>& s,
             v = leftorth ? xi : y_s[c];
             s.A[e] = v;
           }
-          if (rf) {
-            const R sq = Ops<T>::abs2(v);
-            cm[h] = sq > cm[h] ? sq : cm[h];
-          }
+          if (rf) cm[h] = nan_max(cm[h], Ops<T>::abs2(v));
         }
       }
     }
@@ -799,16 +1198,16 @@ __device__ void grid_pass(const T* __restrict__ src, GridScratch<T>& s,
     __syncthreads();
     if (threadIdx.x < kTileCols && j0 + (int)threadIdx.x < n) {
       R v = red[threadIdx.x];
-      for (int w = 1; w < kWarps; ++w) {
-        const R u = red[w * kTileCols + threadIdx.x];
-        v = u > v ? u : v;
-      }
+      for (int w = 1; w < kWarps; ++w)
+        v = nan_max(v, red[w * kTileCols + threadIdx.x]);
       s.pmax[(size_t)band * np + j0 + threadIdx.x] = v;
     }
     __syncthreads();  // the staging and red are reused by the next tile
   }
 }
 
+// C is the cluster size of the cluster kernel launched before this one (0:
+// none); the panels that fits_cluster gives to it are skipped here.
 template <typename T>
 __global__ void __launch_bounds__(kGridThreads)
     rrlu_grid_kernel(const T* __restrict__ A_in, unsigned char* scratch,
@@ -818,12 +1217,13 @@ __global__ void __launch_bounds__(kGridThreads)
                      typename Ops<T>::R* __restrict__ mags_out,
                      int64_t* __restrict__ k_out,
                      typename Ops<T>::R* __restrict__ err_out,
+                     int64_t* __restrict__ mode_out,
                      const int* m_arr, const int* n_arr,
                      const int* maxrank_arr,
                      const typename Ops<T>::R* tol_arr, int m_s, int n_s,
                      int maxrank_s, typename Ops<T>::R reltol_s,
                      typename Ops<T>::R abstol_s, int B, int mp, int np,
-                     int leftorth_i, int tr) {
+                     int leftorth_i, int tr, int C) {
   using R = typename Ops<T>::R;
   constexpr int NT = kGridThreads;
   __shared__ R s_val[33];
@@ -851,6 +1251,9 @@ __global__ void __launch_bounds__(kGridThreads)
     int n = n_arr ? n_arr[b] : n_s;
     int maxrank = maxrank_arr ? maxrank_arr[b] : maxrank_s;
     clamp_extents(mp, np, m, n, maxrank);
+    // a panel that fits the cluster launched before this one is its: every
+    // block reads the same extents and skips it before any barrier
+    if (fits_cluster(m, mp, np, C, (int)sizeof(T))) continue;
     const R reltol = tol_arr ? tol_arr[2 * b] : reltol_s;
     const R abstol = tol_arr ? tol_arr[2 * b + 1] : abstol_s;
     const T* Ain = A_in + b * panel;
@@ -897,12 +1300,10 @@ __global__ void __launch_bounds__(kGridThreads)
           for (int j = tid; j < n; j += NT) {
             if (!s.cf[j]) continue;
             R v = R(-1);
-            for (int bd = 0; bd < nbm; ++bd) {
-              const R u = __ldcg(s.pmax + (size_t)bd * np + j);
-              v = u > v ? u : v;
-            }
+            for (int bd = 0; bd < nbm; ++bd)
+              v = nan_max(v, __ldcg(s.pmax + (size_t)bd * np + j));
             const int p = s.colpos[j];
-            if (better(v, p, cv, cp)) {
+            if (ranks_above(v, p, cv, cp)) {
               cv = v;
               cp = p;
             }
@@ -921,7 +1322,7 @@ __global__ void __launch_bounds__(kGridThreads)
               const T a = __ldcg(s.A + (size_t)i * np + pc);
               const R v = Ops<T>::abs2(a);
               const int p = s.rowpos[i];
-              if (better(v, p, rv, rp)) {
+              if (ranks_above(v, p, rv, rp)) {
                 rv = v;
                 rp = p;
               }
@@ -929,7 +1330,7 @@ __global__ void __launch_bounds__(kGridThreads)
             block_argmax<R, NT>(rv, rp, s_val, s_pos);
             const int bestrowpos = rp;
             pr = s.rowperm[bestrowpos < mp - 1 ? bestrowpos : mp - 1];
-            const R newerr = Ops<R>::sqrt(rv > R(0) ? rv : R(0));
+            const R newerr = Ops<R>::sqrt(rv < R(0) ? R(0) : rv);
             stop = k > 0 && (newerr < Ops<R>::mul(reltol, maxerror) ||
                              newerr < abstol);
             stop = stop || rv < R(0) || (newerr == R(0) && k > 0);
@@ -952,7 +1353,7 @@ __global__ void __launch_bounds__(kGridThreads)
                 s.cf[pc] = 0;
                 mags_out[b * rmax + k] = newerr;
               }
-              maxerror = newerr > maxerror ? newerr : maxerror;
+              maxerror = nan_max(maxerror, newerr);
               __syncthreads();
               const T piv = __ldcg(s.A + (size_t)pr * np + pc);
               const T safe = Ops<T>::nonzero(piv) ? piv : Ops<T>::one();
@@ -976,6 +1377,7 @@ __global__ void __launch_bounds__(kGridThreads)
           if (stop) {
             k_out[b] = k;
             err_out[b] = err;
+            mode_out[b] = 2;
           }
         }
       }
@@ -1013,10 +1415,30 @@ bool is_resident(int mp, int np) {
          smem_bytes<T>(mp, np) <= kSmemLimit && mp < 0xFFFF && np < 0xFFFF;
 }
 
-// The resident kernel's dynamic shared-memory limit, raised to the largest
-// resident size once per device (a launch then never sets it).
+// Whether the cluster kernel can take (mp, np) panels at all: positions fit
+// the 16-bit halves of a candidate key, and each row starts on a 16-byte
+// boundary for the bulk copy (the wrapper checks the panel's own address).
 template <typename T>
-cudaError_t resident_smem_attribute() {
+bool cluster_capable(int mp, int np) {
+  return mp < 0xFFFF && np < 0xFFFF && ((size_t)np * sizeof(T)) % 16 == 0;
+}
+
+// How a call on (mp, np) panels runs, with a cluster of C CTAs (0: none):
+// 0 the resident kernel, 1 the cluster kernel alone (the padded panel fits),
+// 2 the cluster kernel then the grid kernel (each panel takes the one that
+// fits_cluster picks from its true extents), 3 the grid kernel alone.
+template <typename T>
+int host_mode(int mp, int np, int C) {
+  if (is_resident<T>(mp, np)) return 0;
+  if (C <= 0 || !cluster_capable<T>(mp, np)) return 3;
+  return fits_cluster(mp, mp, np, C, (int)sizeof(T)) ? 1 : 2;
+}
+
+// Once per device and element type, outside any capture: the resident
+// kernel's dynamic shared-memory limit, and the cluster kernel's (with
+// clusters above the portable 8 CTAs allowed).
+template <typename T>
+cudaError_t kernel_attributes() {
   constexpr int kMaxDevices = 64;
   static bool done[kMaxDevices] = {};
   int dev = 0;
@@ -1026,11 +1448,47 @@ cudaError_t resident_smem_attribute() {
   e = cudaFuncSetAttribute(rrlu_kernel<T>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)kSmemLimit);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(rrlu_cluster_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kClusterSmem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(rrlu_cluster_kernel<T>,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
   if (e == cudaSuccess && dev < kMaxDevices) done[dev] = true;
   return e;
 }
 
-// Blocks of the multi-block grid: as many as can be resident at once (the
+// The cluster size at the largest shared memory a CTA may take: 16 where the
+// card can schedule such a cluster (cudaOccupancyMaxActiveClusters), else 8;
+// an error when neither fits.
+template <typename T>
+int cluster_size() {
+  cudaError_t e = kernel_attributes<T>();
+  if (e != cudaSuccess) return -(int)e;
+  for (int C = kMaxCluster; C >= 8; C /= 2) {
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(C);
+    cfg.blockDim = dim3(kClusterThreads);
+    cfg.dynamicSmemBytes = kClusterSmem;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int clusters = 0;
+    e = cudaOccupancyMaxActiveClusters(&clusters, rrlu_cluster_kernel<T>,
+                                       &cfg);
+    if (e != cudaSuccess) return -(int)e;
+    if (clusters >= 1) return C;
+  }
+  return -(int)cudaErrorInvalidConfiguration;
+}
+
+// Blocks of the grid mode: as many as can be resident at once (the
 // cooperative launch refuses more), but no more than the panel has tiles.
 template <typename T>
 int grid_shape(int mp, int np, int* G, int* tr) {
@@ -1052,8 +1510,8 @@ int grid_shape(int mp, int np, int* G, int* tr) {
 }
 
 template <typename T>
-long long scratch_bytes(int mp, int np) {
-  if (is_resident<T>(mp, np)) return 0;
+long long scratch_bytes(int mp, int np, int C) {
+  if (host_mode<T>(mp, np, C) < 2) return 0;
   int G = 0, tr = 0;
   const int rc = grid_shape<T>(mp, np, &G, &tr);
   if (rc != 0) return -(long long)rc;
@@ -1064,52 +1522,77 @@ long long scratch_bytes(int mp, int np) {
 template <typename T>
 int launch(const void* A_in, void* scratch, void* bar, void* A_sw,
            void* rowperm, void* colperm, void* mags, void* k_out,
-           void* err_out, const void* m_arr, const void* n_arr,
-           const void* maxrank_arr, const void* tol_arr, int m, int n,
-           int maxrank, double reltol, double abstol, int B, int mp, int np,
-           int leftorth, void* stream) {
+           void* err_out, void* mode_out, const void* m_arr,
+           const void* n_arr, const void* maxrank_arr, const void* tol_arr,
+           int m, int n, int maxrank, double reltol, double abstol, int B,
+           int mp, int np, int leftorth, int C, void* stream) {
   using R = typename Ops<T>::R;
   if (B <= 0 || mp <= 0 || np <= 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (is_resident<T>(mp, np)) {
-    // the bulk copy needs 16-byte aligned panels of a multiple of 16 bytes
-    if (((uintptr_t)A_in & 15) != 0 || ((size_t)mp * np * sizeof(T)) % 16 != 0)
-      return (int)cudaErrorMisalignedAddress;
-    cudaError_t e = resident_smem_attribute<T>();
-    if (e != cudaSuccess) return (int)e;
-    const size_t smem = smem_bytes<T>(mp, np);
-    rrlu_kernel<T><<<B, kResidentThreads, smem, st>>>(
-        (const T*)A_in, (T*)A_sw, (int64_t*)rowperm,
-        (int64_t*)colperm, (R*)mags, (int64_t*)k_out, (R*)err_out,
-        (const int*)m_arr, (const int*)n_arr, (const int*)maxrank_arr,
-        (const R*)tol_arr, m, n, maxrank, (R)reltol, (R)abstol, mp, np,
-        leftorth);
-    return (int)cudaGetLastError();
-  }
-  if (scratch == nullptr || bar == nullptr) return (int)cudaErrorInvalidValue;
-  int G = 0, tr = 0;
-  int rc = grid_shape<T>(mp, np, &G, &tr);
-  if (rc != 0) return rc;
+  const int mode = host_mode<T>(mp, np, C);
   const T* a_in = (const T*)A_in;
-  unsigned char* scr = (unsigned char*)scratch;
-  unsigned int* br = (unsigned int*)bar;
   T* a_sw = (T*)A_sw;
   int64_t* rp = (int64_t*)rowperm;
   int64_t* cp = (int64_t*)colperm;
   R* mg = (R*)mags;
   int64_t* ko = (int64_t*)k_out;
   R* eo = (R*)err_out;
+  int64_t* mo = (int64_t*)mode_out;
   const int* ma = (const int*)m_arr;
   const int* na = (const int*)n_arr;
   const int* ra = (const int*)maxrank_arr;
   const R* ta = (const R*)tol_arr;
   R rt = (R)reltol, at = (R)abstol;
-  void* args[] = {&a_in, &scr, &br, &a_sw, &rp, &cp, &mg, &ko, &eo,
+  cudaError_t e = kernel_attributes<T>();
+  if (e != cudaSuccess) return (int)e;
+  if (mode == 0 || mode == 1 || mode == 2) {
+    // the bulk copies need 16-byte aligned panels of a multiple of 16 bytes
+    if (((uintptr_t)A_in & 15) != 0 || ((size_t)mp * np * sizeof(T)) % 16 != 0)
+      return (int)cudaErrorMisalignedAddress;
+  }
+  if (mode == 0) {
+    rrlu_kernel<T><<<B, kResidentThreads, smem_bytes<T>(mp, np), st>>>(
+        a_in, a_sw, rp, cp, mg, ko, eo, mo, ma, na, ra, ta, m, n, maxrank, rt,
+        at, mp, np, leftorth);
+    return (int)cudaGetLastError();
+  }
+  if (mode == 1 || mode == 2) {
+    // shared memory for the most rows a CTA may hold: the padded panel's,
+    // or the limit where only smaller true extents fit
+    size_t smem = cluster_smem(cluster_rows(mp, C), mp, np, (int)sizeof(T));
+    if (smem > kClusterSmem) smem = kClusterSmem;
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(B * C);
+    cfg.blockDim = dim3(kClusterThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    e = cudaLaunchKernelEx(&cfg, rrlu_cluster_kernel<T>, a_in, a_sw, rp, cp,
+                           mg, ko, eo, mo, ma, na, ra, ta, m, n, maxrank, rt,
+                           at, mp, np, leftorth);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaGetLastError();
+    if (e != cudaSuccess || mode == 1) return (int)e;
+  }
+  // mode 2 or 3: the grid kernel, for what the cluster kernel left
+  if (scratch == nullptr || bar == nullptr) return (int)cudaErrorInvalidValue;
+  int G = 0, tr = 0;
+  int rc = grid_shape<T>(mp, np, &G, &tr);
+  if (rc != 0) return rc;
+  unsigned char* scr = (unsigned char*)scratch;
+  unsigned int* br = (unsigned int*)bar;
+  int Cg = mode == 2 ? C : 0;
+  void* args[] = {&a_in, &scr, &br, &a_sw, &rp, &cp, &mg, &ko, &eo, &mo,
                   &ma, &na, &ra, &ta, &m, &n, &maxrank, &rt, &at,
-                  &B, &mp, &np, &leftorth, &tr};
-  cudaError_t e = cudaLaunchCooperativeKernel(
-      (const void*)rrlu_grid_kernel<T>, dim3(G), dim3(kGridThreads), args, 0,
-      st);
+                  &B, &mp, &np, &leftorth, &tr, &Cg};
+  e = cudaLaunchCooperativeKernel((const void*)rrlu_grid_kernel<T>, dim3(G),
+                                  dim3(kGridThreads), args, 0, st);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -1118,19 +1601,52 @@ int launch(const void* A_in, void* scratch, void* bar, void* A_sw,
 
 extern "C" {
 
-// Bytes of global scratch an (mp, np) panel of `elsize`-byte elements needs
-// on the current device (4: float32, 8: float64, 16: complex128): 0 when it
-// is eliminated in shared memory, minus a CUDA error code when the grid
-// cannot be sized or the element size is none of these. The wrapper
-// allocates it, and a zeroed pair of 32-bit words for the grid barrier.
-long long rrlu_scratch_bytes(int mp, int np, int elsize) {
+// The cluster size (16 or 8) the cluster kernel of `elsize`-byte elements
+// (4: float32, 8: float64, 16: complex128) takes on the current device, minus a CUDA error code when neither can be
+// scheduled. Also sets the kernels' shared-memory attributes: call it once
+// per device and element type outside any stream capture.
+int rrlu_cluster_size(int elsize) {
   switch (elsize) {
     case 4:
-      return scratch_bytes<float>(mp, np);
+      return cluster_size<float>();
     case 8:
-      return scratch_bytes<double>(mp, np);
+      return cluster_size<double>();
     case 16:
-      return scratch_bytes<double2>(mp, np);
+      return cluster_size<double2>();
+    default:
+      return -(int)cudaErrorInvalidValue;
+  }
+}
+
+// How a call on (mp, np) panels runs with clusters of C CTAs (0: no cluster
+// kernel): 0 resident, 1 cluster, 2 cluster then grid, 3 grid; -1 for an
+// element size the kernel has no body for.
+int rrlu_host_mode(int mp, int np, int elsize, int C) {
+  switch (elsize) {
+    case 4:
+      return host_mode<float>(mp, np, C);
+    case 8:
+      return host_mode<double>(mp, np, C);
+    case 16:
+      return host_mode<double2>(mp, np, C);
+    default:
+      return -1;
+  }
+}
+
+// Bytes of global scratch a call on (mp, np) panels needs on the current
+// device with clusters of C CTAs: 0 unless the grid kernel runs (host modes
+// 2 and 3), minus a CUDA error code when the grid cannot be sized or the
+// element size is none of the three. The wrapper allocates it, and a zeroed
+// pair of 32-bit words for the grid barrier.
+long long rrlu_scratch_bytes(int mp, int np, int elsize, int C) {
+  switch (elsize) {
+    case 4:
+      return scratch_bytes<float>(mp, np, C);
+    case 8:
+      return scratch_bytes<double>(mp, np, C);
+    case 16:
+      return scratch_bytes<double2>(mp, np, C);
     default:
       return -(long long)cudaErrorInvalidValue;
   }
@@ -1139,24 +1655,35 @@ long long rrlu_scratch_bytes(int mp, int np, int elsize) {
 // B panels of (mp, np), contiguous. Per-panel sizes, rank caps and
 // tolerances come from the device arrays m_arr, n_arr, maxrank_arr ((B,)
 // int32) and tol_arr ((B, 2): reltol, abstol) when they are not null, and
-// from the scalar arguments otherwise; the kernel clamps them to the panel, so
-// the caller need not read them back to check them. Returns the launch's CUDA
-// error code (0 on success).
+// from the scalar arguments otherwise; the kernels clamp them to the panel,
+// so the caller need not read them back to check them. C is the cluster
+// size from rrlu_cluster_size (0: no cluster kernel); mode_out ((B,) int64)
+// receives each panel's mode. Returns the launches' CUDA error code (0 on
+// success).
 #define RRLU_LAUNCH(NAME, T)                                                  \
   int NAME(const void* A_in, void* scratch, void* bar, void* A_sw,           \
            void* rowperm, void* colperm, void* mags, void* k_out,            \
-           void* err_out, const void* m_arr, const void* n_arr,              \
-           const void* maxrank_arr, const void* tol_arr, int m, int n,       \
-           int maxrank, double reltol, double abstol, int B, int mp, int np, \
-           int leftorth, void* stream) {                                     \
+           void* err_out, void* mode_out, const void* m_arr,                 \
+           const void* n_arr, const void* maxrank_arr, const void* tol_arr,  \
+           int m, int n, int maxrank, double reltol, double abstol, int B,   \
+           int mp, int np, int leftorth, int C, void* stream) {              \
     return launch<T>(A_in, scratch, bar, A_sw, rowperm, colperm, mags,       \
-                     k_out, err_out, m_arr, n_arr, maxrank_arr, tol_arr, m,  \
-                     n, maxrank, reltol, abstol, B, mp, np, leftorth,        \
-                     stream);                                                \
+                     k_out, err_out, mode_out, m_arr, n_arr, maxrank_arr,    \
+                     tol_arr, m, n, maxrank, reltol, abstol, B, mp, np,      \
+                     leftorth, C, stream);                                   \
   }
 RRLU_LAUNCH(rrlu_launch_f64, double)
 RRLU_LAUNCH(rrlu_launch_f32, float)
 RRLU_LAUNCH(rrlu_launch_c128, double2)
 #undef RRLU_LAUNCH
+
+#ifdef RRLU_PHASE_CLOCKS
+// The cycles of each phase (kPhaseLoad ... kPhaseWrite) of each CTA of the
+// last cluster launch's panel 0, (kMaxCluster, kPhases) int64, into `out`.
+int rrlu_phase_cycles_read(long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, rrlu_phase_cycles,
+                                   sizeof(rrlu_phase_cycles));
+}
+#endif
 
 }  // extern "C"

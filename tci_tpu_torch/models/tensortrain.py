@@ -224,8 +224,8 @@ class TensorTrain(AbstractTensorTrain):
             )
             tt[ell] = left.reshape(*shapel[:-1], newbond)
             shaper = tt[ell + 1].shape
-            nexttensor = right @ tt[ell + 1].reshape(
-                shaper[0], int(np.prod(shaper[1:])))
+            nexttensor = _matmul(right, tt[ell + 1].reshape(
+                shaper[0], int(np.prod(shaper[1:]))))
             tt[ell + 1] = nexttensor.reshape(newbond, *shaper[1:])
 
         for ell in range(len(tt) - 1, 0, -1):
@@ -237,8 +237,8 @@ class TensorTrain(AbstractTensorTrain):
             )
             tt[ell] = right.reshape(newbond, *shaper[1:])
             shapel = tt[ell - 1].shape
-            nexttensor = tt[ell - 1].reshape(
-                int(np.prod(shapel[:-1])), shapel[-1]) @ left
+            nexttensor = _matmul(tt[ell - 1].reshape(
+                int(np.prod(shapel[:-1])), shapel[-1]), left)
             tt[ell - 1] = nexttensor.reshape(*shapel[:-1], newbond)
 
     # -- scalar algebra (tensortrain.jl:355-435) ----------------------------
@@ -261,6 +261,14 @@ class TensorTrain(AbstractTensorTrain):
 
     def __truediv__(self, a):
         return self.divide(a)
+
+
+def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in the two factors' common dtype: an LU or CI split of a
+    float32 train returns float64 factors, and torch's @ does not promote
+    (numpy's does, so tci_tpu's cores become float64)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
 
 
 def tensortrain(tci) -> TensorTrain:

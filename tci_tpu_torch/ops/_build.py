@@ -4,7 +4,9 @@ Each ``csrc/*.cu`` source is compiled by ``nvcc`` into a shared library with
 a plain C interface and loaded with ``ctypes`` (no PyTorch headers, so a
 build takes seconds). Libraries go to ``tci_tpu_torch/_build/``, named by a
 hash of the source and the flags, so an edited source rebuilds and an
-unchanged one is reused. Nothing here runs at import time.
+unchanged one is reused. A build with preprocessor macros (``defines``, for
+instrumented variants) is a library of its own. Nothing here runs at import
+time.
 """
 
 from __future__ import annotations
@@ -49,29 +51,34 @@ def _nvcc() -> str:
     )
 
 
-def _paths(name: str):
-    """(source, library) paths of kernel `name`; the library's name carries
-    a hash of the source and the flags."""
+def _flags(defines=()) -> tuple:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def _paths(name: str, defines=()):
+    """(source, library) paths of kernel `name` built with `defines`; the
+    library's name carries a hash of the source and the flags."""
     src = _CSRC / f"{name}.cu"
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + " ".join(_flags(defines)).encode()
     ).hexdigest()[:16]
     return src, BUILD_DIR / f"lib{name}_{digest}.so"
 
 
-def build(names) -> None:
-    """Compile the libraries of ``csrc/<name>.cu`` that are not built yet,
-    one nvcc process a source, all started together."""
+def build(names, defines=()) -> None:
+    """Compile the libraries of ``csrc/<name>.cu`` (with the preprocessor
+    macros `defines`) that are not built yet, one nvcc process a source,
+    all started together."""
     t0 = time.perf_counter()
     running = []
     for name in names:
-        src, lib_path = _paths(name)
+        src, lib_path = _paths(name, defines)
         if lib_path.exists():
             BUILD_SECONDS.setdefault(name, 0.0)
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [_nvcc(), *_flags(defines), "-o", str(tmp), str(src)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.PIPE, text=True)
         running.append((name, src, lib_path, tmp, cmd, proc))
@@ -90,9 +97,11 @@ def build(names) -> None:
         raise RuntimeError("\n".join(failures))
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Return the loaded library built from ``csrc/<name>.cu``."""
-    if name not in _LIBS:
-        build([name])
-        _LIBS[name] = ctypes.CDLL(str(_paths(name)[1]))
-    return _LIBS[name]
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """Return the loaded library built from ``csrc/<name>.cu`` (with the
+    preprocessor macros `defines`)."""
+    key = (name, tuple(defines))
+    if key not in _LIBS:
+        build([name], defines)
+        _LIBS[key] = ctypes.CDLL(str(_paths(name, defines)[1]))
+    return _LIBS[key]

@@ -3,14 +3,18 @@
 Counterpart of ``tci_tpu/ops/pallas_lu.py``: ``rrlu_call`` and
 ``rrlu_batched`` take the arguments of ``pallas_rrlu_call`` /
 ``pallas_rrlu_batched`` and return the same 6-tuple (A_sw, rowperm, colperm,
-k, mags, err). Each call is one launch of B panels (B = 1 for
+k, mags, err), and with ``return_mode=True`` each panel's mode as well (0
+resident, 1 cluster, 2 grid). A call eliminates B panels (B = 1 for
 ``rrlu_call``) of float32, float64 or complex128 (mags and err are then
-real float64): panels up to 128 KB (128 x 128 f64) take one thread block
-each, with
-the panel in shared memory (it must start on a 16-byte boundary and hold a
-multiple of 16 bytes, as every shape bucket does); larger ones take the
-whole card in turn, in a cooperative multi-block launch whose global
-scratch this module allocates.
+real float64) in the kernel's three modes (``csrc/rrlu.cu``): panels up to
+128 KB (128 x 128 f64) take one thread block each, with the panel in shared
+memory (it must start on a 16-byte boundary and hold a multiple of 16
+bytes, as every shape bucket does); larger ones take one thread-block
+cluster each where their true rows fit its shared memory, and otherwise
+the whole card in turn, in a cooperative grid launch whose global scratch
+this module allocates. Where the padded panel may not fit a cluster, a call
+launches the cluster kernel and then the grid kernel, and each panel is
+eliminated by the one its true extents choose.
 
 This module only launches the kernel: a panel that is not a contiguous
 float32, float64 or complex128 CUDA tensor raises. Which of the kernel and its plain
@@ -38,7 +42,12 @@ LAUNCHES: Counter = Counter()
 CAPTURED: Counter = Counter()
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-_LAUNCH_ARGTYPES = [_P] * 13 + [_I, _I, _I, _D, _D, _I, _I, _I, _I, _P]
+_LAUNCH_ARGTYPES = [_P] * 14 + [_I, _I, _I, _D, _D] + [_I] * 5 + [_P]
+
+# the kernel's host modes (rrlu_host_mode in csrc/rrlu.cu), and the modes it
+# reports for a panel (return_mode)
+HOST_MODES = ("resident", "cluster", "cluster+grid", "grid")
+PANEL_MODES = ("resident", "cluster", "grid")
 
 
 # the kernel's entry point for each element type it takes
@@ -47,14 +56,24 @@ _ENTRY = {torch.float32: "rrlu_launch_f32", torch.float64: "rrlu_launch_f64",
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("rrlu")
+def _lib(defines: tuple = ()) -> ctypes.CDLL:
+    """The kernel's library; `defines` builds an instrumented variant
+    (``("RRLU_PHASE_CLOCKS",)``: the cluster kernel's phase clocks, read by
+    ``rrlu_phase_cycles_read``)."""
+    lib = _build.load("rrlu", defines)
     for name in _ENTRY.values():
         fn = getattr(lib, name)
         fn.argtypes = _LAUNCH_ARGTYPES
         fn.restype = _I
-    lib.rrlu_scratch_bytes.argtypes = [_I, _I, _I]
+    lib.rrlu_scratch_bytes.argtypes = [_I, _I, _I, _I]
     lib.rrlu_scratch_bytes.restype = ctypes.c_longlong
+    lib.rrlu_host_mode.argtypes = [_I, _I, _I, _I]
+    lib.rrlu_host_mode.restype = _I
+    lib.rrlu_cluster_size.argtypes = [_I]
+    lib.rrlu_cluster_size.restype = _I
+    if "RRLU_PHASE_CLOCKS" in defines:
+        lib.rrlu_phase_cycles_read.argtypes = [_P]
+        lib.rrlu_phase_cycles_read.restype = _I
     return lib
 
 
@@ -90,14 +109,42 @@ def check_extents(mp: int, npd: int, m_true, n_true, maxrank) -> None:
 
 
 @functools.cache
-def _scratch_bytes(device_index: int, mp: int, npd: int, elsize: int) -> int:
-    """Global scratch of an (mp, np) panel on one device, from the kernel
-    (0 for a panel it eliminates in shared memory; the limit lives in
+def cluster_size(device_index: int, elsize: int) -> int:
+    """CTAs of a cluster-mode cluster for `elsize`-byte elements on one
+    device: 16 where the card can schedule such a cluster, else 8 (the rule
+    lives in ``csrc/rrlu.cu``). Setting the kernels' shared-memory
+    attributes comes with it, so the first call must not happen while a
+    stream is capturing (``warm_up`` makes it). A card that can schedule
+    neither raises."""
+    with torch.cuda.device(device_index):
+        C = _lib().rrlu_cluster_size(elsize)
+    if C < 0:
+        raise RuntimeError(f"rrLU kernel: CUDA error {-C} choosing the "
+                           f"cluster size (element size {elsize})")
+    return C
+
+
+def host_mode(device_index: int, mp: int, npd: int,
+              dtype: torch.dtype) -> str:
+    """How a call on aligned (mp, np) panels of `dtype` runs on one device:
+    "resident", "cluster", "cluster+grid" (each panel takes the mode its
+    true extents choose) or "grid"."""
+    elsize = torch.empty((), dtype=dtype).element_size()
+    C = cluster_size(device_index, elsize)
+    return HOST_MODES[_lib().rrlu_host_mode(mp, npd, elsize, C)]
+
+
+@functools.cache
+def _scratch_bytes(device_index: int, mp: int, npd: int, elsize: int,
+                   C: int) -> int:
+    """Global scratch of a call on (mp, np) panels on one device, from the
+    kernel (0 unless the grid kernel runs; the rule lives in
     ``csrc/rrlu.cu`` alone). Asked once per shape, not per call."""
-    nbytes = _lib().rrlu_scratch_bytes(mp, npd, elsize)
+    with torch.cuda.device(device_index):
+        nbytes = _lib().rrlu_scratch_bytes(mp, npd, elsize, C)
     if nbytes < 0:
         raise RuntimeError(f"rrLU kernel: CUDA error {-nbytes} sizing the "
-                           f"multi-block grid (panel {mp}x{npd})")
+                           f"grid (panel {mp}x{npd})")
     return nbytes
 
 
@@ -107,38 +154,45 @@ def count_replay(launches: int) -> None:
     LAUNCHES["rrlu"] += launches
 
 
-# (device index, dtype, multi-block?) of the launches made so far outside
-# any capture
+# (device index, dtype, host mode) of the launches made so far outside any
+# capture
 _WARM = set()
 
 
 def warm_up(device_index: int, dtype: torch.dtype) -> None:
     """Everything of a launch that happens once and may not happen while a
-    stream is capturing: the build, the load of both kernels' code onto the
-    device and the resident kernel's shared-memory attribute. Makes one
-    small launch of each mode that this process has not yet launched on
-    this device in this dtype; call it before the first capture of a body
-    that launches the kernel."""
+    stream is capturing: the build, the choice of the cluster size and the
+    kernels' shared-memory attributes, the load of the three kernels' code
+    onto the device. Makes one small launch of each host mode that this
+    process has not yet launched on this device in this dtype (the
+    "cluster+grid" launch loads the grid kernel); call it before the first
+    capture of a body that launches the kernel."""
     dev = torch.device("cuda", device_index)
-    # 8 x 8 takes the resident mode, 256 x 256 the multi-block mode
-    for n, multiblock in ((8, False), (256, True)):
-        if (device_index, dtype, multiblock) not in _WARM:
-            rrlu_call(torch.zeros((n, n), dtype=dtype, device=dev), n, n, 1,
+    elsize = torch.empty((), dtype=dtype).element_size()
+    cluster_size(device_index, elsize)
+    # 8 x 8 is resident, 256 x 256 a cluster's; rows of 4 KB, 1024 of them,
+    # fit no cluster, so that shape launches both kernels
+    for shape in ((8, 8), (256, 256), (1024, 4096 // elsize)):
+        mode = host_mode(device_index, *shape, dtype)
+        if (device_index, dtype, mode) not in _WARM:
+            rrlu_call(torch.zeros(shape, dtype=dtype, device=dev), 1, 1, 1,
                       0.0, 0.0, leftorthogonal=True)
 
 
 def _launch(A, B, mp, npd, leftorthogonal, scalars, arrays):
     """Allocate the outputs and launch B panels; `scalars` are
     (m, n, maxrank, reltol, abstol), `arrays` the per-panel device arrays
-    (m, n, maxrank int32 (B,), tol (B, 2)) or Nones.
+    (m, n, maxrank int32 (B,), tol (B, 2)) or Nones. Returns the 6-tuple
+    and the (B,) int64 modes the kernels report.
 
     A launch can be captured into a CUDA graph: it runs on the current
     stream, the outputs and the scratch then come from the graph's memory
     pool, and the zeroing of the barrier words is a node of the graph that
     runs at every replay. (The barrier would survive without it: the last
     block to arrive resets `arrived`, and the others wait for a change of
-    `generation`, whatever its value.) The cooperative launch of the
-    multi-block mode is captured as a kernel node like any other."""
+    `generation`, whatever its value.) The cluster launch and the
+    cooperative launch of the grid mode are captured as kernel nodes like
+    any other."""
     dev, dt = A.device, A.dtype
     fn = getattr(_lib(), _ENTRY[dt])
     rmax = min(mp, npd)
@@ -151,26 +205,32 @@ def _launch(A, B, mp, npd, leftorthogonal, scalars, arrays):
     else:
         rbuf = torch.empty((npanel + B * rmax + B,), dtype=dt, device=dev)
         A_sw, rbuf = rbuf[:npanel].view(B, mp, npd), rbuf[npanel:]
-    ibuf = torch.empty((B * (mp + npd + 1),), dtype=torch.int64, device=dev)
+    ibuf = torch.empty((B * (mp + npd + 2),), dtype=torch.int64, device=dev)
     mags = rbuf[:B * rmax].view(B, rmax)
     err = rbuf[B * rmax:]
     rowperm = ibuf[:B * mp].view(B, mp)
     colperm = ibuf[B * mp:B * (mp + npd)].view(B, npd)
-    k = ibuf[B * (mp + npd):]
+    k = ibuf[B * (mp + npd):B * (mp + npd + 1)]
+    modes = ibuf[B * (mp + npd + 1):]
     m, n, maxrank, reltol, abstol = scalars
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    es = A.element_size()
+    aligned = A.data_ptr() % 16 == 0 and (mp * npd * es) % 16 == 0
+    # a panel the bulk copy cannot load takes the grid mode (C = 0)
+    C = cluster_size(dev.index, es) if aligned else 0
+    mode = HOST_MODES[_lib().rrlu_host_mode(mp, npd, es, C)]
     with torch.cuda.device(dev):
-        # panels above the resident limit run in the multi-block mode:
-        # global scratch, and the two words of its grid barrier, zeroed
+        # where the grid kernel runs: global scratch, and the two words of
+        # its grid barrier, zeroed
         scratch = barrier = None
-        nbytes = _scratch_bytes(dev.index, mp, npd, A.element_size())
+        nbytes = _scratch_bytes(dev.index, mp, npd, es, C)
         if nbytes > 0:
             scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
             barrier = torch.zeros((2,), dtype=torch.int32, device=dev)
-        elif A.data_ptr() % 16 or (mp * npd * A.element_size()) % 16:
+        elif mode == "resident" and not aligned:
             # the resident mode loads the panel with the bulk-copy engine
             raise ValueError(
                 f"rrLU kernel: a shared-memory resident panel must start on "
@@ -179,24 +239,27 @@ def _launch(A, B, mp, npd, leftorthogonal, scalars, arrays):
                 f"at offset {A.data_ptr() % 16}")
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(ptr(A), ptr(scratch), ptr(barrier), ptr(A_sw), ptr(rowperm),
-                ptr(colperm), ptr(mags), ptr(k), ptr(err),
+                ptr(colperm), ptr(mags), ptr(k), ptr(err), ptr(modes),
                 *(ptr(a) for a in arrays), m, n, maxrank, reltol, abstol, B,
-                mp, npd, int(bool(leftorthogonal)), stream)
+                mp, npd, int(bool(leftorthogonal)), C, stream)
     if rc != 0:
         raise RuntimeError(f"rrLU kernel launch failed with CUDA error {rc} "
-                           f"(B={B}, panel {mp}x{npd}, {dt})")
+                           f"(B={B}, panel {mp}x{npd}, {dt}, {mode}, "
+                           f"cluster of {C})")
     if torch.cuda.is_current_stream_capturing():
         CAPTURED["rrlu"] += 1
     else:
         LAUNCHES["rrlu"] += 1
-        _WARM.add((dev.index, dt, nbytes > 0))
-    return A_sw, rowperm, colperm, k, mags, err
+        _WARM.add((dev.index, dt, mode))
+    return A_sw, rowperm, colperm, k, mags, err, modes
 
 
 def rrlu_call(A: torch.Tensor, m_true, n_true, maxrank, reltol, abstol,
-              *, leftorthogonal: bool):
+              *, leftorthogonal: bool, return_mode: bool = False):
     """Eliminate one zero-padded (mp, np) panel; the contract of
-    ``pallas_rrlu_call`` and of the plain ``lu_kernel.rrlu_plain``."""
+    ``pallas_rrlu_call`` and of the plain ``lu_kernel.rrlu_plain``. With
+    return_mode, a 0-d int64 tensor of the mode the kernel reports is
+    appended."""
     _check_panel(A, 2)
     mp, npd = A.shape
     m, n, maxrank = int(m_true), int(n_true), int(maxrank)
@@ -204,15 +267,16 @@ def rrlu_call(A: torch.Tensor, m_true, n_true, maxrank, reltol, abstol,
     out = _launch(A, 1, mp, npd, leftorthogonal,
                   (m, n, maxrank, float(reltol), float(abstol)),
                   (None, None, None, None))
-    A_sw, rowperm, colperm, k, mags, err = out
-    return A_sw[0], rowperm[0], colperm[0], k[0], mags[0], err[0]
+    out = tuple(t[0] for t in out)
+    return out if return_mode else out[:6]
 
 
 def rrlu_batched(A: torch.Tensor, m_true, n_true, maxrank, reltol, abstol,
-                 *, leftorthogonal: bool):
-    """Eliminate B panels of (B, mp, np) in one launch, with per-panel (B,)
+                 *, leftorthogonal: bool, return_mode: bool = False):
+    """Eliminate B panels of (B, mp, np) in one call, with per-panel (B,)
     true sizes, rank caps and tolerances (scalars apply to every panel);
-    the contract of ``pallas_rrlu_batched``.
+    the contract of ``pallas_rrlu_batched``. With return_mode, the (B,)
+    int64 modes the kernels report are appended.
 
     Nothing is read back from the card: sizes and tolerances may be
     tensors on A's device that the caller computed there (the whole-sweep
@@ -220,7 +284,8 @@ def rrlu_batched(A: torch.Tensor, m_true, n_true, maxrank, reltol, abstol,
     queue its eliminations without a sync; sizes given on the host are
     checked (``check_extents``). Scalar tolerances go to the kernel as
     arguments and int32 (B,) size tensors as they are, so such a call
-    launches nothing but the kernel and its barrier reset."""
+    launches nothing but the kernels (and, where the grid kernel runs, its
+    barrier reset)."""
     _check_panel(A, 3)
     B, mp, npd = A.shape
     check_extents(mp, npd, m_true, n_true, maxrank)
@@ -240,5 +305,6 @@ def rrlu_batched(A: torch.Tensor, m_true, n_true, maxrank, reltol, abstol,
         tols = (0.0, 0.0)
     else:
         tol, tols = None, (float(reltol), float(abstol))
-    return _launch(A, B, mp, npd, leftorthogonal, (0, 0, 0) + tols,
-                   (*sizes, tol))
+    out = _launch(A, B, mp, npd, leftorthogonal, (0, 0, 0) + tols,
+                  (*sizes, tol))
+    return out if return_mode else out[:6]

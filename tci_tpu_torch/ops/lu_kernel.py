@@ -16,7 +16,14 @@ pivot column has the largest cached per-column max |a|^2, ties to the
 smallest swapped position; the pivot row has the largest |a|^2 in that
 column, ties likewise; the loop stops by the rule of matrixlu.jl:363. The
 Schur update is written as a multiply followed by a subtract, which is how
-the kernel rounds, so the two agree bitwise.
+the kernel rounds, and touches only the unpivoted rows and columns of the
+true extents, as the kernel does, so the two agree bitwise.
+
+NaN: a NaN metric ranks above every value (``jnp.argmax``'s rule, which
+``tci_tpu``'s ``_rrlu_state_small`` follows), so the first NaN in the
+swapped column-major order becomes the pivot and the NaN reaches the
+factors, where ``rrlu``'s check raises. The pivot is then always a valid
+row and column, so no swap moves a line outside the true extents.
 
 Panels are float32, float64 or complex128. For complex128 the metric
 |a|^2 = re re + im im, the magnitudes, err and the tolerances are real, and
@@ -85,6 +92,14 @@ def _div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _cdiv(a, b) if a.is_complex() else a / b
 
 
+def _first(metric: torch.Tensor, top: torch.Tensor, valid: torch.Tensor,
+           pos: torch.Tensor) -> int:
+    """Smallest position among the valid entries that equal `top`, the
+    metric's maximum; a NaN maximum is matched by the NaN entries."""
+    hit = metric.isnan() if bool(top.isnan()) else metric == top
+    return int(torch.where(hit & valid, pos, _BIG).min())
+
+
 def rrlu_plain(A: torch.Tensor, m_true: int, n_true: int, maxrank: int,
                reltol: float, abstol: float, *, leftorthogonal: bool):
     """Plain PyTorch elimination of one zero-padded (mp, np) panel.
@@ -110,7 +125,6 @@ def rrlu_plain(A: torch.Tensor, m_true: int, n_true: int, maxrank: int,
     rowpos, colpos = rows.clone(), cols.clone()
     rt = torch.tensor(reltol, dtype=rdt, device=dev)
     at = torch.tensor(abstol, dtype=rdt, device=dev)
-    zero = torch.zeros((), dtype=dt, device=dev)
     one = torch.ones((), dtype=dt, device=dev)
     rzero = torch.zeros((), dtype=rdt, device=dev)
     neg1 = -torch.ones((), dtype=rdt, device=dev)
@@ -127,15 +141,16 @@ def rrlu_plain(A: torch.Tensor, m_true: int, n_true: int, maxrank: int,
             # no valid column left: stop with err 0, as the TPU kernel does
             err = rzero
             break
-        bestcolpos = int(torch.where((cm == M) & validc, colpos, _BIG).min())
+        # the positions are clamped as tci_tpu clamps them (lu_kernel.py:95)
+        bestcolpos = min(_first(cm, M, validc, colpos), npd - 1)
         pc = int(colperm[bestcolpos])
 
         validr = (rowpos >= k) & (rows < m)
         acol = A[:, pc]
         met = torch.where(validr, _abs2(acol), neg1)
         Mr = met.max()
-        bestrowpos = int(torch.where((met == Mr) & validr, rowpos, _BIG).min())
-        pr = int(rowperm[min(bestrowpos, mp - 1)])
+        bestrowpos = min(_first(met, Mr, validr, rowpos), mp - 1)
+        pr = int(rowperm[bestrowpos])
         newerr = torch.sqrt(torch.clamp(Mr, min=0))
 
         stop = k > 0 and (bool(newerr < rt * maxerror) or bool(newerr < at))
@@ -161,17 +176,18 @@ def rrlu_plain(A: torch.Tensor, m_true: int, n_true: int, maxrank: int,
         urow = (rowpos >= k + 1) & (rows < m)
         ucol = (colpos >= k + 1) & (cols < n)
         if leftorthogonal:
-            mult = _div(A[:, pc], safe)
-            x = torch.where(urow, mult, zero)
-            y = torch.where(ucol, A[pr, :], zero)
-            Anew = A - _mul(x[:, None], y[None, :])
-            Anew[:, pc] = torch.where(urow, mult, Anew[:, pc])
+            x = _div(A[:, pc], safe)
+            y = A[pr, :]
         else:
-            divr = _div(A[pr, :], safe)
-            y = torch.where(ucol, divr, zero)
-            x = torch.where(urow, A[:, pc], zero)
-            Anew = A - _mul(x[:, None], y[None, :])
-            Anew[pr, :] = torch.where(ucol, divr, Anew[pr, :])
+            x = A[:, pc]
+            y = _div(A[pr, :], safe)
+        Anew = torch.where(urow[:, None] & ucol[None, :],
+                           A - _mul(x[:, None], y[None, :]), A)
+        # the multipliers: pivot column when left-orthogonal, else pivot row
+        if leftorthogonal:
+            Anew[:, pc] = torch.where(urow, x, Anew[:, pc])
+        else:
+            Anew[pr, :] = torch.where(ucol, y, Anew[pr, :])
         A = Anew
         colmax = torch.where(urow[:, None], _abs2(A), neg1).amax(0)
         mags[k] = newerr

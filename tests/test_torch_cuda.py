@@ -38,6 +38,12 @@ def _equal(a, b):
     return torch.equal(a, b) or bool((a.isnan() & b.isnan()).all())
 
 
+def _same(a, b):
+    """Equal, NaN where the other is NaN (a panel that holds NaN)."""
+    return a.shape == b.shape and bool(
+        ((a == b) | (a.isnan() & b.isnan())).all())
+
+
 def _panel(seed, mp, npd, m, n, rank, dtype, device):
     rng = np.random.default_rng(seed)
     A = np.zeros((mp, npd))
@@ -50,7 +56,8 @@ def _panel(seed, mp, npd, m, n, rank, dtype, device):
 @pytest.mark.parametrize("shape", [
     # (mp, np, m, n, rank): shared-memory resident panels ...
     (8, 8, 8, 5, 4), (128, 128, 120, 117, 30), (64, 16, 60, 10, 16),
-    # ... and multi-block ones, from just above the resident limit up
+    # ... and larger ones (cluster or grid mode), from just above the
+    # resident limit up
     (176, 176, 170, 165, 40), (192, 192, 190, 185, 40),
     (256, 256, 250, 240, 50), (512, 256, 500, 250, 60),
     (1024, 1024, 1000, 990, 100), (64, 10240, 60, 10000, 40)])
@@ -104,8 +111,7 @@ def test_resident_matches_plain(cuda, blocks, stop, leftorthogonal, dtype):
     reltol, abstol = ((1e-14, 1e-8 * float(np.abs(A).max()))
                       if stop == "abstol" else (1e-6, 0.0))
     args = (P, m, n, min(m, n), reltol, abstol)
-    assert lu_cuda._scratch_bytes(P.device.index, *P.shape,
-                                  P.element_size()) == 0  # resident
+    assert lu_cuda.host_mode(P.device.index, *P.shape, dtype) == "resident"
     out = lu_cuda.rrlu_call(*args, leftorthogonal=leftorthogonal)
     ref = lu_kernel.rrlu_plain(*args, leftorthogonal=leftorthogonal)
     torch.cuda.synchronize()
@@ -173,8 +179,8 @@ def test_batched_kernel_matches_plain(cuda):
 
 
 def test_batched_multiblock_matches_plain(cuda):
-    """Two 512 x 512 panels above the resident limit take the grid in turn,
-    each with its own extents, rank cap and tolerances."""
+    """Two 512 x 512 panels above the resident limit, each with its own
+    extents, rank cap and tolerances: one cluster each, side by side."""
     A = torch.stack([_panel(5, 512, 512, 500, 480, 60, torch.float64, cuda),
                      _panel(6, 512, 512, 450, 512, 90, torch.float64, cuda)])
     mt = torch.tensor([500, 450], device=cuda)
@@ -192,9 +198,33 @@ def test_batched_multiblock_matches_plain(cuda):
             assert _equal(o, r)
 
 
+def test_batched_cluster_and_grid_matches_plain(cuda):
+    """Three 1024 x 1024 f64 panels in one call whose true rows pick
+    different modes: 960 and 900 rows fit no cluster (the grid mode), 200
+    do (the cluster mode). The grid kernel skips the middle panel and
+    eliminates the other two in turn, reusing its scratch and barrier."""
+    A = torch.stack([_panel(s, 1024, 1024, m, 1000, 40, torch.float64, cuda)
+                     for s, m in ((8, 960), (9, 200), (10, 900))])
+    mt = torch.tensor([960, 200, 900], device=cuda)
+    nt = torch.tensor([1000, 1000, 1000], device=cuda)
+    mr = torch.tensor([40, 40, 30], device=cuda)
+    rt = torch.tensor([1e-12, 1e-12, 0.0], dtype=torch.float64, device=cuda)
+    at = torch.zeros(3, dtype=torch.float64, device=cuda)
+    for leftorthogonal in (True, False):
+        out = lu_cuda.rrlu_batched(A, mt, nt, mr, rt, at,
+                                   leftorthogonal=leftorthogonal,
+                                   return_mode=True)
+        ref = lu_kernel.rrlu_plain_batched(A, mt, nt, mr, rt, at,
+                                           leftorthogonal=leftorthogonal)
+        assert out[6].tolist() == [2, 1, 2]
+        assert out[3].tolist() == [40, 40, 30]
+        for o, r in zip(out, ref):
+            assert _equal(o, r)
+
+
 def test_multiblock_repeats_bitwise(cuda):
-    """N = 2000 in the multi-block mode, 20 runs against one plain result:
-    a stale cross-block read would show as a rare wrong pivot."""
+    """N = 2000 in the grid mode, 20 runs against one plain result: a stale
+    cross-block read would show as a rare wrong pivot."""
     A = _panel(2000, 2048, 2048, 2000, 2000, 100, torch.float64, cuda)
     args = (A, 2000, 2000, 2000, 1e-12, 0.0)
     ref = lu_kernel.rrlu_plain(*args, leftorthogonal=True)
@@ -231,6 +261,197 @@ def test_rrlu_large_panels_match_plain(cuda, shape):
     assert torch.equal(lu.L, ref.L) and torch.equal(lu.U, ref.U)
     assert np.array_equal(lu.pivoterrors(), ref.pivoterrors())
     assert lu.lastpivoterror() == ref.lastpivoterror()
+
+
+# The main path's panels above the resident limit, padded as its buckets pad
+# them, with the true extents it gives them: config 1's bond panel (352^2,
+# 132^2, k = 12), config 4's at Imax 32 (512^2, 480^2, k = 32) and at 64
+# (1024^2, 960^2, k = 44), config 5's complex one (512^2, 136 x 271, k =
+# 19). (dtype, mp, m, n, k) -> the mode the kernel reports: 1 cluster, 2
+# grid (960 rows of 8 KB fit no cluster).
+CLUSTER_SHAPES = {
+    (torch.float64, 352, 132, 132, 12): 1,
+    (torch.float64, 512, 480, 480, 32): 1,
+    (torch.float64, 1024, 960, 960, 44): 2,
+    (torch.float32, 352, 132, 132, 12): 1,
+    (torch.float32, 512, 480, 480, 32): 1,
+    (torch.float32, 1024, 960, 960, 44): 2,
+    (torch.complex128, 512, 136, 271, 19): 1,
+}
+
+
+def _main_path_panel(dtype, mp, m, n, k, device, seed=0):
+    if dtype.is_complex:
+        return _cpanel(seed, mp, mp, m, n, 2 * k, device)
+    return _panel(seed, mp, mp, m, n, 2 * k, dtype, device)
+
+
+@pytest.mark.parametrize("leftorthogonal", [True, False])
+@pytest.mark.parametrize("shape", list(CLUSTER_SHAPES),
+                         ids=lambda s: f"{str(s[0])[6:]}-{s[1]}")
+def test_cluster_mode_matches_plain(cuda, shape, leftorthogonal):
+    """The cluster mode (and the grid mode where the true rows fit no
+    cluster) at the main path's shapes, rank capped at its k."""
+    dtype, mp, m, n, k = shape
+    A = _main_path_panel(dtype, mp, m, n, k, cuda)
+    args = (A, m, n, k, 1e-14, 0.0)
+    out = lu_cuda.rrlu_call(*args, leftorthogonal=leftorthogonal,
+                            return_mode=True)
+    ref = lu_kernel.rrlu_plain(*args, leftorthogonal=leftorthogonal)
+    torch.cuda.synchronize()
+    assert int(out[3]) == k
+    for o, r in zip(out, ref):
+        assert _equal(o, r)
+
+
+def _fits_cluster(m, mp, npd, C, elsize):
+    """csrc/rrlu.cu's fits_cluster: a CTA's share of the m true rows (full
+    padded width), y, x and the int state in one CTA's shared memory."""
+    rows = -(-m // C)
+    need = (rows * npd * elsize + (npd + rows) * elsize
+            + (mp + 2 * npd + 2 * rows) * 4)
+    return need <= 232448 - 2048
+
+
+def test_cluster_mode_reports_mode(cuda):
+    """The host's plan for each main-path shape and the mode the kernel
+    reports. With 16-CTA clusters (the H100 SXM) the padded 352^2 and
+    512^2 f64 / f32 panels fit a cluster (one launch); 1024^2, and config
+    5's complex 512^2 (4 MB padded), may not (the cluster kernel, then the
+    grid kernel), and their true extents pick one of the two on the device
+    (CLUSTER_SHAPES); another cluster size is held to the rule itself."""
+    dev = torch.cuda.current_device()
+    for shape, mode in CLUSTER_SHAPES.items():
+        dtype, mp, m, n, k = shape
+        es = torch.empty((), dtype=dtype).element_size()
+        C = lu_cuda.cluster_size(dev, es)
+        assert C in (8, 16)
+        plan = lu_cuda.host_mode(dev, mp, mp, dtype)
+        assert plan == ("cluster" if _fits_cluster(mp, mp, mp, C, es)
+                        else "cluster+grid"), shape
+        if C == 16:
+            assert plan == ("cluster" if mp < 1024 and not dtype.is_complex
+                            else "cluster+grid"), shape
+        else:
+            mode = 1 if _fits_cluster(m, mp, mp, C, es) else 2
+        A = _main_path_panel(dtype, mp, m, n, k, cuda)
+        out = lu_cuda.rrlu_call(A, m, n, k, 1e-14, 0.0, leftorthogonal=True,
+                                return_mode=True)
+        assert int(out[6]) == mode, shape
+
+
+def test_cluster_batched_complex_matches_plain(cuda):
+    """Four complex 128^2 panels in one call, one cluster each, side by
+    side, with per-panel extents, rank caps and tolerances."""
+    A = torch.stack([_cpanel(s, 128, 128, 120 - s, 128, 30, cuda)
+                     for s in range(4)])
+    mt = torch.tensor([120, 119, 118, 117], device=cuda)
+    nt = torch.tensor([128, 100, 128, 90], device=cuda)
+    mr = torch.tensor([128, 5, 100, 90], device=cuda)
+    rt = torch.tensor([1e-12, 0.0, 1e-3, 1e-14], dtype=torch.float64,
+                      device=cuda)
+    at = torch.tensor([0.0, 0.0, 0.0, 1e-2], dtype=torch.float64,
+                      device=cuda)
+    for leftorthogonal in (True, False):
+        out = lu_cuda.rrlu_batched(A, mt, nt, mr, rt, at,
+                                   leftorthogonal=leftorthogonal,
+                                   return_mode=True)
+        ref = lu_kernel.rrlu_plain_batched(A, mt, nt, mr, rt, at,
+                                           leftorthogonal=leftorthogonal)
+        for o, r in zip(out, ref):
+            assert _equal(o, r)
+        assert out[6].tolist() == [1, 1, 1, 1]
+
+
+def test_cluster_repeats_bitwise(cuda):
+    """Config 1's bond panel in the cluster mode, 20 runs against one plain
+    result: a missing release / acquire between the CTAs would show as a
+    rare wrong pivot."""
+    A = _main_path_panel(torch.float64, 352, 132, 132, 12, cuda, seed=352)
+    args = (A, 132, 132, 132, 1e-14, 0.0)
+    ref = lu_kernel.rrlu_plain(*args, leftorthogonal=True)
+    for _ in range(20):
+        out = lu_cuda.rrlu_call(*args, leftorthogonal=True)
+        for o, r in zip(out, ref):
+            assert _equal(o, r)
+
+
+def test_phase_clocks_build_matches_plain(cuda, monkeypatch):
+    """The build with -DRRLU_PHASE_CLOCKS (chip_smoke.py --phases): its
+    cluster kernel stays bitwise its plain version, and every CTA of the
+    panel reports a positive cycle count for each of its nine phases."""
+    phased = lu_cuda._lib(("RRLU_PHASE_CLOCKS",))
+    monkeypatch.setattr(lu_cuda, "_lib", lambda: phased)
+    A = _main_path_panel(torch.float64, 352, 132, 132, 12, cuda)
+    args = (A, 132, 132, 12, 1e-14, 0.0)
+    out = lu_cuda.rrlu_call(*args, leftorthogonal=False, return_mode=True)
+    ref = lu_kernel.rrlu_plain(*args, leftorthogonal=False)
+    torch.cuda.synchronize()
+    cycles = torch.zeros((16, 9), dtype=torch.int64)
+    assert phased.rrlu_phase_cycles_read(cycles.data_ptr()) == 0
+    assert int(out[6]) == 1
+    for o, r in zip(out, ref):
+        assert _equal(o, r)
+    C = lu_cuda.cluster_size(torch.cuda.current_device(), 8)
+    assert bool((cycles[:C] > 0).all())
+
+
+def _nan_matrix(case):
+    """ROADMAP C-port-9's inputs; "padded_302" pads the first with 300
+    zero rows and columns."""
+    nan = float("nan")
+    if case == "padded_302":
+        return torch.nn.functional.pad(_nan_matrix("nan_upper_right"),
+                                       (0, 300, 0, 300))
+    return torch.tensor({"nan_upper_right": [[1.0, nan], [2.0, 3.0]],
+                         "nan_upper_left": [[nan, 1.0], [2.0, 3.0]],
+                         "all_nan": [[nan] * 3] * 3}[case],
+                        dtype=torch.float64)
+
+
+def _nan_panel(case, pad):
+    A = _nan_matrix(case)
+    P = torch.zeros((pad, pad), dtype=torch.float64)
+    P[:A.shape[0], :A.shape[1]] = A
+    return P
+
+
+@pytest.mark.parametrize("leftorthogonal", [True, False])
+@pytest.mark.parametrize("case", ["nan_upper_right", "nan_upper_left",
+                                  "all_nan", "padded_302"])
+def test_rrlu_nan_on_cuda_raises(cuda, case, leftorthogonal):
+    """C-port-9 on the card: the four inputs as CUDA tensors raise the
+    ValueError the CPU raises (tests/test_torch_lu.py holds that against
+    tci_tpu)."""
+    A = _nan_matrix(case)
+    with pytest.raises(ValueError) as ref:
+        tci_tpu_torch.rrlu(A, leftorthogonal=leftorthogonal)
+    with pytest.raises(ValueError) as out:
+        tci_tpu_torch.rrlu(A.to(cuda), leftorthogonal=leftorthogonal)
+    assert str(out.value) == str(ref.value)
+
+
+@pytest.mark.parametrize("leftorthogonal", [True, False])
+@pytest.mark.parametrize("pad,mode", [(8, 0), (320, 1), (1152, 2)])
+@pytest.mark.parametrize("case", ["nan_upper_right", "nan_upper_left",
+                                  "all_nan"])
+def test_nan_panel_kernel_matches_plain(cuda, case, pad, mode,
+                                        leftorthogonal):
+    """The kernel follows the plain version's NaN rule in each mode (8^2
+    resident, 320^2 cluster, 1152^2 with 1100 true rows grid), bitwise with
+    NaN where the plain version has NaN; k is never 0."""
+    P = _nan_panel(case, pad)
+    m = 2 if case != "all_nan" else 3
+    m_true = 1100 if mode == 2 else m
+    args = (P.to(cuda), m_true, m_true, m_true, 1e-14, 0.0)
+    out = lu_cuda.rrlu_call(*args, leftorthogonal=leftorthogonal,
+                            return_mode=True)
+    ref = lu_kernel.rrlu_plain(*args, leftorthogonal=leftorthogonal)
+    torch.cuda.synchronize()
+    for o, r in zip(out, ref):
+        assert _same(o, r)
+    assert int(out[6]) == mode and int(out[3]) > 0
+    assert bool(out[5].isnan())
 
 
 def test_rrlu_on_cuda_launches_the_kernel(cuda):
@@ -270,8 +491,8 @@ def _lorentz(idx):
 @pytest.mark.parametrize("shape", [
     # (B, panel edge): the engine's fill blocks (resident), the host tier's
     # largest bucket, and config 1's engine bond panel Imax (d + 1) at
-    # Imax = 32 (multi-block); config 3's bond panel (d = 2: 96^2, resident)
-    # and config 4's (d = 15: 512^2, multi-block)
+    # Imax = 32 (cluster); config 3's bond panel (d = 2: 96^2, resident)
+    # and config 4's (d = 15: 512^2, cluster)
     (1, 32), (1, 128), (1, 352), (7, 32), (1, 96), (1, 512)])
 def test_device_extents_match_plain(cuda, shape):
     """Extents, rank caps and tolerances given as device tensors: nothing is
@@ -538,12 +759,15 @@ def test_graph_matches_eager_bitwise(cuda, problem, capture_at):
     assert engine.graph_pool_bytes() > 0
 
 
-@pytest.mark.parametrize("N", [96, 160])
+@pytest.mark.parametrize("N", [96, 160, 1024])
 def test_captured_launch_replays_bitwise(cuda, N):
-    """One launch of the kernel recorded into a CUDA graph (160^2: the
-    cooperative launch of the multi-block mode; 96^2: the resident mode) and
-    replayed 20 times against one plain result; the sizes are read from the
-    device at each replay, and a replay counts as a launch."""
+    """One call of the kernel recorded into a CUDA graph (96^2: the resident
+    mode; 160^2: the cluster launch; 1024^2: the cluster launch and then the
+    cooperative launch of the grid mode, in one graph) and replayed 20
+    times against one plain result; the sizes are read from the device at
+    each replay, so at 1024^2 smaller true extents move the panel from the
+    grid mode to the cluster mode within the same graph; a replay counts as
+    a launch."""
     from tci_tpu_torch.utils.device import capture_graph
 
     A = _panel(N, N, N, N - 3, N - 5, 40, torch.float64, cuda)[None]
@@ -553,14 +777,16 @@ def test_captured_launch_replays_bitwise(cuda, N):
     rt = torch.tensor([1e-12], dtype=torch.float64, device=cuda)
     at = torch.tensor([0.0], dtype=torch.float64, device=cuda)
     lu_cuda.warm_up(torch.cuda.current_device(), torch.float64)
-    assert (lu_cuda._scratch_bytes(torch.cuda.current_device(), N, N, 8)
-            > 0) == (N == 160)
+    expected = {96: ("resident", 0), 160: ("cluster", 1),
+                1024: ("cluster+grid", 2)}[N]
+    assert lu_cuda.host_mode(torch.cuda.current_device(), N, N,
+                             torch.float64) == expected[0]
     ref = lu_kernel.rrlu_plain_batched(A, m, n, cap, rt, at,
                                        leftorthogonal=True)
     launches, captured = lu_cuda.LAUNCHES["rrlu"], lu_cuda.CAPTURED["rrlu"]
     graph, out = capture_graph(
         lambda: lu_cuda.rrlu_batched(A, m, n, cap, rt, at,
-                                     leftorthogonal=True),
+                                     leftorthogonal=True, return_mode=True),
         torch.cuda.graph_pool_handle(), torch.cuda.Stream(cuda))
     assert lu_cuda.CAPTURED["rrlu"] == captured + 1
     assert lu_cuda.LAUNCHES["rrlu"] == launches
@@ -572,6 +798,7 @@ def test_captured_launch_replays_bitwise(cuda, N):
         torch.cuda.synchronize()
         for o, r in zip(out, ref):
             assert _equal(o, r)
+        assert out[6].tolist() == [expected[1]]
     assert lu_cuda.LAUNCHES["rrlu"] == launches + 20
     cap.fill_(5)
     graph.replay()
@@ -581,6 +808,16 @@ def test_captured_launch_replays_bitwise(cuda, N):
                                         leftorthogonal=True)
     for o, r in zip(out, ref5):
         assert _equal(o, r)
+    if N == 1024:
+        # 200 true rows fit a cluster: the same graph, the other kernel
+        m.fill_(200)
+        graph.replay()
+        torch.cuda.synchronize()
+        ref200 = lu_kernel.rrlu_plain_batched(A, m, n, cap, rt, at,
+                                              leftorthogonal=True)
+        for o, r in zip(out, ref200):
+            assert _equal(o, r)
+        assert out[6].tolist() == [1]
 
 
 def test_replayed_program_follows_abstol_and_maxbonddim(cuda):
@@ -903,31 +1140,35 @@ def _cpanel(seed, mp, npd, m, n, rank, device):
     # (mp, np, m, n, rank): resident complex panels up to 128 KB ...
     (8, 8, 8, 5, 4), (32, 32, 30, 28, 12), (80, 80, 77, 80, 30),
     (128, 64, 120, 60, 25), (64, 16, 60, 10, 16),
-    # ... multi-block from just above (96^2 complex is 144 KB) to config 5's
-    # 512^2 bond panels and beyond
+    # ... larger from just above (96^2 complex is 144 KB): in a cluster up
+    # to config 5's 512^2 bond panels, on the grid beyond
     (96, 96, 90, 96, 20), (128, 128, 120, 117, 30),
     (512, 512, 480, 500, 40), (1024, 1024, 1000, 990, 100)])
 def test_complex_kernel_matches_plain(cuda, shape, leftorthogonal):
     mp, npd, m, n, rank = shape
     A = _cpanel(1, mp, npd, m, n, rank, cuda)
-    nbytes = lu_cuda._scratch_bytes(A.device.index, mp, npd, 16)
-    assert (nbytes == 0) == (mp * npd * 16 <= 128 * 128 * 8)
+    resident = mp * npd * 16 <= 128 * 128 * 8
+    assert (lu_cuda.host_mode(A.device.index, mp, npd, torch.complex128)
+            == "resident") == resident
     for reltol, abstol in ((1e-10, 0.0), (1e-14, 1e-3)):
         args = (A, m, n, min(m, n), reltol, abstol)
-        out = lu_cuda.rrlu_call(*args, leftorthogonal=leftorthogonal)
+        out = lu_cuda.rrlu_call(*args, leftorthogonal=leftorthogonal,
+                                return_mode=True)
         ref = lu_kernel.rrlu_plain(*args, leftorthogonal=leftorthogonal)
         torch.cuda.synchronize()
         assert out[0].dtype == torch.complex128
         assert out[4].dtype == out[5].dtype == torch.float64
         for o, r in zip(out, ref):
             assert _equal(o, r)
+        assert int(out[6]) == (0 if resident else 1 if mp < 512 else 2)
 
 
 @pytest.mark.parametrize("size", [32, 512])
 def test_complex_batched_matches_plain(cuda, size):
-    """Four complex panels in one launch (32^2: resident, the engine's fill
-    blocks; 512^2: multi-block), per-panel extents, rank caps and
-    tolerances on the card."""
+    """Four complex panels in one call (32^2: resident, the engine's fill
+    blocks; 512^2: the grid mode, since 509 to 512 complex rows of 8 KB fit
+    no cluster), per-panel extents, rank caps and tolerances on the
+    card."""
     A = torch.stack([_cpanel(s, size, size, size - s, size, size // 4, cuda)
                      for s in range(4)])
     mt = torch.tensor([size, size - 1, size - 2, size - 3], device=cuda)
@@ -939,17 +1180,20 @@ def test_complex_batched_matches_plain(cuda, size):
                       device=cuda)
     for leftorthogonal in (True, False):
         out = lu_cuda.rrlu_batched(A, mt, nt, mr, rt, at,
-                                   leftorthogonal=leftorthogonal)
+                                   leftorthogonal=leftorthogonal,
+                                   return_mode=True)
         ref = lu_kernel.rrlu_plain_batched(A, mt, nt, mr, rt, at,
                                            leftorthogonal=leftorthogonal)
         for o, r in zip(out, ref):
             assert _equal(o, r)
+        assert out[6].tolist() == [0 if size == 32 else 2] * 4
 
 
 def test_rrlu_kernel_rejects_other_element_types(cuda):
     """An element size or dtype the kernel has no body for is refused, never
     launched as another type."""
-    assert lu_cuda._lib().rrlu_scratch_bytes(256, 256, 2) < 0
+    assert lu_cuda._lib().rrlu_scratch_bytes(256, 256, 2, 0) < 0
+    assert lu_cuda._lib().rrlu_host_mode(256, 256, 2, 16) < 0
     for dtype in (torch.complex64, torch.float16):
         with pytest.raises(TypeError):
             lu_cuda.rrlu_call(torch.zeros((8, 8), dtype=dtype, device=cuda),

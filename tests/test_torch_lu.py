@@ -42,8 +42,61 @@ _A5 = np.array([
 ])
 
 
+# tests/test_matrixlu.py's fixtures
+_A4 = np.array([
+    [0.711002, 0.724557, 0.789335, 0.382373],
+    [0.910429, 0.726781, 0.719957, 0.486302],
+    [0.632716, 0.39967, 0.571809, 0.0803125],
+    [0.885709, 0.531645, 0.569399, 0.481214],
+])
+_A8x6 = np.array([
+    [0.684025, 0.784249, 0.826742, 0.054321, 0.0234695, 0.467096],
+    [0.73928, 0.295516, 0.877126, 0.111711, 0.103509, 0.653785],
+    [0.394016, 0.753239, 0.889128, 0.291669, 0.873509, 0.0965536],
+    [0.378539, 0.0123737, 0.20112, 0.758088, 0.973042, 0.308372],
+    [0.235156, 0.51939, 0.788184, 0.363171, 0.230001, 0.984971],
+    [0.893223, 0.220834, 0.18001, 0.258537, 0.396583, 0.142105],
+    [0.0417881, 0.890706, 0.328631, 0.279332, 0.963188, 0.706944],
+    [0.914298, 0.792345, 0.311083, 0.129653, 0.350062, 0.683966],
+])
+_SMALL = np.array([
+    [0.585383, 0.124568, 0.352426, 0.573507],
+    [0.865875, 0.600153, 0.727443, 0.902388],
+    [0.913477, 0.954081, 0.116965, 0.817],
+    [0.985918, 0.516114, 0.600366, 0.0200085],
+])
+
+
 def _case(name):
     rng = np.random.default_rng(42)
+    # the fixtures of tests/test_matrixlu.py (TestRRLU and
+    # TestEliminationEdgeCases), with its rng where it draws one
+    fixture_rng = np.random.default_rng(1234)
+    if name == "exact":
+        return _A4, {}
+    if name == "truncated":
+        A = np.zeros((3, 3))
+        A[0, 0] = 1.0
+        return A, {}
+    if name == "approximation":
+        return _A8x6, {"maxrank": 4}
+    if name == "approximation_reltol":
+        return (np.hstack([_A8x6, _A8x6 + 1e-3 * fixture_rng.random((8, 6))]),
+                {"reltol": 1e-2})
+    if name == "lastpivoterror_fullrank":
+        return np.eye(2), {}
+    if name == "lastpivoterror_abstol":
+        return _A5, {"abstol": 0.5}
+    if name == "lastpivoterror_exact":
+        return _A5, {"abstol": 0.0}
+    if name == "small_values_fixture":
+        return 1e-13 * _SMALL, {"abstol": 1e-3}
+    if name == "complex":
+        return (fixture_rng.random((6, 6)) + 1j * fixture_rng.random((6, 6)),
+                {})
+    if name == "true_rank_unpadded":  # a 64 x 8 panel has no column padding
+        return (fixture_rng.standard_normal((64, 8)),
+                {"maxrank": 32, "reltol": 0.0, "abstol": 0.0})
     if name == "random":
         return rng.standard_normal((20, 15)), {}
     if name == "lowrank_reltol":
@@ -69,7 +122,11 @@ def _case(name):
 
 
 CASES = ["random", "lowrank_reltol", "exact_lowrank", "zero_pivot",
-         "maxrank", "small_values", "wide_rank40", "rank60"]
+         "maxrank", "small_values", "wide_rank40", "rank60",
+         "exact", "truncated", "approximation", "approximation_reltol",
+         "lastpivoterror_fullrank", "lastpivoterror_abstol",
+         "lastpivoterror_exact", "small_values_fixture", "complex",
+         "true_rank_unpadded"]
 
 
 def _np(x):
@@ -97,6 +154,98 @@ def test_rrlu_matches_tci_tpu(case, leftorthogonal):
                                atol=atol)
     assert out.lastpivoterror() == pytest.approx(ref.lastpivoterror(),
                                                  abs=atol)
+
+
+@pytest.mark.parametrize("what", ["transpose", "solve"])
+def test_rrlu_transpose_and_solve_match_tci_tpu(what):
+    """test_matrixlu.test_transpose and test_solve on both packages."""
+    rng = np.random.default_rng(1234)
+    if what == "transpose":
+        A = rng.random((5, 10))
+        ref = tci_tpu.rrlu(A).transpose()
+        out = tci_tpu_torch.rrlu(A, device="cpu").transpose()
+        np.testing.assert_array_equal(out.rowpermutation, ref.rowpermutation)
+        np.testing.assert_array_equal(out.colpermutation, ref.colpermutation)
+        np.testing.assert_allclose(_np(out.left() @ out.right()), A.T,
+                                   rtol=0, atol=1e-12)
+        for o, r in ((out.left(), ref.left()), (out.right(), ref.right())):
+            np.testing.assert_allclose(_np(o), r, rtol=0, atol=1e-12)
+    else:
+        L = np.tril(rng.random((5, 5)))
+        U = np.triu(rng.random((5, 5)))
+        b = rng.random((5, 2))
+        A = L @ U
+        ref = tci_tpu.rrlu(A)
+        out = tci_tpu_torch.rrlu(A, device="cpu")
+        np.testing.assert_array_equal(out.rowpermutation, ref.rowpermutation)
+        np.testing.assert_array_equal(out.colpermutation, ref.colpermutation)
+        x = _np(out.solve(torch.from_numpy(b)))
+        np.testing.assert_allclose(x, ref.solve(b), rtol=0, atol=1e-10)
+        np.testing.assert_allclose(A @ x, b, rtol=0, atol=1e-12)
+
+
+# C-port-9: panels that hold a NaN (ROADMAP §C). A NaN ranks above every
+# value, as jnp.argmax ranks it in tci_tpu's _rrlu_state_small, so the NaN
+# becomes a pivot and reaches the factors. The last matrix pads the first
+# with 300 zero rows and columns: its 320^2 bucket takes tci_tpu's fused
+# body (2^16 elements or more), which ranks NaN below every value and
+# raises another message (C-port-11); it is held against tci_tpu's small
+# body on the same panel, through tci_tpu's own check.
+def _nan_case(name):
+    nan = np.nan
+    if name == "nan_upper_right":
+        return np.array([[1.0, nan], [2.0, 3.0]])
+    if name == "nan_upper_left":
+        return np.array([[nan, 1.0], [2.0, 3.0]])
+    if name == "all_nan":
+        return np.full((3, 3), nan)
+    A = np.zeros((302, 302))
+    A[:2, :2] = _nan_case("nan_upper_right")
+    return A
+
+
+def _tci_tpu_small_body(A, leftorthogonal):
+    """tci_tpu.rrlu's result on A through _rrlu_state_small, whatever the
+    panel's size."""
+    import jax.numpy as jnp
+    from tci_tpu.ops import lu as ref_lu, lu_kernel as ref_kernel
+
+    m, n = A.shape
+    P = np.zeros((ref_kernel.bucket(m), ref_kernel.bucket(n)))
+    P[:m, :n] = A
+    out = ref_kernel._rrlu_state_small(
+        jnp.asarray(P), jnp.int32(m), jnp.int32(n), jnp.int32(min(m, n)),
+        jnp.float64(1e-14), jnp.float64(0.0), leftorthogonal)
+    LU, rp, cp, k, _, err = (np.asarray(x) for x in out)
+    return ref_lu._finalize(LU[:m, :n], rp[:m], cp[:n], int(k), float(err),
+                            leftorthogonal)
+
+
+@pytest.mark.parametrize("leftorthogonal", [True, False])
+@pytest.mark.parametrize("case", ["nan_upper_right", "nan_upper_left",
+                                  "all_nan", "padded_302"])
+def test_rrlu_nan_raises_as_tci_tpu(case, leftorthogonal):
+    A = _nan_case(case)
+    if case == "padded_302":
+        reference = lambda: _tci_tpu_small_body(A, leftorthogonal)  # noqa
+    else:
+        reference = lambda: tci_tpu.rrlu(A, leftorthogonal=leftorthogonal)  # noqa
+    with pytest.raises(ValueError) as ref:
+        reference()
+    with pytest.raises(ValueError) as out:
+        tci_tpu_torch.rrlu(A, leftorthogonal=leftorthogonal, device="cpu")
+    assert str(out.value) == str(ref.value)
+
+
+def test_rrlu_nan_large_panel_tci_tpu_fused_body():
+    """C-port-11, pinned: tci_tpu.rrlu's fused body on the padded panel
+    pivots on a padding column and raises for U, where its small body and
+    the port raise for L."""
+    A = _nan_case("padded_302")
+    with pytest.raises(ValueError, match="lu.U contains NaNs"):
+        tci_tpu.rrlu(A)
+    with pytest.raises(ValueError, match="lu.L contains NaNs"):
+        tci_tpu_torch.rrlu(A, device="cpu")
 
 
 def test_rrlu_tensor_input_stays_on_its_device():

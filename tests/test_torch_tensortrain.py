@@ -163,6 +163,26 @@ def test_compress_matches(tt_cases, case, method, opts):
             assert _rel(a, b) < 1e-12
 
 
+# C-port-10: a float32 train through each method. tci_tpu's LU and CI
+# splits give float64 factors and numpy promotes the next core; the port's
+# products promote likewise. SVD keeps float32 in both.
+@pytest.mark.parametrize("method", ["LU", "CI", "SVD"])
+def test_compress_float32_train(method):
+    rng = np.random.default_rng(1)
+    cores = [rng.standard_normal(s).astype(np.float32)
+             for s in ((1, 3, 3), (3, 4, 5), (5, 2, 4), (4, 3, 1))]
+    ref = tci_tpu.TensorTrain([c.copy() for c in cores])
+    out = tci_tpu_torch.TensorTrain([c.copy() for c in cores], device="cpu")
+    ref.compress(method, tolerance=1e-3, maxbonddim=3)
+    out.compress(method, tolerance=1e-3, maxbonddim=3)
+    assert out.linkdims() == ref.linkdims()
+    dtypes = {str(np.asarray(t).dtype) for t in ref.sitetensors()}
+    assert {str(t.dtype)[6:] for t in out.sitetensors()} == dtypes
+    assert dtypes == ({"float32"} if method == "SVD" else {"float64"})
+    assert _rel(tci_tpu_torch.fulltensor(out).double(),
+                np.asarray(tci_tpu.fulltensor(ref), np.float64)) < 1e-5
+
+
 def test_compress_options_not_ported():
     tt = tci_tpu_torch.TensorTrain(_random_tt(np.float64, [1, 2, 1], [3, 3]),
                                    device="cpu")
