@@ -139,8 +139,32 @@ line or more each:
    ``CachedFunction`` around the scalar f through the host tier (the host
    tier's result; one cached value per distinct point). Each step's cold
    and warm walls are printed;
+3d. (run after phase 4g, whose launch recorder it shares) BASELINE config
+   2 by rook: ``rrlu(A, maxrank=256, reltol=1e-10, pivotsearch="rook",
+   rng=default_rng(7))`` on 3b's matrix with precision "f64" and "mixed"
+   (benchmarks/bench_rrlu.py): npivot 256 (3b's), max|LU - A| / max|A| <
+   1e-8, every slab on the kernel (launches = eliminations, no plain call);
+   a cold run (recorded for phase 5), the median of 10 warm walls and its
+   GFLOP/s as 2 r N^2, the launches by host mode and shape; 3b's full
+   pivoting through ``rrlu`` in the same call; ``rrlu_serving(defer=True)``
+   over 4 matrices (one fetch each, at ``result()``); the completion's
+   triangular solve against an inverse and a GEMM (``[complete]``);
+4h. BASELINE config 1 by rook (benchmarks/bench_rook.py: tolerance 1e-8,
+   rng=default_rng(3)) on each tier: the engine under the default protocol
+   and the per-sweep one (``engine._rng`` seeded), the per-bond device tier
+   (``enable_device_sweep=False``) and the host tier (a plain scalar f),
+   cold (queued eagerly, recorded for phase 5, with its dead predicated
+   steps counted) and warm: ranks and errors series tci_tpu's
+   (``RECORDED_ROOK``; the per-bond tier: ranks, ROADMAP C-port-12), final
+   error < 1e-8, bench_rook.py's pointwise check < 1e-7, no engine decline
+   and no per-bond tier on the engine runs, the engine's samples
+   tci_tpu's, no plain call; then the engine's default protocol on a kept
+   evaluator: 10 replayed runs beside phase 4e's full-pivot median, samples
+   a run rook against full, one profiled run's kernels and device busy
+   time, and the loop step's graph (rrLU launches, device items and time);
 5. the kernel against the plain version on every launch the cold runs of
-   phases 4, 4b, 4c and 4f made; its times on the engines' bond panels (Imax
+   phases 3d, 4, 4b, 4c, 4f, 4g and 4h made (rook: each slab shape's time,
+   bound and plain time, and a dead step's); its times on the engines' bond panels (Imax
    (d + 1) square: 352^2 for config 1, 96^2 for config 3, 512^2 and 1024^2
    for config 4) and on config 1's fill (its P blocks in one batched
    launch);
@@ -203,6 +227,34 @@ CONFIG4_INTEGRAL = -5.4960415218049
 CONFIG5_RANKS = [20, 14, 14, 14]
 CONFIG5_LINKDIMS = [11, 13, 13, 13, 11]
 CONFIG5_INTEGRAL = complex(-3.6613855919222135e-07, 2.3438439003099826e-06)
+# BASELINE config 1 by rook (benchmarks/bench_rook.py: tolerance 1e-8,
+# rng=default_rng(3)): tci_tpu's ranks and normalized errors series on a
+# CPU, by tier: its engine under the default protocol ("loop") and the
+# per-sweep one, both with engine._rng = default_rng(ROOK_ENGINE_SEED); the
+# per-bond device tier ("fused", a JaxBatchEvaluator with the engine off);
+# the host tier (a plain f, each bond's unseeded np.random.default_rng()
+# seeded 100, 101, ... in call order). The host tier's last slabs are
+# full-width, so it reports errors of 0, as tci_tpu's arrlu does. The
+# per-bond tier's mixed-precision hunt reaches f32 noise on every bond,
+# where tci_tpu's XLA rounds its Schur updates as fused multiply-adds and
+# the port's kernel does not (ROADMAP C-port-12): its ranks are held to
+# tci_tpu's, its errors only below the tolerance (the port's own series on
+# a CPU, for comparison: ROOK_FUSED_PORT_CPU).
+ROOK_ENGINE_SEED = 7
+RECORDED_ROOK = {
+    "loop": ([12, 12, 12], [7.464628007656804e-09, 4.3947705024251516e-09,
+                            3.4479720682224794e-09]),
+    "persweep": ([12, 12, 12], [7.464628007656804e-09,
+                                4.3947705024251516e-09,
+                                3.4479720682224794e-09]),
+    "fused": ([12, 12, 12], [8.641446330961636e-09, 4.550498336257978e-09,
+                             4.6149591864990894e-09]),
+    "host": ([12, 12, 12], [0.0, 0.0, 0.0]),
+}
+# tci_tpu's samples of one config-1 rook run on the engine (both protocols)
+RECORDED_ROOK_NEVALS = 1499313
+ROOK_FUSED_PORT_CPU = [9.875491743545822e-09, 4.737983947981916e-09,
+                       4.805100664102731e-09]
 
 
 def fail(msg):
@@ -876,6 +928,8 @@ def main():
           f"{flops_exact / pms / 1e6:.3f}); bound {bms:.4f} ms ({bby}); "
           f"max|LU - A|/max|A| {rel:.3e}", flush=True)
     config2 = {"config2_ms": kms, "config2_plain_ms": pms}
+    # phase 3d factorizes the same matrix by rook
+    config2_A, config2_k = A, k
 
     # -- 3c. the batched-grid probes -------------------------------------------
     # the probe as its user runs it, with every count set to 0 just before
@@ -2536,6 +2590,301 @@ def main():
               f"{1e-10 * scale5:.3e}); {counts['launches']} complex rrLU "
               f"launches, cold {wall:.4f} s", flush=True)
 
+    # -- 3d. BASELINE config 2 by rook ----------------------------------------
+    # (after phase 4g: it records its launches for phase 5 as phase 4 does)
+    A2, R2 = config2_A, 256
+    N2 = A2.shape[0]
+    amax2 = float(A2.abs().max())
+
+    def rook2(precision, A=A2, seed=7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lu = tci_tpu_torch.rrlu(A, maxrank=R2, reltol=1e-10,
+                                pivotsearch="rook", precision=precision,
+                                rng=np.random.default_rng(seed))
+        torch.cuda.synchronize()
+        return lu, time.perf_counter() - t0, None
+
+    def recon2(lu, A=A2):
+        return float((lu.left() @ lu.right() - A).abs().max()) / amax2
+
+    def full2():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lu = tci_tpu_torch.rrlu(A2, maxrank=R2, reltol=1e-10)
+        torch.cuda.synchronize()
+        return lu, time.perf_counter() - t0
+
+    rook_entry = {"config2": {}}
+    full_walls = [full2()[1] for _ in range(10)]
+    for precision in ("f64", "mixed"):
+        tag = f"config2_rook_{precision}"
+        (lu, cold, _), counts = run_counted(tag, lambda: rook2(precision),
+                                            record=True)
+        recs = [r for r in launch_inputs if r[0] == tag]
+        rel = recon2(lu)
+        if (lu.npivot != R2 or lu.npivot != config2_k or not rel < 1e-8
+                or counts["plain_cuda"] or counts["launches"] != len(recs)
+                or lu.L.device.type != "cuda"):
+            fail(f"3d config 2 rook {precision}: npivot {lu.npivot} (full "
+                 f"pivoting: {config2_k}), max|LU - A|/max|A| {rel:.3e}, "
+                 f"{counts['launches']} kernel launches for {len(recs)} "
+                 f"eliminations, {counts['plain_cuda']} plain calls on CUDA")
+        modes = {}
+        for rec in recs:
+            P = rec[2][0]
+            key = (f"{lu_cuda.host_mode(0, *P.shape[1:], P.dtype)} "
+                   f"{str(P.dtype)[6:]} {P.shape[1]}x{P.shape[2]}")
+            modes[key] = modes.get(key, 0) + 1
+        walls = [rook2(precision)[1] for _ in range(10)]
+        wall = med(walls)
+        rook_entry["config2"][precision] = {
+            "cold_s": cold, "median_s": wall, "walls": walls,
+            "gflops": 2.0 * R2 * N2 * N2 / wall / 1e9, "npivot": lu.npivot,
+            "rel_recon": rel, "launches": counts["launches"],
+            "launches_by_mode": modes, "fetches": counts["fetches"]}
+        print(f"[config2-rook] rrlu({N2}^2 f64, maxrank {R2}, reltol 1e-10, "
+              f"pivotsearch='rook', precision='{precision}'): npivot "
+              f"{lu.npivot} (full pivoting {config2_k}), max|LU - A|/max|A| "
+              f"{rel:.3e}; cold {cold:.4f} s, warm median of 10 "
+              f"{spread(walls)} = {2.0 * R2 * N2 * N2 / wall / 1e9:.3f} "
+              f"GFLOP/s as 2rN^2; {counts['launches']} kernel launches "
+              f"(host mode, dtype, panel: {json.dumps(modes)}), "
+              f"{counts['plain_cuda']} plain calls on CUDA, fetches "
+              f"{counts['fetches']}", flush=True)
+    # the mixed hunt with one stage (rrlu's rule asks for two at reltol
+    # 1e-10, ROADMAP C-ref-1), to set the f32 hunt itself against the f64 one
+    walls1 = []
+    for _ in range(11):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lu1 = tci_tpu_torch.rrlu(A2, maxrank=R2, reltol=1e-10,
+                                 pivotsearch="rook", precision="mixed",
+                                 hunt_stages=1,
+                                 rng=np.random.default_rng(7))
+        torch.cuda.synchronize()
+        walls1.append(time.perf_counter() - t0)
+    walls1 = walls1[1:]
+    rel1 = recon2(lu1)
+    if lu1.npivot != R2 or not rel1 < 1e-8:
+        fail(f"3d config 2 rook mixed, one hunt stage: npivot {lu1.npivot}, "
+             f"max|LU - A|/max|A| {rel1:.3e}")
+    rook_entry["config2"]["mixed_one_stage"] = {
+        "median_s": med(walls1), "walls": walls1, "rel_recon": rel1}
+    print(f"[config2-rook] precision='mixed' with hunt_stages=1: warm median "
+          f"of 10 {spread(walls1)}, max|LU - A|/max|A| {rel1:.3e}",
+          flush=True)
+    wfull = med(full_walls)
+    rook_entry["config2"]["full"] = {
+        "median_s": wfull, "walls": full_walls, "kernel_ms": kms,
+        "gflops": 2.0 * config2_k * N2 * N2 / wfull / 1e9}
+    print(f"[config2-rook] full pivoting, same matrix, same call: rrlu warm "
+          f"median of 10 {spread(full_walls)} = "
+          f"{2.0 * config2_k * N2 * N2 / wfull / 1e9:.3f} GFLOP/s as 2rN^2 "
+          f"(the kernel alone {kms:.3f} ms, phase 3b)", flush=True)
+    # the serving pattern: four factorizations queued, then collected
+    mats = [A2, A2.roll(1, 1), A2.flip(0), A2.roll(7, 0)]
+    for precision in ("f64", "mixed"):
+        FETCHES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pending = [tci_tpu_torch.rrlu_serving(
+            M, maxrank=R2, reltol=1e-10, precision=precision,
+            rng=np.random.default_rng(20 + i), defer=True)
+            for i, M in enumerate(mats)]
+        queued = time.perf_counter() - t0
+        before = FETCHES["rook"]
+        served = [p.result() for p in pending]
+        wall = time.perf_counter() - t0
+        recs = [float((r.left() @ r.right() - M).abs().max()) / amax2
+                for r, M in zip(served, mats)]
+        if (before or FETCHES["rook"] != 4
+                or any(r.npivots() != R2 for r in served)
+                or not max(recs) < 1e-8):
+            fail(f"3d rrlu_serving defer {precision}: fetches {before} "
+                 f"before result(), {FETCHES['rook']} after; npivots "
+                 f"{[r.npivots() for r in served]}, reconstruction {recs}")
+        rook_entry["config2"][f"serving_{precision}"] = {
+            "queued_s": queued, "wall_s": wall, "max_rel_recon": max(recs)}
+        print(f"[config2-rook] rrlu_serving(defer=True, '{precision}') over "
+              f"4 matrices: queued in {queued:.4f} s, all 4 results after "
+              f"{wall:.4f} s (one fetch each at result()), npivot {R2}, "
+              f"max|LU - A|/max|A| <= {max(recs):.3e}", flush=True)
+    # the completion of the missing factor: a triangular solve against the
+    # k x k pivot block, or its inverse and a GEMM (tci_tpu's form), on a
+    # pivot block of the full-pivot factorization
+    lu_full = full2()[0]
+    Pblk = torch.triu(lu_full.U[:R2, :R2])
+    Cblk = A2[R2:, :R2].contiguous()
+    eye2 = torch.eye(R2, dtype=A2.dtype, device=dev)
+    x_solve = torch.linalg.solve_triangular(Pblk, Cblk, upper=True,
+                                            left=False)
+    x_inv = Cblk @ torch.linalg.solve_triangular(Pblk, eye2, upper=True)
+    t_solve = cuda_ms(lambda: torch.linalg.solve_triangular(
+        Pblk, Cblk, upper=True, left=False), 20)
+    t_inv = cuda_ms(lambda: Cblk @ torch.linalg.solve_triangular(
+        Pblk, eye2, upper=True), 20)
+    diff = float((x_solve - x_inv).abs().max() / x_solve.abs().max())
+    rook_entry["complete"] = {"solve_ms": t_solve, "inverse_gemm_ms": t_inv,
+                              "rel_diff": diff}
+    print(f"[complete] L2 = C U^-1 with C {tuple(Cblk.shape)}, U {R2}^2 "
+          f"upper (config 2's pivot block): solve_triangular {t_solve:.4f} "
+          f"ms, inverse + GEMM {t_inv:.4f} ms (events, mean of 20); max "
+          f"relative difference {diff:.3e}", flush=True)
+
+    # -- 4h. BASELINE config 1 by rook ----------------------------------------
+    rng_orig = np.random.default_rng
+
+    def solve_rook1(tier, f=None, graphs=True):
+        """Config 1 by rook through one tier (benchmarks/bench_rook.py):
+        "loop" / "persweep", the engine under the default / per-sweep
+        protocol (seeded by ROOK_ENGINE_SEED, on `f` when given: an
+        evaluator that keeps its graphs); "fused", the per-bond device tier;
+        "host", a plain scalar f (its bonds' unseeded default_rng() draws
+        seeded in call order, as RECORDED_ROOK was made). Returns (tci,
+        ranks, errors, per-bond warnings, wall, f)."""
+        if tier == "host":
+            f = fscalar
+        elif f is None:
+            f = tci_tpu_torch.TorchBatchEvaluator(
+                fdev, localdims, enable_device_sweep=tier != "fused",
+                cuda_graphs=graphs)
+        else:
+            set_graphs(f, graphs)
+        if tier in ("loop", "persweep"):
+            eng = f.device_sweep_engine
+            eng._rng = rng_orig(ROOK_ENGINE_SEED)
+            eng.use_sweep_pair = eng.use_optimize_loop = tier == "loop"
+        if tier == "host":
+            draws = itertools.count(100)
+            np.random.default_rng = lambda seed=None: rng_orig(
+                next(draws) if seed is None else seed)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                tci, ranks, errors = tci_tpu_torch.crossinterpolate2(
+                    np.float64, f, localdims, tolerance=1e-8,
+                    pivotsearch="rook", rng=rng_orig(3))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            np.random.default_rng = rng_orig
+        tiered = [w for w in caught if "per-bond rook tier" in str(w.message)]
+        return tci, ranks, errors, tiered, wall, f
+
+    def check_rook1(tag, tier, res, counts):
+        tci, ranks, errors, tiered, _, f = res
+        x = (1, 2, 3, 4, 5, 4, 3, 2)
+        v = np.asarray(x, dtype=float) + 1.0
+        point_err = abs(tci(x) - 1.0 / (1.0 + v @ v))
+        want_r, want_e = RECORDED_ROOK[tier]
+        if tier == "fused":
+            want_e = errors  # C-port-12: the ranks only (and the bounds below)
+        if ranks != want_r or not np.allclose(errors, want_e, rtol=0,
+                                              atol=1e-15):
+            fail(f"4h {tag}: ranks {ranks}, errors {errors}; tci_tpu's "
+                 f"{want_r}, {want_e}")
+        if not errors[-1] < 1e-8 or not point_err < 1e-7:
+            fail(f"4h {tag}: final error {errors[-1]}, pointwise error "
+                 f"{point_err}")
+        if counts["plain_cuda"] or counts["launches"] == 0:
+            fail(f"4h {tag}: {counts['launches']} kernel launches, "
+                 f"{counts['plain_cuda']} plain calls on CUDA")
+        if not all(t.device.type == "cuda" for t in tci.sitetensors()):
+            fail(f"4h {tag}: site tensors left the card")
+        if tier in ("loop", "persweep"):
+            engine = f.device_sweep_engine
+            if (tiered or f._fused_updater is not None
+                    or f._panel_sampler is not None or engine.declined
+                    or counts["launches"] != counts["tier_calls"]):
+                fail(f"4h {tag}: the engine declined or a per-bond tier ran "
+                     f"({len(tiered)} warnings, declined {engine.declined}, "
+                     f"{counts['launches']} launches for "
+                     f"{counts['tier_calls']} engine calls)")
+            if counts["nevals"] != RECORDED_ROOK_NEVALS:
+                fail(f"4h {tag}: nevals {counts['nevals']}, tci_tpu's "
+                     f"{RECORDED_ROOK_NEVALS}")
+        if tier == "fused" and (not tiered or f._panel_sampler is None):
+            fail(f"4h {tag}: the per-bond device tier did not run")
+        return point_err
+
+    rook1 = {}
+    for tier in ("loop", "persweep", "fused", "host"):
+        res, counts = run_counted(f"rook_{tier}",
+                                  lambda: solve_rook1(tier, graphs=False),
+                                  record=True)
+        check_rook1(f"{tier} cold", tier, res, counts)
+        cold, cold_counts = res[-2], counts
+        recs = [r for r in launch_inputs if r[0] == f"rook_{tier}"]
+        dead = sum(int((r[2][3] == 0).sum()) for r in recs if r[1])
+        res, counts = run_counted(f"rook_{tier}", lambda: solve_rook1(tier))
+        point = check_rook1(f"{tier} warm", tier, res, counts)
+        rook1[tier] = {"cold_s": cold, "warm_s": res[-2],
+                       "launches": counts["launches"],
+                       "launches_cold": cold_counts["launches"],
+                       "dead_launches_cold": dead,
+                       "fetches": counts["fetches"],
+                       "nevals": counts["nevals"], "ranks": res[1],
+                       "errors": res[2], "point_err": point}
+        print(f"[config1-rook] {tier}: cold {cold:.4f} s (queued eagerly, "
+              f"{cold_counts['launches']} launches, {dead} of them dead "
+              f"predicated steps), warm {res[-2]:.4f} s; ranks {res[1]}, "
+              f"errors {[f'{e:.6e}' for e in res[2]]} (tci_tpu's "
+              f"{[f'{e:.6e}' for e in RECORDED_ROOK[tier][1]]}"
+              + ("; the port's on a CPU "
+                 f"{[f'{e:.6e}' for e in ROOK_FUSED_PORT_CPU]}"
+                 if tier == "fused" else "") + "), "
+              f"|tt - f| at (1,2,3,4,5,4,3,2) {point:.3e}; {counts['launches']}"
+              f" kernel launches, fetches {counts['fetches']}, nevals "
+              f"{counts['nevals']}, {counts['plain_cuda']} plain calls on "
+              f"CUDA", flush=True)
+    # the engine's default protocol on a kept evaluator, beside the full
+    # pivot loop's (phase 4e, this call)
+    kept = solve_rook1("loop")[-1]  # a new evaluator: it records
+    walls = []
+    for _ in range(10):
+        res, counts = run_counted("rook_loop kept",
+                                  lambda: solve_rook1("loop", f=kept), f=kept)
+        check_rook1("loop kept", "loop", res, counts)
+        walls.append(res[-2])
+    engine = kept.device_sweep_engine
+    if not all_replayed(engine) or not engine.loop_blocks:
+        fail(f"4h rook loop: programs {engine.programs()}; every kept run "
+             f"should replay")
+    full_med = loop_results["config1"]["kept_graphs_median"]
+    _, full_counts = run_counted(
+        "config1 full nevals", lambda: solve_config1("engine", loop=True))
+    busy = device_busy_ms(lambda: solve_rook1("loop", f=kept))
+    nk, nrrlu = count_kernels(lambda: solve_rook1("loop", f=kept))
+    trace = replay_trace(engine, lambda key: key[0] == "oloop")
+    step = max((p for p in engine.programs() if p["key"][0] == "oloop"),
+               key=lambda p: p["uses"])
+    st = trace[step["key"]]
+    rook1["loop"].update({
+        "kept_median_s": med(walls), "kept_walls": walls,
+        "full_loop_kept_median_s": full_med,
+        "full_nevals": full_counts["nevals"], "device_busy_ms": busy,
+        "profiled_kernels": nk, "profiled_rrlu_kernels": nrrlu,
+        "step": {"key": str(step["key"]),
+                 "captured_launches": step["captured_launches"],
+                 "nodes": st["nodes"], "device_ms": st["device_ms"],
+                 "launch_ms": st["launch_ms"],
+                 "rrlu_us_by_grid": st["rrlu_us_by_grid"]}})
+    print(f"[config1-rook] engine, default protocol, one evaluator kept: 10 "
+          f"replayed runs {spread(walls)} against full pivoting's "
+          f"{full_med:.4f} s (phase 4e); nevals a run rook "
+          f"{rook1['loop']['nevals']} / full {full_counts['nevals']}; one "
+          f"profiled run: {nk} device kernels, {nrrlu} of them rrLU, device "
+          f"busy {'not measured' if busy is None else f'{busy:.3f} ms'}; the "
+          f"loop step's graph {step['key']}: {step['captured_launches']} "
+          f"rrLU launches (5 predicated steps a bond), {st['nodes']} device "
+          f"items, {st['device_ms']:.3f} ms on the device, launch "
+          f"{st['launch_ms']:.3f} ms host; rrLU (count, mean us) by grid "
+          f"{st['rrlu_us_by_grid']}", flush=True)
+    rook_entry["config1"] = rook1
+
     # -- 5. kernel vs plain on every launch of the cold runs -------------------
     # for their times: config 1's first fill (its P blocks in one launch),
     # and of each engine run the square bond panel of each size with the most
@@ -2543,6 +2892,7 @@ def main():
     fills = {}
     bond_panels = {}
     by_mode = {}  # tag -> {mode: panels}
+    rook_slabs, dead_slabs = {}, {}
     for i, (tag, is_batched, args, kw) in enumerate(launch_inputs):
         kernel = originals[2] if is_batched else originals[1]
         plain = (lu_kernel.rrlu_plain_batched if is_batched
@@ -2555,6 +2905,17 @@ def main():
         out = out[:6]
         max_err = max(max_err, compare(
             f"{tag} launch {i} {tuple(args[0].shape)}", out, ref, 1.0))
+        if tag in ("config2_rook_f64", "config2_rook_mixed", "rook_loop"):
+            # each rook slab shape of phase 3d and of 4h's engine: its
+            # launch with the most pivots, and a dead predicated step's
+            P = args[0]
+            key = ("config2" if tag.startswith("config2") else "config1",
+                   str(P.dtype)[6:], f"{P.shape[1]}x{P.shape[2]}")
+            ks = out[3].tolist()
+            if key not in rook_slabs or ks[0] > rook_slabs[key][2][0]:
+                rook_slabs[key] = (args, kw, ks)
+            if int(args[3][0]) == 0 and key not in dead_slabs:
+                dead_slabs[key] = (args, kw, ks)
         if tag in ("engine", "config3", "config4", "config5"):
             ks = out[3].tolist()
             B, mp, npd = args[0].shape
@@ -2636,6 +2997,23 @@ def main():
         if eng[f"{name}_mode"] != "cluster":
             fail(f"{name}: the kernel reported {eng[name + '_mode']}, not "
                  f"the cluster mode")
+    # the rook slabs of phases 3d (config 2) and 4h (config 1), and a dead
+    # predicated step (rank cap 0) of each shape that had one
+    rook_slab_times = {}
+    for (cfg, dt, shape), rec in sorted(rook_slabs.items()):
+        name = f"rook_{cfg}_{dt}_{shape}"
+        rook_slab_times[name] = time_engine_launch(name, rec)
+        if (cfg, dt, shape) in dead_slabs:
+            rook_slab_times[name + "_dead"] = time_engine_launch(
+                name + "_dead", dead_slabs[cfg, dt, shape])
+    for name in ("rook_config2_float64_4096x256",
+                 "rook_config2_float64_256x4096",
+                 "rook_config2_float32_4096x256",
+                 "rook_config1_float64_352x32"):
+        if name not in rook_slab_times:
+            fail(f"phase 5: no {name} among the rook launches "
+                 f"({sorted(rook_slab_times)})")
+    rook_entry["slabs"] = rook_slab_times
     if ("config4", 1024) in bond_panels:
         eng.update(time_engine_launch("config4_panel_1024",
                                       bond_panels["config4", 1024]))
@@ -2727,7 +3105,12 @@ def main():
                              **{f"config5_{t}": config5[t]["launches"]
                                 for t in ("fused", "host")},
                              **{f"4g_compress_{m}": r["launches"]
-                                for m, r in config5["compress"].items()}},
+                                for m, r in config5["compress"].items()},
+                             **{f"3d_config2_rook_{p}": r["launches"]
+                                for p, r in rook_entry["config2"].items()
+                                if "launches" in r},
+                             **{f"4h_config1_rook_{t}": r["launches"]
+                                for t, r in rook_entry["config1"].items()}},
         "max_abs_err": max_err,
         "ms": ms if ms is not None else eng["engine_panel_wrapper_ms"],
         "ms_from": "profiler" if ms is not None else "cuda events",
@@ -2746,6 +3129,9 @@ def main():
         # 1's panel, and the mode table at the main path's true extents
         "cluster_mode": {**cluster_cfg, "split": cluster_split,
                          "mode_rows": mode_rows},
+        # rook pivoting: config 2 (phase 3d) and config 1 (phase 4h), and
+        # each rook slab shape's times and bound (phase 5)
+        "rook": rook_entry,
         **host_panel,
         **eng,
         **n2000,

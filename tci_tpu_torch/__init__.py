@@ -29,11 +29,14 @@ from .utils.sweep import forwardsweep
 from .ops.lu import (
     rrLU,
     rrlu,
+    arrlu,
     submatrixargmax,
     cols2Lmatrix,
     rows2Umatrix,
     lu_solve,
 )
+from .ops.lu_device import DeviceRRLU
+from .ops.lu_device import rrlu_rook_device_fused as rrlu_serving
 from .ops.luci import MatrixLUCI
 from .ops.factorize import factorize
 from .ops.kronrod import kronrod
@@ -84,7 +87,8 @@ __all__ = [
     "pushrandomsubset", "optfirstpivot", "replacenothing",
     "projector_to_slice", "IndexSet", "isnested", "forwardsweep",
     # L1 matrix engines
-    "rrLU", "rrlu", "submatrixargmax", "cols2Lmatrix", "rows2Umatrix",
+    "rrLU", "rrlu", "rrlu_serving", "DeviceRRLU", "arrlu",
+    "submatrixargmax", "cols2Lmatrix", "rows2Umatrix",
     "lu_solve", "MatrixLUCI", "factorize", "kronrod",
     # L2 runtime
     "BatchEvaluator", "BatchEvaluatorAdapter", "ThreadedBatchEvaluator",

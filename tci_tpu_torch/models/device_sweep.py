@@ -2,8 +2,8 @@
 and the 1-site sweep on the evaluator's device, with no host sync inside a
 sweep and one fetch at its end.
 
-Counterpart of ``tci_tpu/models/device_sweep.py`` (full pivoting, one
-device; no pair mode, no mesh). The reference's sweep2site!
+Counterpart of ``tci_tpu/models/device_sweep.py`` (full and rook
+pivoting, one device; no pair mode, no mesh). The reference's sweep2site!
 (tensorci2.jl:1195-1258) is a host loop doing, per bond, a Π sampling, an
 rrLU factorization and index-set bookkeeping. Here:
 
@@ -39,6 +39,17 @@ an iteration and reads a few status bytes after each, and fetches the
 block's stacked outputs once at its end). ``use_sweep_pair`` and
 ``use_optimize_loop`` switch them off.
 
+With ``pivotsearch="rook"`` each bond runs ``tci_tpu``'s whole-sweep rook
+(``_make_sweep_rook_scan``): the current pivots are located among the
+candidates on the device (``_match_positions``), the start set is widened
+to the capacity by random priorities (``_fill_random``, threefry draws of
+``utils/prng.py`` from a seed the host draws for each sweep, as
+``tci_tpu``'s ``jax.random`` draws them) and the row and column slabs of Π
+are sampled and eliminated in turn (``_rook_alternate``). A graph holds no
+loop, so the alternation's while loop is unrolled into its `numrookiter`
+steps, predicated: once the pivot sets agree, a step keeps the state it
+was given, counts no samples and eliminates its slab with a rank cap of 0.
+
 The capacity grows when a sweep saturates it (a new capacity is a new key);
 above ``imax_cap`` or ``max_panel_edge`` the engine declines and TensorCI2
 falls back to the per-bond fused tier (``ops/fused.py``), which runs on the
@@ -60,9 +71,14 @@ from ..ops.fused import ci_factors, panel_solve_pinv, sample_panel
 from ..ops.lu_kernel import rrlu_panel_batched
 from ..utils.device import (FETCHES, capture_graph, fetch, peek,
                             resolve_device, to_device, torch_dtype)
+from ..utils.prng import fold_in, prng_key, uniform_f64
 from .tteval import chi_bucket, max_bond, tt_evaluate_batched
 
 __all__ = ["DeviceSweepEngine", "FETCHES"]
+
+# the slab steps of a rook bond: tci_tpu's numrookiter, which its engine
+# leaves at the default, every one a launch of the kernel (dead or not)
+ROOK_STEPS = 5
 
 MultiIndex = Tuple[int, ...]
 
@@ -189,29 +205,16 @@ def _sweep(f, localdims, dtype, lay, Iset, Ilen, Jset, Jlen, eI, eIlen, eJ,
     returns (pivot errors (L-1, Imax+1), max |sample|), both on the
     device."""
     L, (Imax, dev) = len(localdims), (Iset.shape[1], Iset.device)
-    R = lay.site.shape[1]
     perrs = torch.zeros((L - 1, Imax + 1), dtype=torch.float64, device=dev)
     maxsample = torch.zeros((), dtype=dtype.to_real(), device=dev)
     # the history sets' sizes at each bond: (|extraIset[b+1]|, |extraJset[b]|)
     exlens = torch.stack([eIlen[1:], eJlen[:-1]], dim=1)[:, :, None]
     cap = maxbond.to(torch.int32)
     for b in (range(L - 1) if forward else range(L - 2, -1, -1)):
-        # the valid candidates of both sides, moved to the front in a
-        # stable order; their counts are the panel's extents (mI, mJ)
-        lens = torch.stack((Ilen[b], Jlen[b + 1]))[:, None]
-        invalid = ((lay.row >= torch.where(lay.extra, exlens[b], lens))
-                   | lay.pad[b])
-        order = torch.argsort(invalid.to(torch.uint8), dim=1, stable=True)
-        m = (~invalid).sum(1, dtype=torch.int32)
-        # Icombined: kron(Iset[b], d_b), then the Iset history
-        Ic = torch.cat([Iset[b], eI[b + 1]])[lay.src[0]]
-        Ic[:R, b] = lay.site[0]
-        Ic = Ic[order[0]]
-        # Jcombined: kron(d_{b+1}, Jset[b+1]), then the Jset history
-        Jc = torch.cat([torch.roll(Jset[b + 1], 1, 1), eJ[b]])[lay.src[1]]
-        Jc[:R, 0] = lay.site[1]
-        Jc = Jc[order[1]]
-
+        # Icombined and Jcombined, the valid ones first; their counts are
+        # the panel's extents (mI, mJ)
+        Ic, Jc, m = _candidates(lay, Iset, Ilen, Jset, Jlen, eI, eJ, exlens,
+                                b)
         Pi = sample_panel(f, Ic[:, :b + 1], Jc[:, :L - b - 1], dtype)
         ok = lay.ar < m[:, None]
         Pi = torch.where(ok[0][:, None] & ok[1][None, :], Pi, 0)
@@ -225,6 +228,193 @@ def _sweep(f, localdims, dtype, lay, Iset, Ilen, Jset, Jlen, eI, eIlen, eJ,
         _bond_writeback(lay, Iset, Ilen, Jset, Jlen, perrs, b + 1, b, b, Ic,
                         Jc, rowperm, colperm, k, mags, err_final)
     return perrs, maxsample
+
+
+def _candidates(lay, Iset, Ilen, Jset, Jlen, eI, eJ, exlens, b: int):
+    """Bond b's candidate rows Ic (kron(Iset[b], d_b), then the Iset
+    history) and columns Jc (kron(d_{b+1}, Jset[b+1]), then the Jset
+    history), each moved to the front in a stable order when valid, and
+    their counts m (2,) int32: the panel's extents."""
+    R = lay.site.shape[1]
+    lens = torch.stack((Ilen[b], Jlen[b + 1]))[:, None]
+    invalid = ((lay.row >= torch.where(lay.extra, exlens[b], lens))
+               | lay.pad[b])
+    order = torch.argsort(invalid.to(torch.uint8), dim=1, stable=True)
+    m = (~invalid).sum(1, dtype=torch.int32)
+    Ic = torch.cat([Iset[b], eI[b + 1]])[lay.src[0]]
+    Ic[:R, b] = lay.site[0]
+    Ic = Ic[order[0]]
+    Jc = torch.cat([torch.roll(Jset[b + 1], 1, 1), eJ[b]])[lay.src[1]]
+    Jc[:R, 0] = lay.site[1]
+    Jc = Jc[order[1]]
+    return Ic, Jc, m
+
+
+def _match_positions(prev, prev_len, cand, cand_count):
+    """Each row of `prev` among the candidate rows `cand` (equality over all
+    slots, which are zero past a row's prefix or suffix; the first match
+    wins; ``tci_tpu``'s ``_match_positions``). Returns (pos, found): pos[r]
+    the candidate position of prev[r] (0 when absent), found[r] whether it
+    is present and r < prev_len."""
+    eq = (prev[:, None, :] == cand[None, :, :]).all(-1)
+    eq &= torch.arange(cand.shape[0], device=cand.device) < cand_count
+    found = eq.any(1) & (torch.arange(prev.shape[0], device=prev.device)
+                         < prev_len)
+    return eq.to(torch.uint8).argmax(1), found
+
+
+def _continuation(prev, prev_len, cand, cand_count):
+    """The positions of the current pivots among the candidates, found ones
+    first in their order, and their count (the start set of a rook bond
+    before widening)."""
+    pos, found = _match_positions(prev, prev_len, cand, cand_count)
+    order = torch.argsort((~found).to(torch.uint8), stable=True)
+    return pos[order], found.sum()
+
+
+def _fill_random(sel, nsel, mvalid, ncand: int, key, Imax: int):
+    """Extend the positions sel[:nsel] into a candidate buffer of `ncand`
+    entries (the first `mvalid` valid) with a random subset of the other
+    valid positions, to width min(mvalid, Imax) (``tci_tpu``'s
+    ``_fill_random``: arrlu's pushrandomsubset! and widening loop,
+    matrixlu.jl:492-569, in one round). The order is that of uniform
+    priorities drawn from `key`; positions already chosen or past mvalid
+    get priority 2, after every draw."""
+    dev = sel.device
+    ar = torch.arange(ncand, device=dev)
+    insel = torch.zeros(ncand, dtype=torch.int64, device=dev).scatter_reduce(
+        0, sel, (torch.arange(sel.shape[0], device=dev) < nsel).to(
+            torch.int64), "amax") > 0
+    pri = torch.where(insel | (ar >= mvalid), 2.0, uniform_f64(key, ncand))
+    fill = torch.argsort(pri, stable=True)
+    cand = torch.cat([sel, fill])
+    validc = torch.cat([torch.arange(sel.shape[0], device=dev) < nsel,
+                        ar < mvalid - nsel])
+    out = cand[torch.argsort((~validc).to(torch.uint8), stable=True)][:Imax]
+    return out, torch.clamp(mvalid, max=Imax).to(torch.int64)
+
+
+def _rook_alternate(slab, I0, I0len, J0, J0len, Imax: int, numrookiter: int,
+                    forward: bool):
+    """The alternating slab eliminations of one rook bond (``tci_tpu``'s
+    ``_rook_alternate``), its while loop unrolled into `numrookiter`
+    predicated steps. slab(rows, st, live) samples and eliminates the row
+    slab (rows=True) or the column slab of the sets st = (I0, I0len, J0,
+    J0len), with a rank cap of 0 unless `live`, and returns (newI, newIlen,
+    newJ, newJlen, k, mags, err, smin, maxsample, nevals). A step after the
+    sets agreed keeps every carried quantity (sets, k, mags, errors, max
+    |sample|, samples).
+
+    Residual rule: once the sets self-consist, the last slab has width k
+    and reports 0 (k >= smin) although the matrix need not have rank k;
+    the error of the last wide slab (k < smin), its first rejected pivot,
+    is kept instead, which is what the reference's wider slabs report.
+    Returns (I0f, J0f, k, mags, err_final, maxsample, nevals)."""
+    dev = I0.device
+    idx = torch.arange(Imax, device=dev)
+    f64 = torch.float64
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    nan = torch.full((), float("nan"), dtype=f64, device=dev)
+    st = {"I0": I0, "I0len": I0len, "J0": J0, "J0len": J0len, "k": zero,
+          "mags": torch.zeros(Imax, dtype=f64, device=dev), "err": nan,
+          "errw": nan, "smin": zero,
+          "done": torch.zeros((), dtype=torch.bool, device=dev),
+          "ms": torch.zeros((), dtype=f64, device=dev),
+          "ne": torch.zeros((), dtype=f64, device=dev)}
+    for it in range(numrookiter):
+        # matrixlu.jl's alternation: for leftorthogonal the first move
+        # factorizes the column slab A[:, J0]
+        rows = ((it + 1) % 2 == 0) == forward
+        live = ~st["done"]
+        nI, nIl, nJ, nJl, k2, mags2, err2, smin2, ms2, ne2 = slab(
+            rows, (st["I0"], st["I0len"], st["J0"], st["J0len"]), live)
+        sameI = (nIl == st["I0len"]) & ((idx >= nIl) | (nI == st["I0"])).all()
+        sameJ = (nJl == st["J0len"]) & ((idx >= nJl) | (nJ == st["J0"])).all()
+        new = {"I0": nI, "I0len": nIl, "J0": nJ, "J0len": nJl, "k": k2,
+               "mags": mags2.to(f64), "err": err2.to(f64),
+               "errw": torch.where(k2 < smin2, err2.to(f64), st["errw"]),
+               "smin": smin2, "done": sameI & sameJ,
+               "ms": torch.maximum(st["ms"], ms2.to(f64)),
+               "ne": st["ne"] + ne2}
+        st = {key: torch.where(live, new[key], st[key]) for key in st}
+    err_final = torch.where(
+        st["errw"].isnan(), torch.where(st["k"] >= st["smin"], 0.0,
+                                        st["err"]), st["errw"])
+    return (st["I0"], st["J0"], st["k"], st["mags"], err_final, st["ms"],
+            st["ne"])
+
+
+def _sweep_rook(f, localdims, dtype, lay, Iset, Ilen, Jset, Jlen, eI, eIlen,
+                eJ, eJlen, forward: bool, reltol, abstol, maxbond, seed,
+                numrookiter: int = ROOK_STEPS):
+    """One 2-site sweep by rook pivoting (``_make_sweep_rook_scan``'s bond
+    body): per bond, the candidates as in ``_sweep``, the current pivots
+    located among them, the start set widened to the capacity from
+    threefry priorities (the key of `seed`, a 0-d int64 device tensor,
+    folded with the bond index) and the slab alternation, each slab an
+    (Icap, Imax) or (Imax, Jcap) panel of f through the rrLU kernel at
+    extents held on the device. Updates the index buffers in place; returns
+    (pivot errors (L-1, Imax+1), max |sample|, samples of the slabs), on
+    the device."""
+    L, (Imax, dev) = len(localdims), (Iset.shape[1], Iset.device)
+    perrs = torch.zeros((L - 1, Imax + 1), dtype=torch.float64, device=dev)
+    maxsample = torch.zeros((), dtype=dtype.to_real(), device=dev)
+    nevals = torch.zeros((), dtype=torch.float64, device=dev)
+    exlens = torch.stack([eIlen[1:], eJlen[:-1]], dim=1)[:, :, None]
+    base_key = prng_key(seed)
+    ar = torch.arange(Imax, device=dev)
+    for b in (range(L - 1) if forward else range(L - 2, -1, -1)):
+        nl, nr = b + 1, L - b - 1
+        Ic, Jc, m = _candidates(lay, Iset, Ilen, Jset, Jlen, eI, eJ, exlens,
+                                b)
+        mI, mJ = m[0].to(torch.int64), m[1].to(torch.int64)
+        Icap, Jcap = Ic.shape[0], Jc.shape[0]
+        I0m, nmI = _continuation(Iset[b + 1], Ilen[b + 1], Ic, mI)
+        J0m, nmJ = _continuation(Jset[b], Jlen[b], Jc, mJ)
+        key_b = fold_in(base_key, b)
+        if forward:
+            J0, J0len = _fill_random(J0m, nmJ, mJ, Jcap, key_b, Imax)
+            I0, I0len = I0m, nmI
+        else:
+            I0, I0len = _fill_random(I0m, nmI, mI, Icap, key_b, Imax)
+            J0, J0len = J0m, nmJ
+        cap = torch.minimum(torch.clamp(maxbond, max=Imax),
+                            torch.minimum(mI, mJ))
+
+        def slab(rows, st, live, Ic=Ic, Jc=Jc, mI=mI, mJ=mJ, cap=cap,
+                 nl=nl, nr=nr):
+            I0_, I0len_, J0_, J0len_ = st
+            if rows:
+                # A[I0, :]: the selected rows by every candidate column
+                Pi = sample_panel(f, Ic[I0_][:, :nl], Jc[:, :nr], dtype)
+                ok = (ar < I0len_)[:, None] & (torch.arange(
+                    Jcap, device=dev) < mJ)[None, :]
+                mr, ext = torch.minimum(cap, I0len_), (I0len_, mJ)
+            else:
+                # A[:, J0]: every candidate row by the selected columns
+                Pi = sample_panel(f, Ic[:, :nl], Jc[J0_][:, :nr], dtype)
+                ok = (torch.arange(Icap, device=dev) < mI)[:, None] & (
+                    ar < J0len_)[None, :]
+                mr, ext = torch.minimum(cap, J0len_), (mI, J0len_)
+            Pi = torch.where(ok, Pi, 0)
+            _, rp, cp, k, mags, err = _rrlu(
+                Pi, ext[0].view(1), ext[1].view(1),
+                torch.where(live, mr, 0).view(1), reltol, abstol, forward)
+            if rows:
+                newI, newJ = I0_[rp[:Imax]], cp[:Imax]
+            else:
+                newI, newJ = rp[:Imax], J0_[cp[:Imax]]
+            return (newI, k, newJ, k, k, mags[:Imax], err,
+                    torch.minimum(*ext), Pi.abs().amax(),
+                    float(Pi.shape[0] * Pi.shape[1]))
+
+        I0f, J0f, k, mags, err_final, ms, ne = _rook_alternate(
+            slab, I0, I0len, J0, J0len, Imax, numrookiter, forward)
+        _bond_writeback(lay, Iset, Ilen, Jset, Jlen, perrs, b + 1, b, b, Ic,
+                        Jc, I0f, J0f, k, mags, err_final)
+        maxsample = torch.maximum(maxsample, ms.to(maxsample.dtype))
+        nevals = nevals + ne
+    return perrs, maxsample, nevals
 
 
 def _fill(f, localdims, dtype, lay, Iset, Ilen, Jset, Jlen):
@@ -342,7 +532,7 @@ def _sweep1(f, localdims, dtype, lay, Iset, Ilen, Jset, Jlen, forward: bool,
 
 
 def _iteration(f, localdims, dtype, lay, p, eIlen, eJlen, abstol, fwd1: bool,
-               fwd2: bool):
+               fwd2: bool, seeds=None):
     """An optimize iteration's two 2-site sweeps and the fill on program p's
     record (``_get_sweep_pair``'s body): sweep `fwd1` with the history sets
     (lengths `eIlen`, `eJlen`) as extras, then sweep `fwd2` with the
@@ -351,17 +541,28 @@ def _iteration(f, localdims, dtype, lay, p, eIlen, eJlen, abstol, fwd1: bool,
     record's sets: the second sweep and the history read the inputs.
     Returns (the sets after both sweeps and after the first, each (Iset,
     Ilen, Jset, Jlen); the second sweep's pivot errors; the max |sample| of
-    both sweeps and the fill; the site tensors), on the device."""
+    both sweeps and the fill; the site tensors; the slab samples of both
+    sweeps), on the device. With `seeds` (two 0-d int64 tensors) both
+    sweeps run by rook pivoting, each from its seed; the samples are then
+    a 0-d tensor, else None."""
     I, Il, J, Jl = (t.clone() for t in (p.Iset, p.Ilen, p.Jset, p.Jlen))
-    _, ms1 = _sweep(f, localdims, dtype, lay, I, Il, J, Jl, p.eI, eIlen,
-                    p.eJ, eJlen, fwd1, p.reltol, abstol, p.maxbond)
+
+    def sweep(fwd, eI, eIl, eJ, eJl, k):
+        if seeds is None:
+            return (*_sweep(f, localdims, dtype, lay, I, Il, J, Jl, eI, eIl,
+                            eJ, eJl, fwd, p.reltol, abstol, p.maxbond), None)
+        return _sweep_rook(f, localdims, dtype, lay, I, Il, J, Jl, eI, eIl,
+                           eJ, eJl, fwd, p.reltol, abstol, p.maxbond,
+                           seeds[k])
+
+    _, ms1, nev1 = sweep(fwd1, p.eI, eIlen, p.eJ, eJlen, 0)
     mid = tuple(t.clone() for t in (I, Il, J, Jl))
-    perrs, ms2 = _sweep(f, localdims, dtype, lay, I, Il, J, Jl, p.Iset,
-                        p.Ilen * p.use_extra2, p.Jset, p.Jlen * p.use_extra2,
-                        fwd2, p.reltol, abstol, p.maxbond)
+    perrs, ms2, nev2 = sweep(fwd2, p.Iset, p.Ilen * p.use_extra2, p.Jset,
+                             p.Jlen * p.use_extra2, 1)
     tensors, fill_max = _fill(f, localdims, dtype, lay, I, Il, J, Jl)
+    nev = None if seeds is None else nev1 + nev2
     return ((I, Il, J, Jl), mid, perrs,
-            torch.stack([ms1, ms2, fill_max]).amax(), tensors)
+            torch.stack([ms1, ms2, fill_max]).amax(), tensors, nev)
 
 
 def _tt_search_on_cores(f, dtype, lay, cores, Ilen, Jlen, starts):
@@ -719,6 +920,13 @@ class DeviceSweepEngine:
         # optimize_loop calls that ran a block, and the steps they ran
         self.loop_blocks = 0
         self.loop_steps = 0
+        # the host generator of the rook sweeps' seeds (one a sweep), as
+        # tci_tpu's engine keeps one; set it to repeat a rook run
+        self._rng = np.random.default_rng()
+
+    def _seed(self) -> int:
+        """One rook sweep's seed, drawn as tci_tpu's engine draws it."""
+        return int(self._rng.integers(0, 2**31 - 1))
 
     def _layout(self) -> _Layout:
         """The index layout of the current capacity (built at its first
@@ -795,21 +1003,29 @@ class DeviceSweepEngine:
         self.Imax = nxt
         return True
 
-    def _get_sweep(self, forward: bool, fill: bool) -> _Program:
+    def _get_sweep(self, forward: bool, fill: bool, rook: bool = False
+                   ) -> _Program:
         """The 2-site sweep at the current capacity; with `fill`, the sweep
         and the site-tensor fill on the same device state as one program
-        (``_get_sweep_fused``)."""
-        key = ((forward, self.Imax, "fused_full") if fill
-               else (forward, self.Imax))
+        (``_get_sweep_fused``); with `rook`, by rook pivoting from the seed
+        in the record (``_get_sweep_rook``), whose record carries the
+        sweep's slab samples after the max |sample|."""
+        kind = ("fused_rook" if rook else "fused_full") if fill else (
+            "rook" if rook else None)
+        key = (forward, self.Imax) + ((kind,) if kind else ())
         if key not in self._sweeps:
             f, dims, dtype, lay = (self.f, self.localdims, self.dtype,
                                    self._layout())
 
             def body(p):
-                perrs, maxsample = _sweep(
-                    f, dims, dtype, lay, p.Iset, p.Ilen, p.Jset, p.Jlen, p.eI,
-                    p.eIlen, p.eJ, p.eJlen, forward, p.reltol, p.abstol,
-                    p.maxbond)
+                args = (f, dims, dtype, lay, p.Iset, p.Ilen, p.Jset, p.Jlen,
+                        p.eI, p.eIlen, p.eJ, p.eJlen, forward, p.reltol,
+                        p.abstol, p.maxbond)
+                if rook:
+                    perrs, maxsample, nev = _sweep_rook(*args, p.seed)
+                    nev = (nev,)
+                else:
+                    (perrs, maxsample), nev = _sweep(*args), ()
                 kept = ()
                 if fill:
                     tensors, fill_max = _fill(f, dims, dtype, lay, p.Iset,
@@ -817,10 +1033,12 @@ class DeviceSweepEngine:
                     maxsample = torch.maximum(maxsample, fill_max)
                     kept = (tensors,)
                 return (*_packed(p.Iset, p.Ilen, p.Jset, p.Jlen, perrs,
-                                 maxsample), *kept)
+                                 maxsample, *nev), *kept)
 
-            self._sweeps[key] = _Program(self, key, 2, body,
-                                         len(dims) - 1 + int(fill))
+            launches = (len(dims) - 1) * (ROOK_STEPS if rook else 1)
+            self._sweeps[key] = _Program(
+                self, key, 2, body, launches + int(fill),
+                [("seed", (), "i")] if rook else ())
         return self._sweeps[key]
 
     def _get_fill(self) -> _Program:
@@ -854,35 +1072,41 @@ class DeviceSweepEngine:
                                          len(dims) - 1)
         return self._sweeps[key]
 
-    def _get_sweep_pair(self, fwd1: bool, fwd2: bool, nsearch: int
-                        ) -> _Program:
-        """One optimize iteration as one program (``_get_sweep_pair``, full
-        pivoting): ``_iteration``, and with nsearch > 0 the candidate search
-        from the (nsearch, L) ``starts`` against the filled cores."""
-        key = (fwd1, fwd2, self.Imax, "pair_full", nsearch)
+    def _get_sweep_pair(self, fwd1: bool, fwd2: bool, nsearch: int,
+                        rook: bool = False) -> _Program:
+        """One optimize iteration as one program (``_get_sweep_pair``):
+        ``_iteration``, and with nsearch > 0 the candidate search from the
+        (nsearch, L) ``starts`` against the filled cores. With `rook` both
+        sweeps run by rook pivoting from the record's ``seed1`` and
+        ``seed2``, and the record carries their slab samples last."""
+        key = (fwd1, fwd2, self.Imax, "pair_rook" if rook else "pair_full",
+               nsearch)
         if key not in self._sweeps:
             f, dims, dtype, lay = (self.f, self.localdims, self.dtype,
                                    self._layout())
             fields = [("use_extra2", (), "i")]
+            if rook:
+                fields += [("seed1", (), "i"), ("seed2", (), "i")]
             if nsearch:
                 fields.append(("starts", (nsearch, len(dims)), "i"))
 
             def body(p):
-                sets, mid, perrs, maxsample, tensors = _iteration(
+                sets, mid, perrs, maxsample, tensors, nev = _iteration(
                     f, dims, dtype, lay, p, p.eIlen, p.eJlen, p.abstol, fwd1,
-                    fwd2)
+                    fwd2, (p.seed1, p.seed2) if rook else None)
                 search = (_tt_search_on_cores(f, dtype, lay, tensors,
                                               sets[1], sets[3], p.starts)
                           if nsearch else ())
-                return (*_packed(*sets, perrs, maxsample, *mid, *search),
-                        tensors)
+                return (*_packed(*sets, perrs, maxsample, *mid, *search,
+                                 *((nev,) if rook else ())), tensors)
 
-            self._sweeps[key] = _Program(self, key, 2, body,
-                                         2 * (len(dims) - 1) + 1, fields)
+            launches = 2 * (len(dims) - 1) * (ROOK_STEPS if rook else 1)
+            self._sweeps[key] = _Program(self, key, 2, body, launches + 1,
+                                         fields)
         return self._sweeps[key]
 
     def _get_optimize_loop(self, fwd1: bool, fwd2: bool, nsearch: int,
-                           nch: int) -> _Program:
+                           nch: int, rook: bool = False) -> _Program:
         """One step of the optimize loop (``_get_optimize_loop``'s
         while-loop body, full pivoting) as one program: ``_iteration`` and
         the search (at ``starts[k]``), then the convergence windows of
@@ -900,9 +1124,13 @@ class DeviceSweepEngine:
         upload. A step that saturates the capacity commits nothing and does
         not advance k (code 2); otherwise code 1 means a start's best
         candidate passed abstol * tolmargin, 0 convergence, and 3, the
-        initial value, that the budget ran out."""
+        initial value, that the budget ran out. With `rook` the sweeps run
+        by rook pivoting, step k from the seeds ``seeds[k]`` (two a step,
+        drawn on the host), and the record's ``nev`` carries the slab
+        samples of the committed steps."""
         Kmax = self.loop_kmax
-        key = ("oloop", fwd1, fwd2, self.Imax, nsearch, nch, Kmax)
+        key = ("oloop", fwd1, fwd2, self.Imax, nsearch, nch, Kmax) + (
+            ("rook",) if rook else ())
         if key not in self._sweeps:
             f, dims, dtype, lay, Imax, dev = (
                 self.f, self.localdims, self.dtype, self._layout(),
@@ -914,6 +1142,7 @@ class DeviceSweepEngine:
                       ("ngp_ok", (nch,), "i"), ("wrank", (nch,), "i"),
                       ("tol", (1,), "f"), ("tolmargin", (1,), "f"),
                       ("ms", (1,), "f"), ("werr", (nch,), "f"),
+                      ("seeds", (Kmax, 2), "i"), ("nev", (1,), "f"),
                       ("k", (), "i"), ("done", (), "i"), ("code", (), "i")]
             f64, i64 = torch.float64, torch.int64
             out = {"oerr": torch.zeros(Kmax, dtype=f64, device=dev),
@@ -935,10 +1164,14 @@ class DeviceSweepEngine:
             def body(p):
                 o = p.out
                 abstol = p.tol * torch.where(p.use_norm > 0, p.ms, 1.0)
-                (I, Il, J, Jl), (I1, Il1, J1, Jl1), perrs, maxsample, cores = (
-                    _iteration(f, dims, dtype, lay, p,
-                               p.eIlen * p.use_extra2, p.eJlen * p.use_extra2,
-                               abstol, fwd1, fwd2))
+                k1 = p.k.view(1)
+                seeds = (tuple(p.seeds.index_select(0, k1)[0])
+                         if rook else None)
+                ((I, Il, J, Jl), (I1, Il1, J1, Jl1), perrs, maxsample, cores,
+                 nev) = _iteration(f, dims, dtype, lay, p,
+                                   p.eIlen * p.use_extra2,
+                                   p.eJlen * p.use_extra2, abstol, fwd1,
+                                   fwd2, seeds)
                 ms = torch.maximum(p.ms, maxsample.to(f64))
                 # the iteration's error (the bond errors of the second
                 # sweep) and rank, as the host reads them off the sets
@@ -946,7 +1179,6 @@ class DeviceSweepEngine:
                 rank = Il[1:].amax()
                 sat = ((torch.maximum(Il.amax(), Il1.amax()) >= Imax)
                        & (p.maxbond_full > Imax))
-                k1 = p.k.view(1)
                 if nsearch:
                     bflat, berr = _tt_search_on_cores(
                         f, dtype, lay, cores, Il, Jl,
@@ -983,14 +1215,16 @@ class DeviceSweepEngine:
                                  (p.abstol, abstol), (p.werr, werr),
                                  (p.wrank, wrank), (p.count, count),
                                  (o["perrs"], perrs), (o["cores"], cores),
-                                 (o["bflat"], bflat), (o["berr"], berr)):
+                                 (o["bflat"], bflat), (o["berr"], berr),
+                                 *(((p.nev, p.nev + nev),) if rook else ())):
                     dst.copy_(torch.where(sat, dst, new))
                 p.k.add_((~sat).to(i64))
                 p.done.copy_(done)
                 p.code.copy_(code)
                 return None, None
 
-            program = _Program(self, key, 2, body, 2 * (L - 1) + 1, fields,
+            launches = 2 * (L - 1) * (ROOK_STEPS if rook else 1)
+            program = _Program(self, key, 2, body, launches + 1, fields,
                                status=("k", 3))
             program.out = out
             self._sweeps[key] = program
@@ -1110,31 +1344,40 @@ class DeviceSweepEngine:
     def sweep2site(self, tci, forward: bool, reltol: float, abstol: float,
                    maxbonddim: int, extraIset: List[List[MultiIndex]],
                    extraJset: List[List[MultiIndex]],
+                   pivotsearch: str = "full",
                    fill_sites: bool = False) -> bool:
         """Run one full 2-site sweep on the device, updating tci in place,
-        with one fetch at its end. fill_sites=True also computes all site
-        tensors on the same device state before that fetch (tci_tpu's
-        fused sweep-and-fill program) and stores them on tci. Returns False
-        when the required capacity exceeds imax_cap or max_panel_edge (the
-        caller falls back to the per-bond tier)."""
+        with one fetch at its end. pivotsearch="rook" runs the rook sweep
+        (``_sweep_rook``) from a seed drawn from ``_rng``. fill_sites=True
+        also computes all site tensors on the same device state before that
+        fetch (tci_tpu's fused sweep-and-fill program) and stores them on
+        tci. Returns False when the required capacity exceeds imax_cap or
+        max_panel_edge (the caller falls back to the per-bond tier)."""
         L = len(self.localdims)
         if not self._reserve(self._needed(tci, extraIset, extraJset)):
             return False
-        program = self._get_sweep(forward, fill_sites)
+        rook = pivotsearch == "rook"
+        program = self._get_sweep(forward, fill_sites, rook)
         program.load(tci.Iset, tci.Jset, extraIset, extraJset, reltol=reltol,
-                     abstol=abstol, maxbonddim=maxbonddim)
-        (Iset, Ilen, Jset, Jlen, perrs, maxsample), kept = self._run(program)
+                     abstol=abstol, maxbonddim=maxbonddim,
+                     **({"seed": self._seed()} if rook else {}))
+        (Iset, Ilen, Jset, Jlen, perrs, maxsample, *nev), kept = self._run(
+            program)
         # a bond at the cap with more rank allowed: grow and re-run this
         # sweep with larger buffers (until imax_cap, then hand back)
         if Ilen.max() >= self.Imax and self.Imax < maxbonddim:
             if not self._grow():
                 return False
             return self.sweep2site(tci, forward, reltol, abstol, maxbonddim,
-                                   extraIset, extraJset, fill_sites)
+                                   extraIset, extraJset, pivotsearch,
+                                   fill_sites)
         self._write_sets(tci, Iset, Ilen, Jset, Jlen, maxsample)
         for b in range(L - 1):
             tci.updateerrors(b, list(perrs[b][:int(Ilen[b + 1]) + 1]))
-        self._count_sweeps(1)
+        if rook:
+            self.nevals += int(nev[0])
+        else:
+            self._count_sweeps(1)
         if fill_sites:
             self._store_sitetensors(tci, kept[0])
             self._count_fill()
@@ -1201,6 +1444,7 @@ class DeviceSweepEngine:
                         abstol: float, maxbonddim: int,
                         extraIset: List[List[MultiIndex]],
                         extraJset: List[List[MultiIndex]],
+                        pivotsearch: str = "full",
                         strictlynested: bool = False,
                         search_starts=None) -> bool:
         """One optimize iteration, two 2-site sweeps and the fill, as one
@@ -1212,7 +1456,9 @@ class DeviceSweepEngine:
         search runs in the same program against the filled cores and
         (best_flat, best_err) lands on ``last_search``. A saturated sweep
         grows the capacity and both sweeps run again; the discarded attempt
-        counts no samples. Returns False when the capacity guards
+        counts no samples. pivotsearch="rook" runs both sweeps by rook
+        pivoting, from two seeds drawn from ``_rng`` for each attempt, as
+        tci_tpu draws them. Returns False when the capacity guards
         decline."""
         L = len(self.localdims)
         self.last_sweep_filled = False
@@ -1220,11 +1466,16 @@ class DeviceSweepEngine:
         if not self._reserve(self._needed(tci, extraIset, extraJset)):
             return False
         nsearch = 0 if search_starts is None else len(search_starts)
+        rook = pivotsearch == "rook"
         values = {"use_extra2": 0 if strictlynested else 1}
         if nsearch:
             values["starts"] = np.asarray(search_starts, dtype=np.int64)
         while True:
-            program = self._get_sweep_pair(fwd1, fwd2, nsearch)
+            if rook:
+                # two draws, as two sweep2site calls would make them
+                values["seed1"] = self._seed()
+                values["seed2"] = self._seed()
+            program = self._get_sweep_pair(fwd1, fwd2, nsearch, rook)
             program.load(tci.Iset, tci.Jset, extraIset, extraJset,
                          reltol=reltol, abstol=abstol, maxbonddim=maxbonddim,
                          **values)
@@ -1235,7 +1486,10 @@ class DeviceSweepEngine:
                 break
             if not self._grow():
                 return False
-        self._count_sweeps(2)
+        if rook:
+            self.nevals += int(search.pop())
+        else:
+            self._count_sweeps(2)
         prefix, suffix = list(range(L)), [L - b - 1 for b in range(L)]
         tci.Iset_history.append([list(s) for s in tci.Iset])
         tci.Jset_history.append([list(s) for s in tci.Jset])
@@ -1257,7 +1511,7 @@ class DeviceSweepEngine:
                       extraIset, extraJset, strictlynested: bool,
                       starts_block, tolmargin: float, prev_errors,
                       prev_ranks, prev_ngp, nch: int, check_ngp: bool,
-                      k_budget: int):
+                      k_budget: int, pivotsearch: str = "full"):
         """Up to min(k_budget, loop_kmax) optimize iterations on the device
         (``tci_tpu``'s ``optimize_loop``, full pivoting): one upload of the
         state, then the loop step's program once an iteration, each followed
@@ -1267,7 +1521,12 @@ class DeviceSweepEngine:
         values; ``cores`` the last committed site tensors on the device), or
         None when the capacity, panel-edge or history guards decline, as
         the reference's do. tci is not changed: TensorCI2 replays the
-        per-iteration bookkeeping from the result."""
+        per-iteration bookkeeping from the result. pivotsearch="rook" runs
+        the rook sweeps, with two seeds an iteration of the budget drawn
+        from ``_rng`` before the block, in the order the sweep pair draws
+        them (tci_tpu's rule: a run that one block covers repeats the
+        pair's trajectory; a new block draws new seeds); the result's
+        ``nev`` holds their slab samples."""
         L, dmax = len(self.localdims), max(self.localdims)
         needed = self._needed(tci, extraIset, extraJset)
         if needed > self.imax_cap or k_budget <= 0 or nch < 1:
@@ -1302,7 +1561,12 @@ class DeviceSweepEngine:
         ngp_ok = [all(g == 0 for g in (ngp[-(nch - 1 - j):]
                                        if nch - 1 - j > 0 else []))
                   for j in range(nch)]
-        program = self._get_optimize_loop(fwd1, fwd2, nsearch, nch)
+        rook = pivotsearch == "rook"
+        seeds = np.zeros((Kmax, 2), dtype=np.int64)
+        if rook:
+            for k in range(min(k_budget, Kmax)):
+                seeds[k] = (self._seed(), self._seed())
+        program = self._get_optimize_loop(fwd1, fwd2, nsearch, nch, rook)
         program.load(
             tci.Iset, tci.Jset, extraIset, extraJset, reltol=reltol,
             abstol=0.0, maxbonddim=maxbonddim,
@@ -1311,7 +1575,7 @@ class DeviceSweepEngine:
             use_norm=int(bool(use_norm)), check_ngp=int(bool(check_ngp)),
             count=len(prev_errors), starts=sb, ngp_ok=ngp_ok, wrank=win_rank,
             tol=tol, tolmargin=tolmargin, ms=tci.maxsamplevalue, werr=win_err,
-            k=0, done=0, code=3)
+            seeds=seeds, nev=0.0, k=0, done=0, code=3)
         budget = min(k_budget, Kmax)
         self.loop_blocks += 1
         while True:
@@ -1325,12 +1589,16 @@ class DeviceSweepEngine:
             return res
         o = program.out
         names = ("I", "Il", "J", "Jl", "ms", "abstol", "perrs", "hI", "hIl",
-                 "hJ", "hJl", "oerr", "orank", "bflat", "berr")
+                 "hJ", "hJl", "oerr", "orank", "bflat", "berr") + (
+                     ("nev",) if rook else ())
         rec, shapes = _packed(
             program.Iset, program.Ilen, program.Jset, program.Jlen,
             program.ms, program.abstol, o["perrs"], o["hI"][:k],
             o["hIl"][:k], o["hJ"][:k], o["hJl"][:k], o["oerr"][:k],
-            o["orank"][:k], o["bflat"], o["berr"])
+            o["orank"][:k], o["bflat"], o["berr"],
+            *((program.nev,) if rook else ()))
         res.update(zip(names, _unpacked(fetch(rec, "engine"), shapes)))
+        if rook:
+            res["nev"] = float(res["nev"][0])
         res["cores"] = o["cores"].clone()
         return res

@@ -1,7 +1,7 @@
 """TCI2: two-site sweep tensor cross interpolation with rrLU pivot selection.
 
 Counterpart of ``tci_tpu/models/tensorci2.py`` (parity reference:
-src/tensorci2.jl), full pivoting. The state machine (Iset/Jset per bond as
+src/tensorci2.jl), with full and rook pivoting. The state machine (Iset/Jset per bond as
 host lists of tuples, non-strict nesting via set history, 1/2-site sweeps,
 global pivot insertion, convergence criterion) is bondwise identical. A TCI
 runs on one device, ``TensorCI2.device``: the current CUDA device unless
@@ -39,9 +39,9 @@ from ..parallel.batcheval import (
     evaluate_rows,
     isbatchevaluable,
 )
-from ..utils.device import resolve_device, to_device, torch_dtype
+from ..utils.device import numpy_dtype, resolve_device, to_device, torch_dtype
 from ..utils.sweep import forwardsweep
-from ..utils.util import padzero, pushunique
+from ..utils.util import _host, padzero, pushunique
 from .globalpivotfinder import DefaultGlobalPivotFinder, GlobalPivotSearchInput
 from .tensortrain import AbstractTensorTrain, TensorTrain
 
@@ -96,6 +96,36 @@ def filltensor(
         raise ValueError("Invalid number of central indices")
     return to_device(_batchevaluate_dispatch(valuetype, f, list(localdims),
                                              Iset, Jset, ncent), device)
+
+
+class SubMatrix:
+    """Lazy Π-matrix view used by the host rook tier: entries are sampled
+    on demand through f (tensorci2.jl:764-804), as host arrays."""
+
+    def __init__(self, f, rows: Sequence[MultiIndex],
+                 cols: Sequence[MultiIndex], valuetype=np.float64):
+        self.f = f
+        self.rows = [tuple(r) for r in rows]
+        self.cols = [tuple(c) for c in cols]
+        self.valuetype = numpy_dtype(valuetype)
+        self.maxsamplevalue = 0.0
+
+    def __call__(self, irows: Sequence[int], icols: Sequence[int]
+                 ) -> np.ndarray:
+        if isbatchevaluable(self.f):
+            Iset = [self.rows[i] for i in irows]
+            Jset = [self.cols[j] for j in icols]
+            res = _host(self.f.batch_evaluate(Iset, Jset, 0))
+        else:
+            res = np.array(
+                [[self.f(self.rows[i] + self.cols[j]) for j in icols]
+                 for i in irows],
+                dtype=self.valuetype,
+            ).reshape(len(irows), len(icols))
+        if res.size:
+            self.maxsamplevalue = max(self.maxsamplevalue,
+                                      float(np.max(np.abs(res))))
+        return res
 
 
 class TensorCI2(AbstractTensorTrain):
@@ -297,9 +327,6 @@ class TensorCI2(AbstractTensorTrain):
             raise ValueError(
                 "Please specify a pivot as one index per leg of the MPS."
             )
-        if pivotsearch == "rook":
-            raise NotImplementedError(
-                "pivotsearch='rook' is not ported yet (ROADMAP A9)")
         # every try checks all the given pivots and adds those still off
         given = [tuple(int(v) for v in p) for p in pivots]
         pivmat = np.asarray(given, dtype=np.int64).reshape(len(given),
@@ -497,10 +524,7 @@ class TensorCI2(AbstractTensorTrain):
         extraIset: Sequence[MultiIndex] = (),
         extraJset: Sequence[MultiIndex] = (),
     ) -> None:
-        if pivotsearch == "rook":
-            raise NotImplementedError(
-                "pivotsearch='rook' is not ported yet (ROADMAP A9)")
-        if pivotsearch != "full":
+        if pivotsearch not in ("full", "rook"):
             raise ValueError(
                 f"Unknown pivot search strategy {pivotsearch}. "
                 "Choose from rook, full."
@@ -512,7 +536,11 @@ class TensorCI2(AbstractTensorTrain):
         Jcombined = _union(
             kronecker_sj(self.localdims[b + 1], self.Jset[b + 1]), extraJset
         )
-        if getattr(f, "fused_updater", None) is not None:
+        if pivotsearch == "rook":
+            luci = self._rook_luci(b, f, Icombined, Jcombined,
+                                   leftorthogonal, reltol, abstol,
+                                   maxbonddim)
+        elif getattr(f, "fused_updater", None) is not None:
             # Π sampling, rrLU and CI factors on the evaluator's device, one
             # fetch of the pivot record; the factors are only formed when
             # they become site tensors (non-strict-nesting sweeps discard
@@ -532,29 +560,117 @@ class TensorCI2(AbstractTensorTrain):
                 self.setsitetensor(b + 1, to_device(right, self.device))
             self.updateerrors(b, perrs)
             return
-        t1 = time.time()
-        Pi = filltensor(
-            self.dtype, f, self.localdims, Icombined, Jcombined, 0,
-            self.device,
-        ).reshape(len(Icombined), len(Jcombined))
-        t2 = time.time()
-        self.updatemaxsample(Pi)
-        luci = MatrixLUCI(
-            Pi, reltol=reltol, abstol=abstol, maxrank=maxbonddim,
-            leftorthogonal=leftorthogonal,
-        )
-        t3 = time.time()
-        if verbosity > 2:
-            print(
-                f"    Computing Pi ({len(Icombined)} x {len(Jcombined)}) "
-                f"at bond {b}: {t2 - t1:.3f} sec, LU: {t3 - t2:.3f} sec"
+        else:
+            t1 = time.time()
+            Pi = filltensor(
+                self.dtype, f, self.localdims, Icombined, Jcombined, 0,
+                self.device,
+            ).reshape(len(Icombined), len(Jcombined))
+            t2 = time.time()
+            self.updatemaxsample(Pi)
+            luci = MatrixLUCI(
+                Pi, reltol=reltol, abstol=abstol, maxrank=maxbonddim,
+                leftorthogonal=leftorthogonal,
             )
+            t3 = time.time()
+            if verbosity > 2:
+                print(
+                    f"    Computing Pi ({len(Icombined)} x {len(Jcombined)}) "
+                    f"at bond {b}: {t2 - t1:.3f} sec, LU: {t3 - t2:.3f} sec"
+                )
         self.Iset[b + 1] = [Icombined[i] for i in luci.rowindices()]
         self.Jset[b] = [Jcombined[j] for j in luci.colindices()]
         if len(extraIset) == 0 and len(extraJset) == 0:
-            self.setsitetensor(b, luci.left())
-            self.setsitetensor(b + 1, luci.right())
+            self.setsitetensor(b, to_device(luci.left(), self.device))
+            self.setsitetensor(b + 1, to_device(luci.right(), self.device))
         self.updateerrors(b, luci.pivoterrors())
+
+    def _rook_luci(self, b, f, Icombined, Jcombined, leftorthogonal, reltol,
+                   abstol, maxbonddim) -> MatrixLUCI:
+        """One bond's rook factorization (tensorci2.jl:856-906;
+        ``tci_tpu``'s rook branch of updatepivots). An evaluator with a
+        ``panel_sampler`` takes the device tier: Π sampled on its device,
+        then ``rrlu_rook_device_fused`` there (an f32 hunt and an f64
+        completion for a real panel), with a slab width that starts near
+        the continuation rank and doubles on a rank-capped result (the
+        reference's widen-and-retry loop, matrixlu.jl:512-548). Otherwise
+        the host tier: ``arrlu`` on a ``SubMatrix`` of f, each slab
+        factorized on the TCI's device. A bond that finds no pivot falls
+        back to full search (tensorci2.jl:892-906)."""
+        Iset_pos = {idx: pos for pos, idx in enumerate(Icombined)}
+        Jset_pos = {idx: pos for pos, idx in enumerate(Jcombined)}
+        I0 = [Iset_pos[i] for i in self.Iset[b + 1] if i in Iset_pos]
+        J0 = [Jset_pos[j] for j in self.Jset[b] if j in Jset_pos]
+        sampler = getattr(f, "panel_sampler", None)
+        if (getattr(f, "fused_updater", None) is not None
+                and not getattr(self, "_rook_tier_warned", False)):
+            # reached only when the whole-sweep rook program declined (a
+            # rank above the engine's capacity), as in tci_tpu
+            import warnings
+
+            warnings.warn(
+                "pivotsearch='rook' is running the per-bond rook tier "
+                "(the whole-sweep rook program declined this "
+                "configuration). For a torch-traceable integrand, "
+                "pivotsearch='full' is typically far faster because "
+                "the whole sweep runs as one device program.",
+                RuntimeWarning,
+                stacklevel=4,
+            )
+            self._rook_tier_warned = True
+        if sampler is not None:
+            from ..ops.lu_device import rrlu_rook_device_fused
+
+            Pi_dev, maxsample = sampler.sample(Icombined, Jcombined)
+            m_p, n_p = Pi_dev.shape
+            cap = int(min(maxbonddim, m_p, n_p))
+            mixed = Pi_dev.dtype == torch.float64
+            # one deflated re-hunt when the tolerance is below one f32
+            # hunt's resolution (tci_tpu's rule: ROADMAP C-ref-1, C-ref-2)
+            scale = float(abs(maxsample)) if maxsample else 0.0
+            deep = (0 < reltol < 1e-6) or (
+                scale > 0 and 0 < abstol < 1e-6 * scale)
+            width = min(cap, max(16, 2 * max(len(I0), len(J0), 1)))
+            rng = getattr(self, "rng", None) or np.random.default_rng()
+            wI0, wJ0 = I0, J0
+            while True:
+                dev = rrlu_rook_device_fused(
+                    Pi_dev, maxrank=width, reltol=reltol, abstol=abstol,
+                    leftorthogonal=leftorthogonal, rng=rng, I0=wI0, J0=wJ0,
+                    precision="mixed" if mixed else "f64",
+                    hunt_stages=2 if (mixed and deep) else 1,
+                )
+                if dev.npivots() < width or width >= cap:
+                    break
+                # rank-capped below the true cap: widen, warm-started from
+                # the pivots just found
+                wI0 = [int(i) for i in dev.rowindices()]
+                wJ0 = [int(j) for j in dev.colindices()]
+                width = min(cap, 2 * width)
+            luci = MatrixLUCI(lu=dev.to_rrlu())
+            self.updatemaxsample(maxsample)
+        else:
+            Pif = SubMatrix(f, Icombined, Jcombined, self.dtype)
+            luci = MatrixLUCI(
+                f=Pif, valuetype=self.dtype,
+                matrixsize=(len(Icombined), len(Jcombined)), I0=I0, J0=J0,
+                reltol=reltol, abstol=abstol, maxrank=maxbonddim,
+                leftorthogonal=leftorthogonal, pivotsearch="rook",
+                usebatcheval=True, device=self.device,
+            )
+            self.updatemaxsample(Pif.maxsamplevalue)
+        if luci.npivots() == 0:
+            # fall back to full search (tensorci2.jl:892-906)
+            Pi = filltensor(
+                self.dtype, f, self.localdims, Icombined, Jcombined, 0,
+                self.device,
+            ).reshape(len(Icombined), len(Jcombined))
+            self.updatemaxsample(Pi)
+            luci = MatrixLUCI(
+                Pi, reltol=reltol, abstol=abstol, maxrank=maxbonddim,
+                leftorthogonal=leftorthogonal,
+            )
+        return luci
 
     # -- 2-site sweep (tensorci2.jl:1195-1258) --------------------------------
 
@@ -578,7 +694,7 @@ class TensorCI2(AbstractTensorTrain):
         engine_filled = False
         self._pair_search = None
         if (niter == 2 and engine is not None and engine.use_sweep_pair
-                and pivotsearch == "full" and fillsitetensors):
+                and pivotsearch in ("full", "rook") and fillsitetensors):
             # one optimize iteration, both sweeps and the fill, as one
             # program with one fetch (DeviceSweepEngine.sweep2site_pair),
             # which keeps the history itself; with _search_starts (from
@@ -593,7 +709,7 @@ class TensorCI2(AbstractTensorTrain):
             if engine.sweep2site_pair(
                 self, forwardsweep(sweepstrategy, iter1),
                 forwardsweep(sweepstrategy, iter1 + 1), 1e-14, abstol,
-                maxbonddim, extraIset, extraJset,
+                maxbonddim, extraIset, extraJset, pivotsearch=pivotsearch,
                 strictlynested=strictlynested, search_starts=_search_starts,
             ):
                 self._pair_search = engine.last_search
@@ -610,8 +726,9 @@ class TensorCI2(AbstractTensorTrain):
 
             self.flushpivoterror()
             fwd = forwardsweep(sweepstrategy, it)
-            if pivotsearch == "full" and engine is not None:
-                # the whole sweep on the device, one fetch at its end; on the
+            if pivotsearch in ("full", "rook") and engine is not None:
+                # the whole sweep on the device (rook: the slab alternation
+                # of every bond in the same program), one fetch at its end; on the
                 # final sweep the site-tensor fill runs on the same device
                 # state before that fetch. Falls back to the per-bond path
                 # when the rank exceeds the engine's capacity.
@@ -620,7 +737,8 @@ class TensorCI2(AbstractTensorTrain):
                 self.invalidatesitetensors()
                 if engine.sweep2site(
                     self, fwd, 1e-14, abstol, maxbonddim,
-                    extraIset, extraJset, fill_sites=want_fill,
+                    extraIset, extraJset, pivotsearch=pivotsearch,
+                    fill_sites=want_fill,
                 ):
                     engine_filled = want_fill
                     continue
@@ -645,7 +763,7 @@ class TensorCI2(AbstractTensorTrain):
                                maxbonddim, strictlynested, sweepstrategy,
                                all_starts, it, maxiter, errors, ranks,
                                nglobalpivots, ncheckhistory,
-                               checkconvglobalpivot):
+                               checkconvglobalpivot, pivotsearch="full"):
         """Up to ``engine.loop_kmax`` optimize iterations as one block on
         the device (``DeviceSweepEngine.optimize_loop``), then the
         per-iteration bookkeeping replayed from its stacked outputs.
@@ -673,6 +791,7 @@ class TensorCI2(AbstractTensorTrain):
             maxbonddim, extraIset, extraJset, strictlynested, sb,
             finder.tolmarginglobalsearch, errors, ranks, nglobalpivots,
             ncheckhistory, checkconvglobalpivot, k_budget,
+            pivotsearch=pivotsearch,
         )
         if res is None:
             return None
@@ -704,8 +823,12 @@ class TensorCI2(AbstractTensorTrain):
         engine._store_sitetensors(self, res["cores"])
         engine.last_sweep_filled = True
         # every iteration of the block ran two sweeps, a fill and, with
-        # start points, the search
-        engine._count_sweeps(2 * K_done)
+        # start points, the search; the rook sweeps count their slabs on
+        # the device
+        if "nev" in res:
+            engine.nevals += int(res["nev"])
+        else:
+            engine._count_sweeps(2 * K_done)
         for _ in range(K_done):
             engine._count_fill()
         if sb is not None:
@@ -802,6 +925,9 @@ class TensorCI2(AbstractTensorTrain):
             )
         if rng is None:
             rng = np.random.default_rng()
+        # the per-bond device rook tier fills its start sets from it, so a
+        # caller's rng makes the run repeatable
+        self.rng = rng
 
         tstart = time.time()
         finder = globalpivotfinder or DefaultGlobalPivotFinder(
@@ -832,8 +958,8 @@ class TensorCI2(AbstractTensorTrain):
         # device: the engine runs blocks of them and returns to the host
         # for a global pivot, a capacity growth or convergence
         fused_loop_ok = (verbosity == 0 and default_finder
-                         and pivotsearch == "full" and engine is not None
-                         and engine.use_optimize_loop)
+                         and pivotsearch in ("full", "rook")
+                         and engine is not None and engine.use_optimize_loop)
 
         errors: List[float] = []
         ranks: List[int] = []
@@ -849,7 +975,7 @@ class TensorCI2(AbstractTensorTrain):
                     engine, finder, tol, normalizeerror, maxbonddim,
                     strictlynested, sweepstrategy, all_starts, it, maxiter,
                     errors, ranks, nglobalpivots, ncheckhistory,
-                    checkconvglobalpivot)
+                    checkconvglobalpivot, pivotsearch=pivotsearch)
                 if blk is not None:
                     it += blk[0]
                     if blk[1]:

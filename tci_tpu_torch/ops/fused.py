@@ -101,17 +101,60 @@ def panel_solve_pinv(Pi1: torch.Tensor, P: torch.Tensor,
         2, rowperm[:, None, :].expand(B, r, n), Y)
 
 
-def pad_index_panels(Ic: np.ndarray, Jc: np.ndarray
+def pad_index_panels(Ic: np.ndarray, Jc: np.ndarray, mI: int = None,
+                     mJ: int = None
                      ) -> Tuple[np.ndarray, np.ndarray, int, int]:
-    """Pad (nI, nl) / (nJ, nr) int panels to bucketed row counts (zero rows;
-    the fused update masks them out of the Π panel)."""
+    """Pad (nI, nl) / (nJ, nr) int panels to bucketed row counts, or to mI /
+    mJ rows when given (zero rows; the fused update masks them out of the
+    Π panel)."""
     nI, nJ = Ic.shape[0], Jc.shape[0]
-    mI, mJ = bucket(nI), bucket(nJ)
+    mI = bucket(nI) if mI is None else mI
+    mJ = bucket(nJ) if mJ is None else mJ
     if mI != nI:
         Ic = np.vstack([Ic, np.zeros((mI - nI, Ic.shape[1]), Ic.dtype)])
     if mJ != nJ:
         Jc = np.vstack([Jc, np.zeros((mJ - nJ, Jc.shape[1]), Jc.dtype)])
     return Ic, Jc, nI, nJ
+
+
+def _capacity(n: int, floor: int = 128) -> int:
+    """The sampler's capacity quantum: bucket(n), at least `floor`."""
+    return bucket(max(int(n), int(floor), 1))
+
+
+class PanelSampler:
+    """The Π panel f(Icombined x Jcombined) on the device, for the per-bond
+    device rook tier (``tci_tpu``'s ``make_panel_sampler`` and
+    ``PanelSampler``): one call of f, the padded rows and columns masked to
+    zero, and the panel handed to the rook rrLU where it lies. The padded
+    extents grow monotonically in bucket steps of at least 128, and
+    ``nevals`` counts the padded panel, as ``tci_tpu`` counts it. `f` maps
+    an (N, L) int64 tensor on `device` to (N,) values."""
+
+    def __init__(self, f: Callable, dtype=torch.float64, device=None):
+        self.f = f
+        self.dtype = torch_dtype(dtype)
+        self.device = resolve_device(device)
+        self._row_cap = 0
+        self._col_cap = 0
+        self.nevals = 0
+
+    def sample(self, Icombined, Jcombined):
+        """(the (nI, nJ) panel on the device, max |sample| as a float)."""
+        Ic, Jc = _index_rows(Icombined), _index_rows(Jcombined)
+        self._row_cap = max(self._row_cap, _capacity(Ic.shape[0]))
+        self._col_cap = max(self._col_cap, _capacity(Jc.shape[0]))
+        Ic, Jc, nI, nJ = pad_index_panels(Ic, Jc, self._row_cap,
+                                          self._col_cap)
+        self.nevals += Ic.shape[0] * Jc.shape[0]
+        dev = self.device
+        Pi = sample_panel(self.f, to_device(Ic, dev), to_device(Jc, dev),
+                          self.dtype)
+        valid = ((torch.arange(Ic.shape[0], device=dev)[:, None] < nI)
+                 & (torch.arange(Jc.shape[0], device=dev)[None, :] < nJ))
+        Pi = torch.where(valid, Pi, 0)
+        maxsample = fetch(Pi.abs().amax().to(torch.float64)[None], "rook")
+        return Pi[:nI, :nJ], float(maxsample[0])
 
 
 def _index_rows(indexset, width: Optional[int] = None) -> np.ndarray:

@@ -1,6 +1,9 @@
-"""Rank-revealing LU with complete (full) pivoting.
+"""Rank-revealing LU with complete (full) and rook pivoting.
 
-Counterpart of ``tci_tpu/ops/lu.py`` (parity reference: src/matrixlu.jl).
+Counterpart of ``tci_tpu/ops/lu.py`` (parity reference: src/matrixlu.jl):
+the factorization object, the adaptive rook search on an implicit matrix
+(``arrlu``, matrixlu.jl:492-569), the factor completion
+(cols2Lmatrix!/rows2Umatrix!, :627-674) and the triangular solves.
 The elimination runs on the matrix's device (``lu_kernel.rrlu_raw``): a
 numpy array goes to the current CUDA device unless the caller passes
 ``device="cpu"``, a tensor stays where it is. A CUDA panel runs the CUDA
@@ -13,12 +16,13 @@ Indices are 0-based.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..utils.device import resolve_device, to_device
+from ..utils.device import numpy_dtype, resolve_device, to_device
+from ..utils.util import pushrandomsubset
 from .lu_kernel import rrlu_raw, submatrixargmax_colmajor
 
 _INTMAX = 2**62
@@ -224,6 +228,10 @@ def rrlu(
     leftorthogonal: bool = True,
     mesh=None,
     pivotsearch: str = "full",
+    precision: str = "f64",
+    numrookiter: int = 5,
+    hunt_stages: Optional[int] = None,
+    rng=None,
     device=None,
 ) -> rrLU:
     """Rank-revealing LU of a dense matrix (numpy array or tensor).
@@ -232,14 +240,49 @@ def rrlu(
     default, and a RuntimeError without one unless ``device="cpu"`` is
     given. A tensor stays where the caller put it (that is the caller
     choosing its device), unless `device` is given.
+
     pivotsearch="full": complete pivoting; the whole elimination is one
     launch of the CUDA kernel on a CUDA device and the plain PyTorch loop
     on the CPU. Stop rule and at-least-one-pivot semantics match
     matrixlu.jl:346-396.
+
+    pivotsearch="rook": the reference's adaptive rook scheme (arrlu,
+    matrixlu.jl:492-569) on the device-resident matrix
+    (``lu_device.rrlu_rook_device_fused``): each slab elimination is one
+    launch of the kernel. With precision="mixed" (float64 input) the pivot
+    hunt runs in float32 and the factors are rebuilt in float64 from the
+    pivot sets; ``hunt_stages`` (mixed only) defaults to 1, or 2 when
+    reltol or abstol ask for more than float32's ~1e-7 resolution.
+    Complex input runs at full precision. ``maxrank`` is also the slab
+    width (capped at min(m, n)): pass the target rank.
     """
     if pivotsearch == "rook":
-        raise NotImplementedError(
-            "pivotsearch='rook' is not ported yet (ROADMAP A9)")
+        if mesh is not None:
+            raise ValueError(
+                "pivotsearch='rook' is a single-device program; mesh= is "
+                "only supported with pivotsearch='full'")
+        from .lu_device import _as_matrix, rrlu_rook_device_fused
+
+        A = _as_matrix(A, device)
+        maxrank = int(min(maxrank, *A.shape))
+        if hunt_stages is None:
+            # one deflated re-hunt only when the requested resolution is
+            # beyond one f32 hunt's (~1e-7 relative): reltol below 1e-6 or
+            # abstol below 1e-6 max|A| (tci_tpu's rule, ROADMAP C-ref-1)
+            if precision == "mixed" and A.dtype == torch.float64:
+                scale = float(A.abs().max()) if A.numel() else 0.0
+                deep = (0 < reltol < 1e-6) or (0 < abstol < 1e-6 * scale)
+                hunt_stages = 2 if deep else 1
+            else:
+                hunt_stages = 1
+        if A.is_complex():
+            precision = "f64"  # complex runs the plain-precision path
+            hunt_stages = 1
+        return rrlu_rook_device_fused(
+            A, maxrank=maxrank, reltol=reltol, abstol=abstol,
+            leftorthogonal=leftorthogonal, numrookiter=numrookiter,
+            rng=rng, precision=precision, hunt_stages=hunt_stages,
+        ).to_rrlu()
     if pivotsearch != "full":
         raise ValueError(
             f"Unknown pivot search strategy {pivotsearch}. "
@@ -293,6 +336,160 @@ def rows2Umatrix(R, P, leftorthogonal: bool, device=None) -> torch.Tensor:
     if P.shape[0] == 0:
         return R
     return torch.linalg.solve_triangular(P, R, upper=False)
+
+
+def _host_values(v) -> np.ndarray:
+    """Sampled values as a host array (a tensor is copied back)."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
+def arrlu(
+    valuetype,
+    f: Callable[[Sequence[int], Sequence[int]], np.ndarray],
+    matrixsize: Tuple[int, int],
+    I0: Sequence[int] = (),
+    J0: Sequence[int] = (),
+    maxrank: int = _INTMAX,
+    reltol: float = 1e-14,
+    abstol: float = 0.0,
+    leftorthogonal: bool = True,
+    numrookiter: int = 5,
+    usebatcheval: bool = False,
+    rng: Optional[np.random.Generator] = None,
+    device=None,
+) -> rrLU:
+    """Adaptive rank-revealing LU by rook pivoting on an implicit matrix.
+
+    `f` gives matrix entries: elementwise f(i, j) by default, or batched
+    f(rows, cols) -> |rows| x |cols| array when usebatcheval=True.
+    Alternating row/column moves sample one full slab per move, factorize
+    it with the complete-pivot elimination (``rrlu_raw`` on `device`: the
+    kernel on the card, the plain version on the CPU) and iterate the pivot
+    sets until they are self-consistent (matrixlu.jl:492-569). The missing
+    factor side is then completed by triangular solves on the device
+    (cols2Lmatrix/rows2Umatrix). The samples are taken on the host."""
+    if rng is None:
+        rng = np.random.default_rng()
+    dev = resolve_device(device)
+    valuetype = numpy_dtype(valuetype)
+    m, n = matrixsize
+    maxrank = min(maxrank, m, n)
+
+    if usebatcheval:
+        def _batchf(rows, cols):
+            return _host_values(f(rows, cols))
+    else:
+        def _batchf(rows, cols):
+            return np.array([[f(i, j) for j in cols] for i in rows],
+                            dtype=valuetype).reshape(len(rows), len(cols))
+
+    I0 = list(I0)
+    J0 = list(J0)
+    islowrank = False
+    lu = None
+    last_full_rows = False  # whether the last factorized slab spanned all rows
+    rows_l = cols_l = None
+
+    while True:
+        if leftorthogonal:
+            pushrandomsubset(J0, range(n), max(1, len(J0)), rng)
+        else:
+            pushrandomsubset(I0, range(m), max(1, len(I0)), rng)
+
+        for rookiter in range(1, numrookiter + 1):
+            colmove = (rookiter % 2 == 0) == leftorthogonal
+            if colmove:
+                rows_l, cols_l = list(I0), list(range(n))
+                last_full_rows = False
+            else:
+                rows_l, cols_l = list(range(m)), list(J0)
+                last_full_rows = True
+            sub = _batchf(rows_l, cols_l)
+            LUmat, rp, cp, k, diag, err, flags = rrlu_raw(
+                sub, maxrank, reltol, abstol, leftorthogonal, device=dev)
+            lu = _finalize(LUmat, rp, cp, k, err, leftorthogonal, diag,
+                           flags)
+            islowrank |= lu.npivot < min(sub.shape)
+            newI = [rows_l[i] for i in lu.rowindices()]
+            newJ = [cols_l[j] for j in lu.colindices()]
+            if newI == I0 and newJ == J0:
+                break
+            I0, J0 = newI, newJ
+
+        if islowrank or len(I0) >= maxrank:
+            break
+
+    assert lu is not None
+    k = lu.npivot
+    pivotblock_L = lu.L[:k, :k]
+    pivotblock_U = lu.U[:k, :k]
+
+    if last_full_rows:
+        # L covers all rows already (in permuted order); complete U columns.
+        rowpermutation = np.array(
+            [rows_l[i] for i in lu.rowpermutation], dtype=np.int64)
+        L = lu.L
+        J0s = set(J0)
+        J2 = [j for j in range(n) if j not in J0s]
+        colpermutation = np.array(J0 + J2, dtype=np.int64)
+        U = pivotblock_U
+        if J2:
+            U2 = rows2Umatrix(to_device(_batchf(I0, J2), dev), pivotblock_L,
+                              leftorthogonal)
+            U = torch.hstack([pivotblock_U, U2])
+    else:
+        # U covers all columns; complete L rows.
+        colpermutation = np.array(
+            [cols_l[j] for j in lu.colpermutation], dtype=np.int64)
+        U = lu.U
+        I0s = set(I0)
+        I2 = [i for i in range(m) if i not in I0s]
+        rowpermutation = np.array(I0 + I2, dtype=np.int64)
+        L = pivotblock_L
+        if I2:
+            L2 = cols2Lmatrix(to_device(_batchf(I2, J0), dev), pivotblock_U,
+                              leftorthogonal)
+            L = torch.vstack([pivotblock_L, L2])
+
+    return rrLU(rowpermutation, colpermutation, L, U, leftorthogonal, k,
+                lu.error, lu.diag())
+
+
+def rrlu_from_function(
+    valuetype,
+    f,
+    matrixsize: Tuple[int, int],
+    I0: Sequence[int] = (),
+    J0: Sequence[int] = (),
+    pivotsearch: str = "full",
+    usebatcheval: bool = False,
+    rng: Optional[np.random.Generator] = None,
+    device=None,
+    **kwargs,
+) -> rrLU:
+    """Function-based rrLU: sample the full matrix (full) or rook-pivot
+    (rook), on `device` (the card by default). Parity: matrixlu.jl:593-611."""
+    if pivotsearch == "rook":
+        return arrlu(
+            valuetype, f, matrixsize, I0, J0,
+            usebatcheval=usebatcheval, rng=rng, device=device, **kwargs,
+        )
+    elif pivotsearch == "full":
+        valuetype = numpy_dtype(valuetype)
+        rows = list(range(matrixsize[0]))
+        cols = list(range(matrixsize[1]))
+        if usebatcheval:
+            A = _host_values(f(rows, cols))
+        else:
+            A = np.array(
+                [[f(i, j) for j in cols] for i in rows], dtype=valuetype
+            ).reshape(matrixsize)
+        return rrlu(A, device=device, **kwargs)
+    raise ValueError(
+        f"Unknown pivot search strategy {pivotsearch}. Choose between rook "
+        "and full.")
 
 
 def lu_solve(lu: rrLU, b) -> torch.Tensor:

@@ -8,30 +8,37 @@ products are triangular solves on the factors' device
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from .lu import rrLU, rrlu
+from .lu import rrLU, rrlu, rrlu_from_function
 
 
 class MatrixLUCI:
-    """CI view of an rrLU. From a matrix A, keyword arguments go to
-    ``rrlu``: a numpy A is factorized on `device` (the current CUDA device
-    by default; without one this raises unless ``device="cpu"`` is given),
-    a tensor A where it lies."""
+    """CI view of an rrLU: of a given factorization `lu`, of a matrix A
+    (keyword arguments go to ``rrlu``), or of a function f with
+    ``valuetype`` and ``matrixsize`` (``rrlu_from_function``: the full
+    matrix, or rook pivoting with ``pivotsearch="rook"`` from the pivot
+    continuations I0 and J0). A numpy A or a sampled function is factorized
+    on `device` (the current CUDA device by default; without one this
+    raises unless ``device="cpu"`` is given), a tensor A where it lies."""
 
-    def __init__(self, A=None, *, lu: Optional[rrLU] = None, device=None,
-                 **kwargs):
+    def __init__(self, A=None, *, lu: Optional[rrLU] = None, f=None,
+                 valuetype=None, matrixsize: Optional[Tuple[int, int]] = None,
+                 I0: Sequence[int] = (), J0: Sequence[int] = (),
+                 pivotsearch: str = "full", usebatcheval: bool = False,
+                 rng=None, device=None, **kwargs):
         if lu is not None:
             self.lu = lu
         elif A is not None:
             self.lu = rrlu(A, device=device, **kwargs)
         else:
-            raise NotImplementedError(
-                "MatrixLUCI from a function (rrlu_from_function / arrlu) is "
-                "not ported yet (ROADMAP A9)")
+            assert f is not None and matrixsize is not None
+            self.lu = rrlu_from_function(
+                valuetype, f, matrixsize, I0, J0, pivotsearch=pivotsearch,
+                usebatcheval=usebatcheval, rng=rng, device=device, **kwargs)
 
     @property
     def shape(self) -> Tuple[int, int]:

@@ -289,6 +289,7 @@ class TorchBatchEvaluator(BatchEvaluator):
         self._fused_updater = None
         self._fused_site_tensors = None
         self._device_sweep_engine = None
+        self._panel_sampler = None
 
     def _tier_dtype(self) -> torch.dtype:
         """The value type of the device tiers: the evaluator's, with
@@ -324,6 +325,20 @@ class TorchBatchEvaluator(BatchEvaluator):
         return self._device_sweep_engine
 
     @property
+    def panel_sampler(self):
+        """Π panels on the device for the per-bond device rook tier
+        (``ops/fused.PanelSampler``); None for a complex f, whose rook bonds
+        take the host tier, as in ``tci_tpu``."""
+        if self.dtype.is_complex:
+            return None
+        if self._panel_sampler is None:
+            from ..ops.fused import PanelSampler
+
+            self._panel_sampler = PanelSampler(self._values, self.dtype,
+                                               self.device)
+        return self._panel_sampler
+
+    @property
     def fused_site_tensors(self):
         """Site tensor T = Π₁ · P^{-1} on the device (ops/fused.py)."""
         if self._fused_site_tensors is None:
@@ -339,7 +354,8 @@ class TorchBatchEvaluator(BatchEvaluator):
         return self._nevals + sum(
             tier.nevals for tier in (self._fused_updater,
                                      self._fused_site_tensors,
-                                     self._device_sweep_engine)
+                                     self._device_sweep_engine,
+                                     self._panel_sampler)
             if tier is not None)
 
     def reset_nevals(self) -> None:
@@ -347,7 +363,7 @@ class TorchBatchEvaluator(BatchEvaluator):
         each call on its own)."""
         self._nevals = 0
         for tier in (self._fused_updater, self._fused_site_tensors,
-                     self._device_sweep_engine):
+                     self._device_sweep_engine, self._panel_sampler):
             if tier is not None:
                 tier.nevals = 0
 

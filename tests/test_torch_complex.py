@@ -308,13 +308,29 @@ def test_complex_train_algebra_matches_tci_tpu():
                                    rtol=0, atol=1e-12 * scale)
 
 
-def test_complex_rook_raises_naming_a9():
+def test_complex_rook_raises_naming_a9(monkeypatch):
+    """(Named when rook raised, naming ROADMAP A9.) A complex rook bond
+    update on the host tier now runs, at full precision in complex128, and
+    picks tci_tpu's pivots; the host tier draws each bond's start set from
+    a new unseeded generator in both packages, seeded here in call order
+    (ROADMAP C-ref-4)."""
     f = lambda v: (1 + 1j) / (1 + sum(v))  # noqa: E731
-    t = tci_tpu_torch.TensorCI2.from_function(f, [4] * 3,
-                                              dtype=np.complex128,
-                                              device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
+    orig = np.random.default_rng
+    outs = []
+    for pkg, kw in ((tci_tpu, {}), (tci_tpu_torch, {"device": "cpu"})):
+        draws = itertools.count(100)
+        monkeypatch.setattr(np.random, "default_rng",
+                            lambda seed=None: orig(next(draws) if seed is None
+                                                   else seed))
+        t = pkg.TensorCI2.from_function(f, [4] * 3, dtype=np.complex128,
+                                        **kw)
         t.updatepivots(0, f, True, pivotsearch="rook")
+        outs.append(t)
+    ref, out = outs
+    assert out.Iset == ref.Iset and out.Jset == ref.Jset
+    assert out.sitetensors()[0].dtype == torch.complex128
+    np.testing.assert_allclose(out.pivoterrors, ref.pivoterrors, rtol=1e-12,
+                               atol=1e-15)
 
 
 # -- BASELINE config 5's integrand (benchmarks/bench_feynman.py) at N = 4,

@@ -1259,3 +1259,134 @@ def test_complex_engine_on_the_card_matches_host_tier(cuda):
     graph = engine.floatingzone(tt.sitetensors(), starts)
     assert np.array_equal(graph[0], eager[0])
     assert np.array_equal(graph[1], eager[1])
+
+
+# -- rook pivoting (ops/lu_device.py, the engine's rook sweeps) -------------
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("shape", [
+    # (mp, np, m, n, rank): config 2's rook slabs (4096 x 256 column and
+    # 256 x 4096 row slabs; the f32 hunt's too) and its 256^2 pivot block;
+    # config 1's engine slabs (Icap x Imax and Imax x Jcap at Imax = 32)
+    (4096, 256, 4096, 256, 256), (256, 4096, 256, 4096, 256),
+    (256, 256, 256, 256, 256), (352, 32, 132, 32, 32),
+    (32, 352, 32, 132, 32)])
+def test_rook_slab_shapes_match_plain(cuda, shape, dtype):
+    """The rook slab shapes of chip_smoke.py's phases 3d and 4h, with their
+    extents on the card as the alternation hands them over: kernel and
+    plain version bitwise."""
+    mp, npd, m, n, rank = shape
+    A = _panel(5, mp, npd, m, n, rank, dtype, cuda)
+    ext = [torch.tensor([v], device=cuda) for v in (m, n, min(m, n))]
+    args = (A[None], *ext, 1e-10, 0.0)
+    out = lu_cuda.rrlu_batched(*args, leftorthogonal=True)
+    ref = lu_kernel.rrlu_plain_batched(*args, leftorthogonal=True)
+    for o, r in zip(out, ref):
+        assert _equal(o, r)
+    # a dead predicated step: the rank cap 0 leaves the panel unpivoted
+    dead = lu_cuda.rrlu_batched(A[None], ext[0], ext[1],
+                                torch.zeros(1, dtype=torch.int64,
+                                            device=cuda),
+                                1e-10, 0.0, leftorthogonal=True)
+    assert int(dead[3][0]) == 0
+
+
+@pytest.mark.parametrize("precision", ["f64", "mixed"])
+def test_rrlu_rook_on_the_card_matches_cpu(cuda, precision):
+    """rrlu(pivotsearch="rook") on the card: every slab launches the kernel
+    (none takes the plain version), one fetch of the record, and the same
+    pivots, npivot and factors as on the CPU (bitwise: the kernel rounds as
+    the plain version, the completion's products to 1e-12)."""
+    from tci_tpu_torch.utils.device import FETCHES
+
+    rng = np.random.default_rng(3)
+    # rank 80 > maxrank 48: no hunt reaches its precision's noise, where
+    # cuBLAS's and the CPU's rounding of the deflated residual would part
+    A = (rng.standard_normal((300, 80)) * np.exp(-np.arange(80) / 8.0)) \
+        @ rng.standard_normal((80, 240))
+    kw = dict(maxrank=48, reltol=1e-12, pivotsearch="rook",
+              precision=precision)
+    launches = lu_cuda.LAUNCHES["rrlu"]
+    plain = lu_kernel.PLAIN_CALLS["cuda"]
+    FETCHES.clear()
+    lu = tci_tpu_torch.rrlu(A, rng=np.random.default_rng(7), device=cuda,
+                            **kw)
+    assert lu.L.device.type == "cuda"
+    stages = 2 if precision == "mixed" else 1
+    # per alternation 5 steps and the final row slab; mixed: one f64 block
+    # elimination a completion (hunt_stages of them)
+    expect = stages * 6 + (stages if precision == "mixed" else 0)
+    assert lu_cuda.LAUNCHES["rrlu"] - launches == expect
+    assert lu_kernel.PLAIN_CALLS["cuda"] == plain
+    assert FETCHES["rook"] == 1
+    ref = tci_tpu_torch.rrlu(A, rng=np.random.default_rng(7), device="cpu",
+                             **kw)
+    assert lu.npivot == ref.npivot == 48
+    assert (lu.rowpermutation == ref.rowpermutation).all()
+    assert (lu.colpermutation == ref.colpermutation).all()
+    for x, y in ((lu.L, ref.L), (lu.U, ref.U)):
+        assert float((x.cpu() - y).abs().max()) <= 1e-12 * float(
+            y.abs().max())
+
+
+def test_rook_engine_sweep_syncs_only_at_its_fetch(cuda):
+    """One rook engine sweep with its fill at config 1's widths, replayed:
+    no synchronization in sync debug mode "error", one fetch, 7 bonds of 5
+    predicated slab launches and the fill's."""
+    from tci_tpu_torch.models import device_sweep
+
+    dims = [10] * 8
+    bf = tci_tpu_torch.TorchBatchEvaluator(_lorentz, dims, device=cuda)
+    tci = tci_tpu_torch.TensorCI2.from_function(bf, dims, device=cuda)
+    engine = bf.device_sweep_engine
+    engine._rng = np.random.default_rng(3)
+    empty = [[] for _ in dims]
+    for fwd, fill in ((True, False), (False, True), (True, False)):
+        assert engine.sweep2site(tci, fwd, 1e-14, 0.0, 2**62, empty, empty,
+                                 pivotsearch="rook", fill_sites=fill)
+    torch.cuda.synchronize()
+    assert engine.captures == 2 and not engine.declined
+    fetches, launches = device_sweep.FETCHES["engine"], lu_cuda.LAUNCHES["rrlu"]
+    plain = lu_kernel.PLAIN_CALLS["cuda"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        assert engine.sweep2site(tci, False, 1e-14, 0.0, 2**62, empty, empty,
+                                 pivotsearch="rook", fill_sites=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert device_sweep.FETCHES["engine"] == fetches + 1
+    assert lu_cuda.LAUNCHES["rrlu"] == launches + 5 * (len(dims) - 1) + 1
+    assert lu_kernel.PLAIN_CALLS["cuda"] == plain
+    assert all(t.device.type == "cuda" for t in tci.sitetensors())
+
+
+def _rook_loop_run(dims, cuda, graphs, bf=None):
+    if bf is None:
+        bf = tci_tpu_torch.TorchBatchEvaluator(_lorentz, dims, device=cuda,
+                                               cuda_graphs=graphs)
+    bf.device_sweep_engine._rng = np.random.default_rng(7)
+    out = tci_tpu_torch.crossinterpolate2(
+        np.float64, bf, dims, tolerance=1e-10, pivotsearch="rook",
+        device=cuda, rng=np.random.default_rng(5))
+    torch.cuda.synchronize()
+    return out, bf
+
+
+def test_rook_loop_graphs_match_eager(cuda):
+    """The rook optimize loop (tci_tpu's default protocol) replayed from CUDA
+    graphs against the same bodies queued eagerly, on a new evaluator and
+    again on the same one: bit for bit, and the same sample count."""
+    dims = [4] * 5
+    ref, ref_bf = _rook_loop_run(dims, cuda, graphs=False)
+    first, bf = _rook_loop_run(dims, cuda, graphs=True)
+    _same_result(first, ref)
+    assert bf.nevals == ref_bf.nevals
+    engine = bf.device_sweep_engine
+    captures, replays = engine.captures, engine.replays
+    assert captures > 0 and replays > 0 and not engine.declined
+    assert any("rook" in key for key in engine._sweeps)
+    bf.reset_nevals()
+    second, _ = _rook_loop_run(dims, cuda, graphs=True, bf=bf)
+    _same_result(second, ref)
+    assert engine.captures == captures and engine.replays == 2 * replays
+    assert bf.nevals == ref_bf.nevals

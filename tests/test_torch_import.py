@@ -32,7 +32,6 @@ def test_import_leaves_jax_out():
 # tci_tpu's public names that the port does not have yet, each with the
 # ROADMAP step that ports it, and the one it replaces
 NOT_PORTED = {
-    "A9": {"arrlu", "DeviceRRLU", "rrlu_serving"},
     "A11": {"MatrixCI", "AtimesBinv", "AinvtimesB", "matrix_crossinterpolate",
             "MatrixACA", "TensorCI1", "crossinterpolate1", "crossinterpolate",
             "conversion"},
@@ -60,7 +59,8 @@ def test_exports_cover_tci_tpu():
 @pytest.mark.parametrize("module", [
     "utils.quantics", "ops.kronrod", "ops.probe_batched",
     "models.integration", "ops.factorize", "models.ttcache",
-    "models.globalsearch", "parallel.cachedfunction"])
+    "models.globalsearch", "parallel.cachedfunction", "ops.lu_device",
+    "utils.prng"])
 def test_module_import_leaves_jax_out(module):
     code = (
         f"import sys, tci_tpu_torch.{module}\n"

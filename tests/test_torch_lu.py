@@ -256,9 +256,18 @@ def test_rrlu_tensor_input_stays_on_its_device():
 
 
 def test_rrlu_unported_options_raise():
+    """mesh= (ROADMAP A14) is not ported. Rook pivoting is (A9): it
+    factorizes the identity at full rank and, as in tci_tpu, refuses a
+    mesh."""
     A = np.eye(4)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tci_tpu_torch.rrlu(A, pivotsearch="rook", device="cpu")
+    lu = tci_tpu_torch.rrlu(A, pivotsearch="rook", device="cpu",
+                            rng=np.random.default_rng(0))
+    assert lu.npivot == 4
+    assert torch.equal(lu.left() @ lu.right(), torch.eye(4,
+                                                         dtype=torch.float64))
+    with pytest.raises(ValueError, match="single-device"):
+        tci_tpu_torch.rrlu(A, pivotsearch="rook", mesh=object(),
+                           device="cpu")
     with pytest.raises(NotImplementedError, match="A14"):
         tci_tpu_torch.rrlu(A, mesh=object(), device="cpu")
 

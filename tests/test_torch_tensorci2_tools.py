@@ -11,6 +11,8 @@ pivot block P of a site tensor T = Π1 · P^{-1} is worse conditioned than
 eliminations round differently, ROADMAP C-port-1).
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -153,15 +155,28 @@ def test_addglobalpivots1sitesweep_matches(state):
 @pytest.mark.parametrize("kw", [dict(tolerance=1e-8),
                                 dict(tolerance=1e-6, maxbonddim=4),
                                 dict(tolerance=1e-8, strictlynested=True)])
-def test_addglobalpivots2sitesweep_matches(state, kw):
+def test_addglobalpivots2sitesweep_matches(state, kw, monkeypatch):
     ref, out, fj, fp = _pair(state)
     pivots = _found_pivots(ref, out, fj, fp, 1e-6)
     nj = ref.addglobalpivots2sitesweep(fj, pivots, **kw)
     no = out.addglobalpivots2sitesweep(fp, pivots, **kw)
     assert no == nj
     _same_state(out, ref)
-    with pytest.raises(NotImplementedError, match="A9"):
-        out.addglobalpivots2sitesweep(fp, pivots, pivotsearch="rook")
+    # rook (ROADMAP A9), from the same state: the host tier draws each
+    # bond's start set from a new unseeded generator in both packages,
+    # seeded here in call order (C-ref-4)
+    ref, out, fj, fp = _pair(state)
+    orig = np.random.default_rng
+    left = []
+    for tci, f in ((ref, fj), (out, fp)):
+        draws = itertools.count(100)
+        monkeypatch.setattr(np.random, "default_rng",
+                            lambda seed=None: orig(next(draws) if seed is None
+                                                   else seed))
+        left.append(tci.addglobalpivots2sitesweep(f, pivots,
+                                                  pivotsearch="rook", **kw))
+    assert left[1] == left[0]
+    _same_state(out, ref)
 
 
 def test_engine_tier_gives_the_host_tiers_results(state):
