@@ -162,8 +162,24 @@ line or more each:
    evaluator: 10 replayed runs beside phase 4e's full-pivot median, samples
    a run rook against full, one profiled run's kernels and device busy
    time, and the loop step's graph (rrLU launches, device items and time);
+4i. tensor-train contraction and the device compression, on
+   examples/04_contraction_mpo.py's operands (default_rng(42), N(0, 1) /
+   sqrt(chi) cores, legs (2, 2)): ``contract(algorithm="zipup" |
+   "naive", method="LU", tolerance=1e-10, torch_native=True)`` at L = 20,
+   chi = 16 (exact product bond 256: 19 and 38 rrLU launches of up to 1024
+   x 256 and 256 x 1024, the cluster mode); ``compress(torch_native=True)``
+   of config 1's train beside the host ``compress("LU")`` (2 (L - 1)
+   launches each); ``contract(algorithm="TCI", torch_native=True,
+   initialpivots=10)`` at chi = 8 on the engine, its host-side initial
+   pivot search timed apart; complex128 zip-up and naive at L = 12, chi =
+   8. Each cold (recorded for phase 5) and 10 warm: linkdims tci_tpu's
+   (``RECORDED_CONTRACT``, ``RECORDED_COMPRESS``), values at 1,000 fused
+   indices within 1e-8 max|exact| of numpy transfer matrices (compress:
+   10^4 points within 1e-10 max|tt|), a launch a split and no plain call,
+   one fetch a device-tier call, no engine decline; the kernel's device
+   time on each path's largest panel beside its plain time and bound;
 5. the kernel against the plain version on every launch the cold runs of
-   phases 3d, 4, 4b, 4c, 4f, 4g and 4h made (rook: each slab shape's time,
+   phases 3d, 4, 4b, 4c, 4f, 4g, 4h and 4i made (rook: each slab shape's time,
    bound and plain time, and a dead step's); its times on the engines' bond panels (Imax
    (d + 1) square: 352^2 for config 1, 96^2 for config 3, 512^2 and 1024^2
    for config 4) and on config 1's fill (its P blocks in one batched
@@ -255,6 +271,21 @@ RECORDED_ROOK = {
 RECORDED_ROOK_NEVALS = 1499313
 ROOK_FUSED_PORT_CPU = [9.875491743545822e-09, 4.737983947981916e-09,
                        4.805100664102731e-09]
+# phase 4i: tci_tpu's linkdims on a CPU for examples/04_contraction_mpo.py's
+# operands (default_rng(42), legs (2, 2), tolerance 1e-10): zip-up and naive
+# with jax_native=True at L = 20, chi = 16, and (complex_*) its (re, im) pair
+# programs at L = 12, chi = 8; "TCI" (L = 20, chi = 8) is the product's
+# exact ranks, min(4^n, 4^(L-n), 64), which tci_tpu's TCI was not run at
+# this size on a CPU to record; and config 1's train compressed by
+# compress_device at 1e-12
+RECORDED_CONTRACT = {
+    "zipup": [4, 16, 64] + [256] * 16,
+    "naive": [4, 16, 64] + [256] * 13 + [64, 16, 4],
+    "TCI": [4, 16] + [64] * 15 + [16, 4],
+    "complex_zipup": [4, 16] + [64] * 9,
+    "complex_naive": [4, 16] + [64] * 7 + [16, 4],
+}
+RECORDED_COMPRESS = [10, 12, 12, 12, 12, 12, 10]
 
 
 def fail(msg):
@@ -2885,6 +2916,329 @@ def main():
           f"{st['rrlu_us_by_grid']}", flush=True)
     rook_entry["config1"] = rook1
 
+    # -- 4i. tensor-train contraction and the device compression ------------
+    # examples/04_contraction_mpo.py's operands at sizes quantics users
+    # contract: L = 20 sites of legs (2, 2), N(0, 1)/sqrt(chi) cores from
+    # default_rng(42); (a) zip-up and (b) naive with torch_native=True at
+    # chi = 16 (exact product bond 256: 1024 x 256 and 256 x 1024 panels,
+    # the cluster mode), (c) compress(torch_native=True) of config 1's train
+    # beside the host compress("LU"), (d) TCI on the engine at chi = 8
+    # (exact rank 64), (e) complex128 zip-up and naive at L = 12, chi = 8.
+    # Each: linkdims, values at 1,000 fused indices against transfer
+    # matrices computed here with numpy, a kernel launch a split and no
+    # plain call, one fetch a device-tier call; the cold run is recorded
+    # for phase 5.
+    from torch.profiler import ProfilerActivity
+
+    from tci_tpu_torch.models import contraction as contraction_mod
+
+    def graph_ms(fn, reps):
+        """Device time of one fn() call: CUDA events around the replay of a
+        CUDA graph that holds `reps` calls, so no host time lies between
+        them (fn must be safe to record: every wrapper here is)."""
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def memory_line():
+        """Allocated and reserved device memory, and what of it the private
+        pools of CUDA graphs hold, in GiB, from the allocator's snapshot."""
+        private = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                      if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
+        return (torch.cuda.memory_allocated() / 2**30,
+                torch.cuda.memory_reserved() / 2**30, private / 2**30)
+
+    # the memory phases 4-4h leave: what their graphs' private pools hold,
+    # those of engines still alive and the cached segments of pools whose
+    # engines are gone (a capture that lacks memory gives those back and
+    # records once more, DeviceSweepEngine._capture)
+    memory = {"before_gib": memory_line()}
+    print(f"[contract] before 4i: device memory allocated / reserved / in "
+          f"private pools "
+          f"{' / '.join(f'{x:.3f}' for x in memory['before_gib'])} GiB",
+          flush=True)
+
+    def contract_operands(L, chi, complex_=False):
+        rng = np.random.default_rng(42)
+
+        def mpo():
+            b = [1] + [chi] * (L - 1) + [1]
+            out = []
+            for n in range(L):
+                t = rng.standard_normal((b[n], 2, 2, b[n + 1]))
+                if complex_:
+                    t = t + 1j * rng.standard_normal(t.shape)
+                out.append(t / np.sqrt(chi))
+            return out
+        return mpo(), mpo()
+
+    def exact_product(a, b, idx):
+        """The product at (n, L) fused indices (i * 2 + j), by numpy
+        transfer matrices over the operands' numpy cores."""
+        v = np.ones((len(idx), 1, 1))
+        for n in range(len(a)):
+            i, j = idx[:, n] // 2, idx[:, n] % 2
+            An = a[n].transpose(1, 0, 2, 3)[i]  # (N, la, k, ra)
+            Bn = b[n].transpose(2, 0, 1, 3)[j]  # (N, lb, k, rb)
+            v = np.einsum("nab,nakc,nbkd->ncd", v, An, Bn)
+        return v[:, 0, 0]
+
+    def values_at(tt, idx):
+        fused = tci_tpu_torch.TensorTrain(
+            [t.reshape(t.shape[0], -1, t.shape[-1]) for t in tt])
+        return fused.evaluate_batch(idx).cpu().numpy()
+
+    made = []
+    plain_evaluator = contraction_mod.TorchBatchEvaluator
+
+    class KeptEvaluator(plain_evaluator):
+        """The TorchBatchEvaluator that contract_TCI makes, kept for its
+        counts; graphs=False (a recorded run) queues the engine's sweeps
+        eagerly."""
+        graphs = True
+
+        def __init__(self, *args, **kwargs):
+            kwargs["cuda_graphs"] = KeptEvaluator.graphs
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    contraction = {}
+
+    def contraction_run(tag, solve, expect_launches, fetch_key, linkdims,
+                        check_values):
+        """Cold (recorded for phase 5) and 10 warm runs of solve(), which
+        returns (tt, wall, evaluator or None); the counts of the cold run
+        and of one warm run."""
+        def counted(record):
+            made.clear()
+            KeptEvaluator.graphs = not record
+            contraction_mod.TorchBatchEvaluator = KeptEvaluator
+            try:
+                (tt, wall, f), counts = run_counted(tag, solve, record)
+            finally:
+                contraction_mod.TorchBatchEvaluator = plain_evaluator
+            return tt, wall, counts
+        tt, cold, cold_counts = counted(True)
+        walls, warm_counts = [], None
+        for _ in range(10):
+            tt, wall, warm_counts = counted(False)
+            walls.append(wall)
+        for name, c in (("cold", cold_counts), ("warm", warm_counts)):
+            want = expect_launches(c)
+            if (not c["launches"] or c["launches"] != want
+                    or c["plain_cuda"] or (fetch_key and c["fetches"].get(
+                        fetch_key) != 1)):
+                fail(f"{tag} {name}: {c['launches']} launches for {want} "
+                     f"splits, {c['plain_cuda']} plain calls on CUDA, "
+                     f"fetches {c['fetches']}")
+        if linkdims is not None and tt.linkdims() != linkdims:
+            fail(f"{tag}: linkdims {tt.linkdims()}, recorded {linkdims}")
+        err = check_values(tt)
+        if tt[0].device.type != "cuda":
+            fail(f"{tag}: the result left the card")
+        res = {"cold_s": cold, "warm_median_s": med(walls),
+               "warm_walls": walls, "launches": warm_counts["launches"],
+               "nevals": warm_counts["nevals"],
+               "launches_cold": cold_counts["launches"],
+               "fetches": warm_counts["fetches"],
+               "rrlu_raw": warm_counts["rrlu_raw"],
+               "linkdims": tt.linkdims(), "max_rel_err": err}
+        print(f"[contract] {tag}: cold {cold:.4f} s, warm {spread(walls)} "
+              f"(median of 10); {res['launches']} rrLU launches "
+              f"({res['rrlu_raw']} rrlu_raw), fetches {res['fetches']}, no "
+              f"plain call; linkdims {tt.linkdims()}; max |tt - exact| "
+              f"{err:.3e} of max |exact|", flush=True)
+        contraction[tag] = res
+        return res
+
+    def product_check(a, b, tag, tol=1e-8, n=1000):
+        idx = np.random.default_rng(11).integers(0, 4, (n, len(a)))
+        want = exact_product(a, b, idx)
+
+        def check(tt):
+            got = values_at(tt, idx)
+            err = float(np.abs(got - want).max() / np.abs(want).max())
+            if not err <= tol:
+                fail(f"{tag}: values at {n} fused indices {err:.3e} of "
+                     f"max |exact| from the exact product (bound {tol})")
+            return err
+        return check
+
+    def contract_solve(a, b, **kw):
+        def solve():
+            A = tci_tpu_torch.TensorTrain(a)
+            B = tci_tpu_torch.TensorTrain(b)
+            tt, wall = timed(lambda: tci_tpu_torch.contract(
+                A, B, torch_native=True, **kw))
+            return tt, wall, made[0] if made else None
+        return solve
+
+    a20, b20 = contract_operands(20, 16)
+    for algorithm, splits in (("zipup", 19), ("naive", 38)):
+        contraction_run(
+            f"4i {algorithm}",
+            contract_solve(a20, b20, algorithm=algorithm, method="LU",
+                           tolerance=1e-10),
+            lambda c, s=splits: s, "contract_" + algorithm,
+            RECORDED_CONTRACT[algorithm],
+            product_check(a20, b20, f"4i {algorithm}"))
+
+    # (c) config 1's train (phase 4f's): the device compression beside the
+    # host one, each 2 (L - 1) splits; values at 10^4 points within 1e-10
+    # max|tt|
+    def compress_solve(native):
+        def solve():
+            c = tt1.copy()
+            _, wall = timed(lambda: c.compress("LU", tolerance=1e-12,
+                                               torch_native=native))
+            return c, wall, None
+        return solve
+
+    def compress_check(tt):
+        err = float((tt.evaluate_batch(pts) - vals1).abs().max()) / scale1
+        if not err <= 1e-10:
+            fail(f"4i compress: max |diff| {err:.3e} of max|tt| at 10^4 "
+                 f"points")
+        return err
+
+    ncomp = 2 * (len(tt1) - 1)
+    contraction_run("4i compress device", compress_solve(True),
+                    lambda c: ncomp, "compress", RECORDED_COMPRESS,
+                    compress_check)
+    contraction_run("4i compress host", compress_solve(False),
+                    lambda c: ncomp, None, RECORDED_COMPRESS, compress_check)
+    if contraction["4i compress host"]["rrlu_raw"] != ncomp:
+        fail("4i compress host: not one rrlu_raw a split")
+
+    # (d) TCI on the engine, the initial pivot search on the host timed
+    # apart
+    a8, b8 = contract_operands(20, 8)
+    pivot_walls = []
+    find_pivots = contraction_mod._findinitialpivots
+
+    def timed_pivots(*args, **kwargs):
+        out, wall = timed(lambda: find_pivots(*args, **kwargs))
+        pivot_walls.append(wall)
+        return out
+
+    contraction_mod._findinitialpivots = timed_pivots
+    try:
+        res = contraction_run(
+            "4i TCI",
+            contract_solve(a8, b8, algorithm="TCI", tolerance=1e-10,
+                           initialpivots=10, rng=np.random.default_rng(0)),
+            lambda c: c["tier_calls"] + c["rrlu_raw"], None,
+            RECORDED_CONTRACT["TCI"],
+            product_check(a8, b8, "4i TCI"))
+    finally:
+        contraction_mod._findinitialpivots = find_pivots
+    if res["fetches"].get("engine", 0) + res["fetches"].get(
+            "engine_status", 0) == 0 or res["rrlu_raw"]:
+        fail(f"4i TCI: did not run on the engine ({res})")
+    res["initial_pivots_s"] = pivot_walls
+    memory["after_tci_gib"] = memory_line()
+    # the product function's device time a point, on a panel of the
+    # engine's largest size (capacity 96: (96 x 5)^2 points), recorded in a
+    # CUDA graph as the engine records it; times the samples of a run
+    fprod, dims8, _, _ = contraction_mod.make_product_evaluator(
+        tci_tpu_torch.TensorTrain(a8), tci_tpu_torch.TensorTrain(b8))
+    npts = (96 * 5) ** 2
+    idx = torch.as_tensor(np.random.default_rng(5).integers(
+        0, 4, (npts, len(dims8))), device=dev)
+    res["product_ms_per_point"] = graph_ms(lambda: fprod(idx), 3) / npts
+    res["product_ms_per_run"] = res["product_ms_per_point"] * res["nevals"]
+    print(f"[contract] 4i TCI: the product function on the card "
+          f"{res['product_ms_per_point'] * 1e6:.3f} ns a point (a CUDA graph "
+          f"of 3 calls on {npts} points, events), so "
+          f"{res['product_ms_per_run']:.1f} ms for a run's {res['nevals']} "
+          f"samples", flush=True)
+    del fprod, idx
+    print(f"[contract] 4i TCI: the initial pivot search (10 pivots, host, "
+          f"one Contraction evaluation at a time) {med(pivot_walls[1:]):.4f} "
+          f"s of each warm wall; device memory after the TCI runs allocated / "
+          f"reserved / in private pools "
+          f"{' / '.join(f'{x:.3f}' for x in memory['after_tci_gib'])} GiB",
+          flush=True)
+
+    # (e) complex128 at L = 12, chi = 8
+    ac, bc = contract_operands(12, 8, complex_=True)
+    for algorithm, splits in (("zipup", 11), ("naive", 22)):
+        contraction_run(
+            f"4i complex {algorithm}",
+            contract_solve(ac, bc, algorithm=algorithm, method="LU",
+                           tolerance=1e-10),
+            lambda c, s=splits: s, "contract_" + algorithm,
+            RECORDED_CONTRACT["complex_" + algorithm],
+            product_check(ac, bc, f"4i complex {algorithm}"))
+
+    # the kernel on each path's largest panels (one of each shape of the
+    # largest size; naive's L->R and R->L passes give two), from the
+    # recorded cold runs: device time a launch, plain version, bound
+    largest = {}
+    for tag, _, args, kw in launch_inputs:
+        if tag in ("4i zipup", "4i naive", "4i compress device",
+                   "4i complex zipup", "4i complex naive"):
+            size = args[0].numel()
+            if size > largest.get(tag, (0, {}))[0]:
+                largest[tag] = (size, {})
+            if size == largest[tag][0]:
+                largest[tag][1].setdefault(tuple(args[0].shape), (args, kw))
+    panel_times = {}
+
+    def time_panel(tag, args, kw):
+        P = args[0]
+        k_panel = int(originals[1](*args, **kw)[3])
+
+        def launches():
+            for _ in range(10):
+                originals[1](*args, **kw)
+        durs = [dur for name, dur in traced_kernels(
+            launches, [ProfilerActivity.CUDA]) if "rrlu" in name]
+        ms_k = sum(durs) / 10 / 1e3 if durs else None
+        ms_g = graph_ms(lambda: originals[1](*args, **kw), 10)
+        ms_e = cuda_ms(lambda: originals[1](*args, **kw), 10)
+        ms_p = cuda_ms(lambda: lu_kernel.rrlu_plain(*args, **kw), 2)
+        bnd, by = bound_ms(*P.shape, int(args[1]), int(args[2]), k_panel,
+                           P.element_size())
+        mode = lu_cuda.PANEL_MODES[int(originals[1](
+            *args, **kw, return_mode=True)[6])]
+        shape = f"{P.shape[0]}x{P.shape[1]}"
+        panel_times[f"{tag} {shape}"] = {
+            "panel": shape, "dtype": str(P.dtype)[6:], "k": k_panel,
+            "mode": mode, "ms": ms_g, "profiler_ms": ms_k,
+            "kernels_traced": len(durs), "wrapper_ms": ms_e,
+            "plain_ms": ms_p, "bound_ms": bnd, "bound_by": by}
+        print(f"[contract] {tag}: a largest panel, {shape} "
+              f"{str(P.dtype)[6:]} (k = {k_panel}, {mode}): kernel "
+              f"{ms_g:.4f} ms a launch (events around a CUDA graph of 10 "
+              f"launches), profiler "
+              f"{'not measured' if ms_k is None else f'{ms_k:.4f} ms'} "
+              f"({len(durs)} kernels traced in 10 calls), wrapper call "
+              f"{ms_e:.4f} ms (events), plain {ms_p:.3f} ms, bound "
+              f"{bnd:.6f} ms ({by})", flush=True)
+
+    for tag, (_, shapes) in largest.items():
+        for args, kw in shapes.values():
+            time_panel(tag, args, kw)
+    contraction["panels"] = panel_times
+    contraction["memory"] = memory
+    for tag in ("4i zipup 1024x256", "4i naive 1024x256",
+                "4i naive 256x1024"):
+        if panel_times.get(tag, {}).get("mode") != "cluster":
+            fail(f"{tag}: not timed, or not in the cluster mode "
+                 f"({panel_times.get(tag)})")
+
     # -- 5. kernel vs plain on every launch of the cold runs -------------------
     # for their times: config 1's first fill (its P blocks in one launch),
     # and of each engine run the square bond panel of each size with the most
@@ -3110,7 +3464,10 @@ def main():
                                 for p, r in rook_entry["config2"].items()
                                 if "launches" in r},
                              **{f"4h_config1_rook_{t}": r["launches"]
-                                for t, r in rook_entry["config1"].items()}},
+                                for t, r in rook_entry["config1"].items()},
+                             **{t.replace(" ", "_"): r["launches"]
+                                for t, r in contraction.items()
+                                if t not in ("panels", "memory")}},
         "max_abs_err": max_err,
         "ms": ms if ms is not None else eng["engine_panel_wrapper_ms"],
         "ms_from": "profiler" if ms is not None else "cuda events",
@@ -3132,6 +3489,10 @@ def main():
         # rook pivoting: config 2 (phase 3d) and config 1 (phase 4h), and
         # each rook slab shape's times and bound (phase 5)
         "rook": rook_entry,
+        # contraction and the device compression (phase 4i): each path's
+        # walls, launches, fetches and linkdims, and the kernel on each
+        # path's largest panel
+        "contraction": contraction,
         **host_panel,
         **eng,
         **n2000,

@@ -79,6 +79,9 @@ from .models.tensorci2 import (
     searchglobalpivots,
 )
 from .models.globalsearch import estimatetrueerror
+from .models.contraction import Contraction, contract
+from .models.compress_device import compress_device
+from .models.contraction_device import contract_zipup_device
 from .models.integration import integrate
 
 __all__ = [
@@ -104,5 +107,6 @@ __all__ = [
     "AbstractGlobalPivotFinder", "DefaultGlobalPivotFinder",
     "estimatetrueerror",
     # L5 applications
+    "Contraction", "contract", "compress_device", "contract_zipup_device",
     "integrate",
 ]

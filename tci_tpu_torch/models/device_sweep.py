@@ -950,7 +950,19 @@ class DeviceSweepEngine:
             self._pool = torch.cuda.graph_pool_handle()
         if self._stream is None:
             self._stream = torch.cuda.Stream(dev)
-        graph, outputs = capture_graph(body, self._pool, self._stream)
+        captured = lu_cuda.CAPTURED["rrlu"]
+        try:
+            graph, outputs = capture_graph(body, self._pool, self._stream)
+        except torch.OutOfMemoryError:
+            # The memory may sit in the cached segments of graphs that are
+            # gone (an engine that was dropped leaves its pool's segments
+            # cached), which the allocator cannot give back while a stream
+            # captures: give them back now and record once more, into a new
+            # pool. The failed capture's launches never ran.
+            lu_cuda.CAPTURED["rrlu"] = captured
+            torch.cuda.empty_cache()
+            self._pool = torch.cuda.graph_pool_handle()
+            graph, outputs = capture_graph(body, self._pool, self._stream)
         return graph.replay, outputs
 
     def _decline(self, key, exc: BaseException) -> None:

@@ -207,11 +207,17 @@ class TensorTrain(AbstractTensorTrain):
         """In-place two-pass compression on the cores' device: L→R
         orthogonalization (no truncation), then R→L truncation; each split
         is one ``factorize`` call, so an "LU" or "CI" split of a CUDA TT is
-        one launch of the rrLU kernel."""
+        one launch of the rrLU kernel. With ``torch_native=True`` (and
+        ``method="LU"``) the whole sweep is queued on the device with one
+        fetch at its end (``models/compress_device.py``)."""
         if torch_native:
-            raise NotImplementedError(
-                "compress(torch_native=True), the one-program compression of "
-                "tci_tpu's compress_device, is not ported yet (ROADMAP A12)")
+            from .compress_device import compress_device
+
+            out = compress_device(
+                self, method, tolerance=tolerance, maxbonddim=maxbonddim,
+                normalizeerror=normalizeerror, mesh=mesh)
+            self._sitetensors = out.sitetensors()
+            return
         if mesh is not None:
             raise NotImplementedError(
                 "compress(mesh=...) is not ported yet (ROADMAP A14)")

@@ -1390,3 +1390,154 @@ def test_rook_loop_graphs_match_eager(cuda):
     _same_result(second, ref)
     assert engine.captures == captures and engine.replays == 2 * replays
     assert bf.nevals == ref_bf.nevals
+
+
+# -- contraction and the device compression ------------------------------
+
+
+def _contract_operands(L, chi, complex_=False, seed=42):
+    """Two MPOs of L sites, legs (2, 2), N(0, 1)/sqrt(chi) cores, as numpy."""
+    rng = np.random.default_rng(seed)
+
+    def mpo():
+        b = [1] + [chi] * (L - 1) + [1]
+        out = []
+        for n in range(L):
+            t = rng.standard_normal((b[n], 2, 2, b[n + 1]))
+            if complex_:
+                t = t + 1j * rng.standard_normal(t.shape)
+            out.append(t / np.sqrt(chi))
+        return out
+    return mpo(), mpo()
+
+
+def _device_tier(kind, cores_a, cores_b, device):
+    """One call of a device tier on trains on `device`: (result, the number
+    of bond splits it makes, its FETCHES key)."""
+    A = tci_tpu_torch.TensorTrain(cores_a, device=device)
+    L = len(A)
+    if kind == "compress":
+        out = tci_tpu_torch.compress_device(A, "LU", tolerance=1e-10,
+                                            maxbonddim=6)
+        return out, 2 * (L - 1), "compress"
+    B = tci_tpu_torch.TensorTrain(cores_b, device=device)
+    out = tci_tpu_torch.contract(A, B, algorithm=kind, method="LU",
+                                 tolerance=1e-10, torch_native=True)
+    return out, (L - 1) * (2 if kind == "naive" else 1), "contract_" + kind
+
+
+@pytest.mark.parametrize("complex_", [False, True])
+@pytest.mark.parametrize("kind", ["zipup", "naive", "compress"])
+def test_contract_device_tiers_on_the_card(cuda, kind, complex_):
+    """zip-up, naive and the compression with torch_native=True on the
+    card: one kernel launch a bond split, no plain call on CUDA, one fetch,
+    and the same train as the call on the CPU (plain version) within
+    1e-12."""
+    from tci_tpu_torch.utils.device import FETCHES
+
+    a, b = _contract_operands(6, 4, complex_)
+    launches = lu_cuda.LAUNCHES["rrlu"]
+    plain = lu_kernel.PLAIN_CALLS["cuda"]
+    out, splits, key = _device_tier(kind, a, b, cuda)
+    fetches = FETCHES[key]
+    out, splits, key = _device_tier(kind, a, b, cuda)
+    assert FETCHES[key] == fetches + 1
+    assert lu_cuda.LAUNCHES["rrlu"] - launches == 2 * splits
+    assert lu_kernel.PLAIN_CALLS["cuda"] == plain
+    assert all(t.device.type == "cuda" for t in out)
+    ref, _, _ = _device_tier(kind, a, b, "cpu")
+    assert out.linkdims() == ref.linkdims()
+    full, want = tci_tpu_torch.fulltensor(out).cpu(), tci_tpu_torch.fulltensor(ref)
+    assert float((full - want).abs().max()) <= 1e-12 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("kind", ["zipup", "naive", "compress"])
+def test_contract_chain_syncs_only_at_its_fetch(cuda, kind):
+    """The whole chain of a device tier queues without a synchronization:
+    under torch's sync debug mode "error" from the call to its end (the one
+    fetch waits on an event, which the mode does not see, and is counted)."""
+    from tci_tpu_torch.utils.device import FETCHES
+
+    a, b = _contract_operands(8, 8)
+    _device_tier(kind, a, b, cuda)  # the kernel's build and first launches
+    A = tci_tpu_torch.TensorTrain(a, device=cuda)
+    B = tci_tpu_torch.TensorTrain(b, device=cuda)
+    torch.cuda.synchronize()
+    key = "compress" if kind == "compress" else "contract_" + kind
+    fetches = FETCHES[key]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        if kind == "compress":
+            out = tci_tpu_torch.compress_device(A, "LU", tolerance=1e-10)
+        else:
+            out = tci_tpu_torch.contract(A, B, algorithm=kind, method="LU",
+                                         tolerance=1e-10, torch_native=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert FETCHES[key] == fetches + 1
+    assert all(t.device.type == "cuda" for t in out)
+
+
+def test_contract_tci_on_the_engine(cuda):
+    """contract(algorithm="TCI", torch_native=True) on the card: TCI2 on the
+    engine over the product evaluator, recorded into its CUDA graphs
+    without a decline; the exact product's ranks and values."""
+    import tci_tpu_torch.parallel.batcheval as batcheval
+
+    a, b = _contract_operands(6, 2)
+    made = []
+    init = batcheval.TorchBatchEvaluator.__init__
+
+    def keep(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        made.append(self)
+
+    batcheval.TorchBatchEvaluator.__init__ = keep
+    try:
+        A = tci_tpu_torch.TensorTrain(a, device=cuda)
+        B = tci_tpu_torch.TensorTrain(b, device=cuda)
+        plain = lu_kernel.PLAIN_CALLS["cuda"]
+        out = tci_tpu_torch.contract(A, B, algorithm="TCI", tolerance=1e-10,
+                                     torch_native=True,
+                                     rng=np.random.default_rng(0))
+    finally:
+        batcheval.TorchBatchEvaluator.__init__ = init
+    engine = made[0].device_sweep_engine
+    assert engine.captures > 0 and not engine.declined
+    assert lu_kernel.PLAIN_CALLS["cuda"] == plain
+    assert out.linkdims() == [4, 4, 4, 4, 4]
+    exact = tci_tpu_torch.contract(A, B, algorithm="naive")
+    full, want = tci_tpu_torch.fulltensor(out), tci_tpu_torch.fulltensor(exact)
+    assert float((full - want).abs().max()) <= 1e-10 * float(want.abs().max())
+
+
+def test_capture_out_of_memory_retries_in_a_new_pool(cuda, monkeypatch):
+    """A capture that runs out of memory (the memory held by the cached
+    segments of pools whose engines are gone, which the allocator cannot
+    give back while a stream captures) releases the cache and records once
+    more into a new pool: no key declined, the launches a graph holds
+    counted once, and the result the eager one's bit for bit."""
+    from tci_tpu_torch.models import device_sweep
+
+    pools = []
+    capture = device_sweep.capture_graph
+
+    def short_of_memory_once(body, pool, stream):
+        pools.append(pool)
+        if len(pools) == 1:
+            raise torch.OutOfMemoryError("CUDA out of memory (stand-in)")
+        return capture(body, pool, stream)
+
+    dims = [4] * 5
+    ref, _ = _rook_loop_run(dims, cuda, graphs=False)
+    _, clean = _rook_loop_run(dims, cuda, graphs=True)
+    monkeypatch.setattr(device_sweep, "capture_graph", short_of_memory_once)
+    out, bf = _rook_loop_run(dims, cuda, graphs=True)
+    engine = bf.device_sweep_engine
+    assert len(pools) > 2 and pools[0] is not pools[1]
+    assert not engine.declined and engine.captures == len(pools) - 1
+    _same_result(out, ref)
+    launches = {p["key"]: p["captured_launches"]
+                for p in clean.device_sweep_engine.programs()}
+    assert {p["key"]: p["captured_launches"]
+            for p in engine.programs()} == launches

@@ -35,8 +35,6 @@ NOT_PORTED = {
     "A11": {"MatrixCI", "AtimesBinv", "AinvtimesB", "matrix_crossinterpolate",
             "MatrixACA", "TensorCI1", "crossinterpolate1", "crossinterpolate",
             "conversion"},
-    "A12": {"Contraction", "contract", "compress_device",
-            "contract_zipup_device"},
     "A14": {"rrlu_sharded"},
     "replaced by TorchBatchEvaluator": {"JaxBatchEvaluator"},
 }
@@ -60,7 +58,8 @@ def test_exports_cover_tci_tpu():
     "utils.quantics", "ops.kronrod", "ops.probe_batched",
     "models.integration", "ops.factorize", "models.ttcache",
     "models.globalsearch", "parallel.cachedfunction", "ops.lu_device",
-    "utils.prng"])
+    "utils.prng", "models.contraction", "models.contraction_device",
+    "models.compress_device"])
 def test_module_import_leaves_jax_out(module):
     code = (
         f"import sys, tci_tpu_torch.{module}\n"

@@ -184,12 +184,17 @@ def test_compress_float32_train(method):
 
 
 def test_compress_options_not_ported():
+    """mesh= is not ported (ROADMAP A14); torch_native=True is (the device
+    compression, tests/test_torch_compress_device.py) and, as tci_tpu's
+    jax_native=True, takes method "LU" only."""
     tt = tci_tpu_torch.TensorTrain(_random_tt(np.float64, [1, 2, 1], [3, 3]),
                                    device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        tt.compress("LU", torch_native=True)
+    with pytest.raises(ValueError, match="method='LU'"):
+        tt.compress("SVD", torch_native=True)
     with pytest.raises(NotImplementedError, match="A14"):
         tt.compress("LU", mesh=object())
+    with pytest.raises(NotImplementedError, match="A14"):
+        tt.compress("LU", torch_native=True, mesh=object())
 
 
 # -- add, subtract, norms --------------------------------------------------
