@@ -178,8 +178,25 @@ line or more each:
    10^4 points within 1e-10 max|tt|), a launch a split and no plain call,
    one fetch a device-tier call, no engine decline; the kernel's device
    time on each path's largest panel beside its plain time and bound;
+4j. TCI1, matrix CI / ACA and the conversions (``[tci1]`` lines): config 1
+   by ``crossinterpolate1`` (a ``TorchBatchEvaluator`` and the scalar f,
+   cold and warm) against ``tci_tpu``'s ranks and errors
+   (``RECORDED_TCI1``); the reference notebook's random f (L = 20, d = 2,
+   a table of 2^20 values from default_rng(0) on the card, tolerance
+   1e-12, maxiter = D) at D = 20, 50, 100, 200, 500 and 1000, once each:
+   walls, bond-iterations, fetches a bond-iteration, the fitted exponent;
+   at D = 100 ``tci_tpu``'s pivot lists (sha256), ranks and errors
+   (``RECORDED_RANDOM100``); at D = 1000 the full linkdims and f at 1,000
+   pivot crosses within 1e-10; the conversions (config 1's train through
+   ``tci2_from_tensortrain`` -> ``tci1_from_tci2`` -> ``tci2_from_tci1``,
+   ``tci2_from_tensortrain`` of the D = 1000 train, ``aca_from_rrlu`` of
+   config 2's rrLU; cold, recorded for phase 5, and warm): a kernel launch
+   a ``MatrixLUCI``, no plain call, the kernel's time on the D = 1000
+   train's 1024 x 1000, 2000 x 512 and 512 x 512 panels beside its plain
+   time and bound; ``matrix_crossinterpolate`` and a greedy ``MatrixACA``
+   on config 2's matrix to rank 256 within 1e-10 max|A|;
 5. the kernel against the plain version on every launch the cold runs of
-   phases 3d, 4, 4b, 4c, 4f, 4g, 4h and 4i made (rook: each slab shape's time,
+   phases 3d, 4, 4b, 4c, 4f, 4g, 4h, 4i and 4j made (rook: each slab shape's time,
    bound and plain time, and a dead step's); its times on the engines' bond panels (Imax
    (d + 1) square: 352^2 for config 1, 96^2 for config 3, 512^2 and 1024^2
    for config 4) and on config 1's fill (its P blocks in one batched
@@ -197,7 +214,10 @@ line or more each:
    updates). The traces go to
    DIR/<run>_trace.json; the device's busy time and idle share over the
    run, the largest device items, the spans and the CUDA runtime calls are
-   printed.
+   printed. Then phase 4j's random f once more at D = 1000 under the
+   profiler (device activity only, no trace file): the device's busy time
+   and idle share, kernels and fetches a bond-iteration, the largest
+   device items.
 
 ``--phases`` runs nothing of the above but the build: it builds the rrLU
 kernel once more with -DRRLU_PHASE_CLOCKS and prints, for the cluster
@@ -210,6 +230,7 @@ Any failure exits non-zero; nothing falls back to the CPU.
 """
 
 import argparse
+import hashlib
 import itertools
 import json
 import os
@@ -286,6 +307,61 @@ RECORDED_CONTRACT = {
     "complex_naive": [4, 16] + [64] * 7 + [16, 4],
 }
 RECORDED_COMPRESS = [10, 12, 12, 12, 12, 12, 10]
+# phase 4j: tci_tpu's crossinterpolate1 on a CPU. Config 1 (a plain scalar
+# f, tolerance 1e-8): its ranks, normalized errors and linkdims. The
+# reference notebook's random f (L = 20, d = 2, the table of 2^20
+# uniform values on [-1, 1] from default_rng(0) looked up at
+# sum_i sigma_i 2^i, tolerance 1e-12, maxiter = D) at D = 100: the sha256
+# of its pivot lists (``pivot_digest``), its linkdims and its normalized
+# errors (the ranks are 2 ... 100)
+RECORDED_TCI1 = {
+    "ranks": list(range(2, 14)),
+    "errors": [
+        0.09014423076923077, 0.017055168568467224, 0.005508312050368183,
+        0.0019174480585510316, 0.00039917273375527154,
+        6.851478376739689e-05, 2.8287547486967324e-05,
+        2.0564525553645567e-06, 7.217604405702904e-07,
+        1.1238586655054617e-07, 1.630523317340711e-08,
+        4.522342590251166e-09],
+    "linkdims": [10, 13, 13, 13, 13, 13, 10]}
+RECORDED_RANDOM100 = {
+    "digest": ("e92d18d763f1feeb689bddcb346dd33b"
+               "dd5e4e323bce82b478e4a9e6832fd9fd"),
+    "linkdims": [2, 4, 8, 16, 32, 64] + [100] * 7 + [64, 32, 16, 8, 4, 2],
+    "errors": [
+        2.9922777463394716, 2.6229069481855185, 6.102626503826261,
+        3.301441726503483, 3.002762005875192, 2.574544550920857,
+        3.0128527436540744, 3.1315734295218296, 3.5686300895249268,
+        3.009034789504231, 3.2931711793359715, 3.138927039961094,
+        4.342292827007373, 4.623878575389225, 3.2972853274934617,
+        3.6277186667945363, 3.7374101939845636, 4.360254101993475,
+        4.371524778765975, 4.031729201937204, 4.127241744772615,
+        3.7658343851987635, 5.161593714910839, 4.7935069847038365,
+        5.041623951152127, 4.52089375455426, 4.632270961244834,
+        3.873447646844354, 4.47979216290038, 4.198002100318495,
+        4.322392752847635, 4.339079713815506, 5.3583421856764675,
+        4.6084391655697186, 4.857726058792136, 5.380290353185926,
+        4.642192299487151, 5.075865973133065, 4.7999392666786775,
+        5.292623622656249, 4.536765908814284, 4.695069793467848,
+        5.609744971905776, 4.985150893299772, 5.201170124597905,
+        4.929729492979906, 5.654605141856713, 5.048580538381809,
+        6.652054754011669, 5.235553010749866, 5.239484906230043,
+        4.800711828106901, 5.856572154323269, 5.933717465091968,
+        5.569352744796992, 6.1220617038517045, 6.090961345685612,
+        6.303022292822201, 5.5811964415357505, 5.401492597243934,
+        5.871290738975127, 5.812010820498179, 6.88004415614536,
+        6.3504833577250315, 6.0430023251975715, 5.783503027208205,
+        5.360278121483371, 8.680118952134446, 6.352852258459681,
+        6.026072099200994, 6.816856016866159, 5.8411957599270945,
+        6.015911870236721, 6.4566365146542495, 6.433641812210952,
+        6.967322143972407, 6.352239231235693, 6.091798732846015,
+        6.523754314476133, 7.01443525517652, 6.895557631369793,
+        6.796112452399216, 5.858536881761068, 6.654012239366521,
+        7.246384716006125, 6.1549440383713065, 7.073446053809968,
+        6.243359805848743, 6.842724443182234, 7.360383907422525,
+        6.7179004660645, 7.914724635933566, 8.093320849670457,
+        7.241208571485706, 8.028267920940763, 7.334897232195648,
+        6.609680671504698, 6.617901937252487, 6.50331334703237]}
 
 
 def fail(msg):
@@ -477,6 +553,25 @@ def main():
         start.record()
         for _ in range(reps):
             fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def graph_ms(fn, reps):
+        """Device time of one fn() call: CUDA events around the replay of a
+        CUDA graph that holds `reps` calls, so no host time lies between
+        them (fn must be safe to record: every wrapper here is)."""
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / reps
@@ -877,6 +972,14 @@ def main():
         dms, names = kernel_device_ms(
             lambda: lu_cuda.rrlu_batched(*bargs, leftorthogonal=True), 20,
             by_name=True)
+        ms_from = "profiler"
+        if dms is None:
+            # the trace held no rrLU kernel (torch.profiler misses the
+            # cluster kernel at times, PERF.md §7): time with events
+            ms_from = "events around a CUDA graph of 20 launches"
+            dms = graph_ms(
+                lambda: lu_cuda.rrlu_batched(*bargs, leftorthogonal=True),
+                20)
         pms = cuda_ms(
             lambda: lu_kernel.rrlu_plain_batched(*bargs, leftorthogonal=True),
             3)
@@ -886,11 +989,12 @@ def main():
         bms, bby = max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
         row = {"shape": tag, "mode": modes, "C": C,
                "plan": lu_cuda.host_mode(0, mp, mp, dtype), "ms": dms,
+               "ms_from": ms_from,
                "kernels_us": names, "bound_ms": bms, "bound_by": bby,
                "plain_ms": pms, "k": out[3].tolist()}
         mode_rows.append(row)
         print(f"[mode] {tag}: {modes} ({row['plan']} launch, C = {C}), "
-              f"kernel device time {dms:.4f} ms a launch (profiler; us by "
+              f"kernel device time {dms:.4f} ms a launch ({ms_from}; us by "
               f"kernel {json.dumps({k2: round(v, 3) for k2, v in names.items()})}), "
               f"bound {bms:.6f} ms ({bby}), plain {pms:.4f} ms, identical",
               flush=True)
@@ -903,13 +1007,20 @@ def main():
         ctimes[cap] = kernel_device_ms(
             lambda: lu_cuda.rrlu_call(P, 132, 132, cap, 0.0, 0.0,
                                       leftorthogonal=True), 20)
+    split_from = "profiler"
     if any(t is None for t in ctimes.values()):
-        fail("[split] cluster mode: no device time in the trace")
-    cluster_split = {"fixed_us": ctimes[0] * 1e3,
+        # the trace held no cluster kernel (torch.profiler misses it at
+        # times, PERF.md §7): time each cap with events instead
+        split_from = "events around a CUDA graph of 20 launches"
+        ctimes = {cap: graph_ms(
+            lambda cap=cap: lu_cuda.rrlu_call(P, 132, 132, cap, 0.0, 0.0,
+                                              leftorthogonal=True), 20)
+                  for cap in ctimes}
+    cluster_split = {"fixed_us": ctimes[0] * 1e3, "from": split_from,
                      "per_pivot_us": (ctimes[64] - ctimes[0]) / 64 * 1e3,
                      "by_cap_us": {c: t * 1e3 for c, t in ctimes.items()}}
     print(f"[split] cluster f64 132x132 (bucket 352x352) device time by "
-          f"rank cap: " + ", ".join(f"{c}: {t * 1e3:.2f} us"
+          f"rank cap ({split_from}): " + ", ".join(f"{c}: {t * 1e3:.2f} us"
                                     for c, t in ctimes.items())
           + f"; fixed {cluster_split['fixed_us']:.2f} us, "
           f"{cluster_split['per_pivot_us']:.3f} us a pivot", flush=True)
@@ -2932,25 +3043,6 @@ def main():
 
     from tci_tpu_torch.models import contraction as contraction_mod
 
-    def graph_ms(fn, reps):
-        """Device time of one fn() call: CUDA events around the replay of a
-        CUDA graph that holds `reps` calls, so no host time lies between
-        them (fn must be safe to record: every wrapper here is)."""
-        fn()
-        torch.cuda.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(reps):
-                fn()
-        graph.replay()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps
-
     def memory_line():
         """Allocated and reserved device memory, and what of it the private
         pools of CUDA graphs hold, in GiB, from the allocator's snapshot."""
@@ -3196,7 +3288,8 @@ def main():
                 largest[tag][1].setdefault(tuple(args[0].shape), (args, kw))
     panel_times = {}
 
-    def time_panel(tag, args, kw):
+    def time_panel(tag, args, kw, into=panel_times, prefix="contract",
+                   what="a largest panel"):
         P = args[0]
         k_panel = int(originals[1](*args, **kw)[3])
 
@@ -3214,13 +3307,14 @@ def main():
         mode = lu_cuda.PANEL_MODES[int(originals[1](
             *args, **kw, return_mode=True)[6])]
         shape = f"{P.shape[0]}x{P.shape[1]}"
-        panel_times[f"{tag} {shape}"] = {
+        into[f"{tag} {shape}"] = {
             "panel": shape, "dtype": str(P.dtype)[6:], "k": k_panel,
             "mode": mode, "ms": ms_g, "profiler_ms": ms_k,
             "kernels_traced": len(durs), "wrapper_ms": ms_e,
             "plain_ms": ms_p, "bound_ms": bnd, "bound_by": by}
-        print(f"[contract] {tag}: a largest panel, {shape} "
-              f"{str(P.dtype)[6:]} (k = {k_panel}, {mode}): kernel "
+        print(f"[{prefix}] {tag}: {what}, {shape} "
+              f"{str(P.dtype)[6:]} (k = {k_panel}, {mode}, true "
+              f"{int(args[1])} x {int(args[2])}): kernel "
               f"{ms_g:.4f} ms a launch (events around a CUDA graph of 10 "
               f"launches), profiler "
               f"{'not measured' if ms_k is None else f'{ms_k:.4f} ms'} "
@@ -3238,6 +3332,424 @@ def main():
         if panel_times.get(tag, {}).get("mode") != "cluster":
             fail(f"{tag}: not timed, or not in the cluster mode "
                  f"({panel_times.get(tag)})")
+
+    # -- 4j. TCI1, matrix CI / ACA and the conversions ------------------------
+    # (a) BASELINE config 1 by TCI1 (crossinterpolate1, tolerance 1e-8) with
+    # a TorchBatchEvaluator and with the plain scalar f, each cold then
+    # warm: tci_tpu's ranks and errors (RECORDED_TCI1), a pointwise error
+    # below 1e-7. (b) The reference notebook's random f (L = 20, d = 2, the
+    # 2^20-value table of default_rng(0) on the card, tolerance 1e-12,
+    # maxiter = D) at D = 20 ... 1000, each once, smallest first: the walls
+    # and the exponent of their power law in D; at D = 100 tci_tpu's pivot
+    # lists, ranks and errors (RECORDED_RANDOM100); at D = 1000 the full
+    # linkdims min(D, 2^(b+1), 2^(L-b-1)) and f at 1,000 seeded pivot
+    # crosses I + J. (c) The conversions, cold (recorded for phase 5) then
+    # warm, a kernel launch for each MatrixLUCI and no plain call: config
+    # 1's TCI2 train (phase 4f's) through tci2_from_tensortrain ->
+    # tci1_from_tci2 -> tci2_from_tci1; tci2_from_tensortrain of (b)'s D = 1000
+    # train (1024 x 1000 and 2000 x 512 panels in the grid mode, 512 x 512
+    # in the cluster mode); aca_from_rrlu of config 2's rrLU. (d)
+    # matrix_crossinterpolate and a greedy MatrixACA on config 2's matrix,
+    # each cold then warm, to rank 256. TCI1 itself runs no elimination: its
+    # host reads are counted a bond-iteration (a bond whose ACA searched a
+    # pivot) in FETCHES["tci1"].
+    from tci_tpu_torch.models import conversion
+    from tci_tpu_torch.ops import aca as aca_mod
+    from tci_tpu_torch.ops.ci import argmax_colmajor
+
+    tci1_entry = {}
+    bond_iterations = [0]
+    findnewpivot = aca_mod.MatrixACA.findnewpivot
+
+    def counted_findnewpivot(self, *args, **kwargs):
+        bond_iterations[0] += 1
+        return findnewpivot(self, *args, **kwargs)
+
+    def run_4j(tag, solve, record=False):
+        """solve() once, with every count set to 0 just before it: (its
+        result, the wall, the counts), the counts with the bond-iterations
+        that searched a pivot (MatrixACA.findnewpivot calls)."""
+        bond_iterations[0] = 0
+        aca_mod.MatrixACA.findnewpivot = counted_findnewpivot
+        try:
+            (out, wall, _), counts = run_counted(
+                tag, lambda: (*timed(solve), None), record)
+        finally:
+            aca_mod.MatrixACA.findnewpivot = findnewpivot
+        counts["bond_iterations"] = bond_iterations[0]
+        counts["fetches_tci1"] = counts["fetches"].get("tci1", 0)
+        return out, wall, counts
+
+    def per_bond_iteration(counts):
+        n = counts["bond_iterations"]
+        return counts["fetches_tci1"] / n if n else float("nan")
+
+    def no_elimination(tag, counts):
+        if counts["launches"] or counts["plain_cuda"]:
+            fail(f"{tag}: TCI1 launched {counts['launches']} eliminations "
+                 f"and {counts['plain_cuda']} plain calls")
+
+    # (a)
+    x1 = (1, 2, 3, 4, 5, 4, 3, 2)
+
+    def tci1_config1(evaluator):
+        f = (tci_tpu_torch.TorchBatchEvaluator(fdev, localdims)
+             if evaluator == "torch" else fscalar)
+        return tci_tpu_torch.crossinterpolate1(np.float64, f, localdims,
+                                               tolerance=1e-8)
+
+    config1_tci1 = {}
+    for evaluator in ("torch", "scalar"):
+        res = {}
+        for run in ("cold", "warm"):
+            tag = f"4j config1 {evaluator}"
+            (t, ranks, errors), wall, counts = run_4j(
+                tag, lambda: tci1_config1(evaluator))
+            point = abs(t.evaluate(x1) - fscalar(x1))
+            if (ranks != RECORDED_TCI1["ranks"] or not np.allclose(
+                    errors, RECORDED_TCI1["errors"], rtol=0, atol=1e-15)
+                    or t.linkdims() != RECORDED_TCI1["linkdims"]
+                    or not point < 1e-7):
+                fail(f"{tag} {run}: ranks {ranks}, errors {errors}, "
+                     f"linkdims {t.linkdims()}, pointwise error {point}; "
+                     f"recorded {RECORDED_TCI1}")
+            if t.device.type != "cuda" or not all(
+                    x.device.type == "cuda" for x in t.T + t.P + t.Pi):
+                fail(f"{tag}: the state left the card")
+            no_elimination(tag, counts)
+            res[f"{run}_s"] = wall
+            res[f"{run}_counts"] = counts
+        res["pointwise_error"] = point
+        res["max_error_diff"] = float(np.abs(
+            np.asarray(errors) - RECORDED_TCI1["errors"]).max())
+        config1_tci1[evaluator] = res
+        c = res["warm_counts"]
+        print(f"[tci1] 4j config1 by TCI1 ({evaluator} f): cold "
+              f"{res['cold_s']:.4f} s, warm {res['warm_s']:.4f} s; ranks "
+              f"{ranks[0]}..{ranks[-1]} as recorded, errors within "
+              f"{res['max_error_diff']:.3e} of tci_tpu's (last "
+              f"{errors[-1]:.6e}), linkdims {t.linkdims()}, pointwise error "
+              f"{point:.3e}; {c['bond_iterations']} bond-iterations, "
+              f"{c['fetches_tci1']} fetches "
+              f"({per_bond_iteration(c):.3f} a bond-iteration), no rrLU "
+              f"launch", flush=True)
+    tci1_entry["config1"] = config1_tci1
+
+    # (b)
+    L20 = 20
+    table20 = torch.as_tensor(
+        np.random.default_rng(0).uniform(-1.0, 1.0, 2 ** L20), device=dev)
+    w20 = torch.as_tensor(2 ** np.arange(L20), device=dev)
+
+    def frandom(idx):
+        # the key as a sum of products: CUDA has no int64 matmul
+        return table20[(idx * w20).sum(1)]
+
+    def pivot_digest(t):
+        I = [[[int(v) for v in i] for i in s.fromint] for s in t.Iset]
+        J = [[[int(v) for v in j] for j in s.fromint] for s in t.Jset]
+        return hashlib.sha256(json.dumps([I, J]).encode()).hexdigest()
+
+    def random_run(D):
+        f = tci_tpu_torch.TorchBatchEvaluator(frandom, [2] * L20)
+        return tci_tpu_torch.crossinterpolate1(
+            np.float64, f, [2] * L20, tolerance=1e-12, maxiter=D), f
+
+    sweep = {}
+    for D in (20, 50, 100, 200, 500, 1000):
+        tag = f"4j random D={D}"
+        ((t, ranks, errors), f), wall, counts = run_4j(
+            tag, lambda: random_run(D))
+        want = [min(D, 2 ** (b + 1), 2 ** (L20 - b - 1))
+                for b in range(L20 - 1)]
+        if t.linkdims() != want:
+            fail(f"{tag}: linkdims {t.linkdims()}, want {want}")
+        no_elimination(tag, counts)
+        entry = {"wall_s": wall, "iterations": len(ranks),
+                 "bond_iterations": counts["bond_iterations"],
+                 "fetches": counts["fetches_tci1"],
+                 "fetches_per_bond_iteration": per_bond_iteration(counts),
+                 "nevals": f.nevals}
+        if D == 100:
+            digest = pivot_digest(t)
+            rel = float(np.max(np.abs(np.asarray(errors) - np.asarray(
+                RECORDED_RANDOM100["errors"])) / np.abs(np.asarray(
+                    RECORDED_RANDOM100["errors"]))))
+            if (digest != RECORDED_RANDOM100["digest"]
+                    or ranks != list(range(2, 101))
+                    or t.linkdims() != RECORDED_RANDOM100["linkdims"]
+                    or not rel <= 1e-12):
+                fail(f"{tag}: pivot digest {digest}, ranks {ranks[:3]}..."
+                     f"{ranks[-3:]}, errors {rel:.3e} relative from "
+                     f"tci_tpu's; recorded {RECORDED_RANDOM100['digest']}")
+            entry.update(pivot_digest=digest, max_error_rel_diff=rel)
+            print(f"[tci1] {tag}: pivot lists tci_tpu's (sha256 "
+                  f"{digest[:16]}...), ranks 2..100, errors within "
+                  f"{rel:.3e} relative of tci_tpu's", flush=True)
+        if D == 1000:
+            t1000 = t
+        sweep[D] = entry
+        print(f"[tci1] {tag}: wall {wall:.4f} s, {len(ranks)} iterations, "
+              f"linkdims max {max(t.linkdims())}, "
+              f"{counts['bond_iterations']} bond-iterations, "
+              f"{counts['fetches_tci1']} fetches "
+              f"({per_bond_iteration(counts):.3f} a bond-iteration), "
+              f"{f.nevals} samples, no rrLU launch", flush=True)
+    Ds = np.asarray(sorted(sweep), dtype=float)
+    walls_D = np.asarray([sweep[int(D)]["wall_s"] for D in Ds])
+    fit_all = float(np.polyfit(np.log(Ds), np.log(walls_D), 1)[0])
+    big = Ds >= 100
+    fit_big = float(np.polyfit(np.log(Ds[big]), np.log(walls_D[big]), 1)[0])
+    tci1_entry["random_f"] = {"L": L20, "by_D": sweep,
+                              "exponent_all": fit_all,
+                              "exponent_D_ge_100": fit_big}
+    by_D = dict(zip(Ds.astype(int).tolist(), walls_D.tolist()))
+    print(f"[tci1] 4j random f walls by D {by_D}: "
+          f"wall ~ D^{fit_all:.3f} (least squares in log-log over all D), "
+          f"D^{fit_big:.3f} over D >= 100; the reference notebook draws D^2 "
+          f"and D^3 beside its sweep cost", flush=True)
+
+    # f at 1,000 seeded pivot crosses of the D = 1000 train
+    tt1000, wall_st = timed(lambda: tci_tpu_torch.tensortrain(t1000))
+    rng = np.random.default_rng(1000)
+    crosses = []
+    for _ in range(1000):
+        b = int(rng.integers(0, L20 - 1))
+        I, J = t1000.Iset[b + 1].fromint, t1000.Jset[b].fromint
+        crosses.append(I[int(rng.integers(len(I)))]
+                       + J[int(rng.integers(len(J)))])
+    cross_idx = torch.as_tensor(np.asarray(crosses), device=dev)
+    cross_vals = frandom(cross_idx)
+    cross_err = float((tt1000.evaluate_batch(cross_idx)
+                       - cross_vals).abs().max())
+    # max|f| = 1; at D = 200 on a CPU the error there is 3e-14
+    if not cross_err <= 1e-10:
+        fail(f"4j random D=1000: |tt - f| = {cross_err:.3e} at a pivot "
+             f"cross (bound 1e-10)")
+    sweep[1000].update(pivot_cross_max_err=cross_err,
+                       sitetensors_s=wall_st)
+    print(f"[tci1] 4j random D=1000: site tensors (T P^-1 by stacked QR on "
+          f"the card) {wall_st:.4f} s; max |tt - f| at 1,000 pivot crosses "
+          f"{cross_err:.3e} (bound 1e-10)", flush=True)
+
+    # (c)
+    luci_made = [0]
+    luci_cls = conversion.MatrixLUCI
+
+    class CountedLUCI(luci_cls):
+        def __init__(self, *args, **kwargs):
+            luci_made[0] += 1
+            super().__init__(*args, **kwargs)
+
+    conversions = {}
+
+    def conversion_run(tag, solve, check, extra_launches=0):
+        """Cold (recorded for phase 5) and warm runs of solve(): a kernel
+        launch for each MatrixLUCI (and `extra_launches` rrlu calls), no
+        plain call; check(result) returns the values' error."""
+        res = {}
+        conversion.MatrixLUCI = CountedLUCI
+        try:
+            for run in ("cold", "warm"):
+                luci_made[0] = 0
+                out, wall, counts = run_4j(tag, solve, record=run == "cold")
+                want = luci_made[0] + extra_launches
+                if (not counts["launches"] or counts["launches"] != want
+                        or counts["plain_cuda"]):
+                    fail(f"{tag} {run}: {counts['launches']} launches for "
+                         f"{luci_made[0]} MatrixLUCI, {counts['plain_cuda']} "
+                         f"plain calls on CUDA")
+                res[f"{run}_s"] = wall
+                res[f"{run}_counts"] = counts
+        finally:
+            conversion.MatrixLUCI = luci_cls
+        res["luci"] = luci_made[0]
+        res["launches"] = res["warm_counts"]["launches"]
+        res["max_rel_err"] = check(out)
+        conversions[tag] = res
+        print(f"[tci1] {tag}: cold {res['cold_s']:.4f} s, warm "
+              f"{res['warm_s']:.4f} s; {res['launches']} rrLU launches for "
+              f"{res['luci']} MatrixLUCI, no plain call; values within "
+              f"{res['max_rel_err']:.3e} (relative)", flush=True)
+        return out
+
+    fconv = tci_tpu_torch.TorchBatchEvaluator(fdev, localdims)
+
+    def check_config1_conversion(out):
+        t1, back, fromtt = out
+        if not (t1.linkdims() == back.linkdims() == fromtt.linkdims()
+                == tci1.linkdims()):
+            fail(f"4j config1 conversions: linkdims {t1.linkdims()}, "
+                 f"{back.linkdims()}, {fromtt.linkdims()}; the TCI2's "
+                 f"{tci1.linkdims()}")
+        err = 0.0
+        for res in (back, fromtt):
+            got = tci_tpu_torch.tensortrain(res).evaluate_batch(pts)
+            err = max(err, float((got - vals1).abs().max()) / scale1)
+            if res.sitetensors()[0].device.type != "cuda":
+                fail("4j config1 conversions: the result left the card")
+        if not err <= 1e-8:
+            fail(f"4j config1 conversions: {err:.3e} of max|f| from the "
+                 f"TCI2 at 10^4 points (bound 1e-8)")
+        return err
+
+    def convert_config1():
+        # tci1_from_tci2 needs nested index sets (as in tci_tpu); the
+        # TCI2's own need not be (non-strict nesting), so the TCI1 is built
+        # from the nested sets of tci2_from_tensortrain
+        fromtt = conversion.tci2_from_tensortrain(tt1)
+        t1 = conversion.tci1_from_tci2(fromtt, fconv)
+        return t1, conversion.tci2_from_tci1(t1), fromtt
+
+    conversion_run("4j conversion config1", convert_config1,
+                   check_config1_conversion)
+
+    def check_d1000_conversion(tb):
+        if tb.linkdims() != tt1000.linkdims():
+            fail(f"4j conversion D=1000: linkdims {tb.linkdims()}, the "
+                 f"train's {tt1000.linkdims()}")
+        got = tci_tpu_torch.tensortrain(tb).evaluate_batch(cross_idx)
+        err = float((got - cross_vals).abs().max())
+        if not err <= 1e-8:
+            fail(f"4j conversion D=1000: |f| differs by {err:.3e} at the "
+                 f"pivot crosses (bound 1e-8)")
+        return err
+
+    conversion_run("4j conversion D=1000",
+                   lambda: conversion.tci2_from_tensortrain(tt1000),
+                   check_d1000_conversion)
+
+    A2 = config2_A
+    scale2 = float(A2.abs().max())
+
+    def check_aca(aca):
+        err = float((aca.matrix() - A2).abs().max()) / scale2
+        if aca.rank() != config2_k or not err <= 1e-8:
+            fail(f"4j aca_from_rrlu: rank {aca.rank()}, max|ACA - A| "
+                 f"{err:.3e} of max|A| (bound 1e-8)")
+        return err
+
+    conversion_run(
+        "4j aca_from_rrlu config2",
+        lambda: conversion.aca_from_rrlu(tci_tpu_torch.rrlu(
+            A2, maxrank=256, reltol=1e-10)),
+        check_aca, extra_launches=1)
+
+    # the kernel on the D = 1000 conversion's panels (the first of each
+    # shape in the cold run, by true extents) and on config 1's largest
+    conversion_panels = {}
+    wanted = {(1024, 1000), (2000, 512), (512, 512)}
+    timed_shapes = set()
+    largest1 = None
+    for tag, _, args, kw in launch_inputs:
+        if tag == "4j conversion D=1000":
+            ext = (int(args[1]), int(args[2]))
+            if ext in wanted and ext not in timed_shapes:
+                timed_shapes.add(ext)
+                time_panel(tag, args, kw, into=conversion_panels,
+                           prefix="tci1", what="a conversion panel")
+        elif tag == "4j conversion config1":
+            if largest1 is None or args[0].numel() > largest1[0][0].numel():
+                largest1 = (args, kw)
+    if timed_shapes != wanted:
+        fail(f"4j conversion D=1000: panels {sorted(timed_shapes)}, want "
+             f"{sorted(wanted)}")
+    time_panel("4j conversion config1", *largest1, into=conversion_panels,
+               prefix="tci1", what="its largest panel")
+    tci1_entry["conversions"] = conversions
+    tci1_entry["conversion_panels"] = conversion_panels
+
+    # (d)
+    def matrix_ci():
+        return tci_tpu_torch.matrix_crossinterpolate(
+            A2, tolerance=1e-10 * scale2, maxiter=300)
+
+    def greedy_aca():
+        r, c, _ = argmax_colmajor(A2.abs())
+        aca = tci_tpu_torch.MatrixACA(A=A2, firstpivot=(r, c))
+        while aca.rank() < 256:
+            aca.addpivot(A2)
+        return aca
+
+    matrix_engines = {}
+    for name, solve in (("matrix_crossinterpolate", matrix_ci),
+                        ("MatrixACA", greedy_aca)):
+        res = {}
+        for run in ("cold", "warm"):
+            out, wall, counts = run_4j(f"4j {name}", solve)
+            err = float((out.matrix() - A2).abs().max()) / scale2
+            if out.rank() != 256 or not err <= 1e-10:
+                fail(f"4j {name} on config 2: rank {out.rank()}, max|M - A| "
+                     f"{err:.3e} of max|A| (bound 1e-10)")
+            no_elimination(f"4j {name}", counts)
+            res[f"{run}_s"] = wall
+            res["fetches"] = counts["fetches_tci1"]
+        res["max_rel_err"] = err
+        matrix_engines[name] = res
+        print(f"[tci1] 4j {name} on config 2 (4096^2, rank 256): cold "
+              f"{res['cold_s']:.4f} s, warm {res['warm_s']:.4f} s; rank 256, "
+              f"max|M - A| {err:.3e} of max|A|; {res['fetches']} fetches",
+              flush=True)
+    tci1_entry["matrix_engines"] = matrix_engines
+
+    def profile_random_f(D):
+        """(b) once more at D under torch.profiler (device activity only):
+        the device's busy time and idle share over the run's wall, kernel
+        launches and fetches a bond-iteration, the largest device items."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        FETCHES.clear()
+        bond_iterations[0] = 0
+        aca_mod.MatrixACA.findnewpivot = counted_findnewpivot
+        try:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                _, wall = timed(lambda: random_run(D))
+        finally:
+            aca_mod.MatrixACA.findnewpivot = findnewpivot
+        n_iter, fetches = bond_iterations[0], FETCHES["tci1"]
+        spans, by_name = [], {}
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            a, b = e.time_range.start, e.time_range.end
+            spans.append((a, b))
+            n, t = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, t + (b - a) / 1e3)
+        busy, end = 0.0, None
+        for a, b in sorted(spans):
+            if end is None or b > end:
+                busy += b - (a if end is None else max(a, end))
+                end = b
+        busy /= 1e3
+        kernels = sum(n for name, (n, _) in by_name.items()
+                      if not name.startswith(("Memcpy", "Memset")))
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+        prof_entry = {
+            "wall_s": wall, "device_busy_ms": busy if spans else None,
+            "idle_share": 1 - busy / (wall * 1e3) if spans else None,
+            "bond_iterations": n_iter, "fetches": fetches,
+            "kernels": kernels, "device_items": len(spans),
+            "kernels_per_bond_iteration": kernels / n_iter,
+            "fetches_per_bond_iteration": fetches / n_iter,
+            "top": [(name, n, ms) for name, (n, ms) in top]}
+        tci1_entry["random_f"][f"profile_D{D}"] = prof_entry
+        if not spans:
+            print(f"[profile] 4j random D={D}: the trace holds no device "
+                  f"item: device time not measured", flush=True)
+            return
+        print(f"[profile] 4j random D={D}: profiled wall {wall:.4f} s; "
+              f"device busy {busy:.3f} ms (kernels, copies, memsets), idle "
+              f"share {prof_entry['idle_share']:.4f}; {n_iter} "
+              f"bond-iterations, {kernels} kernels "
+              f"({prof_entry['kernels_per_bond_iteration']:.2f} a "
+              f"bond-iteration), {fetches} fetches "
+              f"({prof_entry['fetches_per_bond_iteration']:.3f} a "
+              f"bond-iteration)", flush=True)
+        for name, n, ms in prof_entry["top"]:
+            print(f"[profile] 4j random D={D}: device: {name[:70]}: "
+                  f"{ms:.3f} ms in {n}", flush=True)
 
     # -- 5. kernel vs plain on every launch of the cold runs -------------------
     # for their times: config 1's first fill (its P blocks in one launch),
@@ -3287,6 +3799,10 @@ def main():
     print(f"[kernel] every launch of the cold runs ({ntag}): kernel and plain "
           f"version identical (max |LU diff| {max_err}); panels by mode "
           f"{json.dumps(by_mode)}", flush=True)
+    d1000 = by_mode.get("4j conversion D=1000", {})
+    if not d1000.get("grid") or not d1000.get("cluster"):
+        fail(f"4j conversion D=1000: panels by mode {d1000}, want both the "
+             f"grid and the cluster mode")
     for tag in ("engine", "config4", "config5"):
         if by_mode.get(tag, {}).get("cluster", 0) == 0:
             fail(f"{tag}: no panel of its cold run took the cluster mode "
@@ -3419,6 +3935,8 @@ def main():
         solve_config5(f=kept5)
         profile_run(opts.profile, "config5_loop_replayed",
                     lambda: solve_config5(f=kept5)[3])
+        # TCI1 on the random f at D = 1000 (phase 4j (b))
+        profile_random_f(1000)
 
     if any(m == "jax" or m.startswith(("jax.", "tci_tpu."))
            or m == "tci_tpu" for m in sys.modules):
@@ -3467,7 +3985,9 @@ def main():
                                 for t, r in rook_entry["config1"].items()},
                              **{t.replace(" ", "_"): r["launches"]
                                 for t, r in contraction.items()
-                                if t not in ("panels", "memory")}},
+                                if t not in ("panels", "memory")},
+                             **{t.replace(" ", "_"): r["launches"]
+                                for t, r in conversions.items()}},
         "max_abs_err": max_err,
         "ms": ms if ms is not None else eng["engine_panel_wrapper_ms"],
         "ms_from": "profiler" if ms is not None else "cuda events",
@@ -3493,6 +4013,10 @@ def main():
         # walls, launches, fetches and linkdims, and the kernel on each
         # path's largest panel
         "contraction": contraction,
+        # TCI1, matrix CI / ACA and the conversions (phase 4j): config 1 by
+        # TCI1, the random-f sweep by D, the conversions' walls, launches
+        # and the kernel on their panels, the matrix engines on config 2
+        "tci1": tci1_entry,
         **host_panel,
         **eng,
         **n2000,

@@ -2,7 +2,8 @@
 
 The port of ``tci_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100. It keeps
 ``tci_tpu``'s layout, names, 0-based indices and float64 default. Its entry
-points run on the card: ``crossinterpolate2``, ``integrate``, ``TensorCI2``,
+points run on the card: ``crossinterpolate2``, ``crossinterpolate1``,
+``integrate``, ``TensorCI2``, ``TensorCI1``, ``matrix_crossinterpolate``,
 ``TorchBatchEvaluator``, ``CachedFunction``, and ``rrlu``, ``MatrixLUCI``,
 ``factorize``, ``TensorTrain``, ``TTCache`` and ``estimatetrueerror`` on
 numpy arrays take ``device=None`` to mean the current CUDA device, and
@@ -38,6 +39,8 @@ from .ops.lu import (
 from .ops.lu_device import DeviceRRLU
 from .ops.lu_device import rrlu_rook_device_fused as rrlu_serving
 from .ops.luci import MatrixLUCI
+from .ops.ci import MatrixCI, AtimesBinv, AinvtimesB, matrix_crossinterpolate
+from .ops.aca import MatrixACA
 from .ops.factorize import factorize
 from .ops.kronrod import kronrod
 from .parallel.batcheval import (
@@ -79,6 +82,8 @@ from .models.tensorci2 import (
     searchglobalpivots,
 )
 from .models.globalsearch import estimatetrueerror
+from .models.tensorci1 import TensorCI1, crossinterpolate1, crossinterpolate
+from .models import conversion
 from .models.contraction import Contraction, contract
 from .models.compress_device import compress_device
 from .models.contraction_device import contract_zipup_device
@@ -92,7 +97,8 @@ __all__ = [
     # L1 matrix engines
     "rrLU", "rrlu", "rrlu_serving", "DeviceRRLU", "arrlu",
     "submatrixargmax", "cols2Lmatrix", "rows2Umatrix",
-    "lu_solve", "MatrixLUCI", "factorize", "kronrod",
+    "lu_solve", "MatrixLUCI", "factorize", "kronrod", "MatrixCI",
+    "AtimesBinv", "AinvtimesB", "matrix_crossinterpolate", "MatrixACA",
     # L2 runtime
     "BatchEvaluator", "BatchEvaluatorAdapter", "ThreadedBatchEvaluator",
     "TorchBatchEvaluator", "VectorizedBatchEvaluator",
@@ -105,7 +111,8 @@ __all__ = [
     "TensorCI2", "crossinterpolate2", "filltensor", "kronecker",
     "convergencecriterion", "searchglobalpivots", "GlobalPivotSearchInput",
     "AbstractGlobalPivotFinder", "DefaultGlobalPivotFinder",
-    "estimatetrueerror",
+    "estimatetrueerror", "TensorCI1", "crossinterpolate1", "crossinterpolate",
+    "conversion",
     # L5 applications
     "Contraction", "contract", "compress_device", "contract_zipup_device",
     "integrate",

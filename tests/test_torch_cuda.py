@@ -1541,3 +1541,166 @@ def test_capture_out_of_memory_retries_in_a_new_pool(cuda, monkeypatch):
                 for p in clean.device_sweep_engine.programs()}
     assert {p["key"]: p["captured_launches"]
             for p in engine.programs()} == launches
+
+
+# -- TCI1, matrix CI / ACA and the conversions ------------------------------
+
+_TABLE = np.random.default_rng(0).uniform(-1.0, 1.0, 2 ** 20)
+
+
+def _random_table_f(L, device):
+    """The reference notebook's random f on `device`: the 2^20-value table
+    looked up at sum_i sigma_i 2^i (a sum of products: no int64 matmul)."""
+    table = torch.as_tensor(_TABLE, device=device)
+    w = torch.as_tensor(2 ** np.arange(L), device=device)
+    return tci_tpu_torch.TorchBatchEvaluator(
+        lambda idx: table[(idx * w).sum(1)], [2] * L, device=device)
+
+
+@pytest.mark.parametrize("evaluator", ["torch", "scalar"])
+def test_tci1_on_the_card_matches_cpu(cuda, evaluator):
+    """crossinterpolate1 on the card (no device argument) against the same
+    call on the CPU: on the random f the same pivot sets and errors within
+    1e-12 relative; on config 1's Lorentzian (exact ties, C-port-15) the
+    same ranks, errors within 1e-15 absolute, pointwise error below 1e-7.
+    Every array of the state stays on the card."""
+    L, D = 12, 24
+    if evaluator == "torch":
+        out, ranks, errs = tci_tpu_torch.crossinterpolate1(
+            np.float64, _random_table_f(L, cuda), [2] * L, tolerance=1e-12,
+            maxiter=D)
+        ref, rranks, rerrs = tci_tpu_torch.crossinterpolate1(
+            np.float64, _random_table_f(L, "cpu"), [2] * L, tolerance=1e-12,
+            maxiter=D, device="cpu")
+        assert [s.fromint for s in out.Iset + out.Jset] == [
+            s.fromint for s in ref.Iset + ref.Jset]
+        np.testing.assert_allclose(errs, rerrs, rtol=1e-12, atol=0)
+    else:
+        def f(x):
+            return 1.0 / (1.0 + sum((i + 1.0) ** 2 for i in x))
+        out, ranks, errs = tci_tpu_torch.crossinterpolate1(
+            np.float64, f, [10] * 8, tolerance=1e-8)
+        ref, rranks, rerrs = tci_tpu_torch.crossinterpolate1(
+            np.float64, f, [10] * 8, tolerance=1e-8, device="cpu")
+        np.testing.assert_allclose(errs, rerrs, rtol=0, atol=1e-15)
+        x = (1, 2, 3, 4, 5, 4, 3, 2)
+        assert abs(out.evaluate(x) - f(x)) < 1e-7
+    assert ranks == rranks and out.linkdims() == ref.linkdims()
+    assert out.device.type == "cuda"
+    for arrays in (out.T, out.P, out.Pi):
+        assert all(t.device.type == "cuda" for t in arrays)
+    assert all(a.u.device.type == "cuda" for a in out.aca)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_matrixci_argmax_on_the_card_is_numpys_colmajor_rule(cuda, seed):
+    """findnewpivot's argmax on the card: column-major, first occurrence,
+    a NaN above every value (np.argmax's rule), with ties."""
+    from tci_tpu_torch.ops.ci import argmax_colmajor
+
+    rng = np.random.default_rng(seed)
+    M = rng.integers(0, 4, (300, 70)).astype(float)
+    if seed:
+        M[rng.integers(0, 300, 2), rng.integers(0, 70, 2)] = np.nan
+    flat = int(np.argmax(M.T.reshape(-1)))
+    r, c, v = argmax_colmajor(torch.as_tensor(M, device=cuda))
+    assert (r, c) == (flat % 300, flat // 300)
+    assert np.isnan(v) if seed else v == 3.0
+    ci = tci_tpu_torch.MatrixCI(nrows=300, ncols=70, device=cuda)
+    (rr, cc), vv = ci.findnewpivot(M)
+    assert (rr, cc) == (r, c)
+
+
+def test_matrixci_and_aca_on_the_card_match_cpu(cuda):
+    """matrix_crossinterpolate and greedy MatrixACA on a seeded rank-20
+    matrix on the card against the CPU: the same pivots, reconstructions
+    within 1e-10 max|A|."""
+    from tci_tpu_torch.ops.ci import argmax_colmajor
+
+    rng = np.random.default_rng(7)
+    A = (rng.standard_normal((200, 20)) * np.exp(-np.arange(20) / 4.0)) @ (
+        rng.standard_normal((20, 150)))
+    kw = dict(tolerance=1e-12 * np.abs(A).max(), maxiter=30)
+    out = tci_tpu_torch.matrix_crossinterpolate(A, **kw)
+    ref = tci_tpu_torch.matrix_crossinterpolate(A, device="cpu", **kw)
+    assert (out.rowindices, out.colindices) == (ref.rowindices,
+                                                ref.colindices)
+    assert out.pivotcols.device.type == "cuda"
+    err = float((out.matrix().cpu() - torch.from_numpy(A)).abs().max())
+    assert err <= 1e-10 * np.abs(A).max()
+
+    acas = []
+    for device in (cuda, "cpu"):
+        At = torch.as_tensor(A, device=device)
+        r, c, _ = argmax_colmajor(At.abs())
+        aca = tci_tpu_torch.MatrixACA(A=At, firstpivot=(r, c))
+        while aca.rank() < 20:
+            aca.addpivot(At)
+        acas.append(aca)
+    assert acas[0].rowindices == acas[1].rowindices
+    assert acas[0].colindices == acas[1].colindices
+    err = float((acas[0].matrix().cpu() - torch.from_numpy(A)).abs().max())
+    assert err <= 1e-10 * np.abs(A).max()
+
+
+def test_conversion_on_the_card_matches_cpu(cuda):
+    """tci1_from_tci2 -> tci2_from_tci1 and tci2_from_tensortrain on a TCI2
+    of config 1's Lorentzian at five sites, on the card and on the CPU:
+    the same linkdims, values within 1e-12 of each other and within 1e-8
+    max|f| of the TCI2 they came from."""
+    from tci_tpu_torch.models import conversion
+
+    def f(x):
+        return 1.0 / (1.0 + sum((i + 1.0) ** 2 for i in x))
+
+    out = {}
+    for device in (cuda, "cpu"):
+        t2, _, _ = tci_tpu_torch.crossinterpolate2(
+            np.float64, f, [10] * 5, tolerance=1e-10,
+            rng=np.random.default_rng(0), device=device)
+        t1 = conversion.tci1_from_tci2(t2, f)
+        back = conversion.tci2_from_tci1(t1)
+        fromtt = conversion.tci2_from_tensortrain(
+            tci_tpu_torch.tensortrain(t2), tolerance=1e-12)
+        out[str(device)] = (t2, t1, back, fromtt)
+    pts = np.random.default_rng(3).integers(0, 10, (200, 5))
+    vals = {}
+    for key, (t2, t1, back, fromtt) in out.items():
+        assert t1.linkdims() == back.linkdims() == t2.linkdims()
+        assert fromtt.linkdims() == t2.linkdims()
+        want = tci_tpu_torch.tensortrain(t2).evaluate_batch(pts).cpu()
+        scale = float(want.abs().max())
+        for res in (back, fromtt):
+            got = tci_tpu_torch.tensortrain(res).evaluate_batch(pts).cpu()
+            assert float((got - want).abs().max()) <= 1e-8 * scale
+        vals[key] = tci_tpu_torch.tensortrain(back).evaluate_batch(pts).cpu()
+    assert out[str(cuda)][2].linkdims() == out["cpu"][2].linkdims()
+    assert all(t.device.type == "cuda" for t in out[str(cuda)][3])
+    assert float((vals[str(cuda)] - vals["cpu"]).abs().max()) <= 1e-12
+
+
+def test_conversion_tensortrain_launches_the_kernel_per_luci(cuda,
+                                                            monkeypatch):
+    """tci2_from_tensortrain of a train on the card: one rrLU kernel launch
+    for each MatrixLUCI it builds, and no plain-version call on CUDA."""
+    from tci_tpu_torch.models import conversion
+
+    rng = np.random.default_rng(4)
+    b = [1, 2, 4, 8, 4, 2, 1]  # the ranks random cores of legs 2 reach
+    cores = [rng.standard_normal((b[n], 2, b[n + 1])) for n in range(6)]
+    tt = tci_tpu_torch.TensorTrain(cores, device=cuda)
+    made = []
+    init = conversion.MatrixLUCI.__init__
+
+    def counted(self, *args, **kwargs):
+        made.append(args[0].device.type)
+        init(self, *args, **kwargs)
+
+    monkeypatch.setattr(conversion.MatrixLUCI, "__init__", counted)
+    launches = lu_cuda.LAUNCHES["rrlu"]
+    plain = lu_kernel.PLAIN_CALLS["cuda"]
+    out = conversion.tci2_from_tensortrain(tt, tolerance=1e-12)
+    assert made and set(made) == {"cuda"}
+    assert lu_cuda.LAUNCHES["rrlu"] - launches == len(made)
+    assert lu_kernel.PLAIN_CALLS["cuda"] == plain
+    assert out.linkdims() == tt.linkdims()

@@ -32,9 +32,6 @@ def test_import_leaves_jax_out():
 # tci_tpu's public names that the port does not have yet, each with the
 # ROADMAP step that ports it, and the one it replaces
 NOT_PORTED = {
-    "A11": {"MatrixCI", "AtimesBinv", "AinvtimesB", "matrix_crossinterpolate",
-            "MatrixACA", "TensorCI1", "crossinterpolate1", "crossinterpolate",
-            "conversion"},
     "A14": {"rrlu_sharded"},
     "replaced by TorchBatchEvaluator": {"JaxBatchEvaluator"},
 }
@@ -59,7 +56,8 @@ def test_exports_cover_tci_tpu():
     "models.integration", "ops.factorize", "models.ttcache",
     "models.globalsearch", "parallel.cachedfunction", "ops.lu_device",
     "utils.prng", "models.contraction", "models.contraction_device",
-    "models.compress_device"])
+    "models.compress_device", "ops.ci", "ops.aca", "models.tensorci1",
+    "models.conversion"])
 def test_module_import_leaves_jax_out(module):
     code = (
         f"import sys, tci_tpu_torch.{module}\n"
