@@ -195,8 +195,30 @@ line or more each:
    train's 1024 x 1000, 2000 x 512 and 512 x 512 panels beside its plain
    time and bound; ``matrix_crossinterpolate`` and a greedy ``MatrixACA``
    on config 2's matrix to rank 256 within 1e-10 max|A|;
+4k. the auxiliaries (``[aux]`` lines): (a) checkpoint and resume: config
+   1 on the engine (default protocol) to 1e-4, ``save_tci2``, ``load_tci2``
+   on the card, ``optimize`` to 1e-8 on the same evaluator (rng
+   default_rng(0) both times): tci_tpu's resumed ranks and errors
+   (``RECORDED_RESUME``, 1e-15), f at 1,000 seeded points within 1e-7,
+   save -> load -> save bitwise, the median of 10 resume walls on a kept
+   evaluator; config 5 (complex128, 1e-4 then 1e-7): the resumed integral
+   within 1e-9 of the same coarse run continued without the checkpoint;
+   (b) configs 1 and 5 through ``TorchBatchEvaluator.from_scalar`` (a
+   vmapped scalar f) on the engine: the batched f's ranks, errors and
+   samples, whether bit for bit, no key declined, the warm medians of 10
+   side by side; (c) configs 1's and 5's trains through MPS tensors and
+   the quimb layout (a stand-in with ``.arrays``) and back, phase 4i's MPO
+   operand through MPO tensors: every core bitwise, ``evaluate_mps``
+   within 1e-12 of the train at 1,000 points; (d) a seeded sweep of random
+   panels through the rrLU kernel (f32, f64, complex128; 1 x 1 to past a
+   cluster's capacity, so that every mode is hit; exactly rank-deficient
+   panels, maxrank, reltol and abstol stops, padding, batched calls of B =
+   1-8; about 30 s) against its plain version bit for bit: counts by type
+   and mode; (e) each example of ``tci_tpu_torch/examples`` as a process
+   of its own on the card: it prints ``ok``, its wall is printed. The cold
+   runs of (a) and (b) queue eagerly and are recorded for phase 5;
 5. the kernel against the plain version on every launch the cold runs of
-   phases 3d, 4, 4b, 4c, 4f, 4g, 4h, 4i and 4j made (rook: each slab shape's time,
+   phases 3d, 4, 4b, 4c, 4f, 4g, 4h, 4i, 4j and 4k made (rook: each slab shape's time,
    bound and plain time, and a dead step's); its times on the engines' bond panels (Imax
    (d + 1) square: 352^2 for config 1, 96^2 for config 3, 512^2 and 1024^2
    for config 4) and on config 1's fill (its P blocks in one batched
@@ -235,6 +257,7 @@ import itertools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -324,6 +347,12 @@ RECORDED_TCI1 = {
         1.1238586655054617e-07, 1.630523317340711e-08,
         4.522342590251166e-09],
     "linkdims": [10, 13, 13, 13, 13, 13, 10]}
+# phase 4k (a): tci_tpu's config 1 resumed from its checkpoint, on a CPU: a
+# JaxBatchEvaluator (its engine, default protocol) to tolerance 1e-4 with
+# rng=default_rng(0), save_tci2, load_tci2, then optimize(f, tolerance=1e-8,
+# rng=default_rng(0)) on the loaded object: its ranks and normalized errors
+RECORDED_RESUME = {"ranks": [12, 12, 12],
+                   "errors": [4.137521240320131e-09] * 3}
 RECORDED_RANDOM100 = {
     "digest": ("e92d18d763f1feeb689bddcb346dd33b"
                "dd5e4e323bce82b478e4a9e6832fd9fd"),
@@ -3751,6 +3780,466 @@ def main():
             print(f"[profile] 4j random D={D}: device: {name[:70]}: "
                   f"{ms:.3f} ms in {n}", flush=True)
 
+    # -- 4k. the auxiliaries: checkpoint, scalar f, interop, fuzz, examples ---
+    # (a) config 1 on the engine under the default protocol to 1e-4, saved,
+    # loaded on the card into a new object and resumed to 1e-8 on the same
+    # evaluator (rng default_rng(0) both times): tci_tpu's resumed series
+    # (RECORDED_RESUME), f at 1,000 seeded points within 1e-7, save -> load
+    # -> save bitwise; config 5 in complex128 likewise (1e-4, then 1e-7):
+    # the resumed integral within 1e-9 of the same coarse run continued
+    # without the checkpoint. A cold run of each on a new evaluator queues
+    # eagerly and is recorded for phase 5; the resume walls are the median
+    # of 10 on a kept evaluator. (b) config 1 and config 5 through
+    # TorchBatchEvaluator.from_scalar (a vmapped scalar f) on the engine:
+    # the batched f's ranks, errors, samples and site tensors, no key
+    # declined; the warm medians of 10 on kept evaluators side by side.
+    # (c) config 1's and config 5's trains through MPS tensors and the
+    # quimb layout and back, phase 4i's MPO operand through MPO tensors and
+    # back: every core bitwise; evaluate_mps against the train at 1,000
+    # seeded points within 1e-12 relative. (d) a seeded sweep of random
+    # panels through the rrLU kernel against its plain version, bit for bit.
+    # (e) each example of tci_tpu_torch/examples as a process of its own.
+    def run_aux():
+        """Phase 4k in a scope of its own (its names stay out of
+        main's); returns its entry of the JSON line."""
+        from tci_tpu_torch.interop import mps as mps_mod
+        from tci_tpu_torch.utils import checkpoint as ckpt_mod
+
+        t_aux = time.perf_counter()
+        aux_entry = {}
+        ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+
+        def npz_bytes(path):
+            with np.load(path, allow_pickle=False) as data:
+                return {k: (data[k].dtype.str, data[k].shape,
+                            data[k].tobytes()) for k in data.files}
+
+        def save_load_save(tag, tci):
+            """save -> load on the card -> save: the two files' arrays bitwise
+            equal; (the loaded TCI, save wall, load wall, file bytes)."""
+            a = os.path.join(ckpt_dir, f"{tag}_a.npz")
+            b = os.path.join(ckpt_dir, f"{tag}_b.npz")
+            before = FETCHES["checkpoint"]
+            _, t_save = timed(lambda: ckpt_mod.save_tci2(a, tci))
+            fetches = FETCHES["checkpoint"] - before
+            loaded, t_load = timed(lambda: ckpt_mod.load_tci2(a))
+            ckpt_mod.save_tci2(b, loaded)
+            if npz_bytes(a) != npz_bytes(b):
+                fail(f"4k {tag}: save -> load -> save changed the file's "
+                     f"arrays")
+            if (loaded.device.type != "cuda"
+                    or loaded._maxsample_dev is not None
+                    or not all(x.device.type == "cuda"
+                               for x in loaded.sitetensors())):
+                fail(f"4k {tag}: the loaded TCI is not on the card")
+            if fetches != 1:
+                fail(f"4k {tag}: the save made {fetches} fetches, want one of "
+                     f"all the site tensors")
+            return loaded, t_save, t_load, os.path.getsize(a)
+
+        def resume_run(tag, ev, dims, valuetype, coarse_tol, fine_tol, **kw):
+            """The coarse run on evaluator ev, save, load on the card, resume:
+            (coarse TCI, resumed TCI, ranks, errors, file info, resume wall,
+            ev)."""
+            coarse, _, _ = tci_tpu_torch.crossinterpolate2(
+                valuetype, ev, dims, tolerance=coarse_tol,
+                rng=np.random.default_rng(0), **kw)
+            loaded, t_save, t_load, nbytes = save_load_save(tag, coarse)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ranks, errors = loaded.optimize(ev, tolerance=fine_tol,
+                                            rng=np.random.default_rng(0), **kw)
+            torch.cuda.synchronize()
+            return (coarse, loaded, ranks, errors,
+                    {"save_s": t_save, "load_s": t_load, "file_bytes": nbytes},
+                    time.perf_counter() - t0, ev)
+
+        def new_evaluator(f, dims, dtype=torch.float64, graphs=True,
+                          scalar=False):
+            make = (tci_tpu_torch.TorchBatchEvaluator.from_scalar if scalar
+                    else tci_tpu_torch.TorchBatchEvaluator)
+            ev = make(f, dims, dtype=dtype, cuda_graphs=graphs)
+            set_protocol(ev, True)
+            return ev
+
+        def check_engine_counts(tag, counts):
+            if (counts["launches"] == 0 or counts["rrlu_raw"]
+                    or counts["launches"] != counts["tier_calls"]
+                    or counts["plain_cuda"]):
+                fail(f"4k {tag}: {counts}; every elimination should launch "
+                     f"the kernel on the engine and none take the plain "
+                     f"version")
+
+        # (a) config 1
+        pts1 = np.random.default_rng(11).integers(0, 10, (1000, 8))
+        f_pts1 = fdev(torch.as_tensor(pts1, device=dev))
+        resume_entry = {}
+        res, counts = run_counted("4k resume config1", lambda: resume_run(
+            "config1", new_evaluator(fdev, localdims, graphs=False), localdims,
+            np.float64, 1e-4, 1e-8), record=True)
+        check_engine_counts("resume config 1 cold", counts)
+        resume_entry["config1"] = {"launches_cold": counts["launches"]}
+        kept1 = new_evaluator(fdev, localdims)
+        res, counts = run_counted("4k resume config1", lambda: resume_run(
+            "config1", kept1, localdims, np.float64, 1e-4, 1e-8))
+        first_resume = res[5]
+        walls = []
+        for _ in range(10):
+            res, counts = run_counted("4k resume config1", lambda: resume_run(
+                "config1", kept1, localdims, np.float64, 1e-4, 1e-8), f=kept1)
+            walls.append(res[5])
+        check_engine_counts("resume config 1 kept", counts)
+        coarse1, resumed1, ranks_r, errors_r, file1 = res[:5]
+        point_err = float((resumed1.evaluate_batch(pts1) - f_pts1).abs().max())
+        err_diff = max(abs(a - b) for a, b in zip(errors_r,
+                                                  RECORDED_RESUME["errors"]))
+        if (ranks_r != RECORDED_RESUME["ranks"] or not err_diff <= 1e-15
+                or not point_err < 1e-7):
+            fail(f"4k resume config 1: ranks {ranks_r}, errors {errors_r} "
+                 f"(recorded {RECORDED_RESUME}), max |f - tt| at 1,000 points "
+                 f"{point_err:.3e}")
+        if kept1.device_sweep_engine.declined:
+            fail(f"4k resume config 1: declined "
+                 f"{kept1.device_sweep_engine.declined}")
+        walls.sort()
+        resume_entry["config1"].update({
+            "coarse_linkdims": coarse1.linkdims(), "ranks": ranks_r,
+            "errors": errors_r, "max_err_diff_tci_tpu": err_diff,
+            "max_point_err": point_err, **file1,
+            "resume_first_s": first_resume,
+            "resume_kept_median_s": (walls[4] + walls[5]) / 2,
+            "resume_kept_range_s": [walls[0], walls[-1]],
+            "launches": counts["launches"],
+            "replays": kept1.device_sweep_engine.replays})
+        e1 = resume_entry["config1"]
+        print(f"[aux] 4k resume config 1: coarse (1e-4) linkdims "
+              f"{e1['coarse_linkdims']}, file {e1['file_bytes']} bytes (save "
+              f"{e1['save_s']:.4f} s, load {e1['load_s']:.4f} s); resumed to "
+              f"1e-8: ranks {ranks_r}, errors {errors_r} (tci_tpu's within "
+              f"{err_diff:.3e}), max |f - tt| {point_err:.3e} at 1,000 "
+              f"points; "
+              f"resume wall first {first_resume:.4f} s, kept median of 10 "
+              f"{e1['resume_kept_median_s']:.4f} s (range "
+              f"{walls[0]:.4f}-{walls[-1]:.4f}); {counts['launches']} "
+              f"launches "
+              f"a coarse + resumed run ({e1['launches_cold']} cold); save -> "
+              f"load -> save bitwise", flush=True)
+
+        # (a) config 5, complex128
+        kw5 = {"nsearchglobalpivot": 10}
+        res, counts = run_counted("4k resume config5", lambda: resume_run(
+            "config5", new_evaluator(f5torch, dims5, torch.complex128,
+                                     graphs=False), dims5, np.complex128, 1e-4,
+            1e-7, **kw5), record=True)
+        check_engine_counts("resume config 5 cold", counts)
+        kept5r = new_evaluator(f5torch, dims5, torch.complex128)
+        res, counts = run_counted("4k resume config5", lambda: resume_run(
+            "config5", kept5r, dims5, np.complex128, 1e-4, 1e-7, **kw5))
+        coarse5, resumed5, ranks5r, errors5r, file5, wall5r = res[:6]
+        # the same coarse run, continued without the checkpoint
+        cont_ranks, _ = coarse5.optimize(kept5r, tolerance=1e-7,
+                                         rng=np.random.default_rng(0), **kw5)
+        int_resumed = resumed5.sum() / norm5
+        int_cont = coarse5.sum() / norm5
+        d_cont = abs(int_resumed - int_cont)
+        if not d_cont <= 1e-9 or not errors5r[-1] < 1e-7:
+            fail(f"4k resume config 5: integral {int_resumed!r} against "
+                 f"{int_cont!r} continued without the checkpoint (|diff| "
+                 f"{d_cont:.3e}, bound 1e-9), errors {errors5r}")
+        if resumed5.dtype != torch.complex128:
+            fail(f"4k resume config 5: resumed in {resumed5.dtype}")
+        resume_entry["config5"] = {
+            "ranks": ranks5r, "continued_ranks": cont_ranks,
+            "errors": errors5r,
+            "integral": [int_resumed.real, int_resumed.imag],
+            "diff_continued": d_cont,
+            "diff_uninterrupted_1e7_run": abs(int_resumed - CONFIG5_INTEGRAL),
+            **file5, "resume_s": wall5r, "launches": counts["launches"]}
+        print(f"[aux] 4k resume config 5 (complex128): ranks {ranks5r} "
+              f"(continued without the checkpoint {cont_ranks}), final error "
+              f"{errors5r[-1]:.3e}, integral {int_resumed!r}, |diff| to the "
+              f"continued run {d_cont:.3e} (bound 1e-9), to tci_tpu's 1e-7 "
+              f"run "
+              f"{resume_entry['config5']['diff_uninterrupted_1e7_run']:.3e}; "
+              f"file {file5['file_bytes']} bytes; resume wall {wall5r:.4f} s",
+              flush=True)
+        aux_entry["checkpoint"] = resume_entry
+
+        # (b) the scalar f
+        def fscalar_dev(v):
+            v = v.to(torch.float64) + 1.0
+            return 1.0 / (1.0 + (v * v).sum())
+
+        def f5scalar(idx):
+            t = nodes5_d[idx]
+            damp = torch.exp(-((t[:, None] - t[None, :]) ** 2).sum())
+            return torch.polar(weights5_d[idx].prod() * damp * norm5,
+                               10.0 * t.sum())
+
+        def scalar_run(ev, dims, valuetype, tol, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tci, ranks, errors = tci_tpu_torch.crossinterpolate2(
+                valuetype, ev, dims, tolerance=tol,
+                rng=np.random.default_rng(0), **kw)
+            torch.cuda.synchronize()
+            return tci, ranks, errors, time.perf_counter() - t0, ev
+
+        scalar_entry, out_trains = {}, {}
+        for cfg, fb, fs, dims, dt, vt, tol, kw in (
+                ("config1", fdev, fscalar_dev, localdims, torch.float64,
+                 np.float64, 1e-8, {}),
+                ("config5", f5torch, f5scalar, dims5, torch.complex128,
+                 np.complex128, 1e-7, kw5)):
+            run_counted(f"4k scalar {cfg}", lambda: scalar_run(
+                new_evaluator(fs, dims, dt, graphs=False, scalar=True), dims,
+                vt, tol, **kw), record=True)
+            out = {}
+            for kind, f_, scalar in (("scalar", fs, True),
+                                     ("batched", fb, False)):
+                ev = new_evaluator(f_, dims, dt, scalar=scalar)
+                res, counts = run_counted(
+                    f"4k scalar {cfg}",
+                    lambda: scalar_run(ev, dims, vt, tol, **kw))
+                check_engine_counts(f"scalar f {cfg} {kind}", counts)
+                walls = sorted(run_counted(
+                    f"4k scalar {cfg}",
+                    lambda: scalar_run(ev, dims, vt, tol, **kw),
+                    f=ev)[0][3] for _ in range(10))
+                out[kind] = (res, counts, (walls[4] + walls[5]) / 2,
+                             ev.device_sweep_engine)
+            (rs, cs, ms, es), (rb, cb, mb, eb) = out["scalar"], out["batched"]
+            bitwise = (rs[1] == rb[1] and rs[2] == rb[2]
+                       and rs[0].Iset == rb[0].Iset and all(
+                           torch.equal(a, b) for a, b in zip(
+                               rs[0].sitetensors(), rb[0].sitetensors())))
+            if (rs[1] != rb[1] or cs["nevals"] != cb["nevals"] or es.declined
+                    or not np.allclose(rs[2], rb[2], rtol=0, atol=1e-15)):
+                fail(f"4k scalar f {cfg}: ranks {rs[1]} / {rb[1]}, errors "
+                     f"{rs[2]} / {rb[2]}, nevals {cs['nevals']} / "
+                     f"{cb['nevals']}, declined {es.declined}")
+            out_trains[cfg] = rs[0]
+            if cfg == "config1":
+                check_config1("4k scalar f", rs[0], rs[1], rs[2], cs)
+            else:
+                check_config5("4k scalar f", rs[0], rs[1], rs[2], cs, rs[4],
+                              "engine")
+            scalar_entry[cfg] = {
+                "ranks": rs[1], "errors": rs[2], "bitwise_batched": bitwise,
+                "nevals": cs["nevals"], "declined": dict(es.declined),
+                "captures": es.captures, "replays": es.replays,
+                "kept_median_s": ms, "batched_kept_median_s": mb,
+                "launches": cs["launches"]}
+            print(f"[aux] 4k scalar f {cfg} (from_scalar, engine, default "
+                  f"protocol): ranks {rs[1]}, final error {rs[2][-1]:.3e}, "
+                  f"nevals {cs['nevals']} (batched {cb['nevals']}); bit for "
+                  f"bit "
+                  f"the batched f's (series, index sets, site tensors): "
+                  f"{bitwise}; declined {dict(es.declined)}, {es.captures} "
+                  f"captures, {es.replays} replays; warm median of 10 "
+                  f"{ms:.4f} s, batched f {mb:.4f} s; {cs['launches']} "
+                  f"launches "
+                  f"a run", flush=True)
+        aux_entry["scalar_f"] = scalar_entry
+
+        # (c) interop
+        class QuimbArrays:
+            """quimb's MatrixProductState layout, (l, r, p) arrays."""
+
+            def __init__(self, arrays):
+                self.arrays = arrays
+
+        interop_entry = {}
+        op4i = tci_tpu_torch.TensorTrain(contract_operands(20, 16)[0])
+        for name, tt, legs in (
+                ("config1", tci_tpu_torch.tensortrain(out_trains["config1"]),
+                 3),
+                ("config5", tci_tpu_torch.tensortrain(out_trains["config5"]),
+                 3),
+                ("mpo_4i", op4i, 4)):
+            cores = tt.sitetensors()
+            t0 = time.perf_counter()
+            if legs == 4:
+                back = {"mpo": mps_mod.from_mpo_tensors(
+                    mps_mod.to_mpo_tensors(tt))}
+            else:
+                raw = mps_mod.to_mps_tensors(tt)
+                back = {"mps": mps_mod.from_mps_tensors(raw),
+                        "quimb": mps_mod.from_quimb_mps(QuimbArrays(
+                            mps_mod.to_quimb_arrays(tt)))}
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            for kind, res in back.items():
+                if not all(x.device.type == "cuda" and x.shape == y.shape
+                           and torch.equal(x, y)
+                           for x, y in zip(res.sitetensors(), cores)):
+                    fail(f"4k interop {name} {kind}: the round trip changed a "
+                         f"core")
+            entry = {"round_trip_s": wall, "kinds": sorted(back)}
+            if legs == 3:
+                pts = np.random.default_rng(13).integers(
+                    0, tt.sitedims()[0][0], (1000, len(tt)))
+                want = tt.evaluate_batch(pts).cpu().numpy()
+                t0 = time.perf_counter()
+                got = np.array([mps_mod.evaluate_mps(raw, p) for p in pts])
+                entry["evaluate_mps_s"] = time.perf_counter() - t0
+                rel = float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+                if not rel <= 1e-12:
+                    fail(f"4k interop {name}: evaluate_mps differs from the "
+                         f"train by {rel:.3e} of max|tt| (bound 1e-12)")
+                entry["evaluate_mps_rel_err"] = rel
+            interop_entry[name] = entry
+            print(f"[aux] 4k interop {name}: "
+                  f"{' and '.join(sorted(back))} round "
+                  f"trip bitwise in {wall:.4f} s"
+                  + (f"; evaluate_mps at 1,000 points within "
+                     f"{entry['evaluate_mps_rel_err']:.3e} of max|tt| "
+                     f"({entry['evaluate_mps_s']:.3f} s)"
+                     if legs == 3 else ""),
+                  flush=True)
+        aux_entry["interop"] = interop_entry
+
+        # (d) the kernel fuzz: random panels of each type through each mode
+        fuzz_rng = np.random.default_rng(2024)
+        fuzz_counts, fuzz_stops = {}, {}
+        fuzz_launches = lu_cuda.LAUNCHES["rrlu"]
+        # (m, n) ranges for each mode aimed at: resident panels of up to 128
+        # (80 complex), cluster panels above them, and panels past a cluster's
+        # shared memory (grid); the mode each launch took is read back
+        aims = {"resident": ((1, 128), (1, 80)), "cluster": ((130, 420),
+                                                            (100, 300)),
+                "grid": ((1000, 1500), (1000, 1300))}
+        fuzz_types = (torch.float32, torch.float64, torch.complex128)
+
+        def fuzz_panel(m, n, r, dtype, decay):
+            cplx = dtype.is_complex
+            U = fuzz_rng.standard_normal((m, r))
+            V = fuzz_rng.standard_normal((r, n))
+            if cplx:
+                U = U + 1j * fuzz_rng.standard_normal((m, r))
+                V = V + 1j * fuzz_rng.standard_normal((r, n))
+            if decay and r:
+                U = U * 10.0 ** (-np.arange(r) / 2.0)
+            return U @ V
+
+        def fuzz_one(aim, dtype, first):
+            real = dtype if not dtype.is_complex else torch.float64
+            lo, hi = aims[aim][1 if dtype.is_complex else 0]
+            B = int(fuzz_rng.integers(1, 9)) if fuzz_rng.random() < 0.4 else 0
+            m = 1 if first else int(fuzz_rng.integers(lo, hi + 1))
+            n = 1 if first else int(fuzz_rng.integers(lo, hi + 1))
+            pad = str(fuzz_rng.choice(["bucket", "bucket+", "exact"],
+                                      p=[0.55, 0.25, 0.2]))
+            mp, npd = lu_kernel.bucket(m), lu_kernel.bucket(n)
+            if pad == "bucket+":
+                mp, npd = lu_kernel.bucket(mp + 1), lu_kernel.bucket(npd + 1)
+            elif pad == "exact":
+                # the true extents, widened by zero columns where the panel
+                # would miss the 16-byte rule (as contraction_device._lu_split)
+                es = torch.empty((), dtype=dtype).element_size()
+                mp, npd = m, n
+                while (mp * npd * es) % 16:
+                    npd += 1
+            panels, ms, ns, caps, rts, ats, kinds = [], [], [], [], [], [], []
+            for _ in range(max(B, 1)):
+                mb = m if not B else int(
+                    fuzz_rng.integers(max(1, m // 2), m + 1))
+                nb = n if not B else int(
+                    fuzz_rng.integers(max(1, n // 2), n + 1))
+                rmax = min(mb, nb, 48 if aim == "grid" else 128)
+                r = int(fuzz_rng.integers(0, rmax + 1))
+                stop = str(fuzz_rng.choice(["deficient", "maxrank", "reltol",
+                                            "abstol"]))
+                A = fuzz_panel(mb, nb, r, dtype, stop in ("reltol", "abstol"))
+                P = np.zeros((mp, npd), dtype=A.dtype)
+                P[:mb, :nb] = A
+                panels.append(P)
+                cap = min(mb, nb)
+                rt = at = 0.0
+                if stop == "maxrank":
+                    cap = int(fuzz_rng.integers(0, max(r, 1) + 1))
+                elif stop == "reltol":
+                    rt = 1e-6
+                elif stop == "abstol":
+                    at = 1e-4 * float(np.abs(A).max()) if A.size else 0.0
+                ms.append(mb), ns.append(nb), caps.append(cap)
+                rts.append(rt), ats.append(at), kinds.append(stop)
+            lo_ = bool(fuzz_rng.integers(0, 2))
+            A_d = torch.as_tensor(np.stack(panels) if B else panels[0],
+                                  device=dev).to(dtype)
+            if B:
+                args = (A_d, torch.tensor(ms), torch.tensor(ns),
+                        torch.tensor(caps), torch.tensor(rts, dtype=real),
+                        torch.tensor(ats, dtype=real))
+                out = lu_cuda.rrlu_batched(*args, leftorthogonal=lo_,
+                                           return_mode=True)
+                ref = lu_kernel.rrlu_plain_batched(*args, leftorthogonal=lo_)
+            else:
+                args = (A_d, ms[0], ns[0], caps[0], rts[0], ats[0])
+                out = lu_cuda.rrlu_call(*args, leftorthogonal=lo_,
+                                        return_mode=True)
+                ref = lu_kernel.rrlu_plain(*args, leftorthogonal=lo_)
+            tag = (f"4k fuzz {str(dtype)[6:]} aim {aim} B={B} {m}x{n} in "
+                   f"{mp}x{npd} ({pad}) stops {kinds}")
+            compare(tag, out[:6], ref, 1.0)
+            key = str(dtype)[6:]
+            for v in out[6].reshape(-1).tolist():
+                mode = lu_cuda.PANEL_MODES[v]
+                fuzz_counts.setdefault(key, {}).setdefault(mode, 0)
+                fuzz_counts[key][mode] += 1
+            for s in kinds:
+                fuzz_stops[s] = fuzz_stops.get(s, 0) + 1
+            fuzz_stops["batched" if B else "single"] = fuzz_stops.get(
+                "batched" if B else "single", 0) + 1
+
+        t0 = time.perf_counter()
+        rounds = 0
+        while rounds < 40 and (rounds < 3 or time.perf_counter() - t0 < 30.0):
+            for aim in aims:
+                for dtype in fuzz_types:
+                    fuzz_one(aim, dtype, rounds == 0 and aim == "resident")
+            rounds += 1
+        torch.cuda.synchronize()
+        fuzz_wall = time.perf_counter() - t0
+        fuzz_launches = lu_cuda.LAUNCHES["rrlu"] - fuzz_launches
+        missing = [(t, mo) for t in fuzz_counts for mo in lu_cuda.PANEL_MODES
+                   if not fuzz_counts[t].get(mo)]
+        if missing or len(fuzz_counts) != 3:
+            fail(f"4k fuzz: no panel of {missing} ({fuzz_counts})")
+        aux_entry["kernel_fuzz"] = {"rounds": rounds, "wall_s": fuzz_wall,
+                                    "launches": fuzz_launches,
+                                    "panels_by_type_and_mode": fuzz_counts,
+                                    "stops": fuzz_stops}
+        print(f"[aux] 4k kernel fuzz: {rounds} rounds, {fuzz_launches} launches "
+              f"in {fuzz_wall:.3f} s, every one bit for bit its plain version; "
+              f"panels by type and mode {json.dumps(fuzz_counts)}; stops and "
+              f"calls {json.dumps(fuzz_stops)}", flush=True)
+
+        # (e) the examples, each a process of its own on the card
+        examples_entry = {}
+        for name in ("ex01_quickstart_lorentzian", "ex02_quantics_oscillatory",
+                     "ex03_integration_10d", "ex04_contraction_mpo",
+                     "ex05_complex_feynman", "ex07_checkpoint_resume"):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", f"tci_tpu_torch.examples.{name}"],
+                cwd=here, capture_output=True, text=True, timeout=300)
+            wall = time.perf_counter() - t0
+            lines = proc.stdout.strip().splitlines()
+            if proc.returncode != 0 or not lines or lines[-1] != "ok":
+                fail(f"4k example {name}: exit {proc.returncode}, stdout "
+                     f"{proc.stdout[-2000:]!r}, stderr {proc.stderr[-2000:]!r}")
+            examples_entry[name] = wall
+            print(f"[aux] 4k example {name}: ok in {wall:.3f} s (process "
+                  f"included); " + " | ".join(lines[:-1])[:400], flush=True)
+        aux_entry["examples_s"] = examples_entry
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        aux_entry["phase_s"] = time.perf_counter() - t_aux
+        print(f"[aux] 4k: {aux_entry['phase_s']:.3f} s in all", flush=True)
+        return aux_entry
+
+    aux_entry = run_aux()
+
     # -- 5. kernel vs plain on every launch of the cold runs -------------------
     # for their times: config 1's first fill (its P blocks in one launch),
     # and of each engine run the square bond panel of each size with the most
@@ -3987,7 +4476,13 @@ def main():
                                 for t, r in contraction.items()
                                 if t not in ("panels", "memory")},
                              **{t.replace(" ", "_"): r["launches"]
-                                for t, r in conversions.items()}},
+                                for t, r in conversions.items()},
+                             **{f"4k_resume_{c}": r["launches"]
+                                for c, r in aux_entry["checkpoint"].items()},
+                             **{f"4k_scalar_{c}": r["launches"]
+                                for c, r in aux_entry["scalar_f"].items()},
+                             "4k_kernel_fuzz":
+                                 aux_entry["kernel_fuzz"]["launches"]},
         "max_abs_err": max_err,
         "ms": ms if ms is not None else eng["engine_panel_wrapper_ms"],
         "ms_from": "profiler" if ms is not None else "cuda events",
@@ -4017,6 +4512,9 @@ def main():
         # TCI1, the random-f sweep by D, the conversions' walls, launches
         # and the kernel on their panels, the matrix engines on config 2
         "tci1": tci1_entry,
+        # the auxiliaries (phase 4k): checkpoint and resume, the scalar f,
+        # interop, the kernel fuzz by type and mode, the examples' walls
+        "aux": aux_entry,
         **host_panel,
         **eng,
         **n2000,

@@ -27,6 +27,7 @@ Indices are 0-based tuples.
 
 from __future__ import annotations
 
+import sys
 import time
 from typing import Callable, List, Optional, Sequence, Tuple, Union
 
@@ -40,6 +41,7 @@ from ..parallel.batcheval import (
     isbatchevaluable,
 )
 from ..utils.device import numpy_dtype, resolve_device, to_device, torch_dtype
+from ..utils.indexset import isnested
 from ..utils.sweep import forwardsweep
 from ..utils.util import _host, padzero, pushunique
 from .globalpivotfinder import DefaultGlobalPivotFinder, GlobalPivotSearchInput
@@ -218,6 +220,24 @@ class TensorCI2(AbstractTensorTrain):
 
     def issitetensorsavailable(self) -> bool:
         return all(t.numel() != 0 for t in self._sitetensors)
+
+    def printnestinginfo(self, file=None) -> None:
+        """Print, bond by bond, whether Iset and Jset are nested, to `file`
+        (default stdout), in ``tci_tpu``'s words line for line."""
+        io = file or sys.stdout
+        print("Nesting info: Iset", file=io)
+        for i in range(len(self.Iset) - 1):
+            if isnested(self.Iset[i], self.Iset[i + 1], "row"):
+                print(f"  Nested: {i} < {i + 1}", file=io)
+            else:
+                print(f"  Not nested: {i} !< {i + 1}", file=io)
+        print("", file=io)
+        print("Nesting info: Jset", file=io)
+        for i in range(len(self.Jset) - 1):
+            if isnested(self.Jset[i + 1], self.Jset[i], "col"):
+                print(f"  Nested: {i + 1} < {i}", file=io)
+            else:
+                print(f"  Not nested: ! {i + 1} < {i}", file=io)
 
     # -- max |sample| (read on the host only when needed) -------------------
 

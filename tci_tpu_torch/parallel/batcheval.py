@@ -291,6 +291,24 @@ class TorchBatchEvaluator(BatchEvaluator):
         self._device_sweep_engine = None
         self._panel_sampler = None
 
+    @classmethod
+    def from_scalar(cls, f: Callable[[torch.Tensor], torch.Tensor], localdims,
+                    dtype=torch.float64,
+                    device: Optional[Union[str, torch.device]] = None,
+                    enable_device_sweep: bool = True,
+                    cuda_graphs: bool = True) -> "TorchBatchEvaluator":
+        """An evaluator of a scalar `f`: f maps one (L,) int64 index tensor
+        to a 0-d tensor, and the evaluator calls ``torch.func.vmap(f)`` on
+        (N, L) batches, as ``tci_tpu``'s ``JaxBatchEvaluator`` calls
+        ``jax.vmap`` on its f. Everything else is the batched evaluator's:
+        its tiers, its CUDA graphs and what a recordable f may not do. Under
+        vmap f may also not branch on the values of its index (an ``if``
+        on a tensor, ``.item()``): vmap raises its own error at the first
+        call, as ``jax.vmap`` does for a traced ``if``."""
+        return cls(torch.func.vmap(f), localdims, dtype=dtype, device=device,
+                   enable_device_sweep=enable_device_sweep,
+                   cuda_graphs=cuda_graphs)
+
     def _tier_dtype(self) -> torch.dtype:
         """The value type of the device tiers: the evaluator's, with
         complex64 promoted to complex128, the rrLU kernel's complex type

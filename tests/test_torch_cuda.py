@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_fuzz as fz
 import tci_tpu_torch
 from tci_tpu_torch.ops import lu_cuda, lu_kernel, probe_batched
 
@@ -1704,3 +1705,193 @@ def test_conversion_tensortrain_launches_the_kernel_per_luci(cuda,
     assert lu_cuda.LAUNCHES["rrlu"] - launches == len(made)
     assert lu_kernel.PLAIN_CALLS["cuda"] == plain
     assert out.linkdims() == tt.linkdims()
+
+
+# -- the auxiliaries on the card: checkpoint, interop, from_scalar ------------
+
+def _config1_scalar(v):
+    v = v.to(torch.float64) + 1.0
+    return 1.0 / (1.0 + (v * v).sum())
+
+
+def _config1_batched(idx):
+    v = idx.to(torch.float64) + 1.0
+    return 1.0 / (1.0 + (v * v).sum(1))
+
+
+def test_from_scalar_records_into_the_engines_graphs(cuda):
+    """A vmapped scalar f records into the engine's CUDA graphs like the
+    batched f (no key declined, the second run only replays) and gives its
+    ranks, errors, samples and site tensors bit for bit."""
+    dims = [10] * 6
+    out = {}
+    for kind in ("scalar", "batched"):
+        ev = (tci_tpu_torch.TorchBatchEvaluator.from_scalar(
+            _config1_scalar, dims) if kind == "scalar" else
+            tci_tpu_torch.TorchBatchEvaluator(_config1_batched, dims))
+        for run in range(2):
+            ev.reset_nevals()
+            t, ranks, errors = tci_tpu_torch.crossinterpolate2(
+                np.float64, ev, dims, tolerance=1e-8,
+                rng=np.random.default_rng(0))
+        engine = ev.device_sweep_engine
+        assert not engine.declined and engine.replays > 0
+        out[kind] = (t, ranks, errors, ev.nevals)
+    (ts, rs, es, ns), (tb, rb, eb, nb) = out["scalar"], out["batched"]
+    assert rs == rb and es == eb and ns == nb
+    assert ts.Iset == tb.Iset and ts.Jset == tb.Jset
+    for a, b in zip(ts.sitetensors(), tb.sitetensors()):
+        assert torch.equal(a, b)
+
+
+def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """save -> load on the card -> save gives the same arrays bit for bit;
+    the loaded TCI resumes on the engine of a kept evaluator, which only
+    replays the graphs it recorded."""
+    from tci_tpu_torch.utils import checkpoint
+    from tci_tpu_torch.utils.device import FETCHES
+
+    dims = [10] * 6
+    ev = tci_tpu_torch.TorchBatchEvaluator(_config1_batched, dims)
+    t, _, _ = tci_tpu_torch.crossinterpolate2(
+        np.float64, ev, dims, tolerance=1e-4, rng=np.random.default_rng(0))
+    a, b = str(tmp_path / "a.npz"), str(tmp_path / "b.npz")
+    FETCHES.clear()
+    checkpoint.save_tci2(a, t)
+    assert FETCHES["checkpoint"] == 1
+    loaded = checkpoint.load_tci2(a)
+    assert loaded.device.type == "cuda" and loaded._maxsample_dev is None
+    assert all(x.device.type == "cuda" for x in loaded.sitetensors())
+    checkpoint.save_tci2(b, loaded)
+    with np.load(a) as fa, np.load(b) as fb:
+        assert sorted(fa.files) == sorted(fb.files)
+        for k in fa.files:
+            assert fa[k].tobytes() == fb[k].tobytes(), k
+    # resume twice from the file on one evaluator: the second only replays
+    res = []
+    for _ in range(2):
+        r = checkpoint.load_tci2(a)
+        ranks, errors = r.optimize(ev, tolerance=1e-8,
+                                   rng=np.random.default_rng(0))
+        res.append((ranks, errors, r.Iset, r.Jset))
+    assert res[0] == res[1] and res[0][1][-1] < 1e-8
+    assert not ev.device_sweep_engine.declined
+
+
+def test_interop_round_trips_on_the_card(cuda):
+    from tci_tpu_torch.interop import mps
+
+    rng = np.random.default_rng(1)
+    b = [1, 3, 4, 3, 1]
+    cores = [rng.standard_normal((b[n], 2, b[n + 1]))
+             + 1j * rng.standard_normal((b[n], 2, b[n + 1])) for n in range(4)]
+    tt = tci_tpu_torch.TensorTrain(cores)
+    arrays = mps.to_mps_tensors(tt)
+    assert all(a.device.type == "cuda" for a in arrays)
+    back = mps.from_mps_tensors(arrays)
+    quimb = mps.from_quimb_mps(type("MPS", (), {
+        "arrays": mps.to_quimb_arrays(tt)})())
+    for res in (back, quimb):
+        for x, y in zip(res.sitetensors(), tt.sitetensors()):
+            assert x.device.type == "cuda" and torch.equal(x, y)
+    pts = np.random.default_rng(2).integers(0, 2, (50, 4))
+    want = tt.evaluate_batch(pts).cpu().numpy()
+    for p, w in zip(pts, want):
+        got = mps.evaluate_mps(arrays, p)
+        assert abs(got - w) <= 1e-12 * abs(w)
+
+
+# -- the device fuzz suite: the tiers on the card against the CPU -------------
+
+def _on_both(run, case, device):
+    """run(case) on the card and on the CPU; no plain-version call on a
+    CUDA tensor on the way."""
+    plain = lu_kernel.PLAIN_CALLS["cuda"]
+    on_card = run(case, device)
+    assert lu_kernel.PLAIN_CALLS["cuda"] == plain
+    return on_card, run(case, "cpu")
+
+
+def _fuzz(sweep):
+    return range(fz.NTRIALS[sweep])
+
+
+@pytest.mark.parametrize("trial", _fuzz("compress"))
+def test_fuzz_compress_on_the_card(cuda, trial):
+    case = fz.compress_case(trial)
+    (h, hf, d, df), (hc, hfc, dc, dfc) = _on_both(fz.run_compress, case, cuda)
+    scale = max(1.0, np.abs(hfc).max())
+    assert h == d == hc == dc, case["cfg"]
+    for x in (hf, df):
+        assert np.allclose(x, hfc, rtol=0, atol=1e-8 * scale), case["cfg"]
+
+
+@pytest.mark.parametrize("trial", _fuzz("contraction"))
+def test_fuzz_contraction_on_the_card(cuda, trial):
+    case = fz.contraction_case(trial)
+    (h, hf, d, df), (hc, hfc, dc, dfc) = _on_both(fz.run_contraction, case,
+                                                  cuda)
+    scale = max(1.0, np.abs(hfc).max())
+    assert h == hc and d == dc, case["cfg"]
+    assert max(d) <= case["mbd"] and not np.any(np.isnan(df)), case["cfg"]
+    assert np.allclose(hf, hfc, rtol=0, atol=1e-7 * scale), case["cfg"]
+    assert np.allclose(df, dfc, rtol=0, atol=1e-7 * scale), case["cfg"]
+
+
+@pytest.mark.parametrize("trial", _fuzz("rook"))
+def test_fuzz_rook_on_the_card(cuda, trial):
+    case = fz.rook_case(trial)
+    launches = lu_cuda.LAUNCHES["rrlu"]
+    (ld, ranks, errors, full, calls), cpu = _on_both(fz.run_rook, case, cuda)
+    assert calls > 0 and lu_cuda.LAUNCHES["rrlu"] > launches, case["cfg"]
+    exact = fz.rook_exact(case)
+    scale = np.abs(exact).max()
+    assert np.abs(full - exact).max() < 1e-7 * scale, case["cfg"]
+    assert ld == cpu[0] and ranks == cpu[1], case["cfg"]
+    assert np.allclose(errors, cpu[2], rtol=0, atol=1e-15), case["cfg"]
+
+
+@pytest.mark.parametrize("trial", _fuzz("complex"))
+def test_fuzz_complex_on_the_card(cuda, trial):
+    case = fz.complex_case(trial)
+    (el, ef, hl, hf), (elc, efc, hlc, hfc) = _on_both(fz.run_complex, case,
+                                                      cuda)
+    assert el == hl == elc == hlc, case["cfg"]
+    for x in (ef, hf):
+        assert np.allclose(x, hfc, rtol=0, atol=1e-8), case["cfg"]
+
+
+@pytest.mark.parametrize("trial", _fuzz("conversion"))
+def test_fuzz_conversion_on_the_card(cuda, trial):
+    case = fz.conversion_case(trial)
+    out, cpu = _on_both(fz.run_conversion, case, cuda)
+    scale = np.abs(cpu["tci2"][1]).max()
+    for name in out:
+        assert out[name][0] == cpu[name][0] == cpu["tci2"][0], (
+            case["cfg"], name)
+        assert np.allclose(out[name][1], cpu[name][1], rtol=0,
+                           atol=1e-8 * scale), (case["cfg"], name)
+
+
+@pytest.mark.parametrize("trial", _fuzz("floatingzone"))
+def test_fuzz_floatingzone_on_the_card(cuda, trial):
+    case = fz.floatingzone_case(trial)
+    (ld, dev, host), (ldc, devc, hostc) = _on_both(fz.run_floatingzone, case,
+                                                   cuda)
+    assert ld == ldc and len(dev) > 0, case["cfg"]
+    errs = [e for _, e in dev]
+    assert errs == sorted(errs, reverse=True), case["cfg"]
+    best = max(host, key=lambda pe: pe[1])
+    assert dev[0][0] == best[0], case["cfg"]
+    assert np.isclose(dev[0][1], best[1], rtol=1e-9), case["cfg"]
+    assert np.isclose(dev[0][1], devc[0][1], rtol=1e-9), case["cfg"]
+
+
+@pytest.mark.parametrize("trial", _fuzz("tci1"))
+def test_fuzz_tci1_on_the_card(cuda, trial):
+    case = fz.tci1_case(trial)
+    (ranks, errors, ld, full), cpu = _on_both(fz.run_tci1, case, cuda)
+    exact = fz.tci1_exact(case)
+    assert np.abs(full - exact).max() < 1e-8 * np.abs(exact).max()
+    assert ranks == cpu[0] and ld == cpu[2], case["cfg"]
+    assert np.allclose(errors, cpu[1], rtol=0, atol=1e-15), case["cfg"]

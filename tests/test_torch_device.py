@@ -143,3 +143,73 @@ def test_cpu_tensor_stays_on_the_cpu(no_card, entry):
     assert out.left().device.type == "cpu"
     np.testing.assert_allclose((out.left() @ out.right()).numpy(), A.numpy(),
                                rtol=0, atol=1e-12)
+
+
+def lorentzian_one(v):
+    """config 1's f on one (L,) index vector: a scalar f for from_scalar."""
+    v = v.to(torch.float64) + 1.0
+    return 1.0 / (1.0 + (v * v).sum())
+
+
+def test_from_scalar_samples_as_the_batched_f():
+    """from_scalar vmaps a scalar f: its samples are the batched f's bit
+    for bit, real and complex, and a branch on the index's values raises
+    vmap's own error at the first call."""
+    idx = torch.from_numpy(np.random.default_rng(2).integers(0, 10, (500, 4)))
+    ev = tci_tpu_torch.TorchBatchEvaluator.from_scalar(lorentzian_one, DIMS,
+                                                       device="cpu")
+    bf = tci_tpu_torch.TorchBatchEvaluator(lorentzian_torch, DIMS,
+                                           device="cpu")
+    assert torch.equal(ev.evaluate_many(idx), bf.evaluate_many(idx))
+    Iset, Jset = [(1, 2), (3, 4)], [(5,), (0,)]
+    assert torch.equal(ev.batch_evaluate(Iset, Jset, 1),
+                       bf.batch_evaluate(Iset, Jset, 1))
+    assert ev.nevals == 500 + 2 * 10 * 2
+
+    def cplx_one(v):
+        v = v.to(torch.float64) + 1.0
+        return torch.polar(1.0 / (1.0 + (v * v).sum()), v.sum())
+
+    def cplx(v):
+        v = v.to(torch.float64) + 1.0
+        return torch.polar(1.0 / (1.0 + (v * v).sum(1)), v.sum(1))
+
+    evc = tci_tpu_torch.TorchBatchEvaluator.from_scalar(
+        cplx_one, DIMS, dtype=torch.complex128, device="cpu")
+    assert torch.equal(evc.evaluate_many(idx), cplx(idx))
+
+    def branching(v):
+        if v.sum() > 10:
+            return v.sum().to(torch.float64)
+        return -v.sum().to(torch.float64)
+
+    bad = tci_tpu_torch.TorchBatchEvaluator.from_scalar(branching, DIMS,
+                                                        device="cpu")
+    with pytest.raises(RuntimeError):
+        bad.evaluate_many(idx)
+
+
+@pytest.mark.parametrize("engine", [True, False])
+def test_from_scalar_matches_jax_batch_evaluator(engine):
+    """crossinterpolate2 through from_scalar on the CPU, on the engine and
+    on the per-bond fused tier, gives tci_tpu's JaxBatchEvaluator ranks and
+    errors (ERR_ATOL) and its pivot sets."""
+    import jax.numpy as jnp
+
+    def fjax(idx):
+        v = idx.astype(jnp.float64) + 1.0
+        return 1.0 / (1.0 + jnp.sum(v * v))
+
+    ref, rranks, rerrs = tci_tpu.crossinterpolate2(
+        np.float64, tci_tpu.JaxBatchEvaluator(
+            fjax, DIMS, enable_device_sweep=engine),
+        DIMS, tolerance=1e-8, rng=np.random.default_rng(0))
+    ev = tci_tpu_torch.TorchBatchEvaluator.from_scalar(
+        lorentzian_one, DIMS, device="cpu", enable_device_sweep=engine)
+    out, ranks, errs = tci_tpu_torch.crossinterpolate2(
+        np.float64, ev, DIMS, tolerance=1e-8, rng=np.random.default_rng(0),
+        device="cpu")
+    assert (ev._device_sweep_engine is not None) == engine
+    assert ranks == rranks
+    assert out.Iset == ref.Iset and out.Jset == ref.Jset
+    np.testing.assert_allclose(errs, rerrs, rtol=0, atol=ERR_ATOL)

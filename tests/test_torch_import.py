@@ -30,7 +30,8 @@ def test_import_leaves_jax_out():
 
 
 # tci_tpu's public names that the port does not have yet, each with the
-# ROADMAP step that ports it, and the one it replaces
+# ROADMAP step that ports it, and the one it replaces (JaxBatchEvaluator's
+# scalar-f contract is TorchBatchEvaluator.from_scalar)
 NOT_PORTED = {
     "A14": {"rrlu_sharded"},
     "replaced by TorchBatchEvaluator": {"JaxBatchEvaluator"},
@@ -57,7 +58,11 @@ def test_exports_cover_tci_tpu():
     "models.globalsearch", "parallel.cachedfunction", "ops.lu_device",
     "utils.prng", "models.contraction", "models.contraction_device",
     "models.compress_device", "ops.ci", "ops.aca", "models.tensorci1",
-    "models.conversion"])
+    "models.conversion", "utils.checkpoint", "interop", "interop.mps",
+    "examples", "examples.ex01_quickstart_lorentzian",
+    "examples.ex02_quantics_oscillatory", "examples.ex03_integration_10d",
+    "examples.ex04_contraction_mpo", "examples.ex05_complex_feynman",
+    "examples.ex07_checkpoint_resume"])
 def test_module_import_leaves_jax_out(module):
     code = (
         f"import sys, tci_tpu_torch.{module}\n"

@@ -11,6 +11,7 @@ pivot block P of a site tensor T = Π1 · P^{-1} is worse conditioned than
 eliminations round differently, ROADMAP C-port-1).
 """
 
+import io
 import itertools
 
 import numpy as np
@@ -205,3 +206,35 @@ def test_engine_tier_gives_the_host_tiers_results(state):
     eng.makecanonical(bf, reltol=1e-6)
     host.makecanonical(fp, reltol=1e-6)
     assert eng.Iset == host.Iset and eng.Jset == host.Jset
+
+
+def _lorentzian_plain(v):
+    return 1.0 / (1.0 + sum((x + 1) ** 2 for x in v))
+
+
+def _nesting_text(t):
+    out = io.StringIO()
+    t.printnestinginfo(out)
+    return out.getvalue()
+
+
+@pytest.mark.parametrize("dims, tol", [
+    ([4] * 4, 1e-8),    # tests/test_tensorci2.py's printnestinginfo case
+    ([10] * 6, 1e-6),   # a bond whose sets are not nested
+])
+def test_printnestinginfo_prints_tci_tpus_text(dims, tol, capsys):
+    ref, _, _ = tci_tpu.crossinterpolate2(np.float64, _lorentzian_plain,
+                                          dims, tolerance=tol,
+                                          rng=np.random.default_rng(0))
+    out, _, _ = tci_tpu_torch.crossinterpolate2(
+        np.float64, _lorentzian_plain, dims, tolerance=tol,
+        rng=np.random.default_rng(0), device="cpu")
+    assert out.Iset == ref.Iset and out.Jset == ref.Jset
+    text = _nesting_text(out)
+    assert text.encode() == _nesting_text(ref).encode()
+    assert ("Not nested" in text) == (dims == [10] * 6)
+    # stdout by default
+    out.printnestinginfo()
+    ref.printnestinginfo()
+    printed = capsys.readouterr().out
+    assert printed == text + text
