@@ -8,8 +8,9 @@ needs one CUDA device and exits non-zero without one. Phases, one output
 line or more each:
 
 1. the device: torch's name for it, and nvidia-smi's name and power limit;
-2. the build of the CUDA kernels from the sources, csrc/rrlu.cu and
-   csrc/probe_batched.cu, one nvcc process each, started together;
+2. the build of the CUDA kernels from the sources, csrc/rrlu.cu,
+   csrc/probe_batched.cu and csrc/lu_sharded.cu, one nvcc process each,
+   started together;
 3. the kernel against its plain PyTorch version on the card, float64 and
    float32: Lorentzian panels at the main path's bucket sizes (8 ... 128,
    both orientations, padding, an abstol and a reltol stop; for each, the
@@ -217,6 +218,27 @@ line or more each:
    and mode; (e) each example of ``tci_tpu_torch/examples`` as a process
    of its own on the card: it prints ``ok``, its wall is printed. The cold
    runs of (a) and (b) queue eagerly and are recorded for phase 5;
+4l. the multi-GPU layer (``[mesh]`` lines), with every count set to 0
+   just before it and read just after: (a) a one-rank NCCL group on a
+   file store in a temporary directory and its DeviceMesh; (b) BASELINE
+   config 2 through ``rrlu_sharded`` on it: pivot order, npivot, err and
+   the LU buffer bitwise the one-device kernel's in the same call, every
+   launch of the step kernel (csrc/lu_sharded.cu) bitwise its plain
+   version, the launches, collectives, stop-flag reads and dead steps,
+   the call's time against the one-device kernel's, the step kernel's time
+   alone, its bound and the plain version's time; (c) config 1 on the
+   mesh under the default protocol (the all-gather inside the engine's
+   graphs), cold and the median of 10 warm runs on a kept evaluator,
+   beside the one-device run: ranks, errors and nevals bit for bit and
+   tci_tpu's series; (d) config 4's ``integrate(torch_native=True,
+   mesh=)``, bitwise the one-device integral; (e) phase 4i's zip-up at L =
+   20, chi = 16 and config 1's train compressed on the mesh, bitwise the
+   device tier's, every step-kernel launch checked; (f)
+   ``tt_evaluate_sharded``, ``parallel.dryrun.run(1)`` and ex06 as a
+   process; (g) two gloo ranks spawned on the one card running config 2's
+   ``rrlu_sharded`` on half-height blocks (gloo all-reduces CUDA tensors
+   through the host), bitwise the one-device kernel. Nothing runs on more
+   than one GPU: the machine has one;
 5. the kernel against the plain version on every launch the cold runs of
    phases 3d, 4, 4b, 4c, 4f, 4g, 4h, 4i, 4j and 4k made (rook: each slab shape's time,
    bound and plain time, and a dead step's); its times on the engines' bond panels (Imax
@@ -252,6 +274,7 @@ Any failure exits non-zero; nothing falls back to the CPU.
 """
 
 import argparse
+import gc
 import hashlib
 import itertools
 import json
@@ -512,6 +535,477 @@ def run_phases(smi_line):
     print(smi_line, flush=True)
 
 
+def mpo_operands(L, chi, seed=42):
+    """Phase 4i's MPO operands (examples/04_contraction_mpo.py's: legs (2,
+    2), default_rng(42)), as numpy cores."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+
+    def mpo():
+        b = [1] + [chi] * (L - 1) + [1]
+        return [rng.standard_normal((b[n], 2, 2, b[n + 1])) / np.sqrt(chi)
+                for n in range(L)]
+    return mpo(), mpo()
+
+
+def config2_matrix(dev):
+    """BASELINE config 2's matrix (benchmarks/bench_rrlu.py:96-133): 4096^2
+    f64, U diag(exp(-j/16)) V of rank 256, from default_rng(4096)."""
+    import numpy as np
+    import torch
+    N, R = 4096, 256
+    rng = np.random.default_rng(4096)
+    U = rng.standard_normal((N, R)) * np.exp(-np.arange(R) / 16.0)
+    return torch.as_tensor(U @ rng.standard_normal((R, N)), device=dev)
+
+
+def mesh_gloo_rank(rank, store, out):
+    """Phase 4l (g): one of two gloo ranks on the one card, running config
+    2's rrlu_sharded with the step kernel on half-height blocks, every
+    launch checked against its plain version; the result goes to
+    out/rank<r>.json."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    res = {}
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                rank=rank, world_size=2)
+        from tci_tpu_torch.ops import lu_kernel, lu_sharded
+        from tci_tpu_torch.parallel.mesh import default_mesh
+        mesh = default_mesh(2)
+        A = config2_matrix(torch.device("cuda", 0))
+        lu_sharded.CHECKS = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = lu_sharded.rrlu_sharded_raw(A, 256, 1e-10, 0.0, True, mesh=mesh)
+        res["wall_s"] = time.perf_counter() - t0
+        checks, lu_sharded.CHECKS = lu_sharded.CHECKS, None
+        one = lu_kernel.rrlu_raw(A, 256, 1e-10, 0.0, True)
+        res.update(
+            k=s[3], same_order=bool(np.array_equal(s[1], one[1])
+                                    and np.array_equal(s[2], one[2])
+                                    and s[3] == one[3]),
+            same_lu=bool(torch.equal(s[0], one[0])),
+            launches=lu_sharded.LAUNCHES["lu_sharded_step"],
+            checked=len(checks), all_equal=all(eq for _, eq, _ in checks),
+            max_abs_err=max((e for _, _, e in checks), default=0.0),
+            collectives=dict(lu_sharded.COLLECTIVES),
+            backend=dist.get_backend(), mesh_size=mesh.size())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lu_sharded.rrlu_sharded_raw(A, 256, 1e-10, 0.0, True, mesh=mesh)
+        res["warm_wall_s"] = time.perf_counter() - t0
+        dist.destroy_process_group()
+    except Exception:
+        import traceback
+        res["error"] = traceback.format_exc()
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as fh:
+        json.dump(res, fh)
+
+
+def run_mesh(here, smi_line):
+    """Phase 4l: the multi-GPU layer on a one-rank NCCL mesh of the card
+    (and two gloo ranks on it); returns the lu_sharded_step entry of the
+    kernels JSON line. Every count is set to 0 just before the mesh path
+    runs and read just after. The group goes when the phase ends or fails:
+    a group left to the interpreter's exit, with CUDA graphs that hold its
+    collectives, can hang it."""
+    import torch.distributed as dist
+    try:
+        return _run_mesh(here, smi_line)
+    finally:
+        gc.collect()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run_mesh(here, smi_line):
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import tci_tpu_torch
+    from tci_tpu_torch.models import integration
+    from tci_tpu_torch.models.tteval import (pad_cores, tt_evaluate_batched,
+                                             tt_evaluate_sharded)
+    from tci_tpu_torch.ops import lu_cuda, lu_kernel, lu_sharded
+    from tci_tpu_torch.parallel import dryrun
+    from tci_tpu_torch.parallel.mesh import default_mesh
+
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    HBM, PEAK64 = 3.35e12, 34e12  # H100 SXM data sheet (700 W)
+
+    def say(msg):
+        print(f"[mesh] {time.perf_counter() - t_phase:.1f} s {msg}",
+              flush=True)
+
+    def events_ms(fn, reps=1):
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / reps
+
+    def med(xs):
+        xs = sorted(xs)
+        return (xs[(len(xs) - 1) // 2] + xs[len(xs) // 2]) / 2
+
+    # (a) a one-rank NCCL group on a file store in a temporary directory
+    if dist.is_initialized():
+        fail("4l: a process group exists before phase 4l")
+    mesh = default_mesh(1)
+    if dist.get_backend() != "nccl" or mesh.size() != 1:
+        fail(f"4l (a): backend {dist.get_backend()}, {mesh.size()} ranks")
+    say(f"4l (a): one-rank {dist.get_backend()} mesh {mesh} on "
+          f"{torch.cuda.get_device_name(0)}")
+
+    for counter in (lu_sharded.LAUNCHES, lu_sharded.COLLECTIVES,
+                    lu_sharded.FLAG_READS, lu_sharded.PLAIN_CALLS,
+                    lu_cuda.LAUNCHES):
+        counter.clear()
+    entry = {"launches_by_path": {}}
+    all_checks = []
+
+    def step_launches():
+        return lu_sharded.LAUNCHES["lu_sharded_step"]
+
+    # (b) config 2 through rrlu_sharded: cold with every launch checked
+    A = config2_matrix(dev)
+    N, R = A.shape[0], 256
+    lu_sharded.CHECKS = []
+    s = lu_sharded.rrlu_sharded_raw(A, R, 1e-10, 0.0, True, mesh=mesh)
+    checks, lu_sharded.CHECKS = lu_sharded.CHECKS, None
+    all_checks += checks
+    entry["launches_by_path"]["4l_config2"] = step_launches()
+    coll = dict(lu_sharded.COLLECTIVES)
+    reads = lu_sharded.FLAG_READS["stop"]
+    one = lu_kernel.rrlu_raw(A, R, 1e-10, 0.0, True)
+    k = s[3]
+    if not (k == one[3] == R and np.array_equal(s[1], one[1])
+            and np.array_equal(s[2], one[2])):
+        fail(f"4l (b): the sharded pivot order is not the one-device "
+             f"kernel's (k {k} / {one[3]})")
+    if not (torch.equal(s[0], one[0]) and np.array_equal(s[4], one[4])
+            and s[5] == one[5]):
+        fail("4l (b): the sharded LU buffer, pivots or err differ from the "
+             "one-device kernel's")
+    if (not checks or len(checks) != step_launches()
+            or not all(eq for _, eq, _ in checks)):
+        fail(f"4l (b): {sum(not eq for _, eq, _ in checks)} of {len(checks)} "
+             f"checked step-kernel launches differ from the plain version "
+             f"({step_launches()} launches)")
+    steps = (step_launches() - 1) // 3
+    # warm times, events around whole calls (host included: each step is
+    # queued from the host), against the one-device kernel in the same call
+    Ap = torch.zeros_like(A)
+    Ap.copy_(A)
+    t_mesh = [events_ms(lambda: lu_sharded.rrlu_panel_sharded(
+        Ap, N, N, R, 1e-10, 0.0, leftorthogonal=True, mesh=mesh))
+        for _ in range(3)]
+    t_one = [events_ms(lambda: lu_cuda.rrlu_call(
+        Ap, N, N, R, 1e-10, 0.0, leftorthogonal=True)) for _ in range(3)]
+    # the step kernel alone: the call's 256 steps of the three kernels
+    # queued back to back on one rank (no collective is needed on one rank)
+    st = lu_sharded._State(Ap.clone(), 0, N, N, N, 1e-10, 0.0, True)
+
+    def kernel_steps():
+        lu_sharded._launch(st, 0)
+        for _ in range(R):
+            for phase in (1, 2, 3):
+                lu_sharded._launch(st, phase)
+    kernel_ms = events_ms(kernel_steps)
+    if int(st.ist[0]) != R:
+        fail(f"4l (b): the kernel-only steps took {int(st.ist[0])} pivots")
+    st = lu_sharded._State(Ap.clone(), 0, N, N, N, 1e-10, 0.0, True)
+    lu_sharded._launch(st, 0)
+    pick_us = events_ms(lambda: lu_sharded._launch(st, 1), 50) * 1e3
+    lu_sharded._launch(st, 2)
+    update_us = events_ms(lambda: lu_sharded._launch(st, 3), 20) * 1e3
+    # the plain version of a whole call on the card (its three phases in
+    # torch operations), once
+    phase_fn = lu_sharded._phase
+    lu_sharded._phase = lu_sharded._plain
+    try:
+        plain_ms = events_ms(lambda: lu_sharded.rrlu_panel_sharded(
+            Ap, N, N, R, 1e-10, 0.0, leftorthogonal=True, mesh=mesh))
+    finally:
+        lu_sharded._phase = phase_fn
+    # the bound: the rank's live block read and written once a step, or
+    # two operations an element of it, whichever is larger (f64, 8 bytes)
+    live = [(N - j) * (N - j) for j in range(k)]
+    t_bytes = sum(16.0 * e for e in live) / HBM * 1e3
+    t_ops = sum(2.0 * (N - 1 - j) * (N - 1 - j) for j in range(k)) \
+        / PEAK64 * 1e3
+    bound = max(t_bytes, t_ops)
+    entry.update(
+        ms=kernel_ms, ms_from="cuda events around the call's 769 launches "
+        "queued back to back", plain_ms=plain_ms, bound_ms=bound,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        steps=steps, collectives_per_step=3, collectives=coll,
+        flag_reads=reads, dead_steps=steps - k,
+        call_ms=med(t_mesh), call_ms_all=t_mesh,
+        one_device_ms=med(t_one), one_device_ms_all=t_one,
+        pick_us=pick_us, update_us_step0=update_us,
+        step_us=kernel_ms / steps * 1e3 if steps else None)
+    say(f"4l (b) config 2 rrlu_sharded (4096^2 f64, rank {k}, one "
+          f"NCCL rank): pivot order, npivot, err and LU buffer bitwise the "
+          f"one-device kernel's; {entry['launches_by_path']['4l_config2']} "
+          f"step-kernel launches ({steps} steps x 3 + 1), every one bitwise "
+          f"its plain version; collectives {json.dumps(coll)}, {reads} stop-"
+          f"flag reads, {steps - k} dead steps; call (events, median of 3) "
+          f"{entry['call_ms']:.3f} ms {[round(t, 3) for t in t_mesh]} against "
+          f"the one-device kernel {entry['one_device_ms']:.3f} ms "
+          f"{[round(t, 3) for t in t_one]}; the step kernel alone "
+          f"{kernel_ms:.3f}"
+          f" ms a call ({entry['step_us']:.2f} us a step; pick {pick_us:.2f} "
+          f"us, update at step 0 {update_us:.2f} us); bound {bound:.4f} ms "
+          f"({entry['bound_by']}; bytes {t_bytes:.4f}, operations "
+          f"{t_ops:.4f}); plain version {plain_ms:.3f} ms")
+
+    # (c) config 1 through crossinterpolate2 on the mesh, default protocol
+    localdims = [10] * 8
+
+    def fdev(idx):
+        v = idx.to(torch.float64) + 1.0
+        return 1.0 / (1.0 + (v * v).sum(dim=1))
+
+    def solve1(f):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tci, ranks, errors = tci_tpu_torch.crossinterpolate2(
+            np.float64, f, localdims, tolerance=1e-8,
+            rng=np.random.default_rng(0))
+        torch.cuda.synchronize()
+        return tci, ranks, errors, time.perf_counter() - t0
+
+    runs = {}
+    for tag, m in (("mesh", mesh), ("one", None)):
+        f = tci_tpu_torch.TorchBatchEvaluator(fdev, localdims, mesh=m)
+        cold = solve1(f)
+        n_cold = f.nevals
+        walls = []
+        for _ in range(10):
+            f.reset_nevals()
+            walls.append(solve1(f)[3])
+        eng = f.device_sweep_engine
+        runs[tag] = dict(res=cold, nevals=n_cold, warm=walls, f=f,
+                         captures=eng.captures, replays=eng.replays,
+                         declined=dict(eng.declined))
+    rm, ro = runs["mesh"], runs["one"]
+    if rm["declined"] or not rm["captures"] or not rm["replays"]:
+        fail(f"4l (c): the mesh engine declined {rm['declined']}, "
+             f"{rm['captures']} captures, {rm['replays']} replays")
+    if not (rm["res"][1] == ro["res"][1] == RECORDED_RANKS
+            and rm["res"][2] == ro["res"][2]
+            and rm["nevals"] == ro["nevals"]):
+        fail(f"4l (c): mesh ranks {rm['res'][1]} errors {rm['res'][2]} "
+             f"nevals {rm['nevals']} against one device {ro['res'][1]} "
+             f"{ro['res'][2]} {ro['nevals']}")
+    if not np.allclose(rm["res"][2], RECORDED_ERRORS, rtol=0, atol=1e-15):
+        fail(f"4l (c): errors {rm['res'][2]} against tci_tpu's "
+             f"{RECORDED_ERRORS}")
+    entry["config1"] = {t: {"cold_s": r["res"][3], "warm_median_s":
+                            med(r["warm"]), "warm_s": r["warm"],
+                            "captures": r["captures"],
+                            "nevals": r["nevals"]} for t, r in runs.items()}
+    say(f"4l (c) config 1 on the mesh (default protocol, the "
+          f"all-gather inside the engine's graphs: {rm['captures']} captures,"
+          f" {rm['replays']} replays, none declined): ranks, errors and "
+          f"nevals ({rm['nevals']}) bit for bit the one-device run's and "
+          f"tci_tpu's series; cold {rm['res'][3]:.4f} s / one device "
+          f"{ro['res'][3]:.4f} s; warm median of 10 {med(rm['warm']):.4f} s "
+          f"/ one device {med(ro['warm']):.4f} s")
+
+    # (d) config 4's integrate(torch_native=True) on the mesh
+    def f4(X):
+        return 1000 * torch.cos(10 * (X ** 2).sum(dim=1)) * torch.exp(
+            -X.sum(dim=1) ** 4 / 1000)
+
+    vals = {}
+    for tag, m in (("mesh", mesh), ("one", None)):
+        t0 = time.perf_counter()
+        vals[tag] = tci_tpu_torch.integrate(
+            np.float64, f4, [-1.0] * 10, [1.0] * 10, GKorder=15,
+            tolerance=1e-8, maxbonddim=64, torch_native=True, mesh=m,
+            rng=np.random.default_rng(0))
+        vals[tag + "_s"] = time.perf_counter() - t0
+    if (vals["mesh"] != vals["one"]
+            or abs(vals["one"] - CONFIG4_INTEGRAL) > 1e-3):
+        fail(f"4l (d): mesh integral {vals['mesh']!r}, one device "
+             f"{vals['one']!r}, tci_tpu {CONFIG4_INTEGRAL}")
+    entry["config4"] = vals
+    say(f"4l (d) config 4 integrate on the mesh: {vals['mesh']!r}, "
+          f"bitwise the one-device integral (tolerance: bitwise), "
+          f"{abs(vals['one'] - CONFIG4_INTEGRAL):.3e} from tci_tpu's; "
+          f"{vals['mesh_s']:.3f} s / one device {vals['one_s']:.3f} s (new "
+          f"evaluators)")
+
+    # (e) zip-up at L = 20, chi = 16 (phase 4i's operands) and config 1's
+    # train compressed, on the mesh; every step-kernel launch checked
+    a20, b20 = mpo_operands(20, 16)
+    TT = tci_tpu_torch.TensorTrain
+
+    def zipup(m):
+        return tci_tpu_torch.contract(
+            TT(a20), TT(b20), algorithm="zipup", method="LU",
+            tolerance=1e-10, torch_native=True, mesh=m)
+
+    def same_cores(a, b):
+        return a.linkdims() == b.linkdims() and all(
+            torch.equal(x, y) for x, y in zip(a.sitetensors(),
+                                               b.sitetensors()))
+
+    before = step_launches()
+    lu_sharded.CHECKS = []
+    zm = zipup(mesh)
+    checks, lu_sharded.CHECKS = lu_sharded.CHECKS, None
+    all_checks += checks
+    entry["launches_by_path"]["4l_zipup"] = step_launches() - before
+    z1 = zipup(None)
+    if not same_cores(zm, z1) or zm.linkdims() != RECORDED_CONTRACT["zipup"]:
+        fail(f"4l (e): mesh zip-up linkdims {zm.linkdims()}, not bitwise the "
+             f"device tier's")
+    if (len(checks) != entry["launches_by_path"]["4l_zipup"]
+            or not all(eq for _, eq, _ in checks)):
+        fail("4l (e): a zip-up step-kernel launch differs from its plain "
+             "version or went unchecked")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    zipup(mesh)
+    torch.cuda.synchronize()
+    zm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    zipup(None)
+    torch.cuda.synchronize()
+    z1_s = time.perf_counter() - t0
+    tt1 = tci_tpu_torch.tensortrain(rm["res"][0])
+    before = step_launches()
+    lu_sharded.CHECKS = []
+    cm = tt1.copy()
+    cm.compress("LU", tolerance=1e-12, torch_native=True, mesh=mesh)
+    checks, lu_sharded.CHECKS = lu_sharded.CHECKS, None
+    all_checks += checks
+    entry["launches_by_path"]["4l_compress"] = step_launches() - before
+    c1 = tt1.copy()
+    c1.compress("LU", tolerance=1e-12, torch_native=True)
+    if not same_cores(cm, c1) or cm.linkdims() != RECORDED_COMPRESS:
+        fail(f"4l (e): mesh compression linkdims {cm.linkdims()}, not bitwise "
+             f"the device tier's")
+    if (len(checks) != entry["launches_by_path"]["4l_compress"]
+            or not all(eq for _, eq, _ in checks)):
+        fail("4l (e): a compression step-kernel launch differs from its "
+             "plain version or went unchecked")
+    entry["zipup"] = {"mesh_s": zm_s, "one_s": z1_s,
+                      "launches": entry["launches_by_path"]["4l_zipup"]}
+    say(f"4l (e) zip-up L = 20, chi = 16 on the mesh: linkdims and "
+          f"cores bitwise the device tier's ({zm.linkdims()[:4]} ...), "
+          f"{entry['launches_by_path']['4l_zipup']} step-kernel launches "
+          f"checked; warm {zm_s:.4f} s / one device {z1_s:.4f} s; config 1's "
+          f"train compressed on the mesh: linkdims {cm.linkdims()}, cores "
+          f"bitwise, {entry['launches_by_path']['4l_compress']} launches "
+          f"checked")
+
+    # (f) tt_evaluate_sharded, dryrun.run(1), ex06 as its own process
+    cores = pad_cores(tt1.sitetensors())
+    idx = torch.as_tensor(np.random.default_rng(7).integers(
+        0, 10, (10**4, 8)), device=cores.device)
+    if not torch.equal(tt_evaluate_sharded(cores, idx, mesh),
+                       tt_evaluate_batched(cores, idx)):
+        fail("4l (f): tt_evaluate_sharded differs from tt_evaluate_batched")
+    t0 = time.perf_counter()
+    line = dryrun.run(1)
+    dry_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m",
+             "tci_tpu_torch.examples.ex06_multichip_mesh"],
+            cwd=here, capture_output=True, text=True, timeout=180)
+    except subprocess.TimeoutExpired as e:
+        fail(f"4l (f) ex06: no end in 180 s; stdout {str(e.stdout)[-2000:]!r}"
+             f", stderr {str(e.stderr)[-2000:]!r}")
+    ex06_s = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines or lines[-1] != "ok":
+        fail(f"4l (f) ex06: exit {proc.returncode}, stdout "
+             f"{proc.stdout[-2000:]!r}, stderr {proc.stderr[-2000:]!r}")
+    entry.update(dryrun_s=dry_s, ex06_s=ex06_s)
+    say(f"4l (f) tt_evaluate_sharded at 10^4 points bitwise; "
+          f"{line} ({dry_s:.3f} s); ex06 ok in {ex06_s:.3f} s (process "
+          f"included): " + " | ".join(lines[:-1])[:300])
+
+    # the counts of the mesh path, read just after it: the launches of its
+    # runs (each checked), not of the timing runs between them
+    launches = sum(entry["launches_by_path"].values())
+    # the graphs that hold NCCL collectives go before the group
+    integration._GK_EVAL_CACHE.pop(f4, None)
+    del runs, rm, ro, f
+    gc.collect()
+    torch.cuda.synchronize()
+    if launches == 0 or launches != len(all_checks):
+        fail(f"4l: {launches} step-kernel launches on the mesh path, "
+             f"{len(all_checks)} checked")
+    entry.update(launches=launches, checked=len(all_checks),
+                 max_abs_err=max(e for _, _, e in all_checks))
+    dist.destroy_process_group()
+
+    # (g) two gloo ranks on the one card (the card's torch lets gloo
+    # all-reduce CUDA tensors): config 2 on half-height blocks
+    import torch.multiprocessing as mp
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=mesh_gloo_rank,
+                         args=(r, os.path.join(tmp, "store"), tmp))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(600)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    ranks = []
+    for r in range(2):
+        path = os.path.join(tmp, f"rank{r}.json")
+        if not os.path.exists(path):
+            fail(f"4l (g): gloo rank {r} left no result")
+        with open(path) as fh:
+            ranks.append(json.load(fh))
+    shutil.rmtree(tmp, ignore_errors=True)
+    for r, res in enumerate(ranks):
+        if "error" in res:
+            fail(f"4l (g): gloo rank {r}: {res['error']}")
+        if not (res["same_order"] and res["same_lu"] and res["all_equal"]
+                and res["checked"] == res["launches"] > 0):
+            fail(f"4l (g): gloo rank {r}: {res}")
+    entry["gloo_two_ranks"] = ranks
+    say(f"4l (g) two gloo ranks on one card, config 2 on 2048 x "
+          f"4096 blocks: pivot order and LU buffer bitwise the one-device "
+          f"kernel's on both ranks, {ranks[0]['launches']} launches a rank, "
+          f"each bitwise its plain version; cold {ranks[0]['wall_s']:.3f} / "
+          f"{ranks[1]['wall_s']:.3f} s, warm {ranks[0]['warm_wall_s']:.3f} / "
+          f"{ranks[1]['warm_wall_s']:.3f} s (gloo's all-reduce of CUDA "
+          f"tensors goes through the host)")
+    entry["phase_s"] = time.perf_counter() - t_phase
+    print(f"[mesh] 4l: {entry['phase_s']:.3f} s in all", flush=True)
+    return {"name": "lu_sharded_step", "route": "cuda",
+            "source": "tci_tpu_torch/csrc/lu_sharded.cu",
+            "replaces": "tci_tpu/ops/lu_sharded.py:59",
+            "launches": entry.pop("launches"),
+            "max_abs_err": entry.pop("max_abs_err"),
+            "ms": entry.pop("ms"), "plain_ms": entry.pop("plain_ms"),
+            "bound_ms": entry.pop("bound_ms"),
+            "bound_by": entry.pop("bound_by"), "library_ms": None,
+            **entry}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
@@ -535,7 +1029,7 @@ def main():
 
     import tci_tpu_torch
     from tci_tpu_torch.ops import (_build, lu as lu_mod, lu_cuda, lu_kernel,
-                                   probe_batched)
+                                   lu_sharded, probe_batched)
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -553,13 +1047,15 @@ def main():
 
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    _build.build(["rrlu", "probe_batched"])
+    _build.build(["rrlu", "probe_batched", "lu_sharded"])
     lu_cuda._lib()
     probe_batched._lib()
-    print(f"[build] rrlu.cu and probe_batched.cu, in parallel: "
-          f"{time.perf_counter() - t0:.3f} s (nvcc: rrlu "
+    lu_sharded._lib()
+    print(f"[build] rrlu.cu, probe_batched.cu and lu_sharded.cu, in "
+          f"parallel: {time.perf_counter() - t0:.3f} s (nvcc: rrlu "
           f"{_build.BUILD_SECONDS['rrlu']:.3f} s, probe_batched "
-          f"{_build.BUILD_SECONDS['probe_batched']:.3f} s)", flush=True)
+          f"{_build.BUILD_SECONDS['probe_batched']:.3f} s, lu_sharded "
+          f"{_build.BUILD_SECONDS['lu_sharded']:.3f} s)", flush=True)
     if opts.phases:
         run_phases(smi_line)
         return
@@ -4240,6 +4736,9 @@ def main():
 
     aux_entry = run_aux()
 
+    # -- 4l. the multi-GPU layer on a one-rank NCCL mesh ----------------------
+    mesh_entry = run_mesh(here, smi_line)
+
     # -- 5. kernel vs plain on every launch of the cold runs -------------------
     # for their times: config 1's first fill (its P blocks in one launch),
     # and of each engine run the square bond panel of each size with the most
@@ -4519,7 +5018,7 @@ def main():
         **eng,
         **n2000,
         **config2,
-    }, *probe_entries]}), flush=True)
+    }, *probe_entries, mesh_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -10,8 +10,12 @@ numpy arrays take ``device=None`` to mean the current CUDA device, and
 raise without one unless the caller passes ``device="cpu"``; nothing falls
 back to the CPU by itself. A tensor handed to them stays on its device.
 A panel on a CUDA device is factorized by the hand-written CUDA rrLU kernel
-(``csrc/rrlu.cu``), a panel on the CPU by its plain PyTorch version. This
-package imports neither ``jax`` nor ``tci_tpu``.
+(``csrc/rrlu.cu``), a panel on the CPU by its plain PyTorch version. On a
+``parallel.mesh.default_mesh`` (one process a rank, NCCL on the cards, gloo
+on the CPU) ``rrlu_sharded`` row-shards an elimination over the ranks
+through the step kernel ``csrc/lu_sharded.cu``, and the entry points that
+take ``mesh=`` shard their sampling. This package imports neither ``jax``
+nor ``tci_tpu``.
 """
 
 from .utils.util import (
@@ -37,6 +41,7 @@ from .ops.lu import (
     lu_solve,
 )
 from .ops.lu_device import DeviceRRLU
+from .ops.lu_sharded import rrlu_sharded
 from .ops.lu_device import rrlu_rook_device_fused as rrlu_serving
 from .ops.luci import MatrixLUCI
 from .ops.ci import MatrixCI, AtimesBinv, AinvtimesB, matrix_crossinterpolate
@@ -95,7 +100,7 @@ __all__ = [
     "pushrandomsubset", "optfirstpivot", "replacenothing",
     "projector_to_slice", "IndexSet", "isnested", "forwardsweep",
     # L1 matrix engines
-    "rrLU", "rrlu", "rrlu_serving", "DeviceRRLU", "arrlu",
+    "rrLU", "rrlu", "rrlu_sharded", "rrlu_serving", "DeviceRRLU", "arrlu",
     "submatrixargmax", "cols2Lmatrix", "rows2Umatrix",
     "lu_solve", "MatrixLUCI", "factorize", "kronrod", "MatrixCI",
     "AtimesBinv", "AinvtimesB", "matrix_crossinterpolate", "MatrixACA",

@@ -1,9 +1,11 @@
 """Examples of tci_tpu_torch, the counterparts of ``examples/01-07`` of
-``tci_tpu`` (06, the multi-chip mesh, waits for the port's multi-GPU
-step). Run one from the repository root on the card, or on the CPU with
-``--device cpu``:
+``tci_tpu``. Run one from the repository root on the card, or on the CPU
+with ``--device cpu``:
 
     python -m tci_tpu_torch.examples.ex01_quickstart_lorentzian [--device cpu]
+
+ex06, the multi-GPU mesh, runs one process a rank (its docstring says
+how).
 
 Each runs its counterpart's workload at its size, checks it with the same
 asserts and ends by printing ``ok``.

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from .contraction_device import (_fetch_ranks, _no_mesh, _two_pass, _unpad,
+from .contraction_device import (_fetch_ranks, _two_pass, _unpad,
                                  _work_dtype)
 from .tensortrain import TensorTrain
 
@@ -37,12 +37,13 @@ def compress_device(
 ) -> TensorTrain:
     """Compress a tensor train with the whole two-pass sweep queued on its
     device and one fetch. Returns a new TensorTrain on the same device,
-    with the host ``TensorTrain.compress(method="LU")``'s truncation."""
+    with the host ``TensorTrain.compress(method="LU")``'s truncation. With
+    `mesh` every split's elimination is row-sharded over the mesh's ranks
+    and the cores are the one-device result's, bitwise."""
     if method != "LU":
         raise ValueError(
             "compress_device supports method='LU' only (the production "
             "default); use the host TensorTrain.compress for CI/SVD.")
-    _no_mesh(mesh)
     cores = tt.sitetensors()
     if len(cores) <= 1:
         return TensorTrain([t.clone() for t in cores])
@@ -53,6 +54,7 @@ def compress_device(
     reltol, abstol = ((float(tolerance), 0.0) if normalizeerror
                       else (1e-14, float(tolerance)))
     wdt = _work_dtype(dtype)
-    out, kks = _two_pass([t.to(wdt) for t in cores], reltol, abstol, mbd)
+    out, kks = _two_pass([t.to(wdt) for t in cores], reltol, abstol, mbd,
+                         mesh=mesh)
     ranks = _fetch_ranks(kks, "compress")[::-1]
     return TensorTrain(_unpad(out, ranks, dtype))

@@ -23,9 +23,10 @@ import torch
 from ..ops.factorize import factorize
 from ..parallel.batcheval import (BatchEvaluator, TorchBatchEvaluator,
                                   _infer_ncent)
+from ..parallel.mesh import mesh_rng
 from ..utils.device import numpy_dtype
 from ..utils.util import optfirstpivot, projector_to_slice
-from .contraction_device import (_no_mesh, contract_naive_device,
+from .contraction_device import (contract_naive_device,
                                  contract_zipup_device,
                                  make_product_evaluator)
 from .tensorci2 import crossinterpolate2
@@ -306,16 +307,18 @@ def contract_naive(
     With ``torch_native=True`` the sitewise Kronecker merges and the
     two-pass LU compression are queued on the trains' device, each bond
     split one launch of the rrLU kernel
-    (``models/contraction_device.contract_naive_device``)."""
+    (``models/contraction_device.contract_naive_device``); ``mesh`` then
+    row-shards each split's elimination over the mesh's ranks."""
     if f is not None:
         raise ValueError(
             "Naive contraction cannot apply an elementwise function. "
             "Use algorithm='TCI' instead."
         )
-    _no_mesh(mesh)
     if torch_native:
         return contract_naive_device(a, b, tolerance=tolerance,
-                                     maxbonddim=maxbonddim)
+                                     maxbonddim=maxbonddim, mesh=mesh)
+    if mesh is not None:
+        raise ValueError("mesh= requires torch_native=True")
     if len(a) != len(b):
         raise ValueError("Cannot contract tensor trains with different length.")
     tt = TensorTrain(
@@ -357,24 +360,34 @@ def contract_TCI(
     ``TorchBatchEvaluator`` over ``make_product_evaluator``'s batched
     device function, so it runs the whole-sweep engine (and records the
     function into the engine's CUDA graphs); `f` must then be a torch
-    elementwise function (or None). Otherwise it samples the
-    ``Contraction`` (host tier). Other keyword arguments go to
+    elementwise function (or None), and ``mesh`` shards the product's
+    sampling over the mesh's ranks (the evaluator's mesh). Otherwise it
+    samples the ``Contraction`` (host tier). Other keyword arguments go to
     ``crossinterpolate2``.
+
+    ``tci_tpu`` passes no `rng` to ``crossinterpolate2``, so the global
+    search draws from an unseeded generator (ROADMAP C-ref-6); the port
+    does the same, and on a mesh that draw is seeded from rank 0.
     """
-    _no_mesh(mesh)
     if len(A) != len(B):
         raise ValueError("Cannot contract tensor trains with different length.")
     if not all(A[i].shape[2] == B[i].shape[1] for i in range(len(A))):
         raise ValueError(
             "Cannot contract tensor trains with non-matching site dimensions."
         )
+    if mesh is not None:
+        if not torch_native:
+            raise ValueError("mesh= requires torch_native=True")
+        if rng is None:
+            rng = mesh_rng(mesh)
     matrixproduct = Contraction(A, B, f=f)
     localdims = [int(np.prod(d)) for d in matrixproduct.sitedims()]
     if torch_native:
         fdev, localdims, dtype, _ = make_product_evaluator(
             matrixproduct.mpo[0], matrixproduct.mpo[1], f=f)
         evaluator = TorchBatchEvaluator(fdev, localdims, dtype=dtype,
-                                        device=matrixproduct.device)
+                                        device=matrixproduct.device,
+                                        mesh=mesh)
     else:
         evaluator = matrixproduct
     if isinstance(initialpivots, int):
@@ -407,16 +420,18 @@ def contract_zipup(
 
     With ``torch_native=True`` (method="LU") the whole chain of bonds is
     queued on the device, each split one launch of the rrLU kernel, with
-    one fetch at the end (``models/contraction_device.py``).
+    one fetch at the end (``models/contraction_device.py``); ``mesh`` then
+    row-shards each split's elimination over the mesh's ranks.
     """
-    _no_mesh(mesh)
     if torch_native:
         if method != "LU":
             raise ValueError(
                 "torch_native zip-up uses rrLU truncation; pass method='LU'."
             )
         return contract_zipup_device(A, B, tolerance=tolerance,
-                                     maxbonddim=maxbonddim)
+                                     maxbonddim=maxbonddim, mesh=mesh)
+    if mesh is not None:
+        raise ValueError("mesh= requires torch_native=True")
     if len(A) != len(B):
         raise ValueError("Cannot contract tensor trains with different length.")
     dev = A[0].device
@@ -469,7 +484,9 @@ def contract(
     4-leg x 4-leg gives a 4-leg MPO; a 3-leg operand (MPS) is promoted with a
     singleton leg and the result squeezed back to 3 legs. ``torch_native``
     selects the device tiers (see ``contract_TCI``, ``contract_naive``,
-    ``contract_zipup``); ``mesh=`` is not ported yet (ROADMAP A14).
+    ``contract_zipup``); with it, ``mesh`` (``parallel.mesh.default_mesh``;
+    every rank calls with the same operands) shards them over the mesh's
+    ranks.
     """
     A_is_mps = all(t.dim() == 3 for t in A.sitetensors())
     B_is_mps = all(t.dim() == 3 for t in B.sitetensors())

@@ -12,7 +12,9 @@ zeroed, so a whole contraction is queued with no read of the device
 between bonds. One fetch at the end brings back the ranks
 (``utils.device.fetch``, counted in ``FETCHES["contract_zipup"]`` /
 ``FETCHES["contract_naive"]``); the cores stay on the device and are cut
-to the ranks there.
+to the ranks there. Given a mesh (``parallel.mesh.default_mesh``), every
+split's elimination is row-sharded over its ranks (``_split_for``) and the
+result is the one-device tier's, bitwise.
 
 Complex operands run natively in complex128 (``tci_tpu`` carries them as
 (re, im) float64 pairs); real ones in float64. ``make_product_evaluator``
@@ -27,17 +29,12 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from ..ops.lu_kernel import rrlu_panel
+from ..ops.lu_kernel import aligned_panel, rrlu_panel, split_factors
+from ..ops.lu_sharded import make_lu_split_sharded
 from ..utils.device import fetch
 from .tensortrain import TensorTrain
 
 _INTMAX = 2**62
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported yet (ROADMAP A14)")
 
 
 def _work_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -59,68 +56,57 @@ def _operands(A: TensorTrain, B: TensorTrain):
             dtype)
 
 
-def _panel(Cm: torch.Tensor) -> torch.Tensor:
-    """Cm as a panel the kernel takes: contiguous, starting on a 16-byte
-    boundary and holding a multiple of 16 bytes (the resident mode's bulk
-    copy; the cluster mode's too, which otherwise gives the panel to the
-    grid mode). Where Cm is not, it is copied into a panel widened by zero
-    columns past its true extents, which the elimination never reads."""
-    Cm = Cm.contiguous()
-    m, n = Cm.shape
-    per = 16 // Cm.element_size()
-    if Cm.data_ptr() % 16 == 0 and (m * n) % per == 0:
-        return Cm
-    P = torch.zeros((m, -(-n // per) * per), dtype=Cm.dtype,
-                    device=Cm.device)
-    P[:, :n] = Cm
-    return P
-
-
 def _lu_split(Cm: torch.Tensor, m_true: int, n_true: int, reltol: float,
               abstol: float, *, cap: int, leftorthogonal: bool):
     """Split Cm ≈ left · right by one rank-revealing LU on Cm's device: the
     rrLU kernel on a CUDA tensor, its plain version on the CPU
-    (``rrlu_panel``). The host ``rrlu`` left()/right() convention
-    (ops/lu.py): with leftorthogonal, L has the unit diagonal and U carries
-    the pivots; otherwise L carries them and U has the unit diagonal.
-    Columns of L and rows of U past the rank are zeroed. Returns (left
-    (m, cap), right (cap, n), k), k a 0-d int64 tensor on the device; the
-    extents and tolerances are host numbers, so nothing is read back."""
+    (``rrlu_panel``), then ``lu_kernel.split_factors``: the host ``rrlu``
+    left()/right() convention (ops/lu.py), with columns of L and rows of U
+    past the rank zeroed. Returns (left (m, cap), right (cap, n), k), k a
+    0-d int64 tensor on the device; the extents and tolerances are host
+    numbers, so nothing is read back."""
     m, n = Cm.shape
     maxrank = min(m, n, cap)
     A_sw, rowperm, colperm, kk, _, _ = rrlu_panel(
-        _panel(Cm), m_true, n_true, maxrank, reltol, abstol,
+        aligned_panel(Cm), m_true, n_true, maxrank, reltol, abstol,
         leftorthogonal=leftorthogonal)
-    A_sw, rowperm, colperm = A_sw[:m, :n], rowperm[:m], colperm[:n]
-    rmax = min(m, n)
-    keep = torch.arange(rmax, device=Cm.device) < kk
-    L_all = torch.tril(A_sw[:, :rmax])
-    U_all = torch.triu(A_sw[:rmax, :])
-    (L_all if leftorthogonal else U_all).diagonal().fill_(1.0)
-    L_all = torch.where(keep[None, :], L_all, 0.0)
-    U_all = torch.where(keep[:, None], U_all, 0.0)
-    # back to the original row and column order: row p of L is row
-    # rowperm[p] of left, column q of U column colperm[q] of right
-    left = torch.zeros_like(L_all).index_copy_(0, rowperm, L_all)[:, :cap]
-    right = torch.zeros_like(U_all).index_copy_(1, colperm, U_all)[:cap, :]
-    return left, right, kk
+    return split_factors(A_sw, rowperm, colperm, kk, m, n, cap,
+                         leftorthogonal)
 
 
-def _zip_step(R, a, b, reltol: float, cap: int, last: bool):
+def _split_for(mesh, m: int, n: int, cap: int, leftorthogonal: bool):
+    """The bond split of an (m, n) panel: ``_lu_split`` on one device, or
+    given a mesh, ``ops/lu_sharded.make_lu_split_sharded`` (the elimination
+    row-sharded over the mesh, its pivot order the one-device kernel's
+    bitwise). Only the elimination runs sharded: the panel is replicated
+    going in and the factored panel coming out, so the products around the
+    split compute as on one device and the cores are the device tier's,
+    bitwise (``tci_tpu``'s bit-parity rule)."""
+    if mesh is None:
+        def split(Cm, m_true, n_true, reltol, abstol):
+            return _lu_split(Cm, m_true, n_true, reltol, abstol, cap=cap,
+                             leftorthogonal=leftorthogonal)
+
+        return split
+    return make_lu_split_sharded(mesh, m, n, cap, leftorthogonal)
+
+
+def _zip_step(R, a, b, reltol: float, cap: int, last: bool, mesh=None):
     """One zip-up bond: C = R·A[n]·B[n], then the rank-revealing LU split.
 
     R: (P, La, Lb) with rows past the previous rank zeroed; a: (La, i, K,
     Ra); b: (Lb, K, j, Rb). Returns (site (P, i, j, cap), newR (cap, Ra,
     Rb), rank tensor); for the last site the unsplit core. The split is
     ``_lu_split`` with leftorthogonal=False (L carries the pivots, U the
-    unit diagonal), as the host zip-up's ``factorize("LU")``."""
+    unit diagonal), as the host zip-up's ``factorize("LU")``; on `mesh`
+    its sharded counterpart (``_split_for``)."""
     C = torch.einsum("pab,aikr,bkjs->pijrs", R, a, b)
     P, i, j, Ra, Rb = C.shape
     if last:
         return C.reshape(P, i, j, Ra * Rb), None, None
     m, n = P * i * j, Ra * Rb
-    left, right, kk = _lu_split(C.reshape(m, n), m, n, reltol, 0.0,
-                                cap=cap, leftorthogonal=False)
+    split = _split_for(mesh, m, n, cap, leftorthogonal=False)
+    left, right, kk = split(C.reshape(m, n), m, n, reltol, 0.0)
     return left.reshape(P, i, j, cap), right.reshape(cap, Ra, Rb), kk
 
 
@@ -156,8 +142,10 @@ def contract_zipup_device(
     The host ``contract_zipup(A, B, method="LU")``'s truncation rule
     (reltol=tolerance, abstol=0, maxrank=maxbonddim) at every bond, with
     the einsum and the split of every bond queued on the device and one
-    fetch of the ranks at the end. Returns a TensorTrain on A's device."""
-    _no_mesh(mesh)
+    fetch of the ranks at the end. With `mesh` (a ``parallel.mesh``
+    DeviceMesh; every rank calls with the same trains) each split's
+    elimination is row-sharded over its ranks and the result is the
+    one-device tier's, bitwise. Returns a TensorTrain on A's device."""
     ajs, bjs, dtype = _operands(A, B)
     L = len(ajs)
     caps = []
@@ -172,7 +160,8 @@ def contract_zipup_device(
     for n in range(L):
         last = n == L - 1
         site, R, kk = _zip_step(R, ajs[n], bjs[n], float(tolerance),
-                                cap=1 if last else caps[n], last=last)
+                                cap=1 if last else caps[n], last=last,
+                                mesh=mesh)
         sites.append(site)
         if not last:
             kks.append(kk)
@@ -190,20 +179,20 @@ def _merge_sites(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _two_pass(cores: List[torch.Tensor], reltol: float, abstol: float,
-              mbd: int):
+              mbd: int, mesh=None):
     """L→R exact orthogonalization (reltol = abstol = 0: it stops only at an
     exactly zero pivot), then R→L truncation (reference
-    tensortrain.jl:302-348), every split one ``_lu_split``. Returns the
-    padded cores and the rank tensors of the truncating splits, from the
-    last bond to the first."""
+    tensortrain.jl:302-348), every split one ``_split_for(mesh, ...)``.
+    Returns the padded cores and the rank tensors of the truncating splits,
+    from the last bond to the first."""
     L = len(cores)
     tt = list(cores)
     for ell in range(L - 1):
         sh = tt[ell].shape
         m, n = int(np.prod(sh[:-1])), int(sh[-1])
         cap = min(m, n)
-        left, right, _ = _lu_split(tt[ell].reshape(m, n), m, n, 0.0, 0.0,
-                                   cap=cap, leftorthogonal=True)
+        split = _split_for(mesh, m, n, cap, leftorthogonal=True)
+        left, right, _ = split(tt[ell].reshape(m, n), m, n, 0.0, 0.0)
         tt[ell] = left.reshape(*sh[:-1], cap)
         shr = tt[ell + 1].shape
         nxt = right @ tt[ell + 1].reshape(shr[0], int(np.prod(shr[1:])))
@@ -214,8 +203,8 @@ def _two_pass(cores: List[torch.Tensor], reltol: float, abstol: float,
         sh = tt[ell].shape
         m, n = int(sh[0]), int(np.prod(sh[1:]))
         cap = int(min(m, n, mbd))
-        left, right, kk = _lu_split(tt[ell].reshape(m, n), m, n, reltol,
-                                    abstol, cap=cap, leftorthogonal=False)
+        split = _split_for(mesh, m, n, cap, leftorthogonal=False)
+        left, right, kk = split(tt[ell].reshape(m, n), m, n, reltol, abstol)
         tt[ell] = right.reshape(cap, *sh[1:])
         shl = tt[ell - 1].shape
         nxt = tt[ell - 1].reshape(int(np.prod(shl[:-1])), shl[-1]) @ left
@@ -236,16 +225,16 @@ def contract_naive_device(
     The host ``contract_naive`` (reference contraction.jl:616-637) with the
     LU truncation rule in place of SVD: the sitewise Kronecker merges, then
     (when tolerance > 0 or maxbonddim is set) the two-pass compression,
-    each bond one launch of the rrLU kernel, with one fetch of the ranks at
-    the end. Returns a TensorTrain on A's device."""
-    _no_mesh(mesh)
+    each bond one launch of the rrLU kernel (row-sharded over `mesh` when
+    given, as in ``contract_zipup_device``), with one fetch of the ranks
+    at the end. Returns a TensorTrain on A's device."""
     ajs, bjs, dtype = _operands(A, B)
     L = len(ajs)
     tt = [_merge_sites(ajs[n], bjs[n]) for n in range(L)]
     if not (tolerance > 0 or maxbonddim < _INTMAX):
         return TensorTrain([t.to(dtype) for t in tt])
     mbd = int(min(maxbonddim, 2**31 - 1))
-    tt, kks = _two_pass(tt, float(tolerance), 0.0, mbd)
+    tt, kks = _two_pass(tt, float(tolerance), 0.0, mbd, mesh=mesh)
     ranks = _fetch_ranks(kks, "contract_naive")[::-1]
     return TensorTrain(_unpad(tt, ranks, dtype))
 

@@ -3,9 +3,9 @@ and the 1-site sweep on the evaluator's device, with no host sync inside a
 sweep and one fetch at its end.
 
 Counterpart of ``tci_tpu/models/device_sweep.py`` (full and rook
-pivoting, one device; no pair mode, no mesh). The reference's sweep2site!
-(tensorci2.jl:1195-1258) is a host loop doing, per bond, a Π sampling, an
-rrLU factorization and index-set bookkeeping. Here:
+pivoting, on one device or data-parallel over a mesh; no pair mode). The
+reference's sweep2site! (tensorci2.jl:1195-1258) is a host loop doing, per
+bond, a Π sampling, an rrLU factorization and index-set bookkeeping. Here:
 
 - index sets live on the device as (L, Imax, L) int64 row buffers (every
   multi-index stored left-aligned) and (L,) lengths;
@@ -50,6 +50,15 @@ loop, so the alternation's while loop is unrolled into its `numrookiter`
 steps, predicated: once the pivot sets agree, a step keeps the state it
 was given, counts no samples and eliminates its slab with a rank cap of 0.
 
+With a mesh (``DeviceSweepEngine(mesh=)``, from the evaluator's) every f
+call of the engine goes through ``parallel.mesh.shard_rows``: each rank
+samples its contiguous share of the rows (the Π panels, the global
+search's and the floating zone's candidates, the rook slabs, the fill) and
+an all-gather gives every rank all the values, inside the CUDA graphs on
+the cards. ``tci_tpu`` puts its row sharding constraint on the same rows
+but the fill's; sampling them sharded too changes no value. The rrLU
+stays replicated: every rank runs the one-device kernel on the same panel.
+
 The capacity grows when a sweep saturates it (a new capacity is a new key);
 above ``imax_cap`` or ``max_panel_edge`` the engine declines and TensorCI2
 falls back to the per-bond fused tier (``ops/fused.py``), which runs on the
@@ -69,6 +78,7 @@ import torch
 from ..ops import lu_cuda
 from ..ops.fused import ci_factors, panel_solve_pinv, sample_panel
 from ..ops.lu_kernel import rrlu_panel_batched
+from ..parallel.mesh import mesh_rng, shard_rows
 from ..utils.device import (FETCHES, capture_graph, fetch, peek,
                             resolve_device, to_device, torch_dtype)
 from ..utils.prng import fold_in, prng_key, uniform_f64
@@ -868,7 +878,11 @@ class DeviceSweepEngine:
 
     def __init__(self, f: Callable, localdims: Sequence[int], imax: int = 32,
                  imax_cap: int = 256, dtype=torch.float64, device=None,
-                 max_panel_edge: int = 4096, cuda_graphs: bool = True):
+                 max_panel_edge: int = 4096, cuda_graphs: bool = True,
+                 mesh=None):
+        self.mesh = mesh
+        if mesh is not None:
+            f = shard_rows(f, mesh)
         self.f = f
         self.localdims = tuple(int(d) for d in localdims)
         self.dtype = torch_dtype(dtype)
@@ -921,8 +935,9 @@ class DeviceSweepEngine:
         self.loop_blocks = 0
         self.loop_steps = 0
         # the host generator of the rook sweeps' seeds (one a sweep), as
-        # tci_tpu's engine keeps one; set it to repeat a rook run
-        self._rng = np.random.default_rng()
+        # tci_tpu's engine keeps one; set it to repeat a rook run. On a
+        # mesh it is seeded from rank 0, so the ranks draw alike
+        self._rng = mesh_rng(mesh)
 
     def _seed(self) -> int:
         """One rook sweep's seed, drawn as tci_tpu's engine draws it."""

@@ -16,6 +16,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..parallel.batcheval import evaluate_rows
+from ..parallel.mesh import mesh_rng
 from .tensortrain import TensorTrain
 
 MultiIndex = Tuple[int, ...]
@@ -125,7 +126,7 @@ class DefaultGlobalPivotFinder(AbstractGlobalPivotFinder):
         initial_points: Optional[Sequence[MultiIndex]] = None,
     ) -> List[MultiIndex]:
         if rng is None:
-            rng = np.random.default_rng()
+            rng = mesh_rng(getattr(f, "mesh", None))
         L = len(input.localdims)
         localdims = input.localdims
         tt = input.current_tt

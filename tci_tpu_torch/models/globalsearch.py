@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..parallel.batcheval import evaluate_rows
+from ..parallel.mesh import mesh_rng
 from ..utils.device import to_device
 from .tensortrain import TensorTrain
 from .tteval import chi_bucket, max_bond, pad_cores, tt_evaluate_batched
@@ -48,7 +49,7 @@ def estimatetrueerror(
         raise ValueError("nsearch must be non-negative")
     tt = TensorTrain(tt, device=device)
     if rng is None:
-        rng = np.random.default_rng()
+        rng = mesh_rng(getattr(f, "mesh", None))
 
     if initialpoints is None and nsearch > 0:
         dims = [d[0] for d in tt.sitedims()]

@@ -18,7 +18,9 @@ weakly on f and drops an entry when f is collected. Two things of
   compiles for the fused tier: eager PyTorch compiles nothing per shape and
   the port's fused tier has no such mode.
 
-``mesh=`` is refused until the multi-GPU slice (ROADMAP A14).
+``mesh=`` (a ``parallel.mesh`` DeviceMesh; every rank calls with the same
+arguments) shards the evaluator's sampling over the mesh's ranks, as
+``tci_tpu``'s does; it requires ``torch_native=True``.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ _GK_EVAL_CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def _torch_native_evaluator(f, nodes, weights, normalization, localdims,
-                            valuetype, device, enable_device_sweep):
+                            valuetype, device, enable_device_sweep, mesh):
     """The weighted integrand on the GK grid as a ``TorchBatchEvaluator``.
     It refers to f weakly: the cache that holds it is keyed weakly on f, and
     an entry whose value kept its key alive would never go."""
@@ -66,7 +68,8 @@ def _torch_native_evaluator(f, nodes, weights, normalization, localdims,
 
     return TorchBatchEvaluator(Ftorch, localdims, dtype=valuetype,
                                device=device,
-                               enable_device_sweep=enable_device_sweep)
+                               enable_device_sweep=enable_device_sweep,
+                               mesh=mesh)
 
 
 def integrate(
@@ -114,9 +117,10 @@ def integrate(
             f"Integral bounds must have the same dimensionality, got "
             f"{len(a)} lower and {len(b)} upper bounds."
         )
-    if mesh is not None:
-        raise NotImplementedError(
-            "integrate(mesh=...) is not ported yet (ROADMAP A14)")
+    if mesh is not None and not torch_native:
+        raise ValueError(
+            "mesh= shards the device sampling path; it requires "
+            "torch_native=True (host-sampled tiers ignore the mesh).")
 
     nodes1d, weights1d, _ = kronrod(GKorder // 2)
     # affine map [-1, 1] -> [a_n, b_n] per dimension
@@ -128,9 +132,11 @@ def integrate(
 
     if torch_native:
         device = resolve_device(device)
+        # the cached evaluator holds the mesh, so its id is not reused
+        # while the entry lives
         cache_key = (GKorder, tuple(a.tolist()), tuple(b.tolist()),
                      np.dtype(valuetype).str, str(device),
-                     enable_device_sweep)
+                     enable_device_sweep, None if mesh is None else id(mesh))
         try:
             slots = _GK_EVAL_CACHE.setdefault(f, {})
         except TypeError:  # an integrand that cannot be referenced weakly
@@ -139,7 +145,7 @@ def integrate(
         if F is None:
             F = slots[cache_key] = _torch_native_evaluator(
                 f, nodes, weights, normalization, localdims, valuetype,
-                device, enable_device_sweep)
+                device, enable_device_sweep, mesh)
         else:
             F.reset_nevals()
     elif vectorized:

@@ -40,6 +40,7 @@ from ..parallel.batcheval import (
     evaluate_rows,
     isbatchevaluable,
 )
+from ..parallel.mesh import mesh_rng
 from ..utils.device import numpy_dtype, resolve_device, to_device, torch_dtype
 from ..utils.indexset import isnested
 from ..utils.sweep import forwardsweep
@@ -944,7 +945,8 @@ class TensorCI2(AbstractTensorTrain):
                 "the convergence criterion is not reachable!"
             )
         if rng is None:
-            rng = np.random.default_rng()
+            # on a mesh the evaluator's ranks draw from one seed (rank 0's)
+            rng = mesh_rng(getattr(f, "mesh", None))
         # the per-bond device rook tier fills its start sets from it, so a
         # caller's rng makes the run repeatable
         self.rng = rng
@@ -1158,7 +1160,7 @@ def searchglobalpivots(
     if not tci.issitetensorsavailable():
         tci.fillsitetensors(f)
     if rng is None:
-        rng = np.random.default_rng()
+        rng = mesh_rng(getattr(f, "mesh", None))
 
     initps = [
         tuple(int(rng.integers(0, d)) for d in tci.localdims)

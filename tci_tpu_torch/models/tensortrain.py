@@ -209,7 +209,8 @@ class TensorTrain(AbstractTensorTrain):
         is one ``factorize`` call, so an "LU" or "CI" split of a CUDA TT is
         one launch of the rrLU kernel. With ``torch_native=True`` (and
         ``method="LU"``) the whole sweep is queued on the device with one
-        fetch at its end (``models/compress_device.py``)."""
+        fetch at its end (``models/compress_device.py``), its eliminations
+        row-sharded over ``mesh`` when one is given."""
         if torch_native:
             from .compress_device import compress_device
 
@@ -219,8 +220,7 @@ class TensorTrain(AbstractTensorTrain):
             self._sitetensors = out.sitetensors()
             return
         if mesh is not None:
-            raise NotImplementedError(
-                "compress(mesh=...) is not ported yet (ROADMAP A14)")
+            raise ValueError("mesh= requires torch_native=True")
         tt = self._sitetensors
         for ell in range(len(tt) - 1):
             shapel = tt[ell].shape

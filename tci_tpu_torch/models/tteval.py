@@ -12,6 +12,8 @@ from typing import Sequence
 
 import torch
 
+from ..parallel.mesh import shard_rows
+
 
 def chi_bucket(chi: int) -> int:
     """The padded bond dimension of the floating-zone search: max(8, the
@@ -57,3 +59,15 @@ def tt_evaluate_batched(cores: torch.Tensor, indices: torch.Tensor) -> torch.Ten
         mats = cores[l].permute(1, 0, 2)[indices[:, l]]  # (B, chi, chi)
         v = torch.bmm(v, mats)
     return v[:, 0, 0]
+
+
+def tt_evaluate_sharded(cores: torch.Tensor, indices: torch.Tensor, mesh
+                        ) -> torch.Tensor:
+    """``tt_evaluate_batched`` data-parallel over a mesh (``tci_tpu``'s
+    ``tt_evaluate_sharded``): the cores are replicated on every rank, the
+    (B, L) batch is padded to a multiple of the mesh size, each rank
+    evaluates its contiguous share of the rows and every rank gets the B
+    values (``parallel.mesh.shard_rows``). Every rank calls it with the
+    same cores and indices."""
+    return shard_rows(lambda idx: tt_evaluate_batched(cores, idx),
+                      mesh)(indices)

@@ -57,10 +57,13 @@ def _flags(defines=()) -> tuple:
 
 def _paths(name: str, defines=()):
     """(source, library) paths of kernel `name` built with `defines`; the
-    library's name carries a hash of the source and the flags."""
+    library's name carries a hash of the source, the headers of ``csrc``
+    and the flags."""
     src = _CSRC / f"{name}.cu"
+    # the shared headers are part of every source
+    headers = b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(_flags(defines)).encode()
+        src.read_bytes() + headers + " ".join(_flags(defines)).encode()
     ).hexdigest()[:16]
     return src, BUILD_DIR / f"lib{name}_{digest}.so"
 

@@ -244,7 +244,10 @@ def rrlu(
     pivotsearch="full": complete pivoting; the whole elimination is one
     launch of the CUDA kernel on a CUDA device and the plain PyTorch loop
     on the CPU. Stop rule and at-least-one-pivot semantics match
-    matrixlu.jl:346-396.
+    matrixlu.jl:346-396. With ``mesh=`` (a ``parallel.mesh`` DeviceMesh;
+    every rank calls with the same A) the elimination is row-sharded over
+    the mesh's ranks (``ops/lu_sharded.rrlu_sharded_raw``), with the
+    one-device pivot order bit for bit, on the mesh's devices.
 
     pivotsearch="rook": the reference's adaptive rook scheme (arrlu,
     matrixlu.jl:492-569) on the device-resident matrix
@@ -289,11 +292,13 @@ def rrlu(
             "Choose between rook and full."
         )
     if mesh is not None:
-        raise NotImplementedError(
-            "rrlu(mesh=...) is not ported yet (ROADMAP A14)")
-    LUmat, rowperm, colperm, k, diag, err, nanflags = rrlu_raw(
-        A, maxrank, reltol, abstol, leftorthogonal, device=device
-    )
+        from .lu_sharded import rrlu_sharded_raw
+
+        LUmat, rowperm, colperm, k, diag, err, nanflags = rrlu_sharded_raw(
+            A, maxrank, reltol, abstol, leftorthogonal, mesh=mesh)
+    else:
+        LUmat, rowperm, colperm, k, diag, err, nanflags = rrlu_raw(
+            A, maxrank, reltol, abstol, leftorthogonal, device=device)
     return _finalize(LUmat, rowperm, colperm, k, err, leftorthogonal,
                      diag, nanflags)
 

@@ -286,8 +286,15 @@ def rrlu_raw(
     maxrank = min(int(maxrank), m, n)
     Ap = torch.zeros((mp, npd), dtype=dt, device=A.device)
     Ap[:m, :n] = A
-    A_sw, rowperm, colperm, k, mags, err = rrlu_panel(
-        Ap, m, n, maxrank, reltol, abstol, leftorthogonal=leftorthogonal)
+    return fetch_result(*rrlu_panel(Ap, m, n, maxrank, reltol, abstol,
+                                    leftorthogonal=leftorthogonal), m, n)
+
+
+def fetch_result(A_sw, rowperm, colperm, k, mags, err, m: int, n: int):
+    """``rrlu_raw``'s result from an elimination's 6-tuple on a padded
+    panel whose true extents are (m, n): the LU buffer cut to (m, n) stays
+    on the device; the permutations, npivot, err, the LU diagonal and the
+    NaN flags of the factors come to the host in one transfer."""
     LU = A_sw[:m, :n]
     r = min(m, n)
     # NaN in column j of tril(LU) / row i of triu(LU): the L and U factors
@@ -323,3 +330,44 @@ def submatrixargmax_colmajor(metric: np.ndarray):
     p = int(np.argmax(flat))
     m = metric.shape[0]
     return p % m, p // m
+
+
+def aligned_panel(Cm: torch.Tensor) -> torch.Tensor:
+    """Cm as a panel the kernel takes: contiguous, starting on a 16-byte
+    boundary and holding a multiple of 16 bytes (the resident mode's bulk
+    copy; the cluster mode's too, which otherwise gives the panel to the
+    grid mode). Where Cm is not, it is copied into a panel widened by zero
+    columns past its true extents, which the elimination never reads."""
+    Cm = Cm.contiguous()
+    m, n = Cm.shape
+    per = 16 // Cm.element_size()
+    if Cm.data_ptr() % 16 == 0 and (m * n) % per == 0:
+        return Cm
+    P = torch.zeros((m, -(-n // per) * per), dtype=Cm.dtype,
+                    device=Cm.device)
+    P[:, :n] = Cm
+    return P
+
+
+def split_factors(A_sw, rowperm, colperm, kk, m: int, n: int, cap: int,
+                  leftorthogonal: bool):
+    """The factors of an elimination of an (m, n) panel (its 6-tuple's
+    first four entries, on a panel padded past (m, n)): (left (m, cap),
+    right (cap, n), kk) in the original row and column order, by the host
+    ``rrlu`` left()/right() convention (ops/lu.py): with leftorthogonal, L
+    has the unit diagonal and U carries the pivots; otherwise the reverse.
+    Columns of L and rows of U past the rank kk (a device tensor) are
+    zeroed; nothing is read back."""
+    A_sw, rowperm, colperm = A_sw[:m, :n], rowperm[:m], colperm[:n]
+    rmax = min(m, n)
+    keep = torch.arange(rmax, device=A_sw.device) < kk
+    L_all = torch.tril(A_sw[:, :rmax])
+    U_all = torch.triu(A_sw[:rmax, :])
+    (L_all if leftorthogonal else U_all).diagonal().fill_(1.0)
+    L_all = torch.where(keep[None, :], L_all, 0.0)
+    U_all = torch.where(keep[:, None], U_all, 0.0)
+    # back to the original row and column order: row p of L is row
+    # rowperm[p] of left, column q of U column colperm[q] of right
+    left = torch.zeros_like(L_all).index_copy_(0, rowperm, L_all)[:, :cap]
+    right = torch.zeros_like(U_all).index_copy_(1, colperm, U_all)[:cap, :]
+    return left, right, kk

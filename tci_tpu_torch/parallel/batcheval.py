@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..utils.device import numpy_dtype, resolve_device, to_device, torch_dtype
+from .mesh import mesh_device, shard_rows
 
 MultiIndex = tuple
 
@@ -272,16 +273,33 @@ class TorchBatchEvaluator(BatchEvaluator):
     only in place (a replay reads their current values). An `f` that cannot
     be recorded still works: the engine then runs that sweep eagerly, says
     so once on stderr, and lists the reasons in
-    ``device_sweep_engine.declined``."""
+    ``device_sweep_engine.declined``.
+
+    With ``mesh`` (a 1-D ``parallel.mesh`` DeviceMesh; `axis`, kept for
+    ``tci_tpu``'s signature, only names its one dim and is checked) the
+    sampling is data-parallel, as ``JaxBatchEvaluator(mesh=)`` shards it:
+    every rank makes the same calls, a batch is padded to a multiple of
+    the mesh size, each rank evaluates its contiguous share of the rows
+    and the values are gathered on every rank (``parallel.mesh.
+    shard_rows``), in ``evaluate_many`` / ``batch_evaluate`` and in every
+    f call of the engine (whose graphs then hold the gather). ``nevals``
+    counts the global batch. The device defaults to the mesh's."""
 
     def __init__(self, f: Callable[[torch.Tensor], torch.Tensor], localdims,
                  dtype=torch.float64,
                  device: Optional[Union[str, torch.device]] = None,
                  enable_device_sweep: bool = True,
-                 cuda_graphs: bool = True):
+                 cuda_graphs: bool = True, mesh=None, axis: str = "batch"):
         self.f = f
         self.localdims = list(localdims)
         self.dtype = torch_dtype(dtype)
+        self.mesh = mesh
+        if mesh is not None:
+            if device is None:
+                device = mesh_device(mesh)
+            if tuple(mesh.mesh_dim_names) != (axis,):
+                raise ValueError(f"the mesh's dim is "
+                                 f"{mesh.mesh_dim_names}, not ({axis!r},)")
         self.device = resolve_device(device)
         self.enable_device_sweep = enable_device_sweep
         self.cuda_graphs = cuda_graphs
@@ -296,7 +314,8 @@ class TorchBatchEvaluator(BatchEvaluator):
                     dtype=torch.float64,
                     device: Optional[Union[str, torch.device]] = None,
                     enable_device_sweep: bool = True,
-                    cuda_graphs: bool = True) -> "TorchBatchEvaluator":
+                    cuda_graphs: bool = True, mesh=None,
+                    axis: str = "batch") -> "TorchBatchEvaluator":
         """An evaluator of a scalar `f`: f maps one (L,) int64 index tensor
         to a 0-d tensor, and the evaluator calls ``torch.func.vmap(f)`` on
         (N, L) batches, as ``tci_tpu``'s ``JaxBatchEvaluator`` calls
@@ -307,7 +326,7 @@ class TorchBatchEvaluator(BatchEvaluator):
         call, as ``jax.vmap`` does for a traced ``if``."""
         return cls(torch.func.vmap(f), localdims, dtype=dtype, device=device,
                    enable_device_sweep=enable_device_sweep,
-                   cuda_graphs=cuda_graphs)
+                   cuda_graphs=cuda_graphs, mesh=mesh, axis=axis)
 
     def _tier_dtype(self) -> torch.dtype:
         """The value type of the device tiers: the evaluator's, with
@@ -339,7 +358,8 @@ class TorchBatchEvaluator(BatchEvaluator):
 
             self._device_sweep_engine = DeviceSweepEngine(
                 self._values, self.localdims, dtype=self._tier_dtype(),
-                device=self.device, cuda_graphs=self.cuda_graphs)
+                device=self.device, cuda_graphs=self.cuda_graphs,
+                mesh=self.mesh)
         return self._device_sweep_engine
 
     @property
@@ -406,6 +426,8 @@ class TorchBatchEvaluator(BatchEvaluator):
 
     def _eval(self, indices: torch.Tensor) -> torch.Tensor:
         self._nevals += int(indices.shape[0])
+        if self.mesh is not None:
+            return shard_rows(self._values, self.mesh)(indices)
         return self._values(indices)
 
     def evaluate_many(self, indices) -> torch.Tensor:

@@ -19,6 +19,7 @@ import tci_tpu
 import tci_tpu_torch
 from tci_tpu.models.compress_device import compress_device as compress_ref
 from tci_tpu_torch import compress_device
+from tci_tpu_torch.models import contraction_device as pcd
 from tci_tpu_torch.utils.device import FETCHES
 
 torch.set_num_threads(1)
@@ -114,13 +115,30 @@ def test_compress_torch_native_kwarg():
     assert _rel(fb, tci_tpu.fulltensor(ref)) < 1e-12
 
 
-def test_compress_device_rejects():
+def test_compress_device_rejects(monkeypatch):
+    """SVD and CI stay with the host compression. A mesh is taken: every
+    split goes to the mesh's split (``make_lu_split_sharded``, here a stand
+    -in that runs the one-device split; the real one is held against this
+    tier bitwise in tests/test_torch_contraction_mesh.py)."""
     tt = tci_tpu_torch.TensorTrain(_lowrank(7, 3, 4, 2, 2), device="cpu")
     for method in ("SVD", "CI"):
         with pytest.raises(ValueError, match="method='LU'"):
             compress_device(tt, method, tolerance=1e-10)
-    with pytest.raises(NotImplementedError, match="A14"):
-        compress_device(tt, "LU", mesh=object())
+    mesh, calls = object(), []
+
+    def split_on(m, *shape):
+        calls.append(m)
+        cap, lo = shape[2], shape[3]
+        return lambda Cm, mt, nt, rt, at: pcd._lu_split(
+            Cm, mt, nt, rt, at, cap=cap, leftorthogonal=lo)
+
+    monkeypatch.setattr(pcd, "make_lu_split_sharded", split_on)
+    out = compress_device(tt, "LU", tolerance=1e-10, mesh=mesh)
+    ref = compress_device(tt, "LU", tolerance=1e-10)
+    assert calls == [mesh] * 2 * (len(tt) - 1)
+    assert out.linkdims() == ref.linkdims()
+    assert all(torch.equal(a, b)
+               for a, b in zip(out.sitetensors(), ref.sitetensors()))
 
 
 def test_compress_device_single_site():

@@ -192,8 +192,8 @@ def test_mpo_mps_zipup(method):
 
 
 def test_contract_rejects():
-    """Both operands MPS, an unknown algorithm, mesh= (not ported yet,
-    ROADMAP A14), and trains of other lengths."""
+    """Both operands MPS, an unknown algorithm, mesh= without
+    torch_native=True (as in tci_tpu), and trains of other lengths."""
     N, a, b, d1 = _gen_tto_tts()
     _, pa = _both(a)
     _, pb = _both(b)
@@ -202,13 +202,53 @@ def test_contract_rejects():
     with pytest.raises(ValueError, match="Unknown algorithm"):
         tci_tpu_torch.contract(pa, pb, algorithm="nope")
     for algorithm in ("TCI", "naive", "zipup"):
-        with pytest.raises(NotImplementedError, match="A14"):
+        with pytest.raises(ValueError, match="torch_native=True"):
             tci_tpu_torch.contract(pa, pb, algorithm=algorithm,
                                    mesh=object())
     short = tci_tpu_torch.TensorTrain(a[:3], device="cpu")
     with pytest.raises(ValueError, match="length"):
         tci_tpu_torch.contract(short, pa, algorithm="naive")
 
+
+
+def test_contract_tci_search_draws_where_tci_tpu_does_c_ref_6(monkeypatch):
+    """ROADMAP C-ref-6: contract_TCI spends its `rng` on the initial
+    pivots and passes none to crossinterpolate2, so the global search
+    draws from a new unseeded default_rng() (tci_tpu's
+    models/contraction.py:338-391; the port does the same, and on a mesh
+    seeds that draw from rank 0). With default_rng's no-argument calls
+    seeded, each package gives one result, the two make their unseeded
+    draws at the same calls, and their results agree to rounding (1e-15
+    relative): the port draws for the search exactly where tci_tpu does."""
+    rng = np.random.default_rng(3)
+    L = 5
+    ba = [1] + [3] * (L - 1) + [1]
+    bb = [1] + [2] * (L - 1) + [1]
+    a = [_crand(rng, ba[n], 2, 3, ba[n + 1]) for n in range(L)]
+    b = [_crand(rng, bb[n], 3, 2, bb[n + 1]) for n in range(L)]
+    default_rng, unseeded = np.random.default_rng, []
+
+    def seeded(seed=None, *args, **kwargs):
+        if seed is None:
+            unseeded.append(len(unseeded))
+            seed = 11
+        return default_rng(seed, *args, **kwargs)
+
+    monkeypatch.setattr(np.random, "default_rng", seeded)
+    results = {}
+    for name, (A, B) in (("tci_tpu", _both(a)[0:1] + _both(b)[0:1]),
+                         ("port", _both(a)[1:] + _both(b)[1:])):
+        runs = []
+        for _ in range(3):
+            unseeded.clear()
+            tt = (tci_tpu if name == "tci_tpu" else tci_tpu_torch).contract(
+                A, B, algorithm="TCI", maxbonddim=2, rng=default_rng(7))
+            runs.append((_tomat(tt), len(unseeded)))
+        assert all(_rel(m, runs[0][0]) == 0.0 and n == runs[0][1]
+                   for m, n in runs)
+        results[name] = runs[0]
+    assert results["port"][1] == results["tci_tpu"][1] > 0
+    assert _rel(results["port"][0], results["tci_tpu"][0]) < 1e-15
 
 # -- TCI on the port's engine (tests/test_contraction_device.py's TCI cases) --
 

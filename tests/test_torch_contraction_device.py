@@ -206,8 +206,8 @@ def test_lu_split_widens_an_unaligned_panel():
     which the kernel's bulk copy needs; it goes to the elimination widened
     by zero columns past its true extents, with the same result."""
     C = torch.from_numpy(np.random.default_rng(3).standard_normal((5, 7)))
-    assert pcd._panel(C).shape == (5, 8)
-    assert pcd._panel(C[:, :6].contiguous()).shape == (5, 6)
+    assert lu_kernel.aligned_panel(C).shape == (5, 8)
+    assert lu_kernel.aligned_panel(C[:, :6].contiguous()).shape == (5, 6)
     ref = lu_kernel.rrlu_plain(C, 5, 7, 5, 0.0, 0.0, leftorthogonal=False)
     left, right, k = pcd._lu_split(C, 5, 7, 0.0, 0.0, cap=5,
                                    leftorthogonal=False)
@@ -240,14 +240,33 @@ def test_device_zipup_via_contract_mps():
     assert _rel(_full(out), _exact("mps")) < 1e-12
 
 
-def test_device_zipup_rejects_nonlu():
+def test_device_zipup_rejects_nonlu(monkeypatch):
+    """The device zip-up takes method "LU" only. A mesh is taken by the
+    zip-up and the naive contraction: every split goes to the mesh's split
+    (``make_lu_split_sharded``, here a stand-in that runs the one-device
+    split; the real one is held against this tier bitwise in
+    tests/test_torch_contraction_mesh.py)."""
     _, (pa, pb) = _trains("small")
     with pytest.raises(ValueError, match="method='LU'"):
         pc.contract_zipup(pa, pb, method="SVD", torch_native=True)
-    with pytest.raises(NotImplementedError, match="A14"):
-        pcd.contract_zipup_device(pa, pb, mesh=object())
-    with pytest.raises(NotImplementedError, match="A14"):
-        pcd.contract_naive_device(pa, pb, mesh=object())
+    mesh, calls = object(), []
+
+    def split_on(m, *shape):
+        calls.append(m)
+        cap, lo = shape[2], shape[3]
+        return lambda Cm, mt, nt, rt, at: pcd._lu_split(
+            Cm, mt, nt, rt, at, cap=cap, leftorthogonal=lo)
+
+    monkeypatch.setattr(pcd, "make_lu_split_sharded", split_on)
+    for run in (pcd.contract_zipup_device,
+                functools.partial(pcd.contract_naive_device,
+                                  tolerance=1e-10)):
+        calls.clear()
+        out, ref = run(pa, pb, mesh=mesh), run(pa, pb)
+        assert calls and all(m is mesh for m in calls)
+        assert out.linkdims() == ref.linkdims()
+        assert all(torch.equal(a, b)
+                   for a, b in zip(out.sitetensors(), ref.sitetensors()))
 
 
 def test_device_zipup_complex_matches_pair():

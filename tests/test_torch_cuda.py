@@ -1895,3 +1895,134 @@ def test_fuzz_tci1_on_the_card(cuda, trial):
     assert np.abs(full - exact).max() < 1e-8 * np.abs(exact).max()
     assert ranks == cpu[0] and ld == cpu[2], case["cfg"]
     assert np.allclose(errors, cpu[1], rtol=0, atol=1e-15), case["cfg"]
+
+
+# -- the mesh (A14, B8): one-rank NCCL meshes on the card ---------------------
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A one-rank NCCL mesh of the card (a process group of this process
+    alone, made by default_mesh)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    import gc
+
+    import torch.distributed as dist
+    from tci_tpu_torch.parallel.mesh import default_mesh
+    yield default_mesh(1)
+    # the engines' graphs that hold NCCL collectives go before the group
+    gc.collect()
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.complex128])
+@pytest.mark.parametrize("leftorthogonal", [True, False])
+def test_lu_sharded_step_kernel_matches_plain(nccl_mesh, leftorthogonal,
+                                              dtype):
+    """Every launch of the step kernel bitwise its plain version on copies
+    of its inputs, and the sharded elimination bitwise the one-device
+    kernel's and the one-device plain version's."""
+    from tci_tpu_torch.ops import lu_sharded
+    rng = np.random.default_rng(3)
+    A = np.zeros((272, 224))
+    A[:250, :210] = rng.standard_normal((250, 40)) @ rng.standard_normal(
+        (40, 210))
+    P = torch.from_numpy(A).to("cuda", dtype)
+    if dtype.is_complex:
+        P = P + 1j * P.flip(0)
+    args = (P, 250, 210, 210, 1e-6 if dtype == torch.float32 else 1e-10, 0.0)
+    before = lu_sharded.LAUNCHES["lu_sharded_step"]
+    lu_sharded.CHECKS = []
+    try:
+        out = lu_sharded.rrlu_panel_sharded(*args, mesh=nccl_mesh,
+                                            leftorthogonal=leftorthogonal)
+        checks = lu_sharded.CHECKS
+    finally:
+        lu_sharded.CHECKS = None
+    torch.cuda.synchronize()
+    assert len(checks) == lu_sharded.LAUNCHES["lu_sharded_step"] - before
+    assert checks and all(eq for _, eq, _ in checks)
+    kern = lu_cuda.rrlu_call(*args, leftorthogonal=leftorthogonal)
+    plain = lu_kernel.rrlu_plain(*args, leftorthogonal=leftorthogonal)
+    for o, r, p in zip(out, kern, plain):
+        assert _equal(o, r) and _equal(o, p)
+
+
+def test_rrlu_sharded_on_nccl_matches_kernel(nccl_mesh):
+    """rrlu_sharded_raw at N = 1000 (rank 100) on the card: the one-device
+    rrlu_raw's pivot order and LU buffer bit for bit; 3 launches a step
+    and one for the first column maxima, no plain version on the card; the
+    stop flag is read once every CHECK_EVERY steps."""
+    from tci_tpu_torch.ops import lu_sharded
+    rng = np.random.default_rng(5)
+    A = torch.as_tensor(rng.standard_normal((1000, 100))
+                        @ rng.standard_normal((100, 1000)), device="cuda")
+    for c in (lu_sharded.LAUNCHES, lu_sharded.PLAIN_CALLS,
+              lu_sharded.FLAG_READS):
+        c.clear()
+    s = lu_sharded.rrlu_sharded_raw(A, 400, 1e-10, 0.0, True,
+                                    mesh=nccl_mesh)
+    r = lu_kernel.rrlu_raw(A, 400, 1e-10, 0.0, True)
+    assert s[3] == r[3] == 100
+    assert np.array_equal(s[1], r[1]) and np.array_equal(s[2], r[2])
+    assert torch.equal(s[0], r[0]) and np.array_equal(s[4], r[4])
+    steps = (lu_sharded.LAUNCHES["lu_sharded_step"] - 1) // 3
+    assert lu_sharded.LAUNCHES["lu_sharded_step"] == 3 * steps + 1
+    every = lu_sharded.CHECK_EVERY
+    assert 101 <= steps <= 101 + every - 1
+    assert lu_sharded.FLAG_READS["stop"] == steps // every
+    assert lu_sharded.PLAIN_CALLS["cuda"] == 0
+    lu = tci_tpu_torch.rrlu(A, maxrank=400, reltol=1e-10, mesh=nccl_mesh)
+    assert lu.npivot == 100 and lu.L.device.type == "cuda"
+
+
+def test_engine_on_mesh_records_the_gather(nccl_mesh):
+    """crossinterpolate2 on the mesh: the engine records its sweeps, the
+    all-gather of the sharded sampling inside, declines none, and gives
+    the one-device run's ranks, errors and samples bit for bit, cold and
+    replayed."""
+    def f(idx):
+        v = idx.to(torch.float64) + 1.0
+        return 1.0 / (1.0 + (v * v).sum(1))
+
+    dims = [6] * 6
+    out = {}
+    for tag, mesh in (("mesh", nccl_mesh), ("one", None)):
+        bf = tci_tpu_torch.TorchBatchEvaluator(f, dims, mesh=mesh)
+        runs = []
+        for _ in range(2):
+            bf.reset_nevals()
+            _, ranks, errors = tci_tpu_torch.crossinterpolate2(
+                np.float64, bf, dims, tolerance=1e-9,
+                rng=np.random.default_rng(0))
+            runs.append((ranks, errors, bf.nevals))
+        eng = bf.device_sweep_engine
+        out[tag] = runs
+        if mesh is not None:
+            assert not eng.declined and eng.captures and eng.replays
+    assert out["mesh"] == out["one"]
+
+
+def test_contraction_on_mesh_matches_device_tier(nccl_mesh):
+    """Zip-up, naive and the compression on the mesh: the device tier's
+    cores bit for bit."""
+    rng = np.random.default_rng(9)
+    b = [1, 4, 4, 4, 4, 1]
+    A, B = ([rng.standard_normal((b[n], 2, 2, b[n + 1])) for n in range(5)]
+            for _ in range(2))
+    TT = tci_tpu_torch.TensorTrain
+    for algorithm in ("zipup", "naive"):
+        kw = dict(algorithm=algorithm, method="LU", tolerance=1e-10,
+                  torch_native=True)
+        m = tci_tpu_torch.contract(TT(A), TT(B), mesh=nccl_mesh, **kw)
+        o = tci_tpu_torch.contract(TT(A), TT(B), **kw)
+        assert m.linkdims() == o.linkdims()
+        assert all(torch.equal(x, y)
+                   for x, y in zip(m.sitetensors(), o.sitetensors()))
+    tm, to = TT(m.sitetensors()), TT(o.sitetensors())
+    tm.compress("LU", tolerance=1e-8, torch_native=True, mesh=nccl_mesh)
+    to.compress("LU", tolerance=1e-8, torch_native=True)
+    assert all(torch.equal(x, y)
+               for x, y in zip(tm.sitetensors(), to.sitetensors()))

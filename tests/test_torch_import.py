@@ -29,11 +29,9 @@ def test_import_leaves_jax_out():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-# tci_tpu's public names that the port does not have yet, each with the
-# ROADMAP step that ports it, and the one it replaces (JaxBatchEvaluator's
-# scalar-f contract is TorchBatchEvaluator.from_scalar)
+# tci_tpu's public names that the port does not have, each with the reason
+# (JaxBatchEvaluator's scalar-f contract is TorchBatchEvaluator.from_scalar)
 NOT_PORTED = {
-    "A14": {"rrlu_sharded"},
     "replaced by TorchBatchEvaluator": {"JaxBatchEvaluator"},
 }
 
@@ -62,7 +60,8 @@ def test_exports_cover_tci_tpu():
     "examples", "examples.ex01_quickstart_lorentzian",
     "examples.ex02_quantics_oscillatory", "examples.ex03_integration_10d",
     "examples.ex04_contraction_mpo", "examples.ex05_complex_feynman",
-    "examples.ex07_checkpoint_resume"])
+    "examples.ex07_checkpoint_resume", "parallel.mesh", "parallel.dryrun",
+    "ops.lu_sharded", "examples.ex06_multichip_mesh"])
 def test_module_import_leaves_jax_out(module):
     code = (
         f"import sys, tci_tpu_torch.{module}\n"

@@ -206,8 +206,9 @@ def test_argument_errors():
     with pytest.raises(ValueError, match=r"shape \(B,\)"):
         tci_tpu_torch.integrate(np.float64, lambda X: X, [0.0] * 2,
                                 [1.0] * 2, vectorized=True, device="cpu")
-    for kw in ({}, {"torch_native": True}):
-        with pytest.raises(NotImplementedError, match="A14"):
+    # as in tci_tpu, a mesh shards the device sampling path only
+    for kw in ({}, {"vectorized": True}):
+        with pytest.raises(ValueError, match="torch_native=True"):
             tci_tpu_torch.integrate(np.float64, f, [0.0] * 2, [1.0] * 2,
                                     mesh=object(), device="cpu", **kw)
 

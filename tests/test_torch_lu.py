@@ -14,7 +14,8 @@ import torch
 
 import tci_tpu
 import tci_tpu_torch
-from tci_tpu_torch.ops import lu_cuda
+from tci_tpu_torch.ops import lu_cuda, lu_sharded
+from tci_tpu_torch.ops.lu_kernel import rrlu_raw
 
 torch.set_num_threads(1)
 
@@ -255,10 +256,11 @@ def test_rrlu_tensor_input_stays_on_its_device():
     np.testing.assert_allclose(_np(out.left() @ out.right()), A, atol=1e-12)
 
 
-def test_rrlu_unported_options_raise():
-    """mesh= (ROADMAP A14) is not ported. Rook pivoting is (A9): it
-    factorizes the identity at full rank and, as in tci_tpu, refuses a
-    mesh."""
+def test_rrlu_unported_options_raise(monkeypatch):
+    """Rook pivoting (A9) factorizes the identity at full rank and, as in
+    tci_tpu, refuses a mesh; full pivoting with a mesh (A14) goes to the
+    sharded elimination (held against tci_tpu in
+    tests/test_torch_lu_sharded.py)."""
     A = np.eye(4)
     lu = tci_tpu_torch.rrlu(A, pivotsearch="rook", device="cpu",
                             rng=np.random.default_rng(0))
@@ -268,8 +270,17 @@ def test_rrlu_unported_options_raise():
     with pytest.raises(ValueError, match="single-device"):
         tci_tpu_torch.rrlu(A, pivotsearch="rook", mesh=object(),
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="A14"):
-        tci_tpu_torch.rrlu(A, mesh=object(), device="cpu")
+    # full pivoting with a mesh is the sharded elimination
+    calls = []
+
+    def sharded(*args, mesh=None):
+        calls.append(mesh)
+        return rrlu_raw(*args, device="cpu")
+
+    mesh = object()
+    monkeypatch.setattr(lu_sharded, "rrlu_sharded_raw", sharded)
+    lu = tci_tpu_torch.rrlu(A, mesh=mesh, device="cpu")
+    assert calls == [mesh] and lu.npivot == 4
 
 
 @pytest.mark.parametrize("leftorthogonal", [True, False])

@@ -183,18 +183,31 @@ def test_compress_float32_train(method):
                 np.asarray(tci_tpu.fulltensor(ref), np.float64)) < 1e-5
 
 
-def test_compress_options_not_ported():
-    """mesh= is not ported (ROADMAP A14); torch_native=True is (the device
-    compression, tests/test_torch_compress_device.py) and, as tci_tpu's
-    jax_native=True, takes method "LU" only."""
+def test_compress_options_not_ported(monkeypatch):
+    """torch_native=True (the device compression,
+    tests/test_torch_compress_device.py), as tci_tpu's jax_native=True,
+    takes method "LU" only, and mesh= requires it (the mesh compression:
+    tests/test_torch_contraction_mesh.py)."""
     tt = tci_tpu_torch.TensorTrain(_random_tt(np.float64, [1, 2, 1], [3, 3]),
                                    device="cpu")
     with pytest.raises(ValueError, match="method='LU'"):
         tt.compress("SVD", torch_native=True)
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(ValueError, match="torch_native=True"):
         tt.compress("LU", mesh=object())
-    with pytest.raises(NotImplementedError, match="A14"):
-        tt.compress("LU", torch_native=True, mesh=object())
+    # with torch_native=True every split goes to the mesh's split (a
+    # stand-in here that records the mesh and runs the one-device split)
+    from tci_tpu_torch.models import contraction_device as pcd
+
+    mesh, calls = object(), []
+
+    def split_on(m, *shape):
+        calls.append(m)
+        return lambda Cm, mt, nt, rt, at: pcd._lu_split(
+            Cm, mt, nt, rt, at, cap=shape[2], leftorthogonal=shape[3])
+
+    monkeypatch.setattr(pcd, "make_lu_split_sharded", split_on)
+    tt.compress("LU", torch_native=True, mesh=mesh)
+    assert calls == [mesh] * 2 * (len(tt) - 1)
 
 
 # -- add, subtract, norms --------------------------------------------------
