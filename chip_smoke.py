@@ -36,6 +36,17 @@ line or more each:
    plain version bitwise, reconstruction max|LU - A| / max|A| < 1e-8, both
    times and GFLOP/s counted as 2 r N^2 (benchmarks/bench_rrlu.py) and as
    2 sum_j (N - j)^2;
+3e. (run after 3b) the rrLU kernel's grid mode (``[grid]`` lines): its
+   barrier alone (``[barrier]``), then each GRID_PANELS entry (config 2 in
+   f64 and f32, config 4's 960^2 bond panel at capacity 64, the TCI1
+   conversion's 1024 x 1000 and 2000 x 512, config 2's rook slabs, N =
+   2000, 2048^2, 4200^2, complex 1000^2 and 2040^2): the regime it takes
+   (grid-resident or streamed; the planned panels must take theirs),
+   bitwise against the plain version, the kernel's time by CUDA events
+   around a CUDA graph of launches, the bound and the complete-pivot floor
+   (the trailing block read and written once a pivot); 960^2 and the
+   4096 x 256 slab 20 more times each against one plain result; and the
+   split at 960^2 (rank capped at 0, 1, 2, 4, 11, 22, 44);
 3c. the batched-grid probes (ops/probe_batched.run_probes: the six probe
    kernels v1 ... v4c, then the single-panel and the batched rrLU entry
    points on 64 x 128 float32 panels), its JSON object on one line; each
@@ -211,8 +222,8 @@ line or more each:
    the quimb layout (a stand-in with ``.arrays``) and back, phase 4i's MPO
    operand through MPO tensors: every core bitwise, ``evaluate_mps``
    within 1e-12 of the train at 1,000 points; (d) a seeded sweep of random
-   panels through the rrLU kernel (f32, f64, complex128; 1 x 1 to past a
-   cluster's capacity, so that every mode is hit; exactly rank-deficient
+   panels through the rrLU kernel (f32, f64, complex128; 1 x 1 to past the
+   grid's shared memory, so that every mode is hit; exactly rank-deficient
    panels, maxrank, reltol and abstol stops, padding, batched calls of B =
    1-8; about 30 s) against its plain version bit for bit: counts by type
    and mode; (e) each example of ``tci_tpu_torch/examples`` as a process
@@ -266,7 +277,9 @@ line or more each:
 ``--phases`` runs nothing of the above but the build: it builds the rrLU
 kernel once more with -DRRLU_PHASE_CLOCKS and prints, for the cluster
 mode on configs 1, 4 and 5's bond panels, the SM cycles of each phase of
-a CTA's work (``[phases]`` lines), then the card's line.
+a CTA's work, and for the grid mode on config 4's 960^2 panel, N = 2000
+and config 2, those of a block's (``[phases]`` lines), then the card's
+line.
 
 The second-to-last lines are nvidia-smi's card line and a JSON object with
 every kernel's launches, error and times; the last line is the result object.
@@ -461,13 +474,16 @@ PER_PIVOT = {"barrier", "decision", "x/y", "pass", "publish"}
 
 
 def run_phases(smi_line):
-    """--phases: the cluster kernel built with -DRRLU_PHASE_CLOCKS, on
-    config 1's, config 4's and config 5's bond panels at the [mode] rows'
-    true extents and pivot counts: the SM cycles (clock64, thread 0 of each
-    CTA) of each phase, the median of 10 launches, for CTA 0, the last CTA
-    that holds rows and the largest over the CTAs; each launch bitwise its
-    plain version. The instrumented cluster kernel's device time a launch
-    (torch.profiler) sets the cycles against time."""
+    """--phases: the kernel built with -DRRLU_PHASE_CLOCKS. The cluster
+    kernel on config 1's, config 4's and config 5's bond panels at the
+    [mode] rows' true extents and pivot counts: the SM cycles (clock64,
+    thread 0 of each CTA) of each phase, the median of 10 launches, for CTA
+    0, the last CTA that holds rows and the largest over the CTAs; the
+    instrumented cluster kernel's device time a launch (torch.profiler)
+    sets the cycles against time. Then the grid kernel on config 4's 960^2
+    panel (grid-resident), N = 2000 and config 2 (streamed): each phase's
+    cycles for block 0 and the mean over the blocks, the median of 3
+    launches. Each launch bitwise its plain version."""
     import torch
     from torch.profiler import ProfilerActivity
 
@@ -529,6 +545,49 @@ def run_phases(smi_line):
                       f"each pivot a pivot: CTA 0 {rows[tag]['cta0']}; CTA "
                       f"{last} (the last with rows) {rows[tag]['cta_last']}; "
                       f"largest over the CTAs {rows[tag]['max']}", flush=True)
+        # the grid kernel on config 4's 960^2 panel (grid-resident), N =
+        # 2000 and config 2 (streamed): the SM cycles of each phase of
+        # block 0 and their mean over the blocks, the median of 3 launches
+        # ("flush+barrier" is the barrier between two panels of a batch)
+        for spec in GRID_PANELS:
+            if spec[0] not in ("960^2 in 1024^2", "N=2000 in 2048^2",
+                               "config 2"):
+                continue
+            args = grid_panel(spec, dev)
+            ref = lu_kernel.rrlu_plain(*args, leftorthogonal=True)
+            runs, times = [], []
+            for _ in range(3):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = lu_cuda.rrlu_call(*args, leftorthogonal=True,
+                                        return_mode=True)
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+                if not all(torch.equal(o, r) for o, r in zip(out, ref)):
+                    fail(f"--phases {spec[0]}: not bitwise its plain version")
+                G = lu_cuda.grid_blocks(0, args[0].element_size())
+                cyc = torch.zeros((256, len(PHASES)), dtype=torch.int64)
+                rc = phased.rrlu_grid_phase_cycles_read(cyc.data_ptr())
+                if rc != 0:
+                    fail(f"--phases: CUDA error {rc} reading the clocks")
+                runs.append(cyc[:min(G, 256)].to(torch.float64))
+            cyc = torch.stack(runs).median(dim=0).values
+            k = int(out[3])
+
+            def show_grid(v):
+                return {p: round(float(c) / (k if p in PER_PIVOT else 1), 1)
+                        for p, c in zip(PHASES, v)}
+            tag = (f"grid {spec[0]} k={k} "
+                   f"{lu_cuda.PANEL_MODES[int(out[6])]}")
+            rows[tag] = {"ms": sorted(times)[1], "block0": show_grid(cyc[0]),
+                         "mean": show_grid(cyc.mean(dim=0))}
+            print(f"[phases] {tag} (the instrumented kernel "
+                  f"{rows[tag]['ms']:.4f} ms a launch, events around one): "
+                  f"cycles, those of each pivot a pivot: block 0 "
+                  f"{rows[tag]['block0']}; mean over the blocks "
+                  f"{rows[tag]['mean']}", flush=True)
     finally:
         lu_cuda._lib = default_lib
     print(f"[phases] {json.dumps(rows)}", flush=True)
@@ -557,6 +616,64 @@ def config2_matrix(dev):
     rng = np.random.default_rng(4096)
     U = rng.standard_normal((N, R)) * np.exp(-np.arange(R) / 16.0)
     return torch.as_tensor(U @ rng.standard_normal((R, N)), device=dev)
+
+
+# The grid mode's panels (phase 3e; tools/grid_ab.py times the same ones
+# for two trees): tag, dtype, padded shape, true extents, rank cap, reltol
+# and the matrix: config 2's (or its first 256 columns or rows, a rook
+# slab), a seeded Gaussian of full rank, or a seeded product of the given
+# rank (complex: real and imaginary parts of that rank each).
+GRID_PANELS = (
+    ("config 2", "float64", (4096, 4096), (4096, 4096), 256, 1e-10,
+     ("config2",)),
+    ("config 2 f32", "float32", (4096, 4096), (4096, 4096), 256, 0.0,
+     ("config2",)),
+    ("960^2 in 1024^2", "float64", (1024, 1024), (960, 960), 44, 1e-14,
+     ("product", 88, 1024)),
+    ("1024x1000 in 1024^2", "float64", (1024, 1024), (1024, 1000), 1000,
+     0.0, ("gauss", 0, 1000)),
+    ("2000x512 in 2048x512", "float64", (2048, 512), (2000, 512), 512, 0.0,
+     ("gauss", 0, 512)),
+    ("rook 4096x256", "float64", (4096, 256), (4096, 256), 256, 0.0,
+     ("config2",)),
+    ("rook 256x4096", "float64", (256, 4096), (256, 4096), 256, 0.0,
+     ("config2",)),
+    ("N=2000 in 2048^2", "float64", (2048, 2048), (2000, 2000), 2000, 1e-12,
+     ("product", 100, 2000)),
+    ("2048^2", "float64", (2048, 2048), (2048, 2048), 2048, 1e-12,
+     ("product", 100, 2048)),
+    ("4200^2 in 5120^2", "float64", (5120, 5120), (4200, 4200), 4200,
+     1e-12, ("product", 100, 8400)),
+    ("complex 1000^2 in 1024^2", "complex128", (1024, 1024), (1000, 1000),
+     1000, 1e-12, ("product", 50, 1000)),
+    ("complex 2040^2 in 2048^2", "complex128", (2048, 2048), (2040, 2040),
+     2040, 1e-12, ("product", 32, 2040)),
+)
+
+
+def grid_panel(spec, dev):
+    """The arguments of one rrlu_call on a GRID_PANELS entry: (panel, m, n,
+    maxrank, reltol, abstol = 0), the panel zero-padded on `dev`."""
+    import numpy as np
+    import torch
+    _, dt, (mp, npd), (m, n), maxrank, reltol, src = spec
+    dtype = getattr(torch, dt)
+    if src[0] == "config2":
+        A = config2_matrix(dev)[:m, :n]
+    else:
+        rng = np.random.default_rng(src[2])
+        if src[0] == "gauss":
+            A = rng.standard_normal((m, n))
+        else:
+            r = src[1]
+            A = rng.standard_normal((m, r)) @ rng.standard_normal((r, n))
+            if dtype.is_complex:
+                A = A + 1j * (rng.standard_normal((m, r))
+                              @ rng.standard_normal((r, n)))
+        A = torch.as_tensor(A, device=dev)
+    P = torch.zeros((mp, npd), dtype=dtype, device=dev)
+    P[:m, :n] = A.to(dtype)
+    return P, m, n, maxrank, reltol, 0.0
 
 
 def mesh_gloo_rank(rank, store, out):
@@ -1013,7 +1130,8 @@ def main():
                         "here")
     parser.add_argument("--phases", action="store_true",
                         help="only time the phases of the rrLU kernel's "
-                        "cluster mode (an instrumented build) and exit")
+                        "cluster and grid modes (an instrumented build) and "
+                        "exit")
     opts = parser.parse_args()
     try:
         import torch
@@ -1597,6 +1715,78 @@ def main():
     config2 = {"config2_ms": kms, "config2_plain_ms": pms}
     # phase 3d factorizes the same matrix by rook
     config2_A, config2_k = A, k
+
+    # -- 3e. the grid mode ------------------------------------------------------
+    # Each GRID_PANELS entry: the regime it takes (grid-resident or streamed),
+    # bitwise against the plain version, the kernel's time by CUDA events
+    # around a CUDA graph of launches (the profiler records about half of a
+    # grid launch, PERF.md §7), the bound, and the complete-pivot floor of a
+    # streamed panel: its trailing block read and written once a pivot.
+    G = {es: lu_cuda.grid_blocks(0, es) for es in (4, 8, 16)}
+    barrier_us = lu_cuda.grid_barrier_ms(0, 20000) * 1e3
+    print(f"[barrier] grid: {barrier_us:.4f} us a barrier across {G[8]} "
+          f"blocks (events around one launch of 20000)", flush=True)
+    grid_rows = []
+    for spec in GRID_PANELS:
+        args = grid_panel(spec, dev)
+        P, m, n = args[:3]
+        out = lu_cuda.rrlu_call(*args, leftorthogonal=True, return_mode=True)
+        ref = lu_kernel.rrlu_plain(*args, leftorthogonal=True)
+        max_err = max(max_err, compare(f"[grid] {spec[0]}", out[:6], ref,
+                                       1.0))
+        regime = lu_cuda.PANEL_MODES[int(out[6])]
+        k = int(out[3])
+        es = P.element_size()
+        reps = 3 if P.numel() * es > (64 << 20) else 10
+        kms = graph_ms(lambda: lu_cuda.rrlu_call(*args, leftorthogonal=True),
+                       reps)
+        bms, bby = bound_ms(*P.shape, m, n, k, es)
+        floor = sum(2.0 * (m - j) * (n - j) * es for j in range(k))
+        floor_ms = floor / HBM_BYTES_PER_S * 1e3
+        row = {"panel": spec[0], "dtype": spec[1], "shape": list(P.shape),
+               "true": [m, n], "k": k, "regime": regime, "ms": kms,
+               "ms_from": f"events around a CUDA graph of {reps} launches",
+               "bound_ms": bms, "bound_by": bby, "floor_ms": floor_ms}
+        grid_rows.append(row)
+        print(f"[grid] {spec[0]} {spec[1]} (k = {k}): {regime}, kernel "
+              f"{kms:.4f} ms ({row['ms_from']}), bound {bms:.6f} ms ({bby}), "
+              f"complete-pivot floor {floor_ms:.4f} ms, identical",
+              flush=True)
+        if spec[0] in ("960^2 in 1024^2", "rook 4096x256"):
+            # a stale cross-block read would show as a rare wrong pivot
+            for rep in range(20):
+                compare(f"[grid] {spec[0]} repeat {rep}",
+                        lu_cuda.rrlu_call(*args, leftorthogonal=True), ref,
+                        1.0)
+            print(f"[grid] {spec[0]}: 20 more kernel runs, each identical to "
+                  f"the plain result", flush=True)
+    want = {"960^2 in 1024^2": "grid", "1024x1000 in 1024^2": "grid",
+            "2000x512 in 2048x512": "grid", "rook 4096x256": "grid",
+            "rook 256x4096": "grid", "N=2000 in 2048^2": "stream",
+            "config 2": "stream", "complex 2040^2 in 2048^2": "stream"}
+    wrong = {r["panel"]: r["regime"] for r in grid_rows
+             if want.get(r["panel"], r["regime"]) != r["regime"]}
+    if wrong:
+        fail(f"[grid] panels in another regime than planned: {wrong}")
+    # the grid mode's split at 960^2: device time with the rank capped at
+    # 0 (launch, load, first pass, write-out) and at 1 ... 44 pivots
+    spec = next(p for p in GRID_PANELS if p[0] == "960^2 in 1024^2")
+    args = grid_panel(spec, dev)
+    gtimes = {cap: graph_ms(
+        lambda cap=cap: lu_cuda.rrlu_call(*args[:3], cap, *args[4:],
+                                          leftorthogonal=True), 20)
+              for cap in (0, 1, 2, 4, 11, 22, 44)}
+    grid_split = {"fixed_us": gtimes[0] * 1e3,
+                  "per_pivot_us": (gtimes[44] - gtimes[0]) / 44 * 1e3,
+                  "by_cap_us": {c: t * 1e3 for c, t in gtimes.items()},
+                  "from": "events around a CUDA graph of 20 launches"}
+    print(f"[split] grid f64 960x960 (bucket 1024x1024) device time by rank "
+          f"cap (events around a CUDA graph of 20 launches): " + ", ".join(
+              f"{c}: {t * 1e3:.2f} us" for c, t in gtimes.items())
+          + f"; fixed {grid_split['fixed_us']:.2f} us, "
+          f"{grid_split['per_pivot_us']:.3f} us a pivot", flush=True)
+    grid_entry = {"blocks": G, "barrier_us": barrier_us, "rows": grid_rows,
+                  "split": grid_split}
 
     # -- 3c. the batched-grid probes -------------------------------------------
     # the probe as its user runs it, with every count set to 0 just before
@@ -4600,11 +4790,13 @@ def main():
         fuzz_counts, fuzz_stops = {}, {}
         fuzz_launches = lu_cuda.LAUNCHES["rrlu"]
         # (m, n) ranges for each mode aimed at: resident panels of up to 128
-        # (80 complex), cluster panels above them, and panels past a cluster's
-        # shared memory (grid); the mode each launch took is read back
+        # (80 complex), cluster panels above them, panels past a cluster's
+        # shared memory (grid-resident) and past the grid's (streamed); the
+        # mode each launch took is read back
         aims = {"resident": ((1, 128), (1, 80)), "cluster": ((130, 420),
                                                             (100, 300)),
-                "grid": ((1000, 1500), (1000, 1300))}
+                "grid": ((1000, 1500), (800, 1100)),
+                "stream": ((2800, 3200), (1600, 2000))}
         fuzz_types = (torch.float32, torch.float64, torch.complex128)
 
         def fuzz_panel(m, n, r, dtype, decay):
@@ -4621,7 +4813,9 @@ def main():
         def fuzz_one(aim, dtype, first):
             real = dtype if not dtype.is_complex else torch.float64
             lo, hi = aims[aim][1 if dtype.is_complex else 0]
-            B = int(fuzz_rng.integers(1, 9)) if fuzz_rng.random() < 0.4 else 0
+            # streamed panels are ~30-70 MB each: batches of at most 3
+            B = (int(fuzz_rng.integers(1, 4 if aim == "stream" else 9))
+                 if fuzz_rng.random() < 0.4 else 0)
             m = 1 if first else int(fuzz_rng.integers(lo, hi + 1))
             n = 1 if first else int(fuzz_rng.integers(lo, hi + 1))
             pad = str(fuzz_rng.choice(["bucket", "bucket+", "exact"],
@@ -4642,7 +4836,7 @@ def main():
                     fuzz_rng.integers(max(1, m // 2), m + 1))
                 nb = n if not B else int(
                     fuzz_rng.integers(max(1, n // 2), n + 1))
-                rmax = min(mb, nb, 48 if aim == "grid" else 128)
+                rmax = min(mb, nb, 48 if aim in ("grid", "stream") else 128)
                 r = int(fuzz_rng.integers(0, rmax + 1))
                 stop = str(fuzz_rng.choice(["deficient", "maxrank", "reltol",
                                             "abstol"]))
@@ -5000,6 +5194,9 @@ def main():
         # 1's panel, and the mode table at the main path's true extents
         "cluster_mode": {**cluster_cfg, "split": cluster_split,
                          "mode_rows": mode_rows},
+        # the grid mode (phase 3e): its blocks, its barrier alone, each
+        # GRID_PANELS entry's regime, time, bound and floor, its split
+        "grid_mode": grid_entry,
         # rook pivoting: config 2 (phase 3d) and config 1 (phase 4h), and
         # each rook slab shape's times and bound (phase 5)
         "rook": rook_entry,

@@ -46,7 +46,7 @@
 // raises. The pivot is always a valid row and column, so no swap moves a
 // line outside the true extents, and lines outside them are never written.
 //
-// Three modes, chosen per panel; a call is one launch, or two (below):
+// Three modes, chosen per panel; a call is one launch, or up to three (below):
 //
 //   - resident (panels up to 128 x 128 f64, kResidentPanelBytes): one
 //     1024-thread block per panel holds it in shared memory, so device memory
@@ -93,25 +93,55 @@
 //     output and one read of the padding rows; no global atomics, no polling.
 //     What bounds it is the per-pivot chain: the pass over a few rows, one
 //     cluster barrier, the distributed-shared-memory reads;
-//   - grid (everything else): one cooperative launch of as many 1024-thread
-//     blocks as fit on the card at once. The true extents are cut into tiles
-//     (a band of up to 256 rows x 64 columns), each owned by one block for
-//     the whole elimination. Per pivot, block 0 reduces the per-band column
-//     maxima, finds the pivot, tests the stop rule and publishes the pivot
-//     column and row (x, y); a grid barrier; every block updates its tiles
-//     and writes their column maxima; a grid barrier. A panel up to ~40 MB
-//     stays in the 50 MB L2 between pivots, a larger one streams from HBM.
-//     The state that grows with the panel lives in global scratch the
-//     wrapper allocates, so no panel size is refused. Batched panels take
-//     the whole grid in turn.
+//   - grid (everything else): a cooperative launch of one 512-thread block
+//     an SM (132 on an H100); batched panels take the whole grid in turn.
+//     This is the cluster mode's design carried to the whole grid through
+//     global memory. Each block owns whole rows of the true extents, full
+//     width, for the whole elimination, and keeps its own copy of the
+//     permutations and keys. Per pivot: the pass updates the block's rows
+//     with the last pivot and leaves one candidate (|a|^2, column position,
+//     row position), which the block publishes with the entry and its
+//     candidate's whole row in a slot of global memory (one slot set a
+//     pivot, kSlotSets in turn); one grid barrier (a release add and
+//     acquire loads on one counter); then every block reduces the G slots
+//     itself, takes the same decision, stop test and swaps, builds x from
+//     its own rows and y from the winner's slot row; the owner stores row
+//     pr's multipliers at once (the others read the slot, never its rows).
+//     No block decides alone, and no per-column maxima are stored. Two
+//     regimes, each an instantiation of the kernel:
+//       * grid-resident (fits_grid: the true rows, split over the G blocks,
+//         fit each block's shared memory with y and the state; up to ~29 MB
+//         of panel on an H100): each block loads its rows once by the
+//         bulk-copy engine (plain loads where the rows are not 16-byte
+//         aligned) and eliminates in shared memory with resident_pass.
+//         Device memory sees one read of the panel, the slots a pivot and
+//         the write-out;
+//       * streamed (larger panels): the rows live in a work buffer in the
+//         scratch, and each pass streams the block's unpivoted rows, in
+//         chunks of up to 1,920 columns (960 complex), through a ring of
+//         shared-memory stages that one producer warp fills by
+//         cp.async.bulk on mbarriers while 15 consumer warps update the
+//         stages before them. The
+//         write-back is deferred over 2 pivots, or kDefer where the panel
+//         is larger than twice the L2 (defer_depth): a pass rebuilds each
+//         entry from the buffer by the pending updates a - x_t y_t in
+//         their order, the same rounded steps, and writes only every
+//         depth-th pass; a pivot's column and row go to the buffer as they
+//         stand when it is chosen, and the last pending updates when the
+//         elimination stops.
+//     The slots, the work buffer and (where a streamed panel's state does
+//     not fit beside the ring) the blocks' state live in global scratch the
+//     wrapper allocates, so no panel size is refused.
 //
-// The choice: resident by the padded shape, on the host. Otherwise, where the
-// padded panel fits a cluster, only the cluster kernel is launched; where it
-// may not (the true extents live on the device), the cluster kernel and then
-// the grid kernel are launched, both read the clamped extents and apply
-// fits_cluster, and each panel is eliminated by exactly one of them (the
-// other returns at once). Each panel's mode is written to an output word:
-// 0 resident, 1 cluster, 2 grid.
+// The choice, in the order resident, cluster, grid-resident, streamed:
+// resident by the padded shape, on the host. Otherwise, where the padded
+// panel fits a cluster, only the cluster kernel is launched; where it may
+// not (the true extents live on the device), the cluster kernel and then
+// the grid kernel's instantiations that the padded shape allows are
+// launched; each reads the clamped extents, applies fits_cluster and
+// fits_grid, and each panel is eliminated by exactly one kernel (the others
+// skip it before any barrier). Each panel's mode is written to an output
+// word: 0 resident, 1 cluster, 2 grid-resident, 3 streamed.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -129,10 +159,11 @@ constexpr unsigned kBulkChunk = 16384;   // bytes per bulk-copy request
 // kernel's static shared memory.
 constexpr size_t kSmemLimit = 232448 - 2048;
 // Largest panel the one-block mode takes: a 128 x 128 f64 panel (128 KB; a
-// complex128 panel of the same bytes). Above it the grid mode (then the only
-// other mode) was faster even where the panel would fit (at a 160^2 f64
-// bucket and 80 pivots, 0.93 ms against 2.16 ms on an H100); such panels now
-// take the cluster mode.
+// complex128 panel of the same bytes). Above it the grid mode of the time
+// (then the only other mode) was faster even where the panel would fit (at
+// a 160^2 f64 bucket and 80 pivots, 0.93 ms against 2.16 ms on an H100);
+// such panels now take the cluster mode, and those past a cluster's shared
+// memory the grid mode's grid-resident or streamed regime.
 constexpr size_t kResidentPanelBytes = 128 * 128 * 8;
 
 // One panel's true extents and rank cap, clamped to the (mp, np) panel on the
@@ -174,17 +205,19 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// One thread copies `bytes` (a multiple of 16, both ends 16-byte aligned)
-// from global to shared memory with the bulk-copy engine, in requests of
-// kBulkChunk bytes that all complete on `bar`. The block must pass a
-// __syncthreads() (the barrier's initialisation) before anyone waits on it.
-__device__ void bulk_load(void* dst, const void* src, unsigned bytes,
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// One thread arms `bar` for `bytes` (a multiple of 16, both ends 16-byte
+// aligned) and copies them from global to shared memory with the bulk-copy
+// engine, in requests of kBulkChunk bytes that all complete on `bar`.
+__device__ void bulk_copy(void* dst, const void* src, unsigned bytes,
                           unsigned long long* bar) {
   const unsigned b = smem_addr(bar);
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(b), "r"(1u)
-               : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
                    b),
                "r"(bytes)
@@ -197,6 +230,16 @@ __device__ void bulk_load(void* dst, const void* src, unsigned bytes,
         "l"(static_cast<const char*>(src) + off), "r"(len), "r"(b)
         : "memory");
   }
+}
+
+// bulk_copy on a barrier this thread initialises first. The block must pass
+// a __syncthreads() (the barrier's initialisation) before anyone waits on it.
+__device__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                          unsigned long long* bar) {
+  mbar_init(bar, 1u);
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  bulk_copy(dst, src, bytes, bar);
 }
 
 // Waits until the barrier's phase `parity` has completed.
@@ -231,13 +274,14 @@ __device__ __forceinline__ unsigned pos_key(int col, unsigned row) {
 }
 
 // Warp-wide argmax of candidates: every lane ends with the winner (a
-// butterfly over a total order, so the lanes agree).
-template <typename T>
-__device__ __forceinline__ void warp_argmax(T& v, unsigned& key) {
+// butterfly over a total order, so the lanes agree). K is the key's type:
+// 32 bits in the resident and cluster modes, 64 in the grid mode.
+template <typename T, typename K = unsigned>
+__device__ __forceinline__ void warp_argmax(T& v, K& key) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     const T ov = __shfl_xor_sync(0xffffffffu, v, off);
-    const unsigned okey = __shfl_xor_sync(0xffffffffu, key, off);
+    const K okey = __shfl_xor_sync(0xffffffffu, key, off);
     if (ranks_above(ov, okey, v, key)) {
       v = ov;
       key = okey;
@@ -256,15 +300,14 @@ __device__ __forceinline__ void warp_argmax(T& v, unsigned& key) {
 // over its columns and its row group's unpivoted rows ((-1, kNoKey) when it
 // has none), and every lane of a warp returns the warp's best in bv / bkey.
 // That is the whole reduction a barrier needs: no per-column partials are
-// stored.
-template <typename T>
+// stored. U rows of a warp are loaded before any is stored.
+template <typename T, int U = kResidentUnroll>
 __device__ void resident_pass(T* A, int np, int m, int n,
                               const PassLayout& L, const int* rkey,
                               const int* ckey, const T* x, const T* y,
                               typename Ops<T>::R& bv, unsigned& bkey,
                               bool update, bool leftorth, int pr, int pc) {
   using R = typename Ops<T>::R;
-  constexpr int U = kResidentUnroll;
   const int lane = threadIdx.x & 31;
   const int nw = L.R;  // warps a chunk
   const int wsub = L.wsub;
@@ -606,6 +649,10 @@ enum {
 };
 #ifdef RRLU_PHASE_CLOCKS
 __device__ long long rrlu_phase_cycles[kMaxCluster * kPhases];
+// the grid kernel's, for each of its first kMaxClockBlocks blocks over the
+// last grid launch (every panel)
+constexpr int kMaxClockBlocks = 256;
+__device__ long long rrlu_grid_phase_cycles[kMaxClockBlocks * kPhases];
 #define PHASE_MARK(i)                   \
   do {                                  \
     if (tid == 0) {                     \
@@ -879,202 +926,431 @@ __global__ void __launch_bounds__(kClusterThreads)
 }
 
 // ---------------------------------------------------------------------------
-// Grid mode: one cooperative launch, every block of the grid works on one
-// panel at a time (batched panels take the grid in turn).
+// Grid mode: one cooperative launch of one block an SM; every block works on
+// one panel at a time (batched panels take the grid in turn).
 
-constexpr int kGridThreads = 1024;
-constexpr int kTileCols = 64;      // two 32-lane chunks: 512 B of an f64 row
-constexpr int kMaxTileRows = 256;  // rows of a band, chosen per launch
-constexpr int kUnroll = 4;         // rows a warp loads before it stores
+// Threads of a grid block. At 512 a thread may hold 128 registers (at 768
+// ptxas allows 80, at 1024 64, and the kernel then spills); 512 was the
+// fastest of 512, 768 and 1024 on every grid-resident panel (PERF.md's
+// grid-mode findings). A streamed block has 480 consumer threads and one
+// producer warp that feeds the ring; a grid-resident block's 16 warps all
+// take the pass.
+constexpr int kGridThreads = 512;
+constexpr int kGridWarps = kGridThreads / 32;
+constexpr int kGridConsumerWarps = kGridWarps - 1;
+constexpr int kGridConsumers = kGridConsumerWarps * 32;
+// Dynamic shared memory of a grid block, less room for the kernel's static
+// shared memory: the largest a block may take, so one block runs an SM.
+constexpr size_t kGridSmem = 232448 - 2048;
+// Columns of a streamed chunk a consumer thread takes (held in registers,
+// with their pending y), so a chunk is at most stream_q * kGridConsumers
+// elements wide; a complex element takes twice the registers.
+constexpr int kStreamQ = 4;
+__host__ __device__ constexpr int stream_q(int elsize) {
+  return elsize >= 16 ? kStreamQ / 2 : kStreamQ;
+}
+constexpr int kMaxStages = 8;
+constexpr int kSlotReads = 5;  // candidate slots a lane of the decision reads
+constexpr int kRowUnroll = 4;  // row entries a thread loads before it stores
+// Pivots over which a streamed pass may defer its write-back: a pass
+// rebuilds each entry from the work buffer and the x and y of the pivots
+// since the last write, and writes every depth-th pass (defer_depth).
+constexpr int kDefer = 4;
+// Slot sets, taken in turn: one a pivot, and a pivot row stays readable
+// while its y is pending (kDefer pivots) and a late block still reads it.
+constexpr int kSlotSets = kDefer + 1;
+constexpr unsigned long long kNoKey64 = ~0ull;
 
-// Grid-wide barrier on two words {arrived, generation} that the wrapper
-// zeroes. Thread 0 of each block fences the block's writes (bar.sync makes
-// them visible to it, the fence is cumulative) before it arrives, and fences
-// again after the generation moves. The launch is cooperative, so every
-// block is resident and the spin ends.
-__device__ __forceinline__ void grid_sync(unsigned int* bar,
-                                          unsigned int nblocks) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    volatile unsigned int* gen = bar + 1;
-    const unsigned int g = *gen;  // before arriving: only our arrival moves it
-    __threadfence();
-    if (atomicAdd(bar, 1u) == nblocks - 1u) {
-      atomicExch(bar, 0u);
-      __threadfence();
-      atomicAdd(bar + 1, 1u);
-    } else {
-      while (*gen == g) __nanosleep(20);
-    }
-    __threadfence();
-  }
-  __syncthreads();
+// The depth of a streamed panel's deferral, from its true extents and the
+// card's L2 (measured on an H100, PERF.md's grid-mode findings): 2 up to
+// twice the L2 (N = 2000, 2048^2, f32 config 2: a deeper rebuild costs
+// more than the writes it saves), kDefer above, where every pass streams
+// from device memory and its writes cost as much as its reads (config 2,
+// 4200^2). A build with -DRRLU_GRID_DEFER=b defers every streamed panel b
+// pivots instead, for measurement (1: a write every pass).
+__device__ __forceinline__ int defer_depth(int m, int n, int elsize,
+                                           long long l2_bytes) {
+#ifdef RRLU_GRID_DEFER
+  static_assert(RRLU_GRID_DEFER >= 1 && RRLU_GRID_DEFER <= kDefer,
+                "RRLU_GRID_DEFER must lie in [1, kDefer]");
+  return RRLU_GRID_DEFER;
+#else
+  return (long long)m * n * elsize <= 2 * l2_bytes ? 2 : kDefer;
+#endif
 }
 
-// Global scratch of the grid mode, carved from one byte buffer that
-// the wrapper allocates (rrlu_scratch_bytes). Nothing here grows the
-// per-block shared memory.
+__host__ __device__ inline size_t align16(size_t b) {
+  return (b + 15) & ~(size_t)15;
+}
+
+// Elements a work-buffer and slot row holds: np rounded up to 16 bytes, so
+// every row starts where the bulk-copy engine can read it.
+__host__ __device__ inline int grid_ld(int np, int elsize) {
+  const int q = elsize >= 16 ? 1 : 16 / elsize;
+  return (np + q - 1) / q * q;
+}
+
+// Rows of the true extents each of the G blocks owns (the last ones fewer).
+__host__ __device__ inline int grid_rows(int m, int G) {
+  return G > 0 ? (m + G - 1) / G : m;
+}
+
+// A block's copy of the elimination's state: x of the pending pivots
+// (kDefer x rows), then rowperm (mp); colperm, ckey (np); rkey, rpos (rows).
+__host__ __device__ inline size_t grid_state_bytes(int rows, int mp, int np,
+                                                   int elsize) {
+  return align16((size_t)kDefer * rows * elsize) +
+         ((size_t)mp + 2 * (size_t)np + 2 * (size_t)rows) * sizeof(int);
+}
+
+// The rule that sends a panel to the grid-resident regime: each block's
+// share of the m true rows (full padded width), y and the state fit its
+// shared memory, and positions fit the 16-bit halves of resident_pass's
+// candidate key. Monotone in m, so the host sizes for the padded shape.
+__host__ __device__ inline bool fits_grid(int m, int mp, int np, int G,
+                                          int elsize) {
+  const int rows = grid_rows(m, G);
+  return mp < 0xFFFF && np < 0xFFFF &&
+         (size_t)rows * np * elsize + align16((size_t)np * elsize) +
+                 grid_state_bytes(rows, mp, np, elsize) <=
+             kGridSmem;
+}
+
+// The streaming regime keeps the state in shared memory where it fits beside
+// two stages of the widest chunk, else in its block's region of the scratch.
+__host__ __device__ inline bool stream_state_in_smem(int rows, int mp,
+                                                     int np, int elsize) {
+  return grid_state_bytes(rows, mp, np, elsize) +
+             2 * (size_t)stream_q(elsize) * kGridConsumers * elsize <=
+         kGridSmem;
+}
+
+// Width of a streamed chunk for n true columns: the columns rounded up to 16
+// bytes, cut into as few chunks of at most stream_q * kGridConsumers as
+// possible, of equal width (a multiple of 16 bytes).
+__host__ __device__ inline int stream_width(int n, int elsize) {
+  const int q = elsize >= 16 ? 1 : 16 / elsize;
+  const int nw = (n + q - 1) / q * q;
+  const int cap = stream_q(elsize) * kGridConsumers;
+  const int nch = nw > 0 ? (nw + cap - 1) / cap : 1;
+  const int w = (nw + nch - 1) / nch;
+  return w > 0 ? (w + q - 1) / q * q : q;
+}
+
+// Global scratch of the grid mode, carved from one byte buffer that the
+// wrapper allocates (rrlu_scratch_bytes): each block's candidate (|a|^2,
+// key, entry) and its candidate's whole row, in kSlotSets slot sets taken
+// in turn; the work buffer of a streamed panel; the blocks' state where a
+// streamed panel's does not fit shared memory.
 template <typename T>
 struct GridScratch {
   using R = typename Ops<T>::R;
-  T* A;       // (mp, np) work buffer, updated in place
-  R* pmax;    // (nbands, np) per-band column max |a|^2 over unpivoted rows
-  T* x;       // (mp,) scaled pivot column of the current pivot
-  T* y;       // (np,) pivot row of the current pivot
-  int* rf;    // (mp,) row unpivoted and inside the true extent
-  int* cf;    // (np,) column likewise
-  int* rowpos;
-  int* rowperm;
-  int* colpos;
-  int* colperm;
-  int* ctrl;  // {stop, pr, pc}: published by block 0, read after a barrier
+  R* val;                   // (kSlotSets, G)
+  unsigned long long* key;  // (kSlotSets, G): column position << 32 | row
+  T* piv;                   // (kSlotSets, G)
+  T* rows;                  // (kSlotSets, G, ld)
+  T* work;                  // (mp, ld), or null where every panel fits
+  unsigned char* state;     // (G, state_stride), or null
+  size_t state_stride;
 };
-
-__host__ __device__ inline size_t align_up(size_t b) {
-  return (b + 255) & ~(size_t)255;
-}
 
 template <typename T>
 __host__ __device__ size_t grid_scratch(unsigned char* base, int mp, int np,
-                                        int nbands, GridScratch<T>* s) {
+                                        int G, GridScratch<T>* s) {
+  using R = typename Ops<T>::R;
+  const int es = (int)sizeof(T);
+  const size_t ld = (size_t)grid_ld(np, es);
+  const bool stream = !fits_grid(mp, mp, np, G, es);
+  const int rows = grid_rows(mp, G);
+  const bool gstate = stream && !stream_state_in_smem(rows, mp, np, es);
+  const size_t stride = align16(grid_state_bytes(rows, mp, np, es));
+  const size_t slots = (size_t)kSlotSets * G;
   size_t off = 0;
   auto take = [&](size_t bytes) {
     unsigned char* p = base + off;
-    off += align_up(bytes);
+    off += (bytes + 255) & ~(size_t)255;
     return p;
   };
-  unsigned char* a = take((size_t)mp * np * sizeof(T));
-  unsigned char* pm = take((size_t)nbands * np *
-                           sizeof(typename Ops<T>::R));
-  unsigned char* x = take((size_t)mp * sizeof(T));
-  unsigned char* y = take((size_t)np * sizeof(T));
-  unsigned char* ints = take((3 * (size_t)mp + 3 * (size_t)np + 4) *
-                             sizeof(int));
+  unsigned char* val = take(slots * sizeof(R));
+  unsigned char* key = take(slots * sizeof(unsigned long long));
+  unsigned char* piv = take(slots * sizeof(T));
+  unsigned char* rws = take(slots * ld * sizeof(T));
+  unsigned char* work = stream ? take((size_t)mp * ld * sizeof(T)) : nullptr;
+  unsigned char* st = gstate ? take((size_t)G * stride) : nullptr;
   if (s) {
-    s->A = reinterpret_cast<T*>(a);
-    s->pmax = reinterpret_cast<typename Ops<T>::R*>(pm);
-    s->x = reinterpret_cast<T*>(x);
-    s->y = reinterpret_cast<T*>(y);
-    s->rf = reinterpret_cast<int*>(ints);
-    s->rowpos = s->rf + mp;
-    s->rowperm = s->rowpos + mp;
-    s->cf = s->rowperm + mp;
-    s->colpos = s->cf + np;
-    s->colperm = s->colpos + np;
-    s->ctrl = s->colperm + np;
+    s->val = reinterpret_cast<R*>(val);
+    s->key = reinterpret_cast<unsigned long long*>(key);
+    s->piv = reinterpret_cast<T*>(piv);
+    s->rows = reinterpret_cast<T*>(rws);
+    s->work = reinterpret_cast<T*>(work);
+    s->state = st;
+    s->state_stride = stride;
   }
   return off;
 }
 
-// Rows per band: the tallest of 256, 128, 64, 32 that still cuts the panel
-// into at least one tile per block, so block 0's reduction over bands stays
-// short on large panels and small ones still spread over the grid.
-inline int band_rows(int mp, int np, int nblocks) {
-  const int nc = (np + kTileCols - 1) / kTileCols;
-  int tr = kMaxTileRows;
-  while (tr > 32 && (long)((mp + tr - 1) / tr) * nc < nblocks) tr >>= 1;
-  return tr;
+template <typename T>
+struct GridState {
+  T* x;  // (kDefer, rows): x of the pending pivots, in order
+  int* rowperm;
+  int* colperm;
+  int* ckey;
+  int* rkey;
+  int* rpos;
+};
+
+template <typename T>
+__device__ GridState<T> grid_state(unsigned char* p, int rows, int mp,
+                                   int np) {
+  GridState<T> st;
+  st.x = reinterpret_cast<T*>(p);
+  st.rowperm = reinterpret_cast<int*>(
+      p + align16((size_t)kDefer * rows * sizeof(T)));
+  st.colperm = st.rowperm + mp;
+  st.ckey = st.colperm + np;
+  st.rkey = st.ckey + np;
+  st.rpos = st.rkey + rows;
+  return st;
 }
 
-// One pass over the tiles a block owns (tile t belongs to block
-// t % gridDim.x for the whole elimination, so a block reads back only what it
-// wrote itself and plain loads of A are safe). With update set it applies the
-// rank-1 Schur update on unpivoted rows x unpivoted columns and stores the
-// multipliers (the fused pass of resident_pass); in every case it writes each
-// tile column's max |a|^2 over its band's unpivoted rows to pmax. x, y and
-// the flags were written by block 0 before the last barrier: they are read
-// with __ldcg (L2), never through a possibly stale L1 line.
+// The pivots whose update a streamed panel's work buffer still lacks, in
+// order: each one's pivot row (its owner's slot row) and its pivot.
 template <typename T>
-__device__ void grid_pass(const T* __restrict__ src, GridScratch<T>& s,
-                          int np, int m, int n, int tr, bool update,
-                          bool leftorth, int pr, int pc, T* x_s, int* rf_s,
-                          T* y_s, int* cf_s, typename Ops<T>::R* red) {
+struct Pending {
+  const T* row[kDefer];
+  T safe[kDefer];
+};
+
+// y_j of pending pivot t: the pivot row's entry, divided by the pivot where
+// right-orthogonal (the formula of the decision, so the bits are the same).
+template <typename T>
+__device__ __forceinline__ T pending_y(const Pending<T>& p, int t, int j,
+                                       bool leftorth) {
+  const T a = __ldcg(p.row[t] + j);
+  return leftorth ? a : Ops<T>::div(a, p.safe[t]);
+}
+
+// Grid-wide barrier on one counter that the wrapper zeroes before the
+// launch: each block adds one with a release at GPU scope (after bar.sync,
+// so it publishes the whole block's writes) and waits, with acquire loads,
+// until the counter reaches its own count of arrivals so far (`target`,
+// the same in every block). Nothing is reset, so one atomic a block and
+// barrier. The launch is cooperative, so every block is resident and the
+// spin ends.
+__device__ __forceinline__ void grid_barrier(unsigned* bar, unsigned& target,
+                                             unsigned G) {
+  __syncthreads();
+  target += G;
+  if (threadIdx.x == 0) {
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(bar)
+                 : "memory");
+    unsigned v;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+                   : "=r"(v)
+                   : "l"(bar)
+                   : "memory");
+    } while ((int)(v - target) < 0);
+  }
+  __syncthreads();
+}
+
+// A 32-bit candidate key of resident_pass (16-bit positions) as the grid's
+// 64-bit key (32-bit positions), in the same order.
+__device__ __forceinline__ unsigned long long widen_key(unsigned key) {
+  return key == kNoKey ? kNoKey64
+                       : ((unsigned long long)(key >> 16) << 32) |
+                             (key & kNoRow);
+}
+
+// The streaming regime's first pass: the block's nr rows of A_in (row
+// stride np) copied whole into its rows of the work buffer (row stride ld),
+// and each thread's best candidate over the first n columns, with the
+// entry itself; rows sit at their own positions r0 + li.
+template <typename T>
+__device__ __forceinline__ void stream_first(const T* __restrict__ src,
+                                             int np, T* dst,
+                             int ld, int nr, int n, int r0,
+                             typename Ops<T>::R& bv,
+                             unsigned long long& bkey, T& bpiv) {
   using R = typename Ops<T>::R;
-  constexpr int kWarps = kGridThreads / 32;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nb = (m + tr - 1) / tr;
-  const int nc = (n + kTileCols - 1) / kTileCols;
-  for (int t = blockIdx.x; t < nb * nc; t += gridDim.x) {
-    const int band = t / nc;
-    const int i0 = band * tr;
-    const int j0 = (t % nc) * kTileCols;
-    const int rows = min(tr, m - i0);
-    for (int r = threadIdx.x; r < rows; r += kGridThreads) {
-      rf_s[r] = update ? __ldcg(s.rf + i0 + r) : 1;
-      x_s[r] = update ? __ldcg(s.x + i0 + r) : Ops<T>::zero();
+  constexpr int U = 4;  // elements a thread loads before it stores
+  const int total = nr * np;
+  for (int e0 = threadIdx.x; e0 < total; e0 += U * kGridThreads) {
+    T a[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int e = e0 + u * kGridThreads;
+      a[u] = e < total ? src[e] : Ops<T>::zero();
     }
-    for (int c = threadIdx.x; c < kTileCols; c += kGridThreads) {
-      const int j = j0 + c;
-      cf_s[c] = update && j < n ? __ldcg(s.cf + j) : 0;
-      y_s[c] = update && j < n ? __ldcg(s.y + j) : Ops<T>::zero();
-    }
-    __syncthreads();
-    // kUnroll rows of a warp are loaded before any is stored, so each
-    // thread keeps 2 * kUnroll loads in flight (a store to A could alias a
-    // later load, so the compiler would not hoist them itself).
-    R cm[2] = {R(-1), R(-1)};
-    for (int r0 = warp; r0 < rows; r0 += kUnroll * kWarps) {
-      T a[kUnroll][2];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int r = r0 + u * kWarps;
-        // a pivoted row has nothing to update or count, bar row pr's
-        // multipliers in the right-orthogonal form
-        const bool live = r < rows && (rf_s[r] || i0 + r == pr);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int j = j0 + h * 32 + lane;
-          const size_t e = (size_t)(i0 + r) * np + j;
-          a[u][h] = live && j < n ? (update ? s.A[e] : src[e])
-                                  : Ops<T>::zero();
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int r = r0 + u * kWarps;
-        const int i = i0 + r;
-        if (r >= rows) break;
-        const int rf = rf_s[r];
-        if (!rf && i != pr) continue;
-        const T xi = x_s[r];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int c = h * 32 + lane;
-          const int j = j0 + c;
-          if (j >= n) continue;
-          const size_t e = (size_t)i * np + j;
-          T v = a[u][h];
-          if (!update) {
-            s.A[e] = v;
-          } else if (rf && cf_s[c]) {
-            v = Ops<T>::sub(v, Ops<T>::mul(xi, y_s[c]));
-            s.A[e] = v;
-          } else if (leftorth ? (rf && j == pc) : (i == pr && cf_s[c])) {
-            v = leftorth ? xi : y_s[c];
-            s.A[e] = v;
-          }
-          if (rf) cm[h] = nan_max(cm[h], Ops<T>::abs2(v));
+    for (int u = 0; u < U; ++u) {
+      const int e = e0 + u * kGridThreads;
+      if (e >= total) break;
+      const int li = e / np, j = e - li * np;
+      dst[(size_t)li * ld + j] = a[u];
+      if (j < n) {
+        const unsigned long long key =
+            ((unsigned long long)j << 32) | (unsigned)(r0 + li);
+        const R sq = Ops<T>::abs2(a[u]);
+        if (ranks_above(sq, key, bv, bkey)) {
+          bv = sq;
+          bkey = key;
+          bpiv = a[u];
         }
       }
     }
-    red[warp * kTileCols + lane] = cm[0];
-    red[warp * kTileCols + 32 + lane] = cm[1];
-    __syncthreads();
-    if (threadIdx.x < kTileCols && j0 + (int)threadIdx.x < n) {
-      R v = red[threadIdx.x];
-      for (int w = 1; w < kWarps; ++w)
-        v = nan_max(v, red[w * kTileCols + threadIdx.x]);
-      s.pmax[(size_t)band * np + j0 + threadIdx.x] = v;
-    }
-    __syncthreads();  // the staging and red are reused by the next tile
   }
 }
 
-// C is the cluster size of the cluster kernel launched before this one (0:
-// none); the panels that fits_cluster gives to it are skipped here.
+// The streaming regime's pass over the block's unpivoted rows of the work
+// buffer (row stride ld): chunks of Wc columns (each consumer thread takes
+// stream_q of them, their keys and pending y in registers), and in each
+// chunk the rows in turn, fed through a ring of S shared-memory stages by
+// the producer warp (one bulk copy a row chunk, completing on full[s]; the
+// consumer warps release a stage on empty[s]). Each consumer rebuilds the
+// entry from the work buffer by the D pending updates a - x_i y_j, in order
+// (the last is this pass's pivot), stores it when `write` is set, and keeps
+// its best candidate with the entry; `it` counts the ring's items in every
+// thread alike. D is a template parameter: a count known only at run time
+// would make every rebuild kDefer predicated steps (stream_pass_n picks the
+// instantiation).
+template <typename T, int D>
+__device__ __forceinline__ void stream_pass(
+    T* A, int ld, int nr, int n, int Wc, int S, unsigned char* ring,
+    unsigned long long* full, unsigned long long* empty, unsigned& it,
+    const GridState<T>& st, int rows, const Pending<T>& pend, bool write,
+    bool leftorth, typename Ops<T>::R& bv, unsigned long long& bkey,
+    T& bpiv) {
+  using R = typename Ops<T>::R;
+  constexpr int NC = kGridConsumers;
+  constexpr int Q = stream_q((int)sizeof(T));
+  const int tid = threadIdx.x;
+  const int q16 = sizeof(T) >= 16 ? 1 : 16 / (int)sizeof(T);
+  const int nw = (n + q16 - 1) / q16 * q16;
+  const size_t stage = (size_t)Wc * sizeof(T);
+  bv = R(-1);
+  bkey = kNoKey64;
+  bpiv = Ops<T>::zero();
+  if (tid >= NC) {  // the producer warp; lane 0 copies, all lanes count
+    for (int c0 = 0; c0 < n; c0 += Wc) {
+      const unsigned bytes =
+          (unsigned)((nw - c0 < Wc ? nw - c0 : Wc) * sizeof(T));
+      for (int li = 0; li < nr; ++li) {
+        if (st.rkey[li] < 0) continue;
+        if (tid == NC) {
+          const unsigned s = it % S, u = it / S;
+          if (u > 0) mbar_wait(&empty[s], (u - 1) & 1);
+          bulk_copy(ring + s * stage, A + (size_t)li * ld + c0, bytes,
+                    &full[s]);
+        }
+        ++it;
+      }
+    }
+    return;
+  }
+  for (int c0 = 0; c0 < n; c0 += Wc) {
+    const int cend = min(n, c0 + Wc);
+    T yq[D][Q];
+    int ck[Q];
+    R cm[Q];
+    int cp[Q];
+    T cv[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int j = c0 + tid + q * NC;
+      ck[q] = j < cend ? st.ckey[j] : -1;
+#pragma unroll
+      for (int t = 0; t < D; ++t)
+        yq[t][q] = ck[q] >= 0 ? pending_y(pend, t, j, leftorth)
+                              : Ops<T>::zero();
+      cm[q] = R(-1);
+      cp[q] = -1;
+      cv[q] = Ops<T>::zero();
+    }
+    for (int li = 0; li < nr; ++li) {
+      const int rk = st.rkey[li];
+      if (rk < 0) continue;
+      const unsigned s = it % S, u = it / S;
+      mbar_wait(&full[s], u & 1);
+      const T* src = reinterpret_cast<const T*>(ring + s * stage);
+      T* dst = A + (size_t)li * ld + c0;
+      T xr[D];
+#pragma unroll
+      for (int t = 0; t < D; ++t) xr[t] = st.x[t * rows + li];
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        if (ck[q] < 0) continue;
+        const int c = tid + q * NC;
+        T v = src[c];
+#pragma unroll
+        for (int t = 0; t < D; ++t)
+          v = Ops<T>::sub(v, Ops<T>::mul(xr[t], yq[t][q]));
+        if (write) dst[c] = v;
+        const R sq = Ops<T>::abs2(v);
+        if (ranks_above(sq, rk, cm[q], cp[q])) {
+          cm[q] = sq;
+          cp[q] = rk;
+          cv[q] = v;
+        }
+      }
+      __syncwarp();
+      if ((tid & 31) == 0)
+        asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                         smem_addr(&empty[s]))
+                     : "memory");
+      ++it;
+    }
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      if (ck[q] < 0 || cp[q] < 0) continue;
+      const unsigned long long key =
+          ((unsigned long long)ck[q] << 32) | (unsigned)cp[q];
+      if (ranks_above(cm[q], key, bv, bkey)) {
+        bv = cm[q];
+        bkey = key;
+        bpiv = cv[q];
+      }
+    }
+  }
+}
+
+// stream_pass with its count of pending updates, D in [1, kDefer].
 template <typename T>
-__global__ void __launch_bounds__(kGridThreads)
+__device__ __forceinline__ void stream_pass_n(
+    int D, T* A, int ld, int nr, int n, int Wc, int S, unsigned char* ring,
+    unsigned long long* full, unsigned long long* empty, unsigned& it,
+    const GridState<T>& st, int rows, const Pending<T>& pend, bool write,
+    bool leftorth, typename Ops<T>::R& bv, unsigned long long& bkey,
+    T& bpiv) {
+  static_assert(kDefer == 4, "stream_pass_n instantiates D = 1 ... 4");
+#define RRLU_STREAM_PASS(d)                                               \
+  stream_pass<T, d>(A, ld, nr, n, Wc, S, ring, full, empty, it, st, rows, \
+                    pend, write, leftorth, bv, bkey, bpiv)
+  switch (D) {
+    case 1:
+      RRLU_STREAM_PASS(1);
+      break;
+    case 2:
+      RRLU_STREAM_PASS(2);
+      break;
+    case 3:
+      RRLU_STREAM_PASS(3);
+      break;
+    default:
+      RRLU_STREAM_PASS(4);
+  }
+#undef RRLU_STREAM_PASS
+}
+
+// C is the cluster size of the cluster kernel launched before this one (0:
+// none); the panels that fits_cluster gives to it are skipped here. Each
+// other panel is grid-resident (fits_grid: mode 2) or streamed (mode 3),
+// and the instantiation of its regime takes it (the other skips it). Both
+// instantiations run on the same number of blocks, so they agree on the
+// rule; `bar` is the instantiation's own barrier counter.
+template <typename T, bool Stream>
+__global__ void __launch_bounds__(kGridThreads, 1)
     rrlu_grid_kernel(const T* __restrict__ A_in, unsigned char* scratch,
                      unsigned int* bar, T* __restrict__ A_sw,
                      int64_t* __restrict__ rowperm_out,
@@ -1088,28 +1364,37 @@ __global__ void __launch_bounds__(kGridThreads)
                      const typename Ops<T>::R* tol_arr, int m_s, int n_s,
                      int maxrank_s, typename Ops<T>::R reltol_s,
                      typename Ops<T>::R abstol_s, int B, int mp, int np,
-                     int leftorth_i, int tr, int C) {
+                     int leftorth_i, int C, long long l2_bytes) {
   using R = typename Ops<T>::R;
   constexpr int NT = kGridThreads;
-  __shared__ R s_val[33];
-  __shared__ int s_pos[33];
-  __shared__ T x_s[kMaxTileRows];
-  __shared__ int rf_s[kMaxTileRows];
-  __shared__ T y_s[kTileCols];
-  __shared__ int cf_s[kTileCols];
-  __shared__ R red[(NT / 32) * kTileCols];
+  constexpr int W = kGridWarps;
+  constexpr int es = (int)sizeof(T);
+  __shared__ unsigned long long load_bar;
+  __shared__ unsigned long long full[kMaxStages], empty[kMaxStages];
+  __shared__ R w_val[W];  // per-warp winners
+  __shared__ unsigned long long w_key[W];
+  __shared__ T w_piv[W];
+  __shared__ int s_piv[4];  // {stop, pc, pr, the winner's local row}
+  __shared__ T s_safe;
+  __shared__ Pending<T> pend;  // a streamed panel's pending pivots
+  extern __shared__ __align__(128) unsigned char smem_raw[];
 
   const int tid = threadIdx.x;
-  const bool lead = blockIdx.x == 0;
-  const unsigned int G = gridDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int G = (int)gridDim.x;
+  const int g = (int)blockIdx.x;
   const bool leftorth = leftorth_i != 0;
   const int rmax = mp < np ? mp : np;
   const size_t panel = (size_t)mp * np;
-  const int nbands = (mp + tr - 1) / tr;
+  const int ld = grid_ld(np, es);
   GridScratch<T> s;
-  grid_scratch<T>(scratch, mp, np, nbands, &s);
-  const size_t gtid = (size_t)blockIdx.x * NT + tid;
-  const size_t gstride = (size_t)G * NT;
+  grid_scratch<T>(scratch, mp, np, G, &s);
+  unsigned target = 0;  // arrivals the last grid barrier waited for
+#ifdef RRLU_PHASE_CLOCKS
+  long long ph[kPhases] = {};
+  long long ph_t = clock64();
+#endif
 
   for (int b = 0; b < B; ++b) {
     int m = m_arr ? m_arr[b] : m_s;
@@ -1118,160 +1403,406 @@ __global__ void __launch_bounds__(kGridThreads)
     clamp_extents(mp, np, m, n, maxrank);
     // a panel that fits the cluster launched before this one is its: every
     // block reads the same extents and skips it before any barrier
-    if (fits_cluster(m, mp, np, C, (int)sizeof(T))) continue;
+    if (fits_cluster(m, mp, np, C, es)) continue;
     const R reltol = tol_arr ? tol_arr[2 * b] : reltol_s;
     const R abstol = tol_arr ? tol_arr[2 * b + 1] : abstol_s;
     const T* Ain = A_in + b * panel;
-    const int nbm = (m + tr - 1) / tr;  // bands this panel's pass writes
+    // a panel of the other regime is the other instantiation's
+    if (fits_grid(m, mp, np, G, es) == Stream) continue;
+    const int rows = grid_rows(m, G);
+    const int r0 = min(g * rows, m);
+    const int nr = min(rows, m - r0);
 
-    // Set-up: the tiles' owners copy the true extents into the work buffer
-    // and write the first column maxima; padding is copied grid-stride (it
-    // is never updated, only read by the final gather through L2). Block 0
-    // alone writes the permutations and flags until the end of the panel.
-    for (size_t e = gtid; e < panel; e += gstride) {
-      const int i = (int)(e / np), j = (int)(e % np);
-      if (i >= m || j >= n) s.A[e] = Ain[e];
+    // Where the block's rows and state live. Grid-resident: the rows (np
+    // wide), y and the state in shared memory. Streamed: the rows in the
+    // work buffer (ld wide), the ring in shared memory, the state beside it
+    // or in the scratch.
+    T* A;
+    int lda;
+    T* y = nullptr;
+    GridState<T> st;
+    unsigned char* ring = nullptr;
+    int Wc = 0, S = 0;
+    if constexpr (!Stream) {
+      A = reinterpret_cast<T*>(smem_raw);
+      lda = np;
+      y = A + (size_t)rows * np;
+      st = grid_state<T>(
+          smem_raw + (size_t)rows * np * es + align16((size_t)np * es), rows,
+          mp, np);
+    } else {
+      A = s.work + (size_t)r0 * ld;
+      lda = ld;
+      Wc = stream_width(n, es);
+      const size_t stage = (size_t)Wc * es;
+      if (stream_state_in_smem(rows, mp, np, es)) {
+        const size_t sb = (grid_state_bytes(rows, mp, np, es) + 127) &
+                          ~(size_t)127;
+        st = grid_state<T>(smem_raw, rows, mp, np);
+        ring = smem_raw + sb;
+        S = (int)((kGridSmem - sb) / stage);
+      } else {
+        st = grid_state<T>(s.state + (size_t)g * s.state_stride, rows, mp,
+                           np);
+        ring = smem_raw;
+        S = (int)(kGridSmem / stage);
+      }
+      if (S > kMaxStages) S = kMaxStages;
     }
-    if (lead) {
-      for (int i = tid; i < mp; i += NT) {
-        s.rowpos[i] = i;
-        s.rowperm[i] = i;
-        s.rf[i] = i < m;
+    // the ring starts afresh with each streamed panel (its stage count
+    // depends on the panel's width); nothing is in flight between panels
+    unsigned it = 0;  // items through the ring so far, in every thread
+    int npend = 0;    // pivots the work buffer lacks, the same everywhere
+    const int depth = Stream ? defer_depth(m, n, es, l2_bytes) : 1;
+    if (Stream && tid == 0) {
+      for (int i = 0; i < S; ++i) {
+        mbar_init(&full[i], 1u);
+        mbar_init(&empty[i], (unsigned)kGridConsumerWarps);
       }
-      for (int j = tid; j < np; j += NT) {
-        s.colpos[j] = j;
-        s.colperm[j] = j;
-        s.cf[j] = j < n;
-      }
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    }
+    const bool bulk = !Stream && nr > 0 &&
+                      ((uintptr_t)(Ain + (size_t)r0 * np) & 15) == 0 &&
+                      ((size_t)np * es) % 16 == 0;
+    if (bulk && tid == 0)
+      bulk_load(A, Ain + (size_t)r0 * np, (unsigned)((size_t)nr * np * es),
+                &load_bar);
+    for (int i = tid; i < mp; i += NT) st.rowperm[i] = i;
+    for (int j = tid; j < np; j += NT) {
+      st.colperm[j] = j;
+      st.ckey[j] = j < n ? j : -1;
+    }
+    for (int li = tid; li < nr; li += NT) {
+      st.rkey[li] = r0 + li;
+      st.rpos[li] = r0 + li;
+    }
+    if (g == 0)
       for (int r = tid; r < rmax; r += NT) mags_out[b * rmax + r] = R(0);
+    if (!Stream && !bulk)
+      for (int e = tid; e < nr * np; e += NT)
+        A[e] = Ain[(size_t)r0 * np + e];
+    __syncthreads();  // the barriers' initialisation, the state, the rows
+    if (bulk) mbar_wait(&load_bar, 0);
+    PHASE_MARK(kPhaseLoad);
+
+    // An entry of the block's row li as it stands after the last pass: the
+    // work buffer's, less the pending updates where the column was unpivoted
+    // through them (`live`).
+    auto current = [&](int li, int j, bool live) {
+      T a = A[(size_t)li * lda + j];
+      if constexpr (Stream) {
+        if (live && npend > 0) {
+          T yt[kDefer];  // every load in flight before the chain
+#pragma unroll
+          for (int t = 0; t < kDefer; ++t)
+            yt[t] = t < npend ? pending_y(pend, t, j, leftorth)
+                              : Ops<T>::zero();
+#pragma unroll
+          for (int t = 0; t < kDefer; ++t)
+            if (t < npend)
+              a = Ops<T>::sub(a, Ops<T>::mul(st.x[t * rows + li], yt[t]));
+        }
+      }
+      return a;
+    };
+
+    // After a pass: warp 0 reduces the warp winners and publishes the
+    // block's candidate (|a|^2, key, entry) in slot set `set`; then the
+    // whole block copies the candidate's row (first n columns, as they
+    // stand) beside it.
+    auto publish = [&](int set, R bv, unsigned long long bkey, T bpiv) {
+      if (lane == 0) {
+        w_val[warp] = bv;
+        w_key[warp] = bkey;
+        w_piv[warp] = bpiv;
+      }
+      __syncthreads();
+      if (warp == 0) {
+        bv = lane < W ? w_val[lane] : R(-1);
+        bkey = lane < W ? w_key[lane] : kNoKey64;
+        bpiv = lane < W ? w_piv[lane] : Ops<T>::zero();
+        const unsigned long long mine = bkey;
+        warp_argmax<R>(bv, bkey);
+        const unsigned holder = __ballot_sync(0xffffffffu, mine == bkey);
+        bpiv = shfl_from(bpiv, __ffs(holder) - 1);
+        if (lane == 0) {
+          const size_t at = (size_t)set * G + g;
+          s.val[at] = bv;
+          s.key[at] = bkey;
+          s.piv[at] = bpiv;
+          s_piv[3] = bv < R(0) ? -1 : st.rowperm[(unsigned)bkey] - r0;
+        }
+      }
+      __syncthreads();
+      const int li = s_piv[3];
+      if (li >= 0) {
+        T* dst = s.rows + ((size_t)set * G + g) * ld;
+        for (int j0 = tid; j0 < n; j0 += kRowUnroll * NT) {
+          T a[kRowUnroll];
+#pragma unroll
+          for (int u = 0; u < kRowUnroll; ++u)
+            a[u] = j0 + u * NT < n
+                       ? current(li, j0 + u * NT, st.ckey[j0 + u * NT] >= 0)
+                       : Ops<T>::zero();
+#pragma unroll
+          for (int u = 0; u < kRowUnroll; ++u)
+            if (j0 + u * NT < n) dst[j0 + u * NT] = a[u];
+        }
+      }
+    };
+
+    // a grid-resident warp's winner names its entry in shared memory
+    auto resident_piv = [&](R bv, unsigned key32) {
+      return bv < R(0) ? Ops<T>::zero()
+                       : A[(size_t)(st.rowperm[key32 & kNoRow] - r0) * lda +
+                           st.colperm[key32 >> 16]];
+    };
+
+    R bv = R(-1);
+    unsigned long long bkey = kNoKey64;
+    T bpiv = Ops<T>::zero();
+    if constexpr (!Stream) {
+      const PassLayout L(n, warp, W);
+      unsigned key32;
+      resident_pass<T>(A, np, nr, n, L, st.rkey, st.ckey, st.x, y, bv, key32,
+                       false, leftorth, -1, -1);
+      bkey = widen_key(key32);
+      bpiv = resident_piv(bv, key32);
+    } else {
+      stream_first<T>(Ain + (size_t)r0 * np, np, A, ld, nr, n, r0, bv, bkey,
+                      bpiv);
+      // the work buffer is read next by the bulk-copy engine (async proxy)
+      asm volatile("fence.proxy.async.global;" ::: "memory");
+      const unsigned long long mine = bkey;
+      warp_argmax<R>(bv, bkey);
+      bpiv = shfl_from(bpiv,
+                       __ffs(__ballot_sync(0xffffffffu, mine == bkey)) - 1);
     }
-    grid_pass<T>(Ain, s, np, m, n, tr, false, leftorth, -1, -1, x_s, rf_s,
-                 y_s, cf_s, red);
-    grid_sync(bar, G);
+    publish(0, bv, bkey, bpiv);
+    PHASE_MARK(kPhaseFirst);
 
     int k = 0;
-    R maxerror = R(0);  // block 0's
+    R maxerror = R(0);
     R err = Ops<R>::nan();
     while (true) {
-      if (lead) {
-        // (a)-(d) on one block; the others wait at the barrier. Every
-        // argmax is a (value, smallest swapped position) pair, so the
-        // winner does not depend on how the panel was cut into tiles.
-        bool stop = k >= maxrank;
-        int pr = -1, pc = -1;
-        if (!stop) {
-          R cv = R(-1);
-          int cp = kBig;
-          for (int j = tid; j < n; j += NT) {
-            if (!s.cf[j]) continue;
-            R v = R(-1);
-            for (int bd = 0; bd < nbm; ++bd)
-              v = nan_max(v, __ldcg(s.pmax + (size_t)bd * np + j));
-            const int p = s.colpos[j];
-            if (ranks_above(v, p, cv, cp)) {
-              cv = v;
-              cp = p;
+      // The barrier, the decision and x, y; `break` leaves them once the
+      // elimination stops (done).
+      bool done = false;
+      do {
+        grid_barrier(bar, target, G);  // every block's slots of set k
+        PHASE_MARK(kPhaseBarrier);
+        if (k >= maxrank) {
+          done = true;
+          break;
+        }
+        const int set = k % kSlotSets;
+
+        // Warp 0 of every block reduces the G slots (lane l reads slots l,
+        // l + 32, ...) and takes the same decision and the same swaps.
+        if (warp == 0) {
+          R v = R(-1);
+          unsigned long long key = kNoKey64;
+          T piv = Ops<T>::zero();
+          // kSlotReads slots a lane, all loads in flight at once (132 SMs:
+          // one round)
+          for (int q0 = lane; q0 < G; q0 += 32 * kSlotReads) {
+            R qv[kSlotReads];
+            unsigned long long qk[kSlotReads];
+            T qp[kSlotReads];
+#pragma unroll
+            for (int u = 0; u < kSlotReads; ++u) {
+              const int q = q0 + 32 * u;
+              const size_t at = (size_t)set * G + q;
+              qv[u] = q < G ? __ldcg(s.val + at) : R(-1);
+              qk[u] = q < G ? __ldcg(s.key + at) : kNoKey64;
+              qp[u] = q < G ? __ldcg(s.piv + at) : Ops<T>::zero();
             }
+#pragma unroll
+            for (int u = 0; u < kSlotReads; ++u)
+              if (ranks_above(qv[u], qk[u], v, key)) {
+                v = qv[u];
+                key = qk[u];
+                piv = qp[u];
+              }
           }
-          block_argmax<R, NT>(cv, cp, s_val, s_pos);
-          if (cv < R(0)) {  // no valid column left: stop with err 0
-            err = R(0);
-            stop = true;
-          } else {
-            const int bestcolpos = cp;
-            pc = s.colperm[bestcolpos];
-            R rv = R(-1);
-            int rp = kBig;
-            for (int i = tid; i < m; i += NT) {
-              if (!s.rf[i]) continue;
-              const T a = __ldcg(s.A + (size_t)i * np + pc);
-              const R v = Ops<T>::abs2(a);
-              const int p = s.rowpos[i];
-              if (ranks_above(v, p, rv, rp)) {
-                rv = v;
-                rp = p;
+          const unsigned long long mine = key;
+          warp_argmax<R>(v, key);
+          const unsigned holder = __ballot_sync(0xffffffffu, mine == key);
+          piv = shfl_from(piv, __ffs(holder) - 1);
+          if (lane == 0) {
+            int stop = 1;
+            R e = R(0);  // no valid column (or row) left: stop with err 0
+            int pc = 0, pr = 0;
+            T safe = Ops<T>::one();
+            if (!(v < R(0))) {  // a candidate: a value or a NaN
+              const int bestcolpos = (int)(key >> 32);
+              const int bestrowpos = (int)(unsigned)key;
+              pc = st.colperm[bestcolpos];
+              pr = st.rowperm[bestrowpos];
+              e = Ops<R>::sqrt(v);
+              stop = k > 0 && (e < Ops<R>::mul(reltol, maxerror) ||
+                               e < abstol || e == R(0));
+              safe = Ops<T>::nonzero(piv) ? piv : Ops<T>::one();
+              if (!stop) {
+                maxerror = nan_max(maxerror, e);
+                if (g == 0) mags_out[b * rmax + k] = e;
+                // the virtual swaps on this block's copy; only the two rows
+                // and the two columns that move change their keys
+                const int r_at_k = st.rowperm[k], c_at_k = st.colperm[k];
+                st.rowperm[bestrowpos] = r_at_k;
+                st.rowperm[k] = pr;
+                st.colperm[bestcolpos] = c_at_k;
+                st.colperm[k] = pc;
+                if (r_at_k >= r0 && r_at_k < r0 + nr) {
+                  st.rkey[r_at_k - r0] = bestrowpos;
+                  st.rpos[r_at_k - r0] = bestrowpos;
+                }
+                if (pr >= r0 && pr < r0 + nr) {
+                  st.rkey[pr - r0] = -1;
+                  st.rpos[pr - r0] = k;
+                }
+                st.ckey[c_at_k] = bestcolpos;
+                st.ckey[pc] = -1;
               }
             }
-            block_argmax<R, NT>(rv, rp, s_val, s_pos);
-            const int bestrowpos = rp;
-            pr = s.rowperm[bestrowpos < mp - 1 ? bestrowpos : mp - 1];
-            const R newerr = Ops<R>::sqrt(rv < R(0) ? R(0) : rv);
-            stop = k > 0 && (newerr < Ops<R>::mul(reltol, maxerror) ||
-                             newerr < abstol);
-            stop = stop || rv < R(0) || (newerr == R(0) && k > 0);
-            err = newerr;
-            if (!stop) {
-              __syncthreads();  // every thread has read rowperm[bestrowpos]
-              if (tid == 0) {
-                const int r_at_k = s.rowperm[k];
-                s.rowperm[bestrowpos] = r_at_k;
-                s.rowperm[k] = pr;
-                s.rowpos[r_at_k] = bestrowpos;
-                s.rowpos[pr] = k;
-                const int c_at_k = s.colperm[k];
-                s.colperm[bestcolpos] = c_at_k;
-                s.colperm[k] = pc;
-                s.colpos[c_at_k] = bestcolpos;
-                s.colpos[pc] = k;
-                // only the pivot's row and column leave the unpivoted set
-                s.rf[pr] = 0;
-                s.cf[pc] = 0;
-                mags_out[b * rmax + k] = newerr;
-              }
-              maxerror = nan_max(maxerror, newerr);
-              __syncthreads();
-              const T piv = __ldcg(s.A + (size_t)pr * np + pc);
-              const T safe = Ops<T>::nonzero(piv) ? piv : Ops<T>::one();
-              for (int i = tid; i < m; i += NT) {
-                const T a = __ldcg(s.A + (size_t)i * np + pc);
-                s.x[i] = s.rf[i] ? (leftorth ? Ops<T>::div(a, safe) : a)
-                                 : Ops<T>::zero();
-              }
-              for (int j = tid; j < n; j += NT) {
-                const T a = __ldcg(s.A + (size_t)pr * np + j);
-                s.y[j] = s.cf[j] ? (leftorth ? a : Ops<T>::div(a, safe))
-                                 : Ops<T>::zero();
-              }
-            }
+            err = e;
+            s_piv[0] = stop;
+            s_piv[1] = pc;
+            s_piv[2] = pr;
+            s_safe = safe;
           }
         }
-        if (tid == 0) {
-          s.ctrl[0] = stop;
-          s.ctrl[1] = pr;
-          s.ctrl[2] = pc;
-          if (stop) {
-            k_out[b] = k;
-            err_out[b] = err;
-            mode_out[b] = 2;
-          }
+        __syncthreads();  // the decision
+        PHASE_MARK(kPhaseDecide);
+        if (s_piv[0]) {
+          done = true;
+          break;
         }
+        const int pc = s_piv[1], pr = s_piv[2];
+        const T safe = s_safe;
+        const int owner = pr / rows;
+        // the pivot row as its owner published it (as it stood after the
+        // last pass)
+        const T* prow = s.rows + ((size_t)set * G + owner) * ld;
+        // x from this block's rows as they stand; the multipliers (left-
+        // orthogonal) or the entries (right-orthogonal) go to column pc,
+        // which no pass touches again
+        T* xk = st.x + (size_t)npend * rows;
+        for (int li = tid; li < nr; li += NT) {
+          if (st.rkey[li] < 0) continue;
+          const T a = current(li, pc, true);  // pc was unpivoted until now
+          const T xv = leftorth ? Ops<T>::div(a, safe) : a;
+          xk[li] = xv;
+          A[(size_t)li * lda + pc] = xv;
+        }
+        // y (the grid-resident pass reads it from shared memory, the
+        // streaming pass from the slot row), and the owner stores row pr as
+        // it ends: the entry at pc, and at the other unpivoted columns the
+        // entries (left-orthogonal) or the multipliers y. The others read
+        // the slot row, never the owner's rows.
+        T* own = owner == g ? A + (size_t)(pr - r0) * lda : nullptr;
+        if (!Stream || own)
+          for (int j0 = tid; j0 < n; j0 += kRowUnroll * NT) {
+            T a[kRowUnroll];  // the L2 reads all in flight before any store
+#pragma unroll
+            for (int u = 0; u < kRowUnroll; ++u) {
+              const int j = j0 + u * NT;
+              a[u] = j < n && (st.ckey[j] >= 0 || j == pc) ? __ldcg(prow + j)
+                                                           : Ops<T>::zero();
+            }
+#pragma unroll
+            for (int u = 0; u < kRowUnroll; ++u) {
+              const int j = j0 + u * NT;
+              if (j >= n || (st.ckey[j] < 0 && j != pc)) continue;
+              const T yv = leftorth || j == pc ? a[u] : Ops<T>::div(a[u], safe);
+              if (!Stream && j != pc) y[j] = yv;
+              if (own) own[j] = yv;
+            }
+          }
+        if (Stream && tid == 0) {
+          pend.row[npend] = prow;
+          pend.safe[npend] = safe;
+        }
+        __syncthreads();  // x, y, the multipliers, the pending list
+        PHASE_MARK(kPhaseXY);
+      } while (false);
+      // A stopped streamed panel makes one more pass, with no new pivot,
+      // that writes the pending updates back: the same call as every other
+      // pass, so the kernel holds one inlined copy of the pass.
+      if (done && (!Stream || npend == 0)) break;
+      if constexpr (!Stream) {
+        const PassLayout L(n, warp, W);
+        unsigned key32;
+        resident_pass<T>(A, np, nr, n, L, st.rkey, st.ckey, st.x, y, bv,
+                         key32, true, leftorth, -1, -1);
+        bkey = widen_key(key32);
+        bpiv = resident_piv(bv, key32);
+      } else {
+        if (!done) ++npend;
+        const bool write = done || npend == depth;
+        stream_pass_n<T>(npend, A, ld, nr, n, Wc, S, ring, full, empty, it,
+                         st, rows, pend, write, leftorth, bv, bkey, bpiv);
+        if (write) npend = 0;
+        asm volatile("fence.proxy.async.global;" ::: "memory");
+        const unsigned long long mine = bkey;
+        warp_argmax<R>(bv, bkey);
+        bpiv = shfl_from(
+            bpiv, __ffs(__ballot_sync(0xffffffffu, mine == bkey)) - 1);
       }
-      grid_sync(bar, G);
-      // One word written before the barrier decides for every block, so all
-      // take the same branch and meet at the same barriers.
-      if (__ldcg(s.ctrl)) break;
-      const int pr = __ldcg(s.ctrl + 1);
-      const int pc = __ldcg(s.ctrl + 2);
-      grid_pass<T>(Ain, s, np, m, n, tr, true, leftorth, pr, pc, x_s, rf_s,
-                   y_s, cf_s, red);
-      grid_sync(bar, G);
+      PHASE_MARK(kPhasePass);
+      if (done) {
+        __syncthreads();  // the write-out reads what the pass wrote
+        break;
+      }
       ++k;
+      publish(k % kSlotSets, bv, bkey, bpiv);
+      PHASE_MARK(kPhasePublish);
     }
 
-    // The swapped-layout gather, spread over the grid; the work buffer and
-    // the permutations were written by other blocks, so they come from L2.
-    for (size_t i = gtid; i < (size_t)mp; i += gstride)
-      rowperm_out[b * mp + i] = __ldcg(s.rowperm + i);
-    for (size_t j = gtid; j < (size_t)np; j += gstride)
-      colperm_out[b * np + j] = __ldcg(s.colperm + j);
+    // A_sw[i, j] = A[rowperm[i], colperm[j]]: this block's rows ...
     T* out = A_sw + b * panel;
-    for (size_t e = gtid; e < panel; e += gstride) {
-      const int i = (int)(e / np), j = (int)(e % np);
-      out[e] = __ldcg(s.A + (size_t)__ldcg(s.rowperm + i) * np +
-                      __ldcg(s.colperm + j));
+    for (int li = warp; li < nr; li += W) {
+      const T* src = A + (size_t)li * lda;
+      T* dst = out + (size_t)st.rpos[li] * np;
+      for (int j = lane; j < np; j += 32) dst[j] = src[st.colperm[j]];
     }
-    grid_sync(bar, G);  // the next panel reuses the scratch
+    // ... and the padding rows, which never move, straight from A_in
+    for (int i = m + g * W + warp; i < mp; i += G * W) {
+      const T* src = Ain + (size_t)i * np;
+      T* dst = out + (size_t)i * np;
+      for (int j = lane; j < np; j += 32) dst[j] = src[st.colperm[j]];
+    }
+    if (g == 0) {
+      if (tid == 0) {
+        k_out[b] = k;
+        err_out[b] = err;
+        mode_out[b] = Stream ? 3 : 2;
+      }
+      for (int i = tid; i < mp; i += NT)
+        rowperm_out[b * mp + i] = st.rowperm[i];
+      for (int j = tid; j < np; j += NT)
+        colperm_out[b * np + j] = st.colperm[j];
+    }
+    PHASE_MARK(kPhaseWrite);
+    // the next panel reuses the slots, which a block may still be reading
+    if (b + 1 < B) grid_barrier(bar, target, G);
+    PHASE_MARK(kPhaseFlush);
   }
+#ifdef RRLU_PHASE_CLOCKS
+  if (tid == 0 && g < kMaxClockBlocks)
+    for (int i = 0; i < kPhases; ++i)
+      rrlu_grid_phase_cycles[g * kPhases + i] = ph[i];
+#endif
+}
+
+// G blocks, each through `iters` grid barriers and nothing else: the
+// barrier's cost alone, at the grid mode's launch shape
+// (rrlu_grid_barrier_launch).
+__global__ void __launch_bounds__(kGridThreads, 1)
+    grid_barrier_kernel(unsigned* bar, int iters) {
+  unsigned target = 0;
+  for (int i = 0; i < iters; ++i) grid_barrier(bar, target, gridDim.x);
 }
 
 template <typename T>
@@ -1300,8 +1831,8 @@ int host_mode(int mp, int np, int C) {
 }
 
 // Once per device and element type, outside any capture: the resident
-// kernel's dynamic shared-memory limit, and the cluster kernel's (with
-// clusters above the portable 8 CTAs allowed).
+// kernel's dynamic shared-memory limit, the cluster kernel's (with clusters
+// above the portable 8 CTAs allowed) and the grid kernel's.
 template <typename T>
 cudaError_t kernel_attributes() {
   constexpr int kMaxDevices = 64;
@@ -1321,6 +1852,14 @@ cudaError_t kernel_attributes() {
     e = cudaFuncSetAttribute(rrlu_cluster_kernel<T>,
                              cudaFuncAttributeNonPortableClusterSizeAllowed,
                              1);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(rrlu_grid_kernel<T, false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kGridSmem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(rrlu_grid_kernel<T, true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kGridSmem);
   if (e == cudaSuccess && dev < kMaxDevices) done[dev] = true;
   return e;
 }
@@ -1353,35 +1892,36 @@ int cluster_size() {
   return -(int)cudaErrorInvalidConfiguration;
 }
 
-// Blocks of the grid mode: as many as can be resident at once (the
-// cooperative launch refuses more), but no more than the panel has tiles.
+// Blocks of the grid mode: as many as the card holds at once at the
+// launch's shared memory (one an SM; the cooperative launch refuses more),
+// the fewer of the two instantiations', so that both apply one rule.
 template <typename T>
-int grid_shape(int mp, int np, int* G, int* tr) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+int grid_blocks(int* G) {
+  cudaError_t e = kernel_attributes<T>();
+  int dev = 0, sms = 0, res_sm = 0, stream_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, rrlu_grid_kernel<T>, kGridThreads, 0);
+        &res_sm, rrlu_grid_kernel<T, false>, kGridThreads, kGridSmem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &stream_sm, rrlu_grid_kernel<T, true>, kGridThreads, kGridSmem);
   if (e != cudaSuccess) return (int)e;
-  const long tiles = (long)((mp + 31) / 32) * ((np + kTileCols - 1) / kTileCols);
-  long g = (long)sms * per_sm;
-  if (g > tiles) g = tiles;
-  if (g < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  *G = (int)g;
-  *tr = band_rows(mp, np, *G);
+  const int per_sm = res_sm < stream_sm ? res_sm : stream_sm;
+  if (sms * per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  *G = sms * per_sm;
   return 0;
 }
 
 template <typename T>
 long long scratch_bytes(int mp, int np, int C) {
   if (host_mode<T>(mp, np, C) < 2) return 0;
-  int G = 0, tr = 0;
-  const int rc = grid_shape<T>(mp, np, &G, &tr);
+  int G = 0;
+  const int rc = grid_blocks<T>(&G);
   if (rc != 0) return -(long long)rc;
-  return (long long)grid_scratch<T>(nullptr, mp, np, (mp + tr - 1) / tr,
-                                    nullptr);
+  return (long long)grid_scratch<T>(nullptr, mp, np, G, nullptr);
 }
 
 template <typename T>
@@ -1445,21 +1985,39 @@ int launch(const void* A_in, void* scratch, void* bar, void* A_sw,
     e = cudaGetLastError();
     if (e != cudaSuccess || mode == 1) return (int)e;
   }
-  // mode 2 or 3: the grid kernel, for what the cluster kernel left
+  // mode 2 or 3: the grid kernel, for what the cluster kernel left; the
+  // grid-resident instantiation where a panel may fit the grid's shared
+  // memory, the streaming one where a panel may not (the true extents
+  // choose), each with its own barrier counter
   if (scratch == nullptr || bar == nullptr) return (int)cudaErrorInvalidValue;
-  int G = 0, tr = 0;
-  int rc = grid_shape<T>(mp, np, &G, &tr);
+  int G = 0, dev = 0, l2 = 0;
+  int rc = grid_blocks<T>(&G);
   if (rc != 0) return rc;
-  unsigned char* scr = (unsigned char*)scratch;
-  unsigned int* br = (unsigned int*)bar;
-  int Cg = mode == 2 ? C : 0;
-  void* args[] = {&a_in, &scr, &br, &a_sw, &rp, &cp, &mg, &ko, &eo, &mo,
-                  &ma, &na, &ra, &ta, &m, &n, &maxrank, &rt, &at,
-                  &B, &mp, &np, &leftorth, &tr, &Cg};
-  e = cudaLaunchCooperativeKernel((const void*)rrlu_grid_kernel<T>, dim3(G),
-                                  dim3(kGridThreads), args, 0, st);
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, dev);
   if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  unsigned char* scr = (unsigned char*)scratch;
+  int Cg = mode == 2 ? C : 0;
+  long long l2_bytes = l2;
+  const int es = (int)sizeof(T);
+  for (int stream = 0; stream < 2; ++stream) {
+    // m = 0 rows is the smallest a panel can have, mp the largest
+    if (stream ? fits_grid(mp, mp, np, G, es) : !fits_grid(0, mp, np, G, es))
+      continue;
+    unsigned int* br = (unsigned int*)bar + stream;
+    void* args[] = {&a_in, &scr, &br, &a_sw, &rp, &cp, &mg, &ko, &eo, &mo,
+                    &ma, &na, &ra, &ta, &m, &n, &maxrank, &rt, &at,
+                    &B, &mp, &np, &leftorth, &Cg, &l2_bytes};
+    e = cudaLaunchCooperativeKernel(
+        stream ? (const void*)rrlu_grid_kernel<T, true>
+               : (const void*)rrlu_grid_kernel<T, false>,
+        dim3(G), dim3(kGridThreads), args, kGridSmem, st);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -1502,8 +2060,9 @@ int rrlu_host_mode(int mp, int np, int elsize, int C) {
 // Bytes of global scratch a call on (mp, np) panels needs on the current
 // device with clusters of C CTAs: 0 unless the grid kernel runs (host modes
 // 2 and 3), minus a CUDA error code when the grid cannot be sized or the
-// element size is none of the three. The wrapper allocates it, and a zeroed
-// pair of 32-bit words for the grid barrier.
+// element size is none of the three. The wrapper allocates it, and two
+// zeroed 32-bit words: the barrier counters of the grid kernel's two
+// instantiations.
 long long rrlu_scratch_bytes(int mp, int np, int elsize, int C) {
   switch (elsize) {
     case 4:
@@ -1515,6 +2074,50 @@ long long rrlu_scratch_bytes(int mp, int np, int elsize, int C) {
     default:
       return -(long long)cudaErrorInvalidValue;
   }
+}
+
+// Blocks of the grid mode's launch for `elsize`-byte elements on the
+// current device, minus a CUDA error code.
+int rrlu_grid_blocks(int elsize) {
+  int G = 0, rc = 0;
+  switch (elsize) {
+    case 4:
+      rc = grid_blocks<float>(&G);
+      break;
+    case 8:
+      rc = grid_blocks<double>(&G);
+      break;
+    case 16:
+      rc = grid_blocks<double2>(&G);
+      break;
+    default:
+      rc = (int)cudaErrorInvalidValue;
+  }
+  return rc != 0 ? -rc : G;
+}
+
+// Threads of a grid block (and of the barrier's measurement).
+int rrlu_grid_threads() { return kGridThreads; }
+
+// The regime the grid kernel takes for a panel of m true rows in (mp, np)
+// panels on G blocks: 2 grid-resident (fits_grid), 3 streamed.
+int rrlu_grid_regime(int m, int mp, int np, int elsize, int G) {
+  return fits_grid(m, mp, np, G, elsize) ? 2 : 3;
+}
+
+// `iters` grid barriers of the grid mode's launch shape on the current
+// device and `stream`, and nothing else; `bar` is one zeroed 32-bit word.
+int rrlu_grid_barrier_launch(int iters, void* bar, void* stream) {
+  int G = 0;
+  const int rc = grid_blocks<double>(&G);
+  if (rc != 0) return rc;
+  unsigned* b = (unsigned*)bar;
+  void* args[] = {&b, &iters};
+  cudaError_t e = cudaLaunchCooperativeKernel(
+      (const void*)grid_barrier_kernel, dim3(G), dim3(kGridThreads), args, 0,
+      (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 // B panels of (mp, np), contiguous. Per-panel sizes, rank caps and
@@ -1548,6 +2151,14 @@ RRLU_LAUNCH(rrlu_launch_c128, double2)
 int rrlu_phase_cycles_read(long long* out) {
   return (int)cudaMemcpyFromSymbol(out, rrlu_phase_cycles,
                                    sizeof(rrlu_phase_cycles));
+}
+
+// The cycles of each phase of each of the first 256 blocks of the last
+// grid launch, summed over its panels, (256, kPhases) int64, into `out`
+// (kPhaseFlush: the barrier between two panels).
+int rrlu_grid_phase_cycles_read(long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, rrlu_grid_phase_cycles,
+                                   sizeof(rrlu_grid_phase_cycles));
 }
 #endif
 

@@ -4,17 +4,19 @@ Counterpart of ``tci_tpu/ops/pallas_lu.py``: ``rrlu_call`` and
 ``rrlu_batched`` take the arguments of ``pallas_rrlu_call`` /
 ``pallas_rrlu_batched`` and return the same 6-tuple (A_sw, rowperm, colperm,
 k, mags, err), and with ``return_mode=True`` each panel's mode as well (0
-resident, 1 cluster, 2 grid). A call eliminates B panels (B = 1 for
-``rrlu_call``) of float32, float64 or complex128 (mags and err are then
-real float64) in the kernel's three modes (``csrc/rrlu.cu``): panels up to
-128 KB (128 x 128 f64) take one thread block each, with the panel in shared
-memory (it must start on a 16-byte boundary and hold a multiple of 16
-bytes, as every shape bucket does); larger ones take one thread-block
-cluster each where their true rows fit its shared memory, and otherwise
-the whole card in turn, in a cooperative grid launch whose global scratch
-this module allocates. Where the padded panel may not fit a cluster, a call
-launches the cluster kernel and then the grid kernel, and each panel is
-eliminated by the one its true extents choose.
+resident, 1 cluster, 2 grid-resident, 3 streamed). A call eliminates B
+panels (B = 1 for ``rrlu_call``) of float32, float64 or complex128 (mags
+and err are then real float64) in the kernel's modes (``csrc/rrlu.cu``):
+panels up to 128 KB (128 x 128 f64) take one thread block each, with the
+panel in shared memory (it must start on a 16-byte boundary and hold a
+multiple of 16 bytes, as every shape bucket does); larger ones take one
+thread-block cluster each where their true rows fit its shared memory, and
+otherwise the whole card in turn, in a cooperative grid launch whose global
+scratch this module allocates: the true rows held in the grid's shared
+memory where they fit it (grid-resident), else streamed from a work buffer.
+Where the padded panel may not fit a cluster, a call launches the cluster
+kernel and then the grid kernel, and each panel is eliminated by the one
+its true extents choose.
 
 This module only launches the kernel: a panel that is not a contiguous
 float32, float64 or complex128 CUDA tensor raises. Which of the kernel and its plain
@@ -47,7 +49,7 @@ _LAUNCH_ARGTYPES = [_P] * 14 + [_I, _I, _I, _D, _D] + [_I] * 5 + [_P]
 # the kernel's host modes (rrlu_host_mode in csrc/rrlu.cu), and the modes it
 # reports for a panel (return_mode)
 HOST_MODES = ("resident", "cluster", "cluster+grid", "grid")
-PANEL_MODES = ("resident", "cluster", "grid")
+PANEL_MODES = ("resident", "cluster", "grid", "stream")
 
 
 # the kernel's entry point for each element type it takes
@@ -58,8 +60,8 @@ _ENTRY = {torch.float32: "rrlu_launch_f32", torch.float64: "rrlu_launch_f64",
 @functools.cache
 def _lib(defines: tuple = ()) -> ctypes.CDLL:
     """The kernel's library; `defines` builds an instrumented variant
-    (``("RRLU_PHASE_CLOCKS",)``: the cluster kernel's phase clocks, read by
-    ``rrlu_phase_cycles_read``)."""
+    (``("RRLU_PHASE_CLOCKS",)``: the cluster and grid kernels' phase clocks,
+    read by ``rrlu_phase_cycles_read`` / ``rrlu_grid_phase_cycles_read``)."""
     lib = _build.load("rrlu", defines)
     for name in _ENTRY.values():
         fn = getattr(lib, name)
@@ -71,9 +73,19 @@ def _lib(defines: tuple = ()) -> ctypes.CDLL:
     lib.rrlu_host_mode.restype = _I
     lib.rrlu_cluster_size.argtypes = [_I]
     lib.rrlu_cluster_size.restype = _I
+    lib.rrlu_grid_blocks.argtypes = [_I]
+    lib.rrlu_grid_blocks.restype = _I
+    lib.rrlu_grid_regime.argtypes = [_I] * 5
+    lib.rrlu_grid_regime.restype = _I
+    lib.rrlu_grid_barrier_launch.argtypes = [_I, _P, _P]
+    lib.rrlu_grid_barrier_launch.restype = _I
+    lib.rrlu_grid_threads.argtypes = []
+    lib.rrlu_grid_threads.restype = _I
     if "RRLU_PHASE_CLOCKS" in defines:
         lib.rrlu_phase_cycles_read.argtypes = [_P]
         lib.rrlu_phase_cycles_read.restype = _I
+        lib.rrlu_grid_phase_cycles_read.argtypes = [_P]
+        lib.rrlu_grid_phase_cycles_read.restype = _I
     return lib
 
 
@@ -124,6 +136,55 @@ def cluster_size(device_index: int, elsize: int) -> int:
     return C
 
 
+@functools.cache
+def grid_blocks(device_index: int, elsize: int) -> int:
+    """Blocks of the grid mode's cooperative launch for `elsize`-byte
+    elements on one device: one an SM (the rule lives in ``csrc/rrlu.cu``;
+    it sets the kernels' attributes, so not while a stream captures)."""
+    with torch.cuda.device(device_index):
+        G = _lib().rrlu_grid_blocks(elsize)
+    if G < 0:
+        raise RuntimeError(f"rrLU kernel: CUDA error {-G} sizing the grid "
+                           f"(element size {elsize})")
+    return G
+
+
+def grid_threads() -> int:
+    """Threads of a grid-mode block (``kGridThreads`` in csrc/rrlu.cu)."""
+    return _lib().rrlu_grid_threads()
+
+
+def grid_regime(device_index: int, m: int, mp: int, npd: int,
+                dtype: torch.dtype) -> str:
+    """The regime the grid kernel takes on one device for a panel of m true
+    rows in (mp, np) panels of `dtype`: "grid" where each block's share of
+    the rows fits its shared memory (grid-resident), else "stream"."""
+    elsize = torch.empty((), dtype=dtype).element_size()
+    G = grid_blocks(device_index, elsize)
+    return PANEL_MODES[_lib().rrlu_grid_regime(m, mp, npd, elsize, G)]
+
+
+def grid_barrier_ms(device_index: int, iters: int) -> float:
+    """Device time of one grid barrier of the grid mode's launch shape
+    alone: CUDA events around one launch of `iters` barriers, over `iters`
+    (after a launch of one, which loads the kernel)."""
+    dev = torch.device("cuda", device_index)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        for n in (1, iters):
+            bar = torch.zeros((1,), dtype=torch.int32, device=dev)
+            start.record()
+            rc = _lib().rrlu_grid_barrier_launch(n, bar.data_ptr(), stream)
+            end.record()
+            if rc != 0:
+                raise RuntimeError(f"rrLU grid barrier launch failed with "
+                                   f"CUDA error {rc}")
+        end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def host_mode(device_index: int, mp: int, npd: int,
               dtype: torch.dtype) -> str:
     """How a call on aligned (mp, np) panels of `dtype` runs on one device:
@@ -154,27 +215,49 @@ def count_replay(launches: int) -> None:
     LAUNCHES["rrlu"] += launches
 
 
-# (device index, dtype, host mode) of the launches made so far outside any
-# capture
+# (device index, dtype, kernel) of the kernels launched so far outside any
+# capture: "resident", "cluster", "grid" and "stream" (the grid kernel's
+# two instantiations)
 _WARM = set()
+
+
+@functools.cache
+def _kernels(device_index: int, mp: int, npd: int, dtype: torch.dtype,
+             mode: str) -> tuple:
+    """The kernels a call of host mode `mode` on (mp, np) panels launches:
+    the grid kernel's grid-resident instantiation where m = 0 true rows
+    fit the grid's shared memory (then some panel may), its streaming one
+    where mp rows do not (csrc/rrlu.cu's launch)."""
+    if mode in ("resident", "cluster"):
+        return (mode,)
+    grid = (("grid",) if grid_regime(device_index, 0, mp, npd, dtype)
+            == "grid" else ()) + (
+        ("stream",) if grid_regime(device_index, mp, mp, npd, dtype)
+        == "stream" else ())
+    return (("cluster",) if mode == "cluster+grid" else ()) + grid
 
 
 def warm_up(device_index: int, dtype: torch.dtype) -> None:
     """Everything of a launch that happens once and may not happen while a
     stream is capturing: the build, the choice of the cluster size and the
-    kernels' shared-memory attributes, the load of the three kernels' code
-    onto the device. Makes one small launch of each host mode that this
-    process has not yet launched on this device in this dtype (the
-    "cluster+grid" launch loads the grid kernel); call it before the first
-    capture of a body that launches the kernel."""
+    kernels' shared-memory attributes, the load of the four kernels' code
+    onto the device. Makes one small launch of each shape below whose
+    kernels this process has not all launched yet on this device in this
+    dtype; call it before the first capture of a body that launches the
+    kernel."""
     dev = torch.device("cuda", device_index)
     elsize = torch.empty((), dtype=dtype).element_size()
     cluster_size(device_index, elsize)
     # 8 x 8 is resident, 256 x 256 a cluster's; rows of 4 KB, 1024 of them,
-    # fit no cluster, so that shape launches both kernels
-    for shape in ((8, 8), (256, 256), (1024, 4096 // elsize)):
+    # fit no cluster but the grid's shared memory, so that shape launches
+    # the cluster kernel and the grid-resident one; 65536 rows of 16 bytes
+    # (1 MB) have positions past the grid-resident key's 16 bits, so that
+    # shape launches the streaming instantiation alone
+    for shape in ((8, 8), (256, 256), (1024, 4096 // elsize),
+                  (65536, 16 // elsize)):
         mode = host_mode(device_index, *shape, dtype)
-        if (device_index, dtype, mode) not in _WARM:
+        if any((device_index, dtype, k) not in _WARM
+               for k in _kernels(device_index, *shape, dtype, mode)):
             rrlu_call(torch.zeros(shape, dtype=dtype, device=dev), 1, 1, 1,
                       0.0, 0.0, leftorthogonal=True)
 
@@ -187,12 +270,11 @@ def _launch(A, B, mp, npd, leftorthogonal, scalars, arrays):
 
     A launch can be captured into a CUDA graph: it runs on the current
     stream, the outputs and the scratch then come from the graph's memory
-    pool, and the zeroing of the barrier words is a node of the graph that
-    runs at every replay. (The barrier would survive without it: the last
-    block to arrive resets `arrived`, and the others wait for a change of
-    `generation`, whatever its value.) The cluster launch and the
-    cooperative launch of the grid mode are captured as kernel nodes like
-    any other."""
+    pool, and the zeroing of the grid barriers' counters is a node of the
+    graph that runs at every replay (a barrier counts arrivals from 0 and
+    never resets its counter). The cluster launch and the cooperative
+    launches of the grid mode are captured as kernel nodes like any
+    other."""
     dev, dt = A.device, A.dtype
     fn = getattr(_lib(), _ENTRY[dt])
     rmax = min(mp, npd)
@@ -223,8 +305,8 @@ def _launch(A, B, mp, npd, leftorthogonal, scalars, arrays):
     C = cluster_size(dev.index, es) if aligned else 0
     mode = HOST_MODES[_lib().rrlu_host_mode(mp, npd, es, C)]
     with torch.cuda.device(dev):
-        # where the grid kernel runs: global scratch, and the two words of
-        # its grid barrier, zeroed
+        # where the grid kernel runs: global scratch, and the counters of
+        # the grid barriers of its two instantiations, zeroed
         scratch = barrier = None
         nbytes = _scratch_bytes(dev.index, mp, npd, es, C)
         if nbytes > 0:
@@ -250,7 +332,8 @@ def _launch(A, B, mp, npd, leftorthogonal, scalars, arrays):
         CAPTURED["rrlu"] += 1
     else:
         LAUNCHES["rrlu"] += 1
-        _WARM.add((dev.index, dt, mode))
+        _WARM.update((dev.index, dt, k)
+                     for k in _kernels(dev.index, mp, npd, dt, mode))
     return A_sw, rowperm, colperm, k, mags, err, modes
 
 

@@ -224,16 +224,161 @@ def test_batched_cluster_and_grid_matches_plain(cuda):
 
 
 def test_multiblock_repeats_bitwise(cuda):
-    """N = 2000 in the grid mode, 20 runs against one plain result: a stale
-    cross-block read would show as a rare wrong pivot."""
+    """N = 2000 in the grid mode (streamed), 20 runs against one plain
+    result: a stale cross-block read would show as a rare wrong pivot."""
     A = _panel(2000, 2048, 2048, 2000, 2000, 100, torch.float64, cuda)
     args = (A, 2000, 2000, 2000, 1e-12, 0.0)
     ref = lu_kernel.rrlu_plain(*args, leftorthogonal=True)
     assert int(ref[3]) == 100
     for _ in range(20):
-        out = lu_cuda.rrlu_call(*args, leftorthogonal=True)
+        out = lu_cuda.rrlu_call(*args, leftorthogonal=True, return_mode=True)
+        assert int(out[6]) == 3
         for o, r in zip(out, ref):
             assert _equal(o, r)
+
+
+# -- the grid mode: grid-resident (2) and streamed (3) panels ---------------
+
+
+def _grid_edge(dtype, mp, npd):
+    """The most true rows of an (mp, np) panel of `dtype` that the grid
+    mode holds in the grid's shared memory (lu_cuda.grid_regime, a rule
+    monotone in the rows), found by bisection."""
+    dev = torch.cuda.current_device()
+    lo, hi = 0, mp  # grid at lo, streamed at hi
+    assert lu_cuda.grid_regime(dev, lo, mp, npd, dtype) == "grid"
+    assert lu_cuda.grid_regime(dev, hi, mp, npd, dtype) == "stream"
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if lu_cuda.grid_regime(dev, mid, mp, npd, dtype) == "grid":
+            lo = mid
+        else:
+            hi = mid
+    return lo
+
+
+@pytest.mark.parametrize("leftorthogonal", [True, False])
+@pytest.mark.parametrize("side", ["under", "over"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.complex128])
+def test_grid_capacity_edge_matches_plain(cuda, dtype, side,
+                                          leftorthogonal):
+    """Panels whose true rows just fit the grid's shared memory (the
+    grid-resident regime, mode 2) and one row more (streamed, mode 3), in
+    each type and orientation, bitwise the plain version; the rank cap (23)
+    is no multiple of the streamed regime's deferral."""
+    mp, npd = {torch.float32: (4096, 2048), torch.float64: (4096, 1024),
+               torch.complex128: (2048, 1024)}[dtype]
+    m = _grid_edge(dtype, mp, npd) + (side == "over")
+    n = npd - 7
+    if dtype.is_complex:
+        A = _cpanel(m, mp, npd, m, n, 30, cuda)
+    else:
+        A = _panel(m, mp, npd, m, n, 30, dtype, cuda)
+    args = (A, m, n, 23, 0.0, 0.0)
+    out = lu_cuda.rrlu_call(*args, leftorthogonal=leftorthogonal,
+                            return_mode=True)
+    ref = lu_kernel.rrlu_plain(*args, leftorthogonal=leftorthogonal)
+    torch.cuda.synchronize()
+    assert int(out[6]) == (2 if side == "under" else 3)
+    assert int(out[3]) == 23
+    for o, r in zip(out, ref):
+        assert _equal(o, r)
+
+
+# (regime, stop) -> (panel, m, n, maxrank, reltol, abstol): a 1024^2 panel
+# of 1000 true rows is grid-resident, a 2048^2 one of 2040 streamed
+def _grid_stop_case(regime, stop, device):
+    mp, m = (1024, 1000) if regime == "grid" else (2048, 2040)
+    rng = np.random.default_rng(mp + len(stop))
+    n = mp - 9 if stop != "no_column_left" else 40
+    U = rng.standard_normal((m, 60))
+    if stop in ("reltol", "abstol"):
+        U = U * 10.0 ** (-np.arange(60) / 4.0)
+    A = np.zeros((mp, mp))
+    A[:m, :n] = U @ rng.standard_normal((60, n))
+    P = torch.from_numpy(A).to(device)
+    return {"maxrank": (P, m, n, 37, 0.0, 0.0),
+            "reltol": (P, m, n, m, 1e-9, 0.0),
+            "abstol": (P, m, n, m, 0.0, 1e-6),
+            "no_column_left": (P, m, n, m, 0.0, 0.0)}[stop]
+
+
+@pytest.mark.parametrize("leftorthogonal", [True, False])
+@pytest.mark.parametrize("stop", ["maxrank", "reltol", "abstol",
+                                  "no_column_left"])
+@pytest.mark.parametrize("regime", ["grid", "stream"])
+def test_grid_stops_match_plain(cuda, regime, stop, leftorthogonal):
+    """Each stop rule in each grid regime, bitwise the plain version: a rank
+    cap of 37 (the streamed regime then stops with updates still to write
+    back), a reltol and an abstol stop on decaying panels, and 40 true
+    columns of full rank, after which no valid column is left (err 0)."""
+    args = _grid_stop_case(regime, stop, cuda)
+    out = lu_cuda.rrlu_call(*args, leftorthogonal=leftorthogonal,
+                            return_mode=True)
+    ref = lu_kernel.rrlu_plain(*args, leftorthogonal=leftorthogonal)
+    torch.cuda.synchronize()
+    assert lu_cuda.PANEL_MODES[int(out[6])] == regime
+    for o, r in zip(out, ref):
+        assert _equal(o, r)
+    if stop == "no_column_left":
+        assert int(out[3]) == 40 and float(out[5]) == 0.0
+
+
+def test_grid_batched_mixes_regimes(cuda):
+    """Four 2048^2 f64 panels in one call whose true rows pick the
+    streamed regime (2045, 2048 rows), the cluster mode (100) and the
+    grid-resident regime (1000): one cluster launch and both grid
+    instantiations, each taking its own panels in turn; per-panel rank caps
+    and tolerances."""
+    A = torch.stack([_panel(s, 2048, 2048, m, 2000, 40, torch.float64, cuda)
+                     for s, m in ((1, 2045), (2, 100), (3, 1000),
+                                  (4, 2048))])
+    mt = torch.tensor([2045, 100, 1000, 2048], device=cuda)
+    mr = torch.tensor([37, 20, 23, 9], device=cuda)
+    rt = torch.tensor([1e-12, 0.0, 1e-12, 0.0], dtype=torch.float64,
+                      device=cuda)
+    at = torch.tensor([0.0, 1e-3, 0.0, 0.0], dtype=torch.float64,
+                      device=cuda)
+    for leftorthogonal in (True, False):
+        out = lu_cuda.rrlu_batched(A, mt, 2000, mr, rt, at,
+                                   leftorthogonal=leftorthogonal,
+                                   return_mode=True)
+        ref = lu_kernel.rrlu_plain_batched(A, mt, 2000, mr, rt, at,
+                                           leftorthogonal=leftorthogonal)
+        assert out[6].tolist() == [3, 1, 2, 3]
+        for o, r in zip(out, ref):
+            assert _equal(o, r)
+
+
+@pytest.mark.parametrize("shape", ["960^2", "4096x256"])
+def test_grid_repeats_bitwise(cuda, shape):
+    """Config 4's 960^2 bond panel at capacity 64 (k = 44) and config 2's
+    4096 x 256 rook slab (k = 256), both grid-resident, 20 runs each against
+    one plain result: a stale cross-block read would show as a rare wrong
+    pivot (N = 2000, streamed: test_multiblock_repeats_bitwise)."""
+    if shape == "960^2":
+        A = _panel(1024, 1024, 1024, 960, 960, 88, torch.float64, cuda)
+        args = (A, 960, 960, 44, 1e-14, 0.0)
+    else:
+        A = _panel(256, 4096, 256, 4096, 256, 256, torch.float64, cuda)
+        args = (A, 4096, 256, 256, 0.0, 0.0)
+    ref = lu_kernel.rrlu_plain(*args, leftorthogonal=True)
+    for _ in range(20):
+        out = lu_cuda.rrlu_call(*args, leftorthogonal=True, return_mode=True)
+        assert int(out[6]) == 2
+        for o, r in zip(out, ref):
+            assert _equal(o, r)
+
+
+def test_grid_barrier_alone(cuda):
+    """The grid mode's barrier alone: one block an SM, a finite time a
+    barrier of under 50 us."""
+    dev = torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert lu_cuda.grid_blocks(dev, 8) == sms
+    us = lu_cuda.grid_barrier_ms(dev, 1000) * 1e3
+    assert 0.0 < us < 50.0
 
 
 def test_multiblock_rrlu_is_one_launch(cuda):
@@ -433,17 +578,19 @@ def test_rrlu_nan_on_cuda_raises(cuda, case, leftorthogonal):
 
 
 @pytest.mark.parametrize("leftorthogonal", [True, False])
-@pytest.mark.parametrize("pad,mode", [(8, 0), (320, 1), (1152, 2)])
+@pytest.mark.parametrize("pad,mode", [(8, 0), (320, 1), (1152, 2),
+                                      (2048, 3)])
 @pytest.mark.parametrize("case", ["nan_upper_right", "nan_upper_left",
                                   "all_nan"])
 def test_nan_panel_kernel_matches_plain(cuda, case, pad, mode,
                                         leftorthogonal):
     """The kernel follows the plain version's NaN rule in each mode (8^2
-    resident, 320^2 cluster, 1152^2 with 1100 true rows grid), bitwise with
-    NaN where the plain version has NaN; k is never 0."""
+    resident, 320^2 cluster, 1152^2 with 1100 true rows grid-resident,
+    2048^2 with 2040 streamed), bitwise with NaN where the plain version
+    has NaN; k is never 0."""
     P = _nan_panel(case, pad)
     m = 2 if case != "all_nan" else 3
-    m_true = 1100 if mode == 2 else m
+    m_true = {2: 1100, 3: 2040}.get(mode, m)
     args = (P.to(cuda), m_true, m_true, m_true, 1e-14, 0.0)
     out = lu_cuda.rrlu_call(*args, leftorthogonal=leftorthogonal,
                             return_mode=True)
@@ -760,15 +907,17 @@ def test_graph_matches_eager_bitwise(cuda, problem, capture_at):
     assert engine.graph_pool_bytes() > 0
 
 
-@pytest.mark.parametrize("N", [96, 160, 1024])
+@pytest.mark.parametrize("N", [96, 160, 1024, 2048])
 def test_captured_launch_replays_bitwise(cuda, N):
     """One call of the kernel recorded into a CUDA graph (96^2: the resident
     mode; 160^2: the cluster launch; 1024^2: the cluster launch and then the
-    cooperative launch of the grid mode, in one graph) and replayed 20
-    times against one plain result; the sizes are read from the device at
-    each replay, so at 1024^2 smaller true extents move the panel from the
-    grid mode to the cluster mode within the same graph; a replay counts as
-    a launch."""
+    cooperative launch of the grid mode, in one graph; 2048^2: the cluster
+    launch and both grid instantiations' cooperative launches) and replayed
+    20 times against one plain result; the sizes are read from the device
+    at each replay, so smaller true extents move the panel from the grid
+    mode to the cluster mode (1024^2), or from the streamed regime to the
+    grid-resident one and to the cluster mode (2048^2), within the same
+    graph; a replay counts as a launch."""
     from tci_tpu_torch.utils.device import capture_graph
 
     A = _panel(N, N, N, N - 3, N - 5, 40, torch.float64, cuda)[None]
@@ -779,7 +928,7 @@ def test_captured_launch_replays_bitwise(cuda, N):
     at = torch.tensor([0.0], dtype=torch.float64, device=cuda)
     lu_cuda.warm_up(torch.cuda.current_device(), torch.float64)
     expected = {96: ("resident", 0), 160: ("cluster", 1),
-                1024: ("cluster+grid", 2)}[N]
+                1024: ("cluster+grid", 2), 2048: ("cluster+grid", 3)}[N]
     assert lu_cuda.host_mode(torch.cuda.current_device(), N, N,
                              torch.float64) == expected[0]
     ref = lu_kernel.rrlu_plain_batched(A, m, n, cap, rt, at,
@@ -809,16 +958,18 @@ def test_captured_launch_replays_bitwise(cuda, N):
                                         leftorthogonal=True)
     for o, r in zip(out, ref5):
         assert _equal(o, r)
-    if N == 1024:
-        # 200 true rows fit a cluster: the same graph, the other kernel
-        m.fill_(200)
+    # true rows that fit the grid's shared memory (2048^2: 1000 rows), and
+    # a cluster (1024^2: 200, 2048^2: 100): the same graph, another kernel
+    for rows, mode in {1024: ((200, 1),),
+                       2048: ((1000, 2), (100, 1))}.get(N, ()):
+        m.fill_(rows)
         graph.replay()
         torch.cuda.synchronize()
-        ref200 = lu_kernel.rrlu_plain_batched(A, m, n, cap, rt, at,
-                                              leftorthogonal=True)
-        for o, r in zip(out, ref200):
+        ref_rows = lu_kernel.rrlu_plain_batched(A, m, n, cap, rt, at,
+                                                leftorthogonal=True)
+        for o, r in zip(out, ref_rows):
             assert _equal(o, r)
-        assert out[6].tolist() == [1]
+        assert out[6].tolist() == [mode]
 
 
 def test_replayed_program_follows_abstol_and_maxbonddim(cuda):

@@ -14,7 +14,7 @@ import torch
 
 import tci_tpu
 import tci_tpu_torch
-from tci_tpu_torch.ops import lu_cuda, lu_sharded
+from tci_tpu_torch.ops import lu_cuda, lu_kernel, lu_sharded
 from tci_tpu_torch.ops.lu_kernel import rrlu_raw
 
 torch.set_num_threads(1)
@@ -305,3 +305,161 @@ def test_matrixluci_matches_tci_tpu(case, leftorthogonal):
                                    err_msg=name)
     np.testing.assert_allclose(out.pivoterrors(), ref.pivoterrors(), rtol=0,
                                atol=atol)
+
+
+def _rrlu_deferred(A, m, n, maxrank, reltol, abstol, leftorthogonal, depth):
+    """A model of the CUDA kernel's streamed grid regime (csrc/rrlu.cu), for
+    a zero-padded (mp, np) panel: lu_kernel.rrlu_plain's elimination, except
+    that the Schur update reaches the stored buffer W only every `depth`
+    pivots. In between, the matrix as it stands is rebuilt from W by the
+    pending updates a - x_t y_t, in order, each a rounded multiply and then
+    a rounded subtract (the plain version's rounding); a pivot's column (its
+    x) and its row go into W as they stand when it is chosen, and the last
+    pending updates reach W when the elimination stops. Returns rrlu_plain's
+    6-tuple."""
+    from tci_tpu_torch.ops.lu_kernel import _abs2, _div, _first, _mul
+
+    mp, npd = A.shape
+    dt, rdt = A.dtype, A.dtype.to_real()
+    W = A.clone()
+    rows, cols = torch.arange(mp), torch.arange(npd)
+    rowperm, colperm = rows.clone(), cols.clone()
+    rowpos, colpos = rows.clone(), cols.clone()
+    rt, at = torch.tensor(reltol, dtype=rdt), torch.tensor(abstol, dtype=rdt)
+    one, neg1 = torch.ones((), dtype=dt), -torch.ones((), dtype=rdt)
+    mags = torch.zeros(min(mp, npd), dtype=rdt)
+    maxerror = torch.zeros((), dtype=rdt)
+    err = torch.full((), float("nan"), dtype=rdt)
+    pending = []  # (x, y) of the pivots whose update W lacks
+
+    def live(k):
+        return (((rowpos >= k) & (rows < m))[:, None]
+                & ((colpos >= k) & (cols < n))[None, :])
+
+    def current(k):
+        V, mask = W.clone(), live(k)
+        for x, y in pending:
+            V = torch.where(mask, V - _mul(x[:, None], y[None, :]), V)
+        return V
+
+    k = 0
+    while k < maxrank:
+        V = current(k)
+        validc = (colpos >= k) & (cols < n)
+        validr = (rowpos >= k) & (rows < m)
+        cm = torch.where(validc, torch.where(validr[:, None], _abs2(V),
+                                             neg1).amax(0), neg1)
+        M = cm.max()
+        if bool(M < 0):
+            err = torch.zeros((), dtype=rdt)
+            break
+        bestcolpos = min(_first(cm, M, validc, colpos), npd - 1)
+        pc = int(colperm[bestcolpos])
+        met = torch.where(validr, _abs2(V[:, pc]), neg1)
+        Mr = met.max()
+        bestrowpos = min(_first(met, Mr, validr, rowpos), mp - 1)
+        pr = int(rowperm[bestrowpos])
+        newerr = torch.sqrt(torch.clamp(Mr, min=0))
+        stop = k > 0 and (bool(newerr < rt * maxerror) or bool(newerr < at))
+        stop = stop or bool(Mr < 0) or (k > 0 and bool(newerr == 0))
+        err = newerr
+        if stop:
+            break
+        r_at_k, c_at_k = int(rowperm[k]), int(colperm[k])
+        rowperm[bestrowpos], rowperm[k] = r_at_k, pr
+        rowpos[r_at_k], rowpos[pr] = bestrowpos, k
+        colperm[bestcolpos], colperm[k] = c_at_k, pc
+        colpos[c_at_k], colpos[pc] = bestcolpos, k
+        safe = torch.where(V[pr, pc] != 0, V[pr, pc], one)
+        x = _div(V[:, pc], safe) if leftorthogonal else V[:, pc]
+        y = V[pr, :] if leftorthogonal else _div(V[pr, :], safe)
+        urow = (rowpos >= k + 1) & (rows < m)
+        ucol = (colpos >= k + 1) & (cols < n)
+        # column pc takes x, row pr its entries (left-orthogonal) or y, and
+        # its pivot, as they stand now: no later pass touches them
+        W[:, pc] = torch.where(urow, x, W[:, pc])
+        W[pr, :] = torch.where(ucol, y, W[pr, :])
+        W[pr, pc] = V[pr, pc]
+        pending.append((x, y))
+        mags[k] = newerr
+        maxerror = torch.maximum(maxerror, newerr)
+        k += 1
+        if len(pending) == depth:
+            W = current(k)
+            pending.clear()
+    if pending:
+        W = current(k)
+    return (W[rowperm][:, colperm], rowperm, colperm,
+            torch.tensor(k, dtype=torch.int64), mags, err)
+
+
+def _deferred_panel(case):
+    """(A, m, n, maxrank, reltol, abstol) of a zero-padded panel."""
+    rng = np.random.default_rng(17)
+    if case == "complex":
+        A = ((rng.standard_normal((30, 12)) + 1j * rng.standard_normal(
+            (30, 12))) @ rng.standard_normal((12, 26)))
+        args = (30, 26, 30, 1e-10, 0.0)
+    elif case == "reltol":
+        A = (rng.standard_normal((36, 20)) * 10.0 ** -np.arange(20)
+             ) @ rng.standard_normal((20, 33))
+        args = (36, 33, 36, 1e-6, 0.0)
+    elif case == "abstol":
+        A = (rng.standard_normal((40, 16)) * 2.0 ** -np.arange(16)
+             ) @ rng.standard_normal((16, 40))
+        args = (40, 40, 40, 0.0, 1e-3)
+    elif case == "no_column_left":
+        A = rng.standard_normal((37, 9))
+        args = (37, 9, 37, 0.0, 0.0)
+    elif case == "nan":
+        A = rng.standard_normal((24, 24))
+        A[5, 7] = np.nan
+        args = (24, 24, 24, 0.0, 0.0)
+    else:  # "maxrank": a cap that is no multiple of any depth
+        A = rng.standard_normal((41, 35))
+        args = (41, 35, 23, 0.0, 0.0)
+    m, n = A.shape
+    P = np.zeros((m + 7, n + 5), dtype=A.dtype)  # padding rows and columns
+    P[:m, :n] = A
+    return (torch.from_numpy(P),) + args
+
+
+@pytest.mark.parametrize("depth", [1, 2, 4])
+@pytest.mark.parametrize("leftorthogonal", [True, False])
+@pytest.mark.parametrize("case", ["maxrank", "reltol", "abstol",
+                                  "no_column_left", "complex", "nan"])
+def test_deferred_write_back_matches_plain(case, leftorthogonal, depth):
+    """The streamed grid regime's deferred write-back, modelled on the CPU
+    (_rrlu_deferred): bit for bit lu_kernel.rrlu_plain (the pivot order, k,
+    err, the magnitudes and the swapped-layout LU buffer) at depths 1, 2
+    and 4 (the kernel's), through every stop rule and a NaN panel."""
+    P, m, n, cap, rt, at = _deferred_panel(case)
+    out = _rrlu_deferred(P, m, n, cap, rt, at, leftorthogonal, depth)
+    ref = lu_kernel.rrlu_plain(P, m, n, cap, rt, at,
+                               leftorthogonal=leftorthogonal)
+    for o, r in zip(out, ref):
+        assert o.dtype == r.dtype and o.shape == r.shape
+        assert bool(((o == r) | (o.isnan() & r.isnan())).all())
+
+
+@pytest.mark.parametrize("leftorthogonal", [True, False])
+@pytest.mark.parametrize("case", ["maxrank", "reltol", "abstol",
+                                  "no_column_left", "complex"])
+def test_deferred_write_back_matches_tci_tpu(case, leftorthogonal):
+    """The same model against tci_tpu.rrlu on the true extents: the same
+    pivot order, npivot and pivot magnitudes. Not bit for bit: tci_tpu's
+    elimination is not bitwise the plain version's either (XLA on the CPU
+    may fuse the update into one multiply-add; this file's header), so the
+    magnitudes are held to this file's 1e-12 of max|A|."""
+    P, m, n, cap, rt, at = _deferred_panel(case)
+    A = P[:m, :n].numpy()
+    ref = tci_tpu.rrlu(A, leftorthogonal=leftorthogonal, maxrank=cap,
+                       reltol=rt, abstol=at)
+    _, rowperm, colperm, k, mags, _ = _rrlu_deferred(
+        P, m, n, cap, rt, at, leftorthogonal, 4)
+    assert int(k) == ref.npivots()
+    np.testing.assert_array_equal(rowperm[:m].numpy(), ref.rowpermutation)
+    np.testing.assert_array_equal(colperm[:n].numpy(), ref.colpermutation)
+    np.testing.assert_allclose(mags[:int(k)].numpy(),
+                               ref.pivoterrors()[:int(k)], rtol=0,
+                               atol=1e-12 * np.abs(A).max())
