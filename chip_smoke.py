@@ -235,19 +235,22 @@ line or more each:
    config 2 through ``rrlu_sharded`` on it: pivot order, npivot, err and
    the LU buffer bitwise the one-device kernel's in the same call, every
    launch of the step kernel (csrc/lu_sharded.cu) bitwise its plain
-   version, the launches, collectives, stop-flag reads and dead steps,
-   the call's time against the one-device kernel's, the step kernel's time
-   alone, its bound and the plain version's time; (c) config 1 on the
+   version, the launches (one a step and one for the first candidate),
+   the collectives (one gather of the slots a step), stop-flag reads and
+   dead steps, the call's time against the one-device kernel's, the step
+   kernel's time alone, its bound, its per-step floor and the plain
+   version's time; (c) config 1 on the
    mesh under the default protocol (the all-gather inside the engine's
    graphs), cold and the median of 10 warm runs on a kept evaluator,
    beside the one-device run: ranks, errors and nevals bit for bit and
    tci_tpu's series; (d) config 4's ``integrate(torch_native=True,
    mesh=)``, bitwise the one-device integral; (e) phase 4i's zip-up at L =
    20, chi = 16 and config 1's train compressed on the mesh, bitwise the
-   device tier's, every step-kernel launch checked; (f)
+   device tier's, every step-kernel launch checked, and their warm walls
+   beside the device tier's; (f)
    ``tt_evaluate_sharded``, ``parallel.dryrun.run(1)`` and ex06 as a
    process; (g) two gloo ranks spawned on the one card running config 2's
-   ``rrlu_sharded`` on half-height blocks (gloo all-reduces CUDA tensors
+   ``rrlu_sharded`` on half-height blocks (gloo gathers CUDA tensors
    through the host), bitwise the one-device kernel. Nothing runs on more
    than one GPU: the machine has one;
 5. the kernel against the plain version on every launch the cold runs of
@@ -817,7 +820,7 @@ def _run_mesh(here, smi_line):
         fail(f"4l (b): {sum(not eq for _, eq, _ in checks)} of {len(checks)} "
              f"checked step-kernel launches differ from the plain version "
              f"({step_launches()} launches)")
-    steps = (step_launches() - 1) // 3
+    steps = step_launches() - 1
     # warm times, events around whole calls (host included: each step is
     # queued from the host), against the one-device kernel in the same call
     Ap = torch.zeros_like(A)
@@ -827,24 +830,28 @@ def _run_mesh(here, smi_line):
         for _ in range(3)]
     t_one = [events_ms(lambda: lu_cuda.rrlu_call(
         Ap, N, N, R, 1e-10, 0.0, leftorthogonal=True)) for _ in range(3)]
-    # the step kernel alone: the call's 256 steps of the three kernels
-    # queued back to back on one rank (no collective is needed on one rank)
-    st = lu_sharded._State(Ap.clone(), 0, N, N, N, 1e-10, 0.0, True)
+    # the step kernel alone: the call's first launch and 256 steps queued
+    # back to back on one rank, where the gather is the identity (the
+    # kernel reads the slot it wrote)
+
+    def kernel_state():
+        st = lu_sharded._State(Ap.clone(), 0, N, N, N, 1e-10, 0.0, True, 1, R)
+        st.recv = st.send
+        return st
+
+    st = kernel_state()
 
     def kernel_steps():
         lu_sharded._launch(st, 0)
         for _ in range(R):
-            for phase in (1, 2, 3):
-                lu_sharded._launch(st, phase)
+            lu_sharded._launch(st, 1)
     kernel_ms = events_ms(kernel_steps)
     if int(st.ist[0]) != R:
         fail(f"4l (b): the kernel-only steps took {int(st.ist[0])} pivots")
-    st = lu_sharded._State(Ap.clone(), 0, N, N, N, 1e-10, 0.0, True)
-    lu_sharded._launch(st, 0)
-    pick_us = events_ms(lambda: lu_sharded._launch(st, 1), 50) * 1e3
-    lu_sharded._launch(st, 2)
-    update_us = events_ms(lambda: lu_sharded._launch(st, 3), 20) * 1e3
-    # the plain version of a whole call on the card (its three phases in
+    st = kernel_state()
+    first_us = events_ms(lambda: lu_sharded._launch(st, 0), 20) * 1e3
+    step0_us = events_ms(lambda: lu_sharded._launch(st, 1)) * 1e3
+    # the plain version of a whole call on the card (its two phases in
     # torch operations), once
     phase_fn = lu_sharded._phase
     lu_sharded._phase = lu_sharded._plain
@@ -853,37 +860,42 @@ def _run_mesh(here, smi_line):
             Ap, N, N, R, 1e-10, 0.0, leftorthogonal=True, mesh=mesh))
     finally:
         lu_sharded._phase = phase_fn
-    # the bound: the rank's live block read and written once a step, or
-    # two operations an element of it, whichever is larger (f64, 8 bytes)
-    live = [(N - j) * (N - j) for j in range(k)]
-    t_bytes = sum(16.0 * e for e in live) / HBM * 1e3
+    # the bound (the guide's rule): the block read once and written once
+    # (f64, 8 bytes an element), or two operations an element of each
+    # step's trailing block, whichever is larger; beside it the per-step
+    # floor of any elimination that keeps the block in device memory, its
+    # live block read and written once a step
+    t_bytes = 2 * 8.0 * N * N / HBM * 1e3
     t_ops = sum(2.0 * (N - 1 - j) * (N - 1 - j) for j in range(k)) \
         / PEAK64 * 1e3
     bound = max(t_bytes, t_ops)
+    floor = sum(16.0 * (N - j) * (N - j) for j in range(k)) / HBM * 1e3
     entry.update(
-        ms=kernel_ms, ms_from="cuda events around the call's 769 launches "
-        "queued back to back", plain_ms=plain_ms, bound_ms=bound,
+        ms=kernel_ms, ms_from=f"cuda events around the call's {R + 1} "
+        "launches queued back to back", plain_ms=plain_ms, bound_ms=bound,
         bound_by="bytes" if t_bytes >= t_ops else "operations",
-        steps=steps, collectives_per_step=3, collectives=coll,
-        flag_reads=reads, dead_steps=steps - k,
-        call_ms=med(t_mesh), call_ms_all=t_mesh,
+        floor_ms=floor, steps=steps, collectives_per_step=1,
+        defer_depth=st.depth, collectives=coll, flag_reads=reads,
+        dead_steps=steps - k, call_ms=med(t_mesh), call_ms_all=t_mesh,
         one_device_ms=med(t_one), one_device_ms_all=t_one,
-        pick_us=pick_us, update_us_step0=update_us,
+        first_us=first_us, step_us_step0=step0_us,
         step_us=kernel_ms / steps * 1e3 if steps else None)
     say(f"4l (b) config 2 rrlu_sharded (4096^2 f64, rank {k}, one "
           f"NCCL rank): pivot order, npivot, err and LU buffer bitwise the "
           f"one-device kernel's; {entry['launches_by_path']['4l_config2']} "
-          f"step-kernel launches ({steps} steps x 3 + 1), every one bitwise "
-          f"its plain version; collectives {json.dumps(coll)}, {reads} stop-"
-          f"flag reads, {steps - k} dead steps; call (events, median of 3) "
-          f"{entry['call_ms']:.3f} ms {[round(t, 3) for t in t_mesh]} against "
-          f"the one-device kernel {entry['one_device_ms']:.3f} ms "
-          f"{[round(t, 3) for t in t_one]}; the step kernel alone "
-          f"{kernel_ms:.3f}"
-          f" ms a call ({entry['step_us']:.2f} us a step; pick {pick_us:.2f} "
-          f"us, update at step 0 {update_us:.2f} us); bound {bound:.4f} ms "
-          f"({entry['bound_by']}; bytes {t_bytes:.4f}, operations "
-          f"{t_ops:.4f}); plain version {plain_ms:.3f} ms")
+          f"step-kernel launches ({steps} steps + 1), every one bitwise "
+          f"its plain version; collectives {json.dumps(coll)} (1 a step), "
+          f"{reads} stop-flag reads, {steps - k} dead steps; call (events, "
+          f"median of 3) {entry['call_ms']:.3f} ms "
+          f"{[round(t, 3) for t in t_mesh]} against the one-device kernel "
+          f"{entry['one_device_ms']:.3f} ms {[round(t, 3) for t in t_one]}; "
+          f"the step kernel alone {kernel_ms:.3f} ms a call "
+          f"({entry['step_us']:.2f} us a step; the first launch "
+          f"{first_us:.2f} us, step 0 {step0_us:.2f} us; write-back "
+          f"deferred over {st.depth} steps); "
+          f"bound {bound:.4f} ms ({entry['bound_by']}; bytes {t_bytes:.4f}, "
+          f"operations {t_ops:.4f}), per-step floor {floor:.4f} ms; plain "
+          f"version {plain_ms:.3f} ms")
 
     # (c) config 1 through crossinterpolate2 on the mesh, default protocol
     localdims = [10] * 8
@@ -1011,6 +1023,14 @@ def _run_mesh(here, smi_line):
     entry["launches_by_path"]["4l_compress"] = step_launches() - before
     c1 = tt1.copy()
     c1.compress("LU", tolerance=1e-12, torch_native=True)
+    compress_s = {}
+    for tag, m in (("mesh", mesh), ("one", None)):
+        c = tt1.copy()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c.compress("LU", tolerance=1e-12, torch_native=True, mesh=m)
+        torch.cuda.synchronize()
+        compress_s[tag] = time.perf_counter() - t0
     if not same_cores(cm, c1) or cm.linkdims() != RECORDED_COMPRESS:
         fail(f"4l (e): mesh compression linkdims {cm.linkdims()}, not bitwise "
              f"the device tier's")
@@ -1020,13 +1040,17 @@ def _run_mesh(here, smi_line):
              "plain version or went unchecked")
     entry["zipup"] = {"mesh_s": zm_s, "one_s": z1_s,
                       "launches": entry["launches_by_path"]["4l_zipup"]}
+    entry["compress"] = {"mesh_s": compress_s["mesh"],
+                         "one_s": compress_s["one"],
+                         "launches": entry["launches_by_path"]["4l_compress"]}
     say(f"4l (e) zip-up L = 20, chi = 16 on the mesh: linkdims and "
           f"cores bitwise the device tier's ({zm.linkdims()[:4]} ...), "
           f"{entry['launches_by_path']['4l_zipup']} step-kernel launches "
           f"checked; warm {zm_s:.4f} s / one device {z1_s:.4f} s; config 1's "
           f"train compressed on the mesh: linkdims {cm.linkdims()}, cores "
           f"bitwise, {entry['launches_by_path']['4l_compress']} launches "
-          f"checked")
+          f"checked; warm {compress_s['mesh']:.4f} s / one device "
+          f"{compress_s['one']:.4f} s")
 
     # (f) tt_evaluate_sharded, dryrun.run(1), ex06 as its own process
     cores = pad_cores(tt1.sitetensors())
@@ -1073,7 +1097,7 @@ def _run_mesh(here, smi_line):
     dist.destroy_process_group()
 
     # (g) two gloo ranks on the one card (the card's torch lets gloo
-    # all-reduce CUDA tensors): config 2 on half-height blocks
+    # gather CUDA tensors): config 2 on half-height blocks
     import torch.multiprocessing as mp
     tmp = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
     ctx = mp.get_context("spawn")
@@ -1108,7 +1132,7 @@ def _run_mesh(here, smi_line):
           f"kernel's on both ranks, {ranks[0]['launches']} launches a rank, "
           f"each bitwise its plain version; cold {ranks[0]['wall_s']:.3f} / "
           f"{ranks[1]['wall_s']:.3f} s, warm {ranks[0]['warm_wall_s']:.3f} / "
-          f"{ranks[1]['warm_wall_s']:.3f} s (gloo's all-reduce of CUDA "
+          f"{ranks[1]['warm_wall_s']:.3f} s (gloo's gather of CUDA "
           f"tensors goes through the host)")
     entry["phase_s"] = time.perf_counter() - t_phase
     print(f"[mesh] 4l: {entry['phase_s']:.3f} s in all", flush=True)

@@ -1,6 +1,7 @@
 // Element arithmetic and pivot-order helpers shared by the rrLU kernel
 // (rrlu.cu) and the sharded elimination's step kernel (lu_sharded.cu), so
-// that both round every element, and order every pivot candidate, alike.
+// that both round every element, and order every pivot candidate, alike,
+// and reduce candidates across a warp the same way.
 
 #pragma once
 
@@ -84,8 +85,6 @@ struct Ops<double2> {
   __device__ static bool nonzero(double2 a) { return a.x != 0.0 || a.y != 0.0; }
 };
 
-constexpr int kBig = 1 << 30;  // "no position" (the TPU kernel's BIG)
-
 // The order of pivot candidates (metric v, position p): NaN above every
 // value, then the larger value, then (equal values, or two NaNs) the
 // smaller position. A strict total order, so every reduction tree picks the
@@ -103,48 +102,33 @@ __device__ __forceinline__ R nan_max(R a, R b) {
   return (b > a || b != b) ? b : a;
 }
 
-// Block-wide argmax over (value, position) pairs: the largest value wins,
-// ties go to the smallest position. Every thread returns the winner.
-template <typename T, int NT>
-__device__ void block_argmax(T& val, int& pos, T* s_val, int* s_pos) {
-  constexpr int kWarps = NT / 32;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+// Warp-wide argmax of candidates: every lane ends with the winner (a
+// butterfly over a total order, so the lanes agree). K is the key's type:
+// 32 bits in rrlu.cu's resident and cluster modes, 64 in its grid mode and
+// in lu_sharded.cu.
+template <typename T, typename K = unsigned>
+__device__ __forceinline__ void warp_argmax(T& v, K& key) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    const T v = __shfl_down_sync(0xffffffffu, val, off);
-    const int p = __shfl_down_sync(0xffffffffu, pos, off);
-    if (ranks_above(v, p, val, pos)) {
-      val = v;
-      pos = p;
+    const T ov = __shfl_xor_sync(0xffffffffu, v, off);
+    const K okey = __shfl_xor_sync(0xffffffffu, key, off);
+    if (ranks_above(ov, okey, v, key)) {
+      v = ov;
+      key = okey;
     }
   }
-  if (lane == 0) {
-    s_val[warp] = val;
-    s_pos[warp] = pos;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    val = lane < kWarps ? s_val[lane] : T(-1);
-    pos = lane < kWarps ? s_pos[lane] : kBig;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const T v = __shfl_down_sync(0xffffffffu, val, off);
-      const int p = __shfl_down_sync(0xffffffffu, pos, off);
-      if (ranks_above(v, p, val, pos)) {
-        val = v;
-        pos = p;
-      }
-    }
-    if (lane == 0) {
-      s_val[32] = val;
-      s_pos[32] = pos;
-    }
-  }
-  __syncthreads();
-  val = s_val[32];
-  pos = s_pos[32];
-  __syncthreads();  // the scratch is reused by the next reduction
+}
+
+// v of lane `src`, in every lane.
+__device__ __forceinline__ float shfl_from(float v, int src) {
+  return __shfl_sync(0xffffffffu, v, src);
+}
+__device__ __forceinline__ double shfl_from(double v, int src) {
+  return __shfl_sync(0xffffffffu, v, src);
+}
+__device__ __forceinline__ double2 shfl_from(double2 v, int src) {
+  return make_double2(__shfl_sync(0xffffffffu, v.x, src),
+                      __shfl_sync(0xffffffffu, v.y, src));
 }
 
 }  // namespace

@@ -273,22 +273,6 @@ __device__ __forceinline__ unsigned pos_key(int col, unsigned row) {
   return ((unsigned)col << 16) | row;
 }
 
-// Warp-wide argmax of candidates: every lane ends with the winner (a
-// butterfly over a total order, so the lanes agree). K is the key's type:
-// 32 bits in the resident and cluster modes, 64 in the grid mode.
-template <typename T, typename K = unsigned>
-__device__ __forceinline__ void warp_argmax(T& v, K& key) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const T ov = __shfl_xor_sync(0xffffffffu, v, off);
-    const K okey = __shfl_xor_sync(0xffffffffu, key, off);
-    if (ranks_above(ov, okey, v, key)) {
-      v = ov;
-      key = okey;
-    }
-  }
-}
-
 // One pass over the first m rows of A (row stride np) and its first n
 // columns: the resident panel, or a cluster CTA's share of one. Columns go to
 // lanes (a warp reads 32 neighbouring entries of a row); the R warps of a
@@ -617,17 +601,6 @@ __device__ __forceinline__ void cluster_barrier() {
   asm volatile(
       "barrier.cluster.arrive.release.aligned;\n\t"
       "barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ float shfl_from(float v, int src) {
-  return __shfl_sync(0xffffffffu, v, src);
-}
-__device__ __forceinline__ double shfl_from(double v, int src) {
-  return __shfl_sync(0xffffffffu, v, src);
-}
-__device__ __forceinline__ double2 shfl_from(double2 v, int src) {
-  return make_double2(__shfl_sync(0xffffffffu, v.x, src),
-                      __shfl_sync(0xffffffffu, v.y, src));
 }
 
 // Per-phase clocks of the cluster kernel, compiled in only with

@@ -3,28 +3,44 @@
 Counterpart of ``tci_tpu/ops/lu_sharded.py``. A panel's rows are cut into
 one contiguous block a rank (rows padded to ``bucket(m)`` rounded up to a
 multiple of the mesh size, columns to ``bucket(n)``); the elimination is
-``tci_tpu``'s ``_make_state_fn``: per pivot step each rank updates its
-block and reduces its column maxima, and three collectives make the
-decision global, each exact, so the pivot order is bitwise the one-device
-elimination's:
+``tci_tpu``'s ``_make_state_fn`` with its decision made the same way on
+every rank from one gather a step, so the pivot order is bitwise the
+one-device elimination's:
 
-- pick: the pivot column from the global column maxima (replicated), and
-  this rank's first candidate row in it; then a MIN all-reduce of the
-  candidates' swapped positions (the reference's first occurrence);
-- swap: the stop test, the virtual swaps of the replicated permutations,
-  the pivot row into a buffer (the owner's row, zeros on the other ranks);
-  then a SUM all-reduce of the buffer's bits;
-- update: the Schur update of the rank's block with the multipliers
-  stored, and its column maxima for the next step; then a MAX all-reduce
-  of their integer keys (``_key``: NaN above every value).
+- first: each rank's candidate over its valid block, the largest |a|^2
+  with NaN above every value, then the smallest swapped column position,
+  then the smallest swapped row position, left in the rank's send slot
+  with the entry and the candidate's whole row;
+- step: every rank reads the P gathered slots and takes the same decision
+  by the same order (the global first maximum in the swapped column-major
+  order: the column with the largest maximum, then the first row in it,
+  which is the reference's two-stage rule), the stop test of
+  matrixlu.jl:363 and the virtual swaps of the replicated permutations;
+  y comes from the winner's slot row, x from the rank's own rows; the
+  Schur update of the rank's block with the multipliers stored (the
+  owner stores row pr's when right-orthogonal); and the rank's next
+  candidate goes to its send slot. The block's write-back is deferred
+  over ``defer_depth`` steps (below), bitwise the same at every depth.
+
+After each phase one all-gather of the slots (``all_gather_rows`` of one
+contiguous integer tensor a rank: the slot's bits, so NCCL and gloo move
+it exactly). A slot is ``_HEAD`` bytes of header, |a|^2 (a NaN as the
+all-ones NaN, the bits torch's max gives the one-device plain version's
+pivot metric), the key (swapped column position << 32 | swapped row
+position; -1 for "no candidate", then |a|^2 is -1), the entry and the
+candidate's original row and column, then the row, each field in its own
+bits. The replicated integer state holds k, the stop flag and the row and
+column at position k, so a decision reads the state and the slots and
+nothing that depends on them.
 
 Each phase is a launch of the hand-written CUDA kernel ``csrc/lu_sharded.cu``
 for a block on a card, and its plain PyTorch version (``_plain``, the
 arithmetic of ``lu_kernel.rrlu_plain``) for a block on the CPU, where the
-collectives run on gloo. The steps queue with no read of the device; the
-stop test sets a flag in the replicated state that turns the later steps
-into no-ops, and the host reads it once every ``CHECK_EVERY`` steps. The factored blocks are gathered once at the end into the swapped
-layout of ``rrlu_raw``. float32, float64 and complex128 panels are taken.
+gather runs on gloo. The steps queue with no read of the device; the stop
+test sets a flag in the replicated state that turns the later steps into
+no-ops, and the host reads it once every ``CHECK_EVERY`` steps. The
+factored blocks are gathered once at the end into the swapped layout of
+``rrlu_raw``. float32, float64 and complex128 panels are taken.
 """
 
 from __future__ import annotations
@@ -36,24 +52,23 @@ from typing import Optional, Union
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from ..parallel.mesh import (all_gather_rows, default_mesh, mesh_device,
-                             mesh_group, mesh_rank)
+                             mesh_rank)
 from ..utils.device import to_device
 from . import _build
-from .lu_kernel import _abs2, _div, _first, _mul, bucket, fetch_result
+from .lu_kernel import _abs2, _div, _mul, bucket, fetch_result
 
 _INTMAX = 2**62
-_BIG = 1 << 30
 
-# Launches of the step kernel (three a pivot step, one for the first column
-# maxima), counted where it is launched and nowhere else.
+# Launches of the step kernel (one a pivot step, one for the first
+# candidate), counted where it is launched and nowhere else.
 LAUNCHES: Counter = Counter()
 # Calls of the plain version's phases, by the device type of the block. The
 # main path on a card leaves the "cuda" count at 0 (CHECKS runs it there).
 PLAIN_CALLS: Counter = Counter()
-# Collectives of the eliminations run so far, by kind.
+# Collectives of the eliminations run so far, by kind: "gather" (the slots,
+# one after each phase), "all_gather" (the factored blocks, one a call).
 COLLECTIVES: Counter = Counter()
 # Host reads of the stop flag.
 FLAG_READS: Counter = Counter()
@@ -65,16 +80,52 @@ CHECKS: Optional[list] = None
 
 # The host reads the stop flag once every CHECK_EVERY steps. A read waits
 # for the queue to drain, so it costs about one step; a step queued after
-# the stop is a dead step, three launches that return at once and three
-# collectives. 32 keeps the reads below 1/32 of the steps and the dead
-# steps below 32 a call; a call of at most 32 steps reads nothing.
+# the stop is a dead step, a launch that returns at once and a gather. 32
+# keeps the reads below 1/32 of the steps and the dead steps below 32 a
+# call; a call of at most 32 steps reads nothing.
 CHECK_EVERY = 32
 
-PHASES = ("colmax", "pick", "swap", "update")
+# The deferred write-back: a step's pass rebuilds each live entry from the
+# buffer by the pending updates a - x_t y_t, in order (the same rounded
+# steps), and writes the block back only every `depth`-th step and at the
+# last; the lines that leave the live block (column pc, row pr) go to the
+# buffer as they end. MAX_DEFER is the kernel's largest depth; DEFER, when
+# set, forces a depth on every elimination (for measurement and tests).
+MAX_DEFER = 4
+DEFER: Optional[int] = None
+
+
+@functools.cache
+def _l2_bytes(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).L2_cache_size
+
+
+def defer_depth(m_blk: int, npd: int, dtype: torch.dtype,
+                device: torch.device) -> int:
+    """The deferral depth of an elimination of an (m_blk, npd) block on
+    `device`: on a card 1 while the block fits its L2 (a pass reads it from
+    there and a rebuild costs more than the writes it saves), MAX_DEFER
+    above, where every pass streams the block from device memory (measured
+    on an H100 with tools/sharded_ab.py; PERF.md, the sharded step's
+    findings); 1 on the CPU, where the plain version saves nothing by it."""
+    if DEFER is not None:
+        return DEFER
+    if device.type != "cuda":
+        return 1
+    nbytes = m_blk * npd * torch.empty((), dtype=dtype).element_size()
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return MAX_DEFER if nbytes > _l2_bytes(index) else 1
+
+
+PHASES = ("first", "step")
 # the integer state (ist) and the real state (rst), as csrc/lu_sharded.cu
 # lays them out
-_K, _DONE, _BESTCOL, _PC, _PR = range(5)
-_M, _MAXERR, _ERR = range(3)
+_K, _DONE, _ROW_AT_K, _COL_AT_K = range(4)
+_MAXERR, _ERR = range(2)
+# bytes of a slot's header: |a|^2 at 0, the key at 8, the entry at 16, the
+# candidate's row and column (int32) at 32 and 36
+_HEAD = 48
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.complex128: 2}
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 
@@ -82,9 +133,11 @@ _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("lu_sharded")
-    lib.lu_sharded_launch.argtypes = ([_I, _I] + [_P] * 12 + [_I] * 7
+    lib.lu_sharded_launch.argtypes = ([_I, _I] + [_P] * 13 + [_I] * 12
                                       + [_D, _D, _I, _P])
     lib.lu_sharded_launch.restype = _I
+    lib.lu_sharded_scratch_bytes.argtypes = [_I, _I, _I]
+    lib.lu_sharded_scratch_bytes.restype = ctypes.c_size_t
     return lib
 
 
@@ -97,16 +150,6 @@ def _int_type(rdt: torch.dtype) -> torch.dtype:
     return torch.int32 if rdt == torch.float32 else torch.int64
 
 
-def _key(v: torch.Tensor) -> torch.Tensor:
-    """The integer keys of metrics v (>= 0, -1 or NaN): their bits, every
-    NaN the positive quiet NaN, so that an integer max is the metrics' max
-    with NaN above every value (the kernel's Key)."""
-    nan = torch.tensor(0x7FC00000 if v.dtype == torch.float32
-                       else 0x7FF8000000000000,
-                       dtype=_int_type(v.dtype), device=v.device)
-    return torch.where(v.isnan(), nan, v.view(_int_type(v.dtype)))
-
-
 def _bits(t: torch.Tensor) -> torch.Tensor:
     """t's bits as integers of its real type's width (a view; an integer
     tensor as it is)."""
@@ -115,36 +158,71 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(_int_type(t.dtype)) if t.is_floating_point() else t
 
 
-class _State:
-    """One rank's block and the replicated state of an elimination."""
+def _slot_words(npd: int, dtype: torch.dtype) -> int:
+    """int64 words of a slot: the header and a row of npd elements, rounded
+    up to 16 bytes."""
+    row = npd * torch.empty((), dtype=dtype).element_size()
+    return (_HEAD + -(-row // 16) * 16) // 8
 
-    FIELDS = ("A", "xcol", "rowbuf", "colkey", "rowperm", "rowpos",
-              "colperm", "colpos", "pos", "ist", "rst", "mags")
+
+class _Slots:
+    """Views of slots (a (..., W) int64 tensor) as their fields."""
+
+    def __init__(self, slots: torch.Tensor, dtype: torch.dtype, npd: int):
+        es = torch.empty((), dtype=dtype).element_size()
+        rdt = dtype.to_real()
+        self.val = slots.view(rdt)[..., 0]
+        self.valbits = slots.view(_int_type(rdt))[..., 0]
+        self.key = slots[..., 1]
+        self.entry = slots.view(dtype)[..., 16 // es]
+        self.at = slots.view(torch.int32)[..., 8:10]
+        self.row = slots.view(dtype)[..., _HEAD // es:_HEAD // es + npd]
+
+
+class _State:
+    """One rank's block, its slots and the replicated state of an
+    elimination."""
+
+    FIELDS = ("A", "send", "recv", "rowperm", "rowpos", "colperm", "colpos",
+              "ist", "rst", "mags", "px", "py")
 
     def __init__(self, Ablk, offset, mp, m, n, reltol, abstol,
-                 leftorthogonal):
+                 leftorthogonal, P, maxrank):
         dev, dt = Ablk.device, Ablk.dtype
         rdt = dt.to_real()
         m_blk, npd = Ablk.shape
         self.m_blk, self.npd, self.mp, self.offset = m_blk, npd, mp, offset
-        self.m, self.n = m, n
+        self.m, self.n, self.P = m, n, P
         self.reltol, self.abstol = float(reltol), float(abstol)
         self.leftorthogonal = bool(leftorthogonal)
         self.A = Ablk
-        self.xcol = torch.zeros(m_blk, dtype=dt, device=dev)
-        self.rowbuf = torch.zeros(npd, dtype=dt, device=dev)
-        self.colkey = _key(torch.full((npd,), -1.0, dtype=rdt, device=dev))
+        W = _slot_words(npd, dt)
+        self.send = torch.zeros((1, W), dtype=torch.int64, device=dev)
+        self.recv = torch.zeros((P, W), dtype=torch.int64, device=dev)
         self.rowperm = torch.arange(mp, dtype=torch.int32, device=dev)
         self.rowpos = self.rowperm.clone()
         self.colperm = torch.arange(npd, dtype=torch.int32, device=dev)
         self.colpos = self.colperm.clone()
-        self.pos = torch.zeros(1, dtype=torch.int32, device=dev)
-        self.ist = torch.zeros(5, dtype=torch.int32, device=dev)
-        self.rst = torch.tensor([0.0, 0.0, float("nan")], dtype=rdt,
-                                device=dev)
+        self.ist = torch.zeros(4, dtype=torch.int32, device=dev)
+        self.rst = torch.tensor([0.0, float("nan")], dtype=rdt, device=dev)
         self.mags = torch.zeros(min(mp, npd), dtype=rdt, device=dev)
-        # the kernel's arguments but the phase and the stream, made at the
-        # first launch (a step launches three times from the host)
+        self.maxrank = int(maxrank)
+        self.depth = defer_depth(m_blk, npd, dt, dev)
+        if not 1 <= self.depth <= MAX_DEFER:
+            raise ValueError(f"deferral depth {self.depth} outside [1, "
+                             f"{MAX_DEFER}]")
+        # the pending updates' x (by row) and y (by column), in order; the
+        # steps queued so far (the host's count: a step's pending count is
+        # steps % depth, fixed in each launch; so a CUDA graph of steps
+        # replays right only from a state whose step count is the capture's
+        # modulo the depth, and replays back to back only when it holds a
+        # multiple of the depth)
+        self.px = torch.zeros((self.depth, m_blk), dtype=dt, device=dev)
+        self.py = torch.zeros((self.depth, npd), dtype=dt, device=dev)
+        self.steps = 0
+        # the kernel's scratch (its blocks' candidates and the counter the
+        # last block resets) and arguments, made at the first launch
+        self.scratch = None
         self.args = None
 
     def clone(self) -> "_State":
@@ -152,119 +230,167 @@ class _State:
         other.__dict__.update(self.__dict__)
         for name in self.FIELDS:
             setattr(other, name, getattr(self, name).clone())
-        other.args = None
+        other.scratch = other.args = None
         return other
 
 
-# -- the plain version: the kernel's three phases in torch operations --------
+# -- the plain version: the kernel's two phases in torch operations ---------
 
 
-def _plain_colmax(s: _State) -> None:
-    """The first column maxima of the valid block (rows < m, columns < n)."""
-    rows = s.offset + torch.arange(s.m_blk, device=s.A.device)
-    cols = torch.arange(s.npd, device=s.A.device)
-    live = (rows < s.m)[:, None] & (cols < s.n)[None, :]
-    met = torch.where(live, _abs2(s.A), -1.0).amax(0)
-    s.colkey.copy_(torch.maximum(s.colkey, _key(met)))
+def _live(s: _State, k: int):
+    """The rows and the columns of the block live at position k: valid and
+    not yet pivoted."""
+    dev = s.A.device
+    gids = s.offset + torch.arange(s.m_blk, device=dev)
+    cols = torch.arange(s.npd, device=dev)
+    return ((gids < s.m) & (s.rowpos[gids] >= k),
+            (cols < s.n) & (s.colpos >= k))
 
 
-def _plain_pick(s: _State) -> None:
+def _current(s: _State, k: int, npend: int) -> torch.Tensor:
+    """The block as it stands: the buffer with the npend pending updates
+    a - x_t y_t applied in order to the entries live at k (each of them was
+    live through every pending update)."""
+    C = s.A.clone()
+    if npend:
+        urow, ucol = _live(s, k)
+        live = urow[:, None] & ucol[None, :]
+        for t in range(npend):
+            C = torch.where(live, C - _mul(s.px[t][:, None],
+                                           s.py[t][None, :]), C)
+    return C
+
+
+def _candidate(s: _State, C: torch.Tensor) -> None:
+    """The rank's candidate over the live entries of its block as it stands
+    (C) into its send slot: the first maximum of |a|^2 (NaN above every
+    value) by swapped column position, then swapped row position, with the
+    entry, its place and its whole row; none: |a|^2 -1, key -1, entry 0,
+    place (-1, -1), the row left as it was."""
+    k = int(s.ist[_K])
+    urow, ucol = _live(s, k)
+    gids = s.offset + torch.arange(s.m_blk, device=C.device)
+    rpos = s.rowpos[gids].long()
+    live = urow[:, None] & ucol[None, :]
+    met = torch.where(live, _abs2(C), -1.0)
+    nan = met.isnan()
+    out = _Slots(s.send[0], C.dtype, s.npd)
+    if bool(nan.any()):
+        hit = nan
+    else:
+        top = met.max() if met.numel() else None
+        if top is None or bool(top < 0):
+            out.val.fill_(-1.0)
+            out.key.fill_(-1)
+            out.entry.zero_()
+            out.at.fill_(-1)
+            return
+        hit = met == top
+    key = (s.colpos.long() << 32)[None, :] | rpos[:, None]
+    at = int(torch.where(hit, key, torch.iinfo(torch.int64).max).argmin())
+    i, j = divmod(at, s.npd)
+    out.val.copy_(met[i, j])
+    if bool(nan.any()):
+        out.valbits.fill_(-1)
+    out.key.copy_(key[i, j])
+    out.entry.copy_(C[i, j])
+    out.at[0], out.at[1] = s.offset + i, j
+    out.row.copy_(C[i])
+
+
+def _plain_first(s: _State) -> None:
+    _candidate(s, s.A)
+
+
+def _plain_step(s: _State) -> None:
+    npend = s.steps % s.depth
+    s.steps += 1
     if bool(s.ist[_DONE]):
         return
     k = int(s.ist[_K])
     rdt = s.rst.dtype
-    neg1 = -torch.ones((), dtype=rdt, device=s.A.device)
-    cols = torch.arange(s.npd, device=s.A.device)
-    validc = (s.colpos >= k) & (cols < s.n)
-    cm = torch.where(validc, s.colkey.view(rdt), neg1)
-    M = cm.max()
-    bcp = min(_first(cm, M, validc, s.colpos), s.npd - 1)
-    pc = int(s.colperm[bcp])
-    acol = s.A[:, pc]
-    s.xcol.copy_(acol)
-    gids = s.offset + torch.arange(s.m_blk, device=s.A.device)
-    rpos = s.rowpos[gids]
-    validr = (gids < s.m) & (rpos >= k)
-    met = torch.where(validr, _abs2(acol), neg1)
-    Ml = met.max()
-    same = bool(Ml == M) or bool(Ml.isnan() & M.isnan())
-    s.pos[0] = _first(met, Ml, validr, rpos) if same else _BIG
-    s.ist[_BESTCOL] = bcp
-    s.ist[_PC] = pc
-    s.rst[_M] = M
-
-
-def _plain_swap(s: _State) -> None:
-    if bool(s.ist[_DONE]):
-        return
-    k = int(s.ist[_K])
-    M = s.rst[_M].clone()
-    rdt = s.rst.dtype
-    if bool(M < 0):
-        s.rst[_ERR] = 0.0
-        s.ist[_DONE] = 1
-        return
-    newerr = torch.sqrt(torch.clamp(M, min=0))
-    maxerror = s.rst[_MAXERR].clone()
-    rt = torch.tensor(s.reltol, dtype=rdt, device=M.device)
-    at = torch.tensor(s.abstol, dtype=rdt, device=M.device)
-    stop = k > 0 and (bool(newerr < rt * maxerror) or bool(newerr < at)
-                      or bool(newerr == 0))
-    s.rst[_ERR] = newerr
+    dev = s.A.device
+    got = _Slots(s.recv, s.A.dtype, s.npd)
+    # the decision: the largest |a|^2 (NaN above every value), then the
+    # smallest key; "no candidate" (|a|^2 -1) loses to every candidate
+    nan = got.val.isnan()
+    hit = nan if bool(nan.any()) else got.val == got.val.max()
+    q = int(torch.where(hit, got.key, torch.iinfo(torch.int64).max)
+            .argmin())
+    v = got.val[q]
+    stop = bool(v < 0)
     if stop:
+        # no valid line left: stop with err 0, as the one-device kernel does
+        s.rst[_ERR] = 0.0
+    else:
+        newerr = torch.sqrt(torch.clamp(v, min=0))
+        maxerror = s.rst[_MAXERR].clone()
+        rt = torch.tensor(s.reltol, dtype=rdt, device=dev)
+        at = torch.tensor(s.abstol, dtype=rdt, device=dev)
+        stop = k > 0 and (bool(newerr < rt * maxerror) or bool(newerr < at)
+                          or bool(newerr == 0))
+        s.rst[_ERR] = newerr
+    if stop:
+        # the pending updates go to the buffer
+        if npend:
+            s.A.copy_(_current(s, k, npend))
         s.ist[_DONE] = 1
         return
-    brp = min(int(s.pos[0]), s.mp - 1)
-    pr = int(s.rowperm[brp])
-    r_at_k = int(s.rowperm[k])
+    key = int(got.key[q])
+    bcp, brp = key >> 32, key & 0xFFFFFFFF
+    pr, pc = (int(i) for i in got.at[q])
+    r_at_k, c_at_k = int(s.ist[_ROW_AT_K]), int(s.ist[_COL_AT_K])
     s.rowperm[brp] = r_at_k
     s.rowperm[k] = pr
     s.rowpos[r_at_k] = brp
     s.rowpos[pr] = k
-    bcp, pc = int(s.ist[_BESTCOL]), int(s.ist[_PC])
-    c_at_k = int(s.colperm[k])
     s.colperm[bcp] = c_at_k
     s.colperm[k] = pc
     s.colpos[c_at_k] = bcp
     s.colpos[pc] = k
     s.mags[k] = newerr
     s.rst[_MAXERR] = torch.maximum(maxerror, newerr)
-    s.ist[_PR] = pr
     s.ist[_K] = k + 1
-    if s.offset <= pr < s.offset + s.m_blk:
-        s.rowbuf.copy_(s.A[pr - s.offset])
-    else:
-        s.rowbuf.zero_()
-    s.colkey.copy_(_key(torch.full_like(s.rowbuf, -1.0, dtype=rdt)))
-
-
-def _plain_update(s: _State) -> None:
-    if bool(s.ist[_DONE]):
-        return
-    k, pc, pr = (int(s.ist[i]) for i in (_K, _PC, _PR))
-    dev = s.A.device
-    gids = s.offset + torch.arange(s.m_blk, device=dev)
-    cols = torch.arange(s.npd, device=dev)
-    urow = (gids < s.m) & (s.rowpos[gids] >= k)
-    ucol = (s.colpos >= k) & (cols < s.n)
-    piv = s.rowbuf[pc]
+    s.ist[_ROW_AT_K] = s.rowperm[k + 1] if k + 1 < s.mp else 0
+    s.ist[_COL_AT_K] = s.colperm[k + 1] if k + 1 < s.npd else 0
+    # the block as it stands (the live entries at k are those of before the
+    # swap), then the Schur update: y from the winner's row, x from this
+    # rank's rows
+    C = _current(s, k, npend)
+    piv = got.entry[q]
+    row = got.row[q]
+    rows_k, _ = _live(s, k)
+    urow, ucol = _live(s, k + 1)
     safe = torch.where(piv != 0, piv, torch.ones_like(piv))
     if s.leftorthogonal:
-        x, y = _div(s.xcol, safe), s.rowbuf
+        x, y = _div(C[:, pc], safe), row
     else:
-        x, y = s.xcol, _div(s.rowbuf, safe)
+        x, y = C[:, pc], _div(row, safe)
     live = urow[:, None] & ucol[None, :]
-    Anew = torch.where(live, s.A - _mul(x[:, None], y[None, :]), s.A)
+    Cnew = torch.where(live, C - _mul(x[:, None], y[None, :]), C)
     if s.leftorthogonal:
-        Anew[:, pc] = torch.where(urow, x, Anew[:, pc])
-    elif s.offset <= pr < s.offset + s.m_blk:
-        Anew[pr - s.offset] = torch.where(ucol, y, Anew[pr - s.offset])
-    s.A.copy_(Anew)
-    met = torch.where(live, _abs2(s.A), -1.0).amax(0)
-    s.colkey.copy_(torch.maximum(s.colkey, _key(met)))
+        Cnew[:, pc] = torch.where(urow, x, Cnew[:, pc])
+    owner = s.offset <= pr < s.offset + s.m_blk
+    if owner and not s.leftorthogonal:
+        Cnew[pr - s.offset] = torch.where(ucol, y, Cnew[pr - s.offset])
+    if s.depth > 1:
+        s.px[npend] = torch.where(urow, x, torch.zeros_like(x))
+        s.py[npend] = torch.where(ucol, y, torch.zeros_like(y))
+    if npend + 1 >= s.depth or k + 1 == s.maxrank:
+        s.A.copy_(Cnew)
+    else:
+        # deferred: the buffer takes the lines that leave the live block as
+        # they end (column pc, the owner's row pr), the live entries wait
+        s.A[:, pc] = torch.where(rows_k, Cnew[:, pc], s.A[:, pc])
+        if owner:
+            i = pr - s.offset
+            keep = ucol.clone()
+            keep[pc] = True
+            s.A[i] = torch.where(keep, Cnew[i], s.A[i])
+    _candidate(s, Cnew)
 
 
-_PLAINS = (_plain_colmax, _plain_pick, _plain_swap, _plain_update)
+_PLAINS = (_plain_first, _plain_step)
 
 
 def _plain(s: _State, phase: int) -> None:
@@ -287,13 +413,23 @@ def _launch(s: _State, phase: int) -> None:
                             f"complex128, got {s.A.dtype}")
         if not s.A.is_contiguous():
             raise ValueError("lu_sharded kernel needs a contiguous block")
-        s.args = (*(getattr(s, name).data_ptr() for name in _State.FIELDS),
-                  s.m_blk, s.npd, s.mp, s.offset, s.m, s.n,
-                  int(s.leftorthogonal), s.reltol, s.abstol,
-                  _sms(dev.index))
+        code, sms = _DTYPE_CODE[s.A.dtype], _sms(dev.index)
+        s.scratch = torch.zeros(
+            int(_lib().lu_sharded_scratch_bytes(code, s.m_blk, sms)),
+            dtype=torch.uint8, device=dev)
+        s.args = (s.A.data_ptr(), s.send.data_ptr(),
+                  *(getattr(s, name).data_ptr() for name in _State.FIELDS[3:]),
+                  s.scratch.data_ptr(), s.P, s.send.shape[1], s.m_blk, s.npd,
+                  s.mp, s.offset, s.m, s.n, int(s.leftorthogonal),
+                  s.maxrank, s.depth)
+    npend = 0
+    if phase == 1:
+        npend = s.steps % s.depth
+        s.steps += 1
     with torch.cuda.device(dev):
         rc = _lib().lu_sharded_launch(
-            _DTYPE_CODE[s.A.dtype], phase, *s.args,
+            _DTYPE_CODE[s.A.dtype], phase, s.args[0], s.recv.data_ptr(),
+            *s.args[1:], npend, s.reltol, s.abstol, _sms(dev.index),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(
@@ -327,23 +463,20 @@ def _phase(s: _State, phase: int) -> None:
         _launch(s, phase)
 
 
-def _all_reduce(t: torch.Tensor, op, group, kind: str) -> None:
-    dist.all_reduce(t, op=op, group=group)
-    COLLECTIVES[kind] += 1
+def _gather(s: _State, mesh) -> None:
+    """Every rank's send slot into every rank's recv, in rank order."""
+    all_gather_rows(s.send, mesh, out=s.recv)
+    COLLECTIVES["gather"] += 1
 
 
-def _eliminate(s: _State, maxrank: int, group) -> None:
+def _eliminate(s: _State, maxrank: int, mesh) -> None:
     """Queue the elimination's steps on s (every rank with its own block),
     reading the replicated stop flag once every CHECK_EVERY steps."""
     _phase(s, 0)
-    _all_reduce(s.colkey, dist.ReduceOp.MAX, group, "max")
+    _gather(s, mesh)
     for step in range(1, maxrank + 1):
         _phase(s, 1)
-        _all_reduce(s.pos, dist.ReduceOp.MIN, group, "min")
-        _phase(s, 2)
-        _all_reduce(_bits(s.rowbuf), dist.ReduceOp.SUM, group, "sum")
-        _phase(s, 3)
-        _all_reduce(s.colkey, dist.ReduceOp.MAX, group, "max")
+        _gather(s, mesh)
         if step % CHECK_EVERY == 0 and step < maxrank:
             FLAG_READS["stop"] += 1
             if bool(s.ist[_DONE]):
@@ -370,9 +503,8 @@ def rrlu_panel_sharded(Ap: torch.Tensor, m_true: int, n_true: int,
     maxrank = min(max(int(maxrank), 0), min(mp, npd))
     m_blk = mp // P
     s = _State(Ap[r * m_blk:(r + 1) * m_blk].clone(), r * m_blk, mp, m, n,
-               reltol, abstol, leftorthogonal)
-    group = mesh_group(mesh)
-    _eliminate(s, maxrank, group)
+               reltol, abstol, leftorthogonal, P, maxrank)
+    _eliminate(s, maxrank, mesh)
     A_full = all_gather_rows(s.A, mesh)
     COLLECTIVES["all_gather"] += 1
     rowperm, colperm = s.rowperm.long(), s.colperm.long()

@@ -102,20 +102,23 @@ def mesh_device(mesh) -> torch.device:
     return torch.device(mesh.device_type)
 
 
-def all_gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+def all_gather_rows(x: torch.Tensor, mesh,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The ranks' (B, ...) tensors stacked along the first axis in rank
-    order, on every rank: ``all_gather_into_tensor`` under NCCL (a CUDA
-    graph can record it), gloo's ``all_gather`` otherwise."""
+    order, on every rank (into `out`, a contiguous (P B, ...) tensor, when
+    given): ``all_gather_into_tensor`` under NCCL (a CUDA graph can record
+    it), gloo's ``all_gather`` otherwise."""
     group = mesh_group(mesh)
     P = mesh.size()
-    if dist.get_backend(group) == "nccl":
+    if out is None:
         out = torch.empty((P * x.shape[0], *x.shape[1:]), dtype=x.dtype,
                           device=x.device)
+    if dist.get_backend(group) == "nccl":
         dist.all_gather_into_tensor(out, x.contiguous(), group=group)
         return out
     parts = [torch.empty_like(x) for _ in range(P)]
     dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts)
+    return torch.cat(parts, out=out)
 
 
 def shard_rows(f: Callable[[torch.Tensor], torch.Tensor], mesh

@@ -142,7 +142,48 @@ def panel_inputs() -> dict:
     L = np.zeros((32, 24))
     L[:30, :20] = rng.standard_normal((30, 3)) @ rng.standard_normal((3, 20))
     out["rank3_dead_tail"] = (L, 30, 20, 20, 1e-10, 0.0, False)
+    # the largest |a|^2 tied across rank boundaries (rows 10 / 20 / 30 of
+    # 40 cut the blocks of 4 ranks, 20 of 2, 14 and 28 of 3 after padding
+    # to 42): in one column (rows 5 and 25 of column 7, the smaller row
+    # wins) and in two columns (column 3's on a later rank than column 9's:
+    # the smaller column wins over the smaller row)
+    T = 0.1 * rng.standard_normal((40, 32))
+    T[5, 7], T[25, 7] = 3.0, -3.0
+    out["tie_one_column"] = (T, 40, 32, 32, 1e-14, 0.0, True)
+    T = 0.1 * rng.standard_normal((40, 32))
+    T[31, 3], T[2, 9], T[17, 9] = -3.0, 3.0, 3.0
+    out["tie_two_columns"] = (T, 40, 32, 32, 1e-14, 0.0, False)
+    # a sign matrix: every |a|^2 of the first step ties, and exact ties
+    # recur through the elimination on every rank
+    S = np.where(rng.standard_normal((40, 36)) < 0, -1.0, 1.0)
+    out["signs"] = (S, 40, 36, 36, 1e-14, 0.0, True)
+    # a NaN in a row the last rank owns (of 2, 3 and 4)
+    N = rng.standard_normal((40, 32))
+    N[37, 5] = np.nan
+    out["nan_last_rank"] = (N, 40, 32, 32, 1e-14, 0.0, False)
+    # dead columns inside the true extents (all zero) and a dead tail of
+    # rows and columns past them
+    D = np.zeros((48, 32))
+    D[:44, :28] = rng.standard_normal((44, 28))
+    D[:, [4, 11, 19]] = 0.0
+    out["dead_columns"] = (D, 44, 28, 28, 1e-14, 0.0, True)
     return out
+
+
+# the panels that tie, hold a NaN on the last rank or dead columns
+TIE_PANELS = ("tie_one_column", "tie_two_columns", "signs", "nan_last_rank",
+              "dead_columns")
+
+
+# the deferral depths the panels also run at (ops/lu_sharded.DEFER)
+DEFER_DEPTHS = (2, 3, 4)
+
+
+def pad_rows(Ap: np.ndarray, P: int) -> np.ndarray:
+    """A panel with zero rows appended to a multiple of P rows (rows past
+    the true extents, which the elimination never reads)."""
+    extra = -Ap.shape[0] % P
+    return np.concatenate([Ap, np.zeros((extra, Ap.shape[1]), Ap.dtype)])
 
 
 def lorentz(idx):
@@ -202,10 +243,24 @@ def _lu_cases(mesh):
         res[name] = (LU.numpy(), rp, cp, k, diag, err)
     for name, (Ap, m, n, maxrank, reltol, abstol, lo) in \
             panel_inputs().items():
-        t = torch.from_numpy(Ap)
+        t = torch.from_numpy(pad_rows(Ap, mesh.size()))
+        before = (lu_sharded.PLAIN_CALLS["cpu"],
+                  lu_sharded.COLLECTIVES["gather"])
         s = lu_sharded.rrlu_panel_sharded(
             t, m, n, maxrank, reltol, abstol, leftorthogonal=lo, mesh=mesh)
         res[f"panel_{name}"] = tuple(x.numpy() for x in s)
+        res[f"counts_{name}"] = (
+            lu_sharded.PLAIN_CALLS["cpu"] - before[0],
+            lu_sharded.COLLECTIVES["gather"] - before[1])
+        for depth in DEFER_DEPTHS:
+            lu_sharded.DEFER = depth
+            try:
+                s = lu_sharded.rrlu_panel_sharded(
+                    t, m, n, maxrank, reltol, abstol, leftorthogonal=lo,
+                    mesh=mesh)
+            finally:
+                lu_sharded.DEFER = None
+            res[f"panel_{name}_defer{depth}"] = tuple(x.numpy() for x in s)
     out = lu_sharded.rrlu_sharded_raw(np.zeros((0, 5), dtype=np.complex128),
                                       mesh=mesh)
     res["empty_0x5"] = (str(out[0].dtype), out[3])
@@ -370,7 +425,7 @@ def _contraction_cases(mesh):
                     lu_sharded.FLAG_READS["stop"])
     left, right, kk = split(C, 90, 70, 1e-12, 0.0)
     res["split_stop"] = (left.numpy(), right.numpy(), int(kk),
-                         (lu_sharded.PLAIN_CALLS["cpu"] - plain - 1) // 3,
+                         lu_sharded.PLAIN_CALLS["cpu"] - plain - 1,
                          lu_sharded.FLAG_READS["stop"] - reads)
     return res
 

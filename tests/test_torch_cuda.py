@@ -2067,51 +2067,86 @@ def nccl_mesh():
     dist.destroy_process_group()
 
 
+def _sharded_panel(kind, dtype):
+    """A 272 x 224 zero-padded panel of 250 x 210 true extents (a dead
+    tail): "reltol" of rank 41, which stops by reltol with updates pending
+    at depths 2, 3 and 4 (41 is a multiple of none), "maxrank" of full
+    rank run to maxrank 45, "nan" of full rank with one NaN, picked at the
+    first step, after which every live entry is NaN."""
+    rng = np.random.default_rng(3)
+    A = np.zeros((272, 224))
+    if kind == "reltol":
+        A[:250, :210] = rng.standard_normal((250, 41)) @ rng.standard_normal(
+            (41, 210))
+    else:
+        A[:250, :210] = rng.standard_normal((250, 210))
+    if kind == "nan":
+        A[200, 100] = np.nan
+    P = torch.from_numpy(A).to("cuda", dtype)
+    if dtype.is_complex:
+        P = P + 1j * P.flip(0)
+    reltol = (1e-5 if dtype == torch.float32 else 1e-10) \
+        if kind == "reltol" else 1e-14
+    return P, 250, 210, 210 if kind == "reltol" else 45, reltol, 0.0
+
+
+@pytest.mark.parametrize("kind", ["reltol", "maxrank", "nan"])
+@pytest.mark.parametrize("depth", [1, 2, 3, 4])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
                                    torch.complex128])
 @pytest.mark.parametrize("leftorthogonal", [True, False])
 def test_lu_sharded_step_kernel_matches_plain(nccl_mesh, leftorthogonal,
-                                              dtype):
+                                              dtype, depth, kind):
     """Every launch of the step kernel bitwise its plain version on copies
-    of its inputs, and the sharded elimination bitwise the one-device
-    kernel's and the one-device plain version's."""
+    of its inputs, with the write-back deferred over `depth` steps (the
+    kernel's NP = 0 ... depth - 1 instantiations: 16-byte vectors of 4
+    f32, 2 f64, 1 complex128), and the sharded elimination bitwise the
+    one-device kernel's and the one-device plain version's (NaN where they
+    have NaN): a stop by reltol with updates pending (the flush), a run to
+    maxrank, and a NaN panel, in both orientations (right-orthogonal: the
+    owner stores row pr)."""
     from tci_tpu_torch.ops import lu_sharded
-    rng = np.random.default_rng(3)
-    A = np.zeros((272, 224))
-    A[:250, :210] = rng.standard_normal((250, 40)) @ rng.standard_normal(
-        (40, 210))
-    P = torch.from_numpy(A).to("cuda", dtype)
-    if dtype.is_complex:
-        P = P + 1j * P.flip(0)
-    args = (P, 250, 210, 210, 1e-6 if dtype == torch.float32 else 1e-10, 0.0)
+    args = _sharded_panel(kind, dtype)
     before = lu_sharded.LAUNCHES["lu_sharded_step"]
     lu_sharded.CHECKS = []
+    lu_sharded.DEFER = depth
     try:
         out = lu_sharded.rrlu_panel_sharded(*args, mesh=nccl_mesh,
                                             leftorthogonal=leftorthogonal)
         checks = lu_sharded.CHECKS
     finally:
         lu_sharded.CHECKS = None
+        lu_sharded.DEFER = None
     torch.cuda.synchronize()
     assert len(checks) == lu_sharded.LAUNCHES["lu_sharded_step"] - before
     assert checks and all(eq for _, eq, _ in checks)
+    k = int(out[3])
+    if kind == "reltol":
+        # stopped by the tolerance, with k % depth updates pending
+        assert k == 41 and float(out[5]) > 0
+    else:
+        assert k == 45
+    assert bool(out[5].isnan()) == (kind == "nan")
     kern = lu_cuda.rrlu_call(*args, leftorthogonal=leftorthogonal)
     plain = lu_kernel.rrlu_plain(*args, leftorthogonal=leftorthogonal)
     for o, r, p in zip(out, kern, plain):
-        assert _equal(o, r) and _equal(o, p)
+        assert _same(o, r) and _same(o, p)
+        if kind != "nan":
+            assert torch.equal(o, r) and torch.equal(o, p)
 
 
 def test_rrlu_sharded_on_nccl_matches_kernel(nccl_mesh):
     """rrlu_sharded_raw at N = 1000 (rank 100) on the card: the one-device
-    rrlu_raw's pivot order and LU buffer bit for bit; 3 launches a step
-    and one for the first column maxima, no plain version on the card; the
-    stop flag is read once every CHECK_EVERY steps."""
+    rrlu_raw's pivot order and LU buffer bit for bit; one launch a step
+    and one for the first candidate, each followed by one gather of the
+    slots, no plain version on the card; the stop flag is read once every
+    CHECK_EVERY steps."""
     from tci_tpu_torch.ops import lu_sharded
     rng = np.random.default_rng(5)
     A = torch.as_tensor(rng.standard_normal((1000, 100))
                         @ rng.standard_normal((100, 1000)), device="cuda")
     for c in (lu_sharded.LAUNCHES, lu_sharded.PLAIN_CALLS,
-              lu_sharded.FLAG_READS):
+              lu_sharded.FLAG_READS, lu_sharded.COLLECTIVES):
         c.clear()
     s = lu_sharded.rrlu_sharded_raw(A, 400, 1e-10, 0.0, True,
                                     mesh=nccl_mesh)
@@ -2119,14 +2154,79 @@ def test_rrlu_sharded_on_nccl_matches_kernel(nccl_mesh):
     assert s[3] == r[3] == 100
     assert np.array_equal(s[1], r[1]) and np.array_equal(s[2], r[2])
     assert torch.equal(s[0], r[0]) and np.array_equal(s[4], r[4])
-    steps = (lu_sharded.LAUNCHES["lu_sharded_step"] - 1) // 3
-    assert lu_sharded.LAUNCHES["lu_sharded_step"] == 3 * steps + 1
+    steps = lu_sharded.LAUNCHES["lu_sharded_step"] - 1
+    assert lu_sharded.COLLECTIVES["gather"] == steps + 1
     every = lu_sharded.CHECK_EVERY
     assert 101 <= steps <= 101 + every - 1
     assert lu_sharded.FLAG_READS["stop"] == steps // every
     assert lu_sharded.PLAIN_CALLS["cuda"] == 0
     lu = tci_tpu_torch.rrlu(A, maxrank=400, reltol=1e-10, mesh=nccl_mesh)
     assert lu.npivot == 100 and lu.L.device.type == "cuda"
+
+
+@pytest.mark.parametrize("depth,steps", [(1, 8), (4, 6), (4, 8)])
+def test_lu_sharded_steps_replay_in_a_cuda_graph(nccl_mesh, depth, steps):
+    """A CUDA graph of a block of steps (each a launch of the step kernel
+    and the gather of the slots) replays bitwise the same steps queued
+    eagerly, twice from the state it was captured from: the last block of
+    each launch resets the kernel's counter, so the next launch and the
+    next replay count anew. With the write-back deferred (depth 4) each
+    launch's pending count is fixed at capture (the host's step count
+    modulo the depth), so the state's step count is restored with its
+    fields; a graph of a multiple of the depth also replays back to back,
+    bitwise the eager steps of both replays."""
+    from tci_tpu_torch.ops import lu_sharded
+    rng = np.random.default_rng(11)
+    N = 512
+    A = torch.as_tensor(rng.standard_normal((N, N)), device="cuda")
+    lu_sharded.DEFER = depth
+    try:
+        s0 = lu_sharded._State(A, 0, N, N, N, 1e-14, 0.0, True, 1, N)
+    finally:
+        lu_sharded.DEFER = None
+    assert s0.depth == depth
+    lu_sharded._launch(s0, 0)
+    lu_sharded._gather(s0, nccl_mesh)
+
+    def run(s, n=steps):
+        for _ in range(n):
+            lu_sharded._launch(s, 1)
+            lu_sharded._gather(s, nccl_mesh)
+
+    def restore(s):
+        for f in lu_sharded._State.FIELDS:
+            getattr(s, f).copy_(getattr(s0, f))
+        s.steps = s0.steps
+
+    def same(s, ref):
+        assert int(s.scratch[:4].view(torch.int32)[0]) == 0
+        for f in lu_sharded._State.FIELDS:
+            assert torch.equal(lu_sharded._bits(getattr(s, f)),
+                               lu_sharded._bits(getattr(ref, f))), f
+
+    ref = s0.clone()
+    run(ref)
+    g = s0.clone()
+    lu_sharded._launch(g, 1)  # its scratch and arguments, before capture
+    restore(g)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        run(g)
+    for _ in range(2):
+        restore(g)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert int(g.ist[0]) == steps
+        same(g, ref)
+    if steps % depth == 0:
+        run(ref)
+        restore(g)
+        graph.replay()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert int(g.ist[0]) == 2 * steps
+        same(g, ref)
 
 
 def test_engine_on_mesh_records_the_gather(nccl_mesh):

@@ -1,5 +1,5 @@
-"""The port's row-sharded rrLU (ops/lu_sharded.py) on gloo groups of 2 and
-4 spawned CPU ranks (tests/_torch_mesh.py), against tci_tpu's
+"""The port's row-sharded rrLU (ops/lu_sharded.py) on gloo groups of 2, 3
+and 4 spawned CPU ranks (tests/_torch_mesh.py), against tci_tpu's
 ``rrlu_sharded_raw`` on its virtual 8-device CPU mesh and against the
 port's one-device elimination, on the same numpy matrices (the cases of
 tests/test_lu_sharded.py).
@@ -18,6 +18,7 @@ import torch
 import torch.distributed as dist
 
 import _torch_mesh as tm
+from tci_tpu.ops.lu_kernel import rrlu_raw as tci_rrlu_raw
 from tci_tpu.ops.lu_sharded import rrlu_sharded_raw as tci_sharded_raw
 from tci_tpu.parallel.mesh import default_mesh as tci_default_mesh
 from tci_tpu_torch.ops import lu_sharded
@@ -29,9 +30,11 @@ LU = tm.lu_inputs()
 PANELS = tm.panel_inputs()
 
 
-@pytest.fixture(scope="module", params=[2, 4], ids=["ranks2", "ranks4"])
+@pytest.fixture(scope="module", params=[2, 3, 4],
+                ids=["ranks2", "ranks3", "ranks4"])
 def ranks(request, tmp_path_factory):
-    """Every case of this file on one gloo group of 2 or 4 ranks."""
+    """Every case of this file on one gloo group of 2, 3 or 4 ranks (3: the
+    rows split unevenly before padding)."""
     return tm.run_ranks(request.param,
                         tmp_path_factory.mktemp(f"lu{request.param}"), "lu")
 
@@ -70,17 +73,87 @@ def test_sharded_matches_tci_tpu_and_one_device(ranks, mesh8, name):
 def test_step_plain_matches_one_device_plain(ranks, name):
     """The step's plain version (what runs on the CPU and what the kernel
     is checked against on the card), row-sharded, against the one-device
-    plain elimination on the same zero-padded panel, bit for bit, in
-    float32, float64 and complex128, with a NaN and a dead tail."""
+    plain elimination on the same zero-padded panel (rows padded to a
+    multiple of the ranks), bit for bit, in float32, float64 and
+    complex128: with a NaN (one on the last rank), a dead tail, dead
+    columns, and the largest |a|^2 tied across rank boundaries in one
+    column, in two columns and at every step of a sign matrix. Each rank
+    decides from the gathered candidates alone, so this holds the
+    per-rank lexicographic rule to the one-device two-stage rule."""
     Ap, m, n, maxrank, reltol, abstol, lo = PANELS[name]
     tm.same_on_every_rank(ranks, f"panel_{name}")
     got = ranks[0][f"panel_{name}"]
+    Ap = tm.pad_rows(Ap, len(ranks))
     want = rrlu_plain(torch.from_numpy(Ap), m, n, maxrank, reltol, abstol,
                       leftorthogonal=lo)
     for g, w in zip(got, want):
         w = w.numpy()
         assert g.dtype == w.dtype and g.shape == w.shape
         assert g.tobytes() == w.tobytes()
+
+
+@pytest.mark.parametrize("name", tm.TIE_PANELS)
+def test_tie_panels_match_tci_tpu(ranks, mesh8, name):
+    """The panels where the per-rank rule could part from tci_tpu's
+    (ties of the largest |a|^2 across rank boundaries, a sign matrix, a
+    NaN on the last rank, dead columns), on their true extents: npivot and
+    the pivot order of tci_tpu's one-device rrlu_raw and of its
+    rrlu_sharded_raw on its 8-device mesh, which takes the MIN of the
+    first occurrence over the devices; the pivot magnitudes to numpy's
+    default closeness. tci_tpu's sharded elimination does not follow its
+    one-device NaN rule (on nan_last_rank its column order comes out as
+    one column repeated), so the NaN panel is held against the one-device
+    elimination alone."""
+    Ap, m, n, maxrank, reltol, abstol, lo = PANELS[name]
+    _, rp, cp, k, mags, err = ranks[0][f"panel_{name}"]
+    A = Ap[:m, :n]
+    refs = [tci_rrlu_raw(A, maxrank, reltol, abstol, lo)]
+    if not np.isnan(A).any():
+        refs.append(tci_sharded_raw(A, maxrank, reltol, abstol, lo,
+                                    mesh=mesh8))
+    k = int(k)
+    for ref in refs:
+        assert k == ref[3]
+        np.testing.assert_array_equal(rp[:k], np.asarray(ref[1])[:k])
+        np.testing.assert_array_equal(cp[:k], np.asarray(ref[2])[:k])
+        np.testing.assert_allclose(mags[:k], np.asarray(ref[4])[:k])
+
+
+@pytest.mark.parametrize("depth", tm.DEFER_DEPTHS)
+@pytest.mark.parametrize("name", list(PANELS))
+def test_deferred_write_back_matches_one_device_plain(ranks, name, depth):
+    """The step's plain version with the write-back deferred over `depth`
+    steps (each pass rebuilds the live entries from the buffer by the
+    pending updates; the pivot's column and row go to the buffer as they
+    end; the last pivot and a stop write everything back), row-sharded,
+    bit for bit the one-device plain elimination on every panel."""
+    Ap, m, n, maxrank, reltol, abstol, lo = PANELS[name]
+    key = f"panel_{name}_defer{depth}"
+    tm.same_on_every_rank(ranks, key)
+    want = rrlu_plain(torch.from_numpy(tm.pad_rows(Ap, len(ranks))), m, n,
+                      maxrank, reltol, abstol, leftorthogonal=lo)
+    for g, w in zip(ranks[0][key], want):
+        w = w.numpy()
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert g.tobytes() == w.tobytes()
+
+
+@pytest.mark.parametrize("name", list(PANELS))
+def test_one_gather_a_step(ranks, name):
+    """Each elimination makes steps + 1 phase calls (the first candidate,
+    then one a step) and one gather of the slots after each: one collective
+    a pivot step. A call of at most CHECK_EVERY steps queues all of them;
+    a longer one stops queuing at the first flag read after its stop."""
+    Ap, m, n, maxrank, reltol, abstol, lo = PANELS[name]
+    tm.same_on_every_rank(ranks, f"counts_{name}")
+    calls, gathers = ranks[0][f"counts_{name}"]
+    k = int(ranks[0][f"panel_{name}"][3])
+    steps = calls - 1
+    assert gathers == calls == steps + 1
+    if maxrank <= lu_sharded.CHECK_EVERY:
+        assert steps == maxrank
+    else:
+        assert k <= steps <= maxrank
 
 
 def test_cpu_blocks_take_the_plain_version(ranks):
