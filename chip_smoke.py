@@ -50,10 +50,19 @@ line or more each:
 3c. the batched-grid probes (ops/probe_batched.run_probes: the six probe
    kernels v1 ... v4c, then the single-panel and the batched rrLU entry
    points on 64 x 128 float32 panels), its JSON object on one line; each
-   of the six kernels against its plain version on the card, exactly, at
-   the probe's inputs and at a second set (B = 7, n = 1000, a seeded
-   table with a loop limit of 0 in one row); each kernel's device time a
-   launch, its plain version's time and its bound;
+   of the six kernels against its plain version on the card, bit for bit,
+   at every set of probe_batched.INPUT_SETS (the probe's inputs, B = 7 and
+   n = 1000, rows of 1, 3 and 257 columns, one and 300 programs, loop
+   limits below 0, at 0 and at 10,000); then, at the probe's inputs, one
+   ``[probe]`` line a kernel: its launch shape, its device time a launch
+   two ways (the median of 100 launches in a torch.profiler trace, and
+   CUDA events around the replay of a CUDA graph of 1,000 launches; two
+   graph runs of one kernel that sit at different levels are reported as
+   not measured, not averaged), beside the same two for an empty kernel at
+   the same launch shape (the launch floor), timed in the order kernel,
+   empty, empty, kernel; ``floor_ms``; its bound, its plain version's
+   time, and the card's name and power limit (tools/probe_ab.py times the
+   probes against another tree's);
 4. BASELINE config 1 (8-D Lorentzian on {0..9}^8, tolerance 1e-8) through
    ``crossinterpolate2`` on the card, by each of the port's three tiers:
    the host tier (a plain scalar f and no device argument: panels sampled
@@ -452,12 +461,13 @@ def main_panel(dtype, mp, m, n, rank, seed, dev):
     return P
 
 
-def traced_kernels(fn, activities):
-    """(name, microseconds) of every device kernel that fn() launched, from
-    a torch.profiler trace of it."""
+def traced_kernel_events(fn, activities=None):
+    """The trace event (a dict: name, ts, dur in microseconds, args) of
+    every device kernel that fn() launched, from a torch.profiler trace of
+    it (of the device alone by default)."""
     import torch
-    from torch.profiler import profile
-    with profile(activities=activities) as prof:
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=activities or [ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
@@ -465,8 +475,59 @@ def traced_kernels(fn, activities):
         prof.export_chrome_trace(path)
         with open(path) as fh:
             events = json.load(fh)["traceEvents"]
-    return [(e.get("name", ""), e["dur"]) for e in events
+    return [e for e in events
             if e.get("ph") == "X" and e.get("cat") == "kernel"]
+
+
+def sm_clock():
+    """The card's SM clock as nvidia-smi reads it now ("1980 MHz")."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else (
+        "not read")
+
+
+# graph-event times of one small kernel have been seen at two levels,
+# ~0.79 and ~0.97 us a launch, within one run on an H100; two runs of one
+# kernel that differ by more than half that gap may sit at different levels,
+# and their mean is neither
+GRAPH_LEVEL_GAP_MS = 0.18e-3
+
+
+def launch_times(fn, kernel, trace_reps=100, graph_reps=1000):
+    """Device time a launch of fn() (one launch of the kernel whose name
+    holds `kernel`), two ways: the median over `trace_reps` calls in a
+    torch.profiler trace of their own (None where the trace holds fewer
+    than nine in ten of them), and CUDA events around the replay of a CUDA
+    graph of `graph_reps` calls (``utils.device.graph_ms``). Returns
+    {"profiler_ms", "graph_ms", "traced", "shapes": {(grid, block)}}."""
+    import numpy as np
+    from tci_tpu_torch.utils.device import graph_ms
+    events = [e for e in traced_kernel_events(
+        lambda: [fn() for _ in range(trace_reps)])
+        if kernel in e.get("name", "")]
+    med = (float(np.median([e["dur"] for e in events])) / 1e3
+           if len(events) >= 0.9 * trace_reps else None)
+    shapes = {(str(e.get("args", {}).get("grid")),
+               str(e.get("args", {}).get("block"))) for e in events}
+    return {"profiler_ms": med, "graph_ms": graph_ms(fn, graph_reps),
+            "traced": len(events), "shapes": shapes}
+
+
+def same_level(runs):
+    """The mean of a kernel's graph-event runs, or None (not measured) when
+    two of them differ by more than half of GRAPH_LEVEL_GAP_MS."""
+    if not runs or max(runs) - min(runs) > GRAPH_LEVEL_GAP_MS / 2:
+        return None
+    return sum(runs) / len(runs)
+
+
+def traced_kernels(fn, activities):
+    """(name, microseconds) of every device kernel that fn() launched, from
+    a torch.profiler trace of it."""
+    return [(e.get("name", ""), e["dur"])
+            for e in traced_kernel_events(fn, activities)]
 
 
 # the cluster kernel's phases (kPhaseLoad ... kPhaseWrite in csrc/rrlu.cu);
@@ -1172,6 +1233,7 @@ def main():
     import tci_tpu_torch
     from tci_tpu_torch.ops import (_build, lu as lu_mod, lu_cuda, lu_kernel,
                                    lu_sharded, probe_batched)
+    from tci_tpu_torch.utils.device import graph_ms
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1220,25 +1282,6 @@ def main():
         start.record()
         for _ in range(reps):
             fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps
-
-    def graph_ms(fn, reps):
-        """Device time of one fn() call: CUDA events around the replay of a
-        CUDA graph that holds `reps` calls, so no host time lies between
-        them (fn must be safe to record: every wrapper here is)."""
-        fn()
-        torch.cuda.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(reps):
-                fn()
-        graph.replay()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / reps
@@ -1840,11 +1883,16 @@ def main():
             return (fn(B, dev),)
         return (fn(s),) if name == "v2" else fn(s, n)
 
+    # each probe's times at its inputs, in the order kernel, the empty
+    # kernel at the kernel's launch shape, and back, so that a drift of the
+    # card shows as a spread and not as a difference; tools/probe_ab.py
+    # times the probes against another tree's
+    PROBE_ORDER = ("kernel", "empty", "empty", "kernel")
+    PROBE_TRACE_REPS, PROBE_GRAPH_REPS = 100, 1000
     probe_entries = []
     for name in probe_batched.NAMES:
         wrapper, plain = probe_batched.PROBES[name]
-        err = 0.0
-        for which in ("probe", "second"):
+        for which in probe_batched.INPUT_SETS:
             B, n, s = probe_batched.check_inputs(name, which, dev)
             before = probe_batched.LAUNCHES[name]
             out = probe_call(wrapper, name, B, n, s)
@@ -1858,10 +1906,20 @@ def main():
                     fail(f"probe {name} ({which}): output {tuple(o.shape)} "
                          f"{o.dtype} on {o.device}, plain {tuple(r.shape)} "
                          f"{r.dtype}")
-                err = max(err, float((o.double() - r.double()).abs().max()))
-                if not torch.equal(o, r):
+                bits = ((o.view(torch.int32), r.view(torch.int32))
+                        if o.dtype == torch.float32 else (o, r))
+                if not torch.equal(*bits):
+                    both = o.isfinite() & r.isfinite()
+                    gap = (o.double() - r.double()).abs()[both]
                     fail(f"probe {name} ({which} inputs): kernel and plain "
-                         f"version differ (bound: equal)")
+                         f"version differ (bound: bit for bit): largest "
+                         f"|difference| where both are finite "
+                         f"{float(gap.max()) if gap.numel() else 0.0}, "
+                         f"{int((bits[0] != bits[1])[~both].sum())} "
+                         f"non-finite entries differ")
+        # every output is bit for bit its plain version's (else the run
+        # failed above)
+        err = 0.0
         # times and bound at the probe's own inputs: every byte the
         # function needs read once (of the table only the columns it reads:
         # 0 and 2 for v2, 0 for the others) and every output byte written
@@ -1869,6 +1927,7 @@ def main():
         # against the loop trips and row stores this table asks for over
         # the card's 32-bit rate outside the tensor cores
         B, n, s = probe_batched.check_inputs(name, "probe", dev)
+        blocks, threads = probe_batched.launch_shape(name, B, n)
         outs = probe_call(wrapper, name, B, n, s)
         cols_read = {"v1": 0, "v2": 2}.get(name, 1)
         nbytes = sum(t.numel() * t.element_size() for t in outs) + (
@@ -1879,28 +1938,85 @@ def main():
                "v4c": trips * n}[name]
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_FLOP_PER_S[4] * 1e3
-        dms = kernel_device_ms(
-            lambda: probe_call(wrapper, name, B, n, s), 20,
-            match=f"probe_{name}_kernel")
-        wms = cuda_ms(lambda: probe_call(wrapper, name, B, n, s), 20)
+
+        def kernel_call():
+            probe_call(wrapper, name, B, n, s)
+        versions = {
+            "kernel": (kernel_call, f"probe_{name}_kernel"),
+            "empty": (lambda: probe_batched.empty_launch(blocks, threads,
+                                                         dev),
+                      "probe_empty_kernel")}
+        prof = {v: [] for v in versions}
+        graph = {v: [] for v in versions}
+        traced = {v: [] for v in versions}
+        clocks = []
+        for version in PROBE_ORDER:
+            fn, kname = versions[version]
+            timed = launch_times(fn, kname, PROBE_TRACE_REPS,
+                                 PROBE_GRAPH_REPS)
+            traced[version].append(timed["traced"])
+            if timed["profiler_ms"] is not None:
+                prof[version].append(timed["profiler_ms"])
+            graph[version].append(timed["graph_ms"])
+            if timed["shapes"] - {("None", "None"), (str([blocks, 1, 1]),
+                                                     str([threads, 1, 1]))}:
+                fail(f"probe {name}: {version} launched with (grid, block) "
+                     f"{sorted(timed['shapes'])}, not launch_shape's "
+                     f"{blocks} x {threads}")
+            clocks.append(sm_clock())
+        # floor_ms is the graph timing of the empty kernel, as above
+        floor = probe_batched.floor_ms(blocks, threads, dev, PROBE_GRAPH_REPS)
+        wms = cuda_ms(kernel_call, 20)
         pms = cuda_ms(lambda: probe_call(plain, name, B, n, s), 5)
+
+        def median(xs):
+            return float(np.median(xs)) if xs else None
         line = PROBE_LINES[name]
-        probe_entries.append({
+        entry = {
             "name": f"probe_{name}_kernel", "route": "cuda",
             "source": "tci_tpu_torch/csrc/probe_batched.cu",
             "replaces": f"benchmarks/probe_pallas_batched.py:{line}",
             "launches": probe_launches[name], "max_abs_err": err,
-            "ms": dms if dms is not None else wms,
-            "ms_from": "profiler" if dms is not None else "cuda events",
+            "ms": median(prof["kernel"]),
+            "ms_from": "profiler median",
+            "graph_ms": same_level(graph["kernel"]),
+            "floor_ms": floor,
+            "floor_graph_ms": same_level(graph["empty"]),
+            "floor_profiler_ms": median(prof["empty"]),
+            "runs": {"order": PROBE_ORDER, "profiler_median_ms": prof,
+                     "traced": traced, "graph_ms": graph,
+                     "sm_clock": clocks},
+            "blocks": blocks, "threads": threads,
             "wrapper_ms": wms, "plain_ms": pms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None})
-        dev_txt = "not measured" if dms is None else f"{dms:.5f} ms"
-        print(f"[probe] {name} (B={B}, n={n}): kernel equal to the plain "
-              f"version at both input sets; kernel device time {dev_txt} a "
-              f"launch (profiler), wrapper call {wms:.5f} ms (events), plain "
-              f"{pms:.5f} ms", flush=True)
+            "library_ms": None}
+        if entry["ms"] is None:
+            entry["ms"], entry["ms_from"] = (
+                entry["graph_ms"], "cuda events around a cuda graph")
+        if entry["ms"] is None:
+            fail(f"probe {name}: neither the profiler nor the graph events "
+                 f"measured the kernel (traced {traced['kernel']}, graph "
+                 f"runs {graph['kernel']})")
+        probe_entries.append(entry)
+
+        def runs(xs, level=True):
+            txt = " / ".join(f"{x:.6f}" for x in xs) if xs else "none"
+            return txt + ("" if not level or same_level(xs) is not None
+                          else " (not measured: the runs sit at different "
+                               "levels)")
+        print(f"[probe] {name} (B={B}, n={n}; {blocks} blocks x {threads} "
+              f"threads): bit for bit its plain version at "
+              f"{len(probe_batched.INPUT_SETS)} input sets; ms a launch, "
+              f"runs in the order {' / '.join(PROBE_ORDER)}: profiler median "
+              f"of {PROBE_TRACE_REPS} {runs(prof['kernel'], False)} (empty "
+              f"kernel {runs(prof['empty'], False)}); events around a CUDA "
+              f"graph of {PROBE_GRAPH_REPS} {runs(graph['kernel'])} (empty "
+              f"kernel {runs(graph['empty'])}); floor_ms {floor:.6f}; "
+              f"bound {entry['bound_ms']:.4g} ({entry['bound_by']}); plain "
+              f"{pms:.5f}; wrapper call {wms:.5f} (events); SM clock after "
+              f"each {', '.join(clocks)}; {smi_line}",
+              flush=True)
     print("[bound] probes: " + ", ".join(
         f"{e['name'][6:-7]} {e['bound_ms']:.4g} ms ({e['bound_by']})"
         for e in probe_entries), flush=True)

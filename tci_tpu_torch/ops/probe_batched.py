@@ -8,8 +8,12 @@ grid with per-program scalar stores (``v1``), a data-dependent scalar read
 (``v3``), a ``while`` loop in the grid body (``v4``), float32 scalars
 (``v4b``) and a read-modify-write of the row inside such a loop (``v4c``).
 Each is one ``__global__`` function launched with B blocks on the current
-stream. ``run_probes`` runs the six and then the two rrLU entry points at
-the probe's panel shape, and returns the probe's JSON object.
+stream (``launch_shape``), designed for the card's launch floor: no shared
+memory or barrier, 16-byte row stores, v4c's row in registers through its
+loop (the source's head says more). ``run_probes`` runs the six and then
+the two rrLU entry points at the probe's panel shape, and returns the
+probe's JSON object. ``floor_ms`` times an empty kernel at a probe's launch
+shape, the least a launch of that shape takes.
 
 Beside each kernel stands its plain PyTorch version (``*_plain``), of the
 same signature. ``v1`` ... ``v4c`` pick by where the input lies: a tensor on
@@ -19,7 +23,9 @@ too. ``LAUNCHES[name]`` counts the launches of each kernel.
 
 The scalar table ``s`` is a contiguous (B, >= 3) int32 tensor (``v4b``:
 (B, >= 2) float32); ``probe_table`` makes the probe's own. Integer sums wrap
-modulo 2^32 in the kernels and the plain versions alike.
+modulo 2^32 in the kernels and the plain versions alike. ``check_inputs``
+gives the input sets (INPUT_SETS) a kernel is held against its plain
+version at.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ from typing import Callable, Dict, Tuple
 import numpy as np
 import torch
 
-from ..utils.device import resolve_device, to_device
+from ..utils.device import graph_ms, resolve_device, to_device
 from . import _build, lu_kernel
 
 # Kernel launches by probe name, counted where a kernel is launched and
@@ -51,6 +57,8 @@ def _lib() -> ctypes.CDLL:
         fn = getattr(lib, f"probe_{name}_launch")
         fn.argtypes = [_P, _P, _P, _I, _I, _I, _P]
         fn.restype = _I
+    lib.probe_empty_launch.argtypes = [_I, _I, _P]
+    lib.probe_empty_launch.restype = _I
     return lib
 
 
@@ -69,24 +77,86 @@ def probe_table(name: str, B: int = 4, device=None) -> torch.Tensor:
     return to_device(s, resolve_device(device))
 
 
+# The input sets a kernel is held against its plain version at, name ->
+# (B, n): the probe's own; a second with a row not a multiple of the block;
+# rows of 1, 3 and 257 columns over several programs (at n = 257 three rows
+# in four start off a 16-byte boundary); one program; more programs than the
+# card has SMs; and loop limits that are negative, 0 and 10,000, with
+# tables whose int32 sums wrap and whose float32 sums round.
+INPUT_SETS = {"probe": (4, 256), "second": (7, 1000), "n1": (5, 1),
+              "n3": (5, 3), "n257": (6, 257), "b1": (1, 99),
+              "b300": (300, 257), "limits": (5, 130)}
+
+# the "limits" set's column 0, by probe: v4's 70,000 trips make acc wrap
+# past 2^31, v2's and v3's 2^31 - 100 wraps in 2 s and in j + s; v4b's
+# 2^24 + 1 rounds back to 2^24, and 2 x 3e38 overflows to inf
+_LIMITS = {"v2": [-7, 0, 10000, 2**31 - 100, -2**31],
+           "v4": [-7, 0, 10000, 70000, -2**31],
+           "v4c": [-7, 0, 10000, 1, -2**31],
+           "v4b": [-3.5, 0.0, 10000.0, 2.0**24, 3e38]}
+_LIMITS["v3"] = _LIMITS["v2"]
+
+
 def check_inputs(name: str, which: str, device=None):
-    """(B, n, scalar table or None) of the two input sets a kernel is held
-    against its plain version at: "probe", the probe's own (B = 4, n = 256),
-    and "second", B = 7, n = 1000 (not a multiple of the block) with a
-    seeded table whose loop limits include 0."""
+    """(B, n, scalar table or None) of input set `which` (a key of
+    INPUT_SETS) for kernel `name`, on `device`: "probe" is the probe's own
+    table; the others are seeded, with loop limits of 0 ... 39 (the second:
+    3, 0, 17, 1, 6, 40, 2), and "limits" puts _LIMITS in column 0."""
+    B, n = INPUT_SETS[which]
     if which == "probe":
-        B, n = 4, 256
         return B, n, None if name == "v1" else probe_table(name, B, device)
-    B, n = 7, 1000
-    rng = np.random.default_rng(11)
+    if name == "v1":
+        return B, n, None
+    rng = np.random.default_rng(
+        11 if which == "second" else 100 + list(INPUT_SETS).index(which))
     if name == "v4b":
         # halves: 2 t and t + 1 are exact in float32
         s = (rng.integers(-64, 64, size=(B, 2)) / 2).astype(np.float32)
     else:
         s = rng.integers(-50, 50, size=(B, 3)).astype(np.int32)
         if name in ("v4", "v4c"):
-            s[:, 0] = [3, 0, 17, 1, 6, 40, 2]
-    return B, n, None if name == "v1" else to_device(s, resolve_device(device))
+            s[:, 0] = ([3, 0, 17, 1, 6, 40, 2] if which == "second"
+                       else rng.integers(0, 40, size=B))
+    if which == "limits":
+        s[:, 0] = _LIMITS[name]
+    return B, n, to_device(s, resolve_device(device))
+
+
+def launch_shape(name: str, B: int, n: int) -> Tuple[int, int]:
+    """(blocks, threads) kernel `name` is launched with for B programs and
+    an n-column row (``csrc/probe_batched.cu``'s launchers): B blocks; one
+    warp for v1 and v2, else one thread a 16-byte group of columns,
+    ceil(n / 4), rounded up to a warp, at most 1024."""
+    if name in ("v1", "v2"):
+        return B, 32
+    return B, min(1024, -(-n // 128) * 32)
+
+
+def empty_launch(B: int, threads: int, device=None) -> None:
+    """Launch the empty kernel once with B blocks of `threads` on the
+    current stream of `device` (a CUDA device; it raises for any other).
+    Instrumentation: it counts in no probe's LAUNCHES."""
+    device = resolve_device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the empty kernel needs a CUDA device, got "
+                         f"{device}")
+    with torch.cuda.device(device):
+        rc = _lib().probe_empty_launch(
+            B, threads, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"empty kernel launch failed with CUDA error {rc} "
+                           f"({B} blocks of {threads} threads)")
+
+
+def floor_ms(B: int, threads: int, device=None, reps: int = 1000) -> float:
+    """The launch floor of a probe launched with B blocks of `threads`
+    (``launch_shape``): the device time of one empty kernel at that shape,
+    by ``utils.device.graph_ms`` over `reps` launches, as chip_smoke.py
+    times the probes. Raises on the CPU."""
+    device = resolve_device(device)
+    empty_launch(B, threads, device)
+    with torch.cuda.device(device):
+        return graph_ms(lambda: empty_launch(B, threads, device), reps)
 
 
 def _check_table(name: str, s: torch.Tensor, n: int) -> None:

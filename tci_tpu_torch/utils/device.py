@@ -88,6 +88,27 @@ def peek(t: torch.Tensor, host: torch.Tensor, done, tier: str) -> list:
     return host.tolist()
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Device time of one fn() call on the current CUDA device: CUDA events
+    around the replay of a CUDA graph that holds `reps` calls (after one
+    eager call and one replay), so no host time lies between them. fn must
+    be safe to record in a graph."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def capture_graph(body, pool, stream: "torch.cuda.Stream"):
     """Record the launches of body() into a ``torch.cuda.CUDAGraph`` whose
     memory comes from `pool` (``torch.cuda.graph_pool_handle()``). Nothing

@@ -17,6 +17,8 @@ multiply-add, round-to-nearest division and square root), so outputs are
 compared for equality.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -770,23 +772,67 @@ def test_default_device_tci2_with_plain_f_runs_the_kernel(cuda):
     assert errs[-1] < 1e-8
 
 
-@pytest.mark.parametrize("which", ["probe", "second"])
-@pytest.mark.parametrize("name", probe_batched.NAMES)
-def test_probe_kernel_matches_plain(cuda, name, which):
-    """Each probe kernel against its plain version, for equality (int32, and
-    float32 values the operations keep exact); one launch a call."""
-    B, n, s = probe_batched.check_inputs(name, which, cuda)
-    wrapper, plain = probe_batched.PROBES[name]
-    args = (B, cuda) if name == "v1" else (s,) if name == "v2" else (s, n)
-    launches = probe_batched.LAUNCHES[name]
-    out, ref = wrapper(*args), plain(*args)
-    torch.cuda.synchronize()
-    assert probe_batched.LAUNCHES[name] == launches + 1
-    if name in ("v1", "v2"):
+def _probe_args(name, B, n, s, device):
+    return (B, device) if name == "v1" else (s,) if name == "v2" else (s, n)
+
+
+def _probe_bitwise(out, ref):
+    """Kernel outputs against the plain version's, bit for bit (a float32
+    output compared as its int32 bits)."""
+    if not isinstance(out, tuple):
         out, ref = (out,), (ref,)
     for o, r in zip(out, ref):
         assert o.device.type == "cuda" and o.dtype == r.dtype
+        assert o.shape == r.shape
+        if o.dtype == torch.float32:
+            o, r = o.view(torch.int32), r.view(torch.int32)
         assert torch.equal(o, r)
+
+
+@pytest.mark.parametrize("which", list(probe_batched.INPUT_SETS))
+@pytest.mark.parametrize("name", probe_batched.NAMES)
+def test_probe_kernel_matches_plain(cuda, name, which):
+    """Each probe kernel against its plain version, bit for bit, at every
+    input set (the probe's, the second, rows of 1, 3 and 257 columns, one
+    and 300 programs, loop limits below 0, at 0 and at 10,000, sums that
+    wrap, round and overflow); one launch a call."""
+    B, n, s = probe_batched.check_inputs(name, which, cuda)
+    wrapper, plain = probe_batched.PROBES[name]
+    args = _probe_args(name, B, n, s, cuda)
+    launches = probe_batched.LAUNCHES[name]
+    out = wrapper(*args)
+    torch.cuda.synchronize()
+    assert probe_batched.LAUNCHES[name] == launches + 1
+    _probe_bitwise(out, plain(*args))
+
+
+@pytest.mark.parametrize("name", probe_batched.NAMES)
+def test_probe_kernel_repeats_bitwise(cuda, name):
+    """20 launches of each probe kernel at the probe's inputs and at the
+    unaligned 257-column rows, every one bit for bit the plain version."""
+    wrapper, plain = probe_batched.PROBES[name]
+    for which in ("probe", "n257"):
+        B, n, s = probe_batched.check_inputs(name, which, cuda)
+        args = _probe_args(name, B, n, s, cuda)
+        ref = plain(*args)
+        launches = probe_batched.LAUNCHES[name]
+        outs = [wrapper(*args) for _ in range(20)]
+        torch.cuda.synchronize()
+        assert probe_batched.LAUNCHES[name] == launches + 20
+        for out in outs:
+            _probe_bitwise(out, ref)
+
+
+def test_probe_floor_counts_no_launch(cuda):
+    """floor_ms at each probe's launch shape runs the empty kernel and
+    counts no probe launch; it gives a device time (not held to a limit)."""
+    launches = dict(probe_batched.LAUNCHES)
+    for name in probe_batched.NAMES:
+        B, n, _ = probe_batched.check_inputs(name, "probe", cuda)
+        ms = probe_batched.floor_ms(*probe_batched.launch_shape(name, B, n),
+                                    device=cuda, reps=50)
+        assert math.isfinite(ms) and ms > 0
+    assert dict(probe_batched.LAUNCHES) == launches
 
 
 def test_run_probes_on_the_card(cuda):

@@ -101,9 +101,8 @@ def test_tie_panels_match_tci_tpu(ranks, mesh8, name):
     rrlu_sharded_raw on its 8-device mesh, which takes the MIN of the
     first occurrence over the devices; the pivot magnitudes to numpy's
     default closeness. tci_tpu's sharded elimination does not follow its
-    one-device NaN rule (on nan_last_rank its column order comes out as
-    one column repeated), so the NaN panel is held against the one-device
-    elimination alone."""
+    one-device NaN rule (ROADMAP C-ref-7, pinned by the test below), so the
+    NaN panel is held against the one-device elimination alone."""
     Ap, m, n, maxrank, reltol, abstol, lo = PANELS[name]
     _, rp, cp, k, mags, err = ranks[0][f"panel_{name}"]
     A = Ap[:m, :n]
@@ -117,6 +116,31 @@ def test_tie_panels_match_tci_tpu(ranks, mesh8, name):
         np.testing.assert_array_equal(rp[:k], np.asarray(ref[1])[:k])
         np.testing.assert_array_equal(cp[:k], np.asarray(ref[2])[:k])
         np.testing.assert_allclose(mags[:k], np.asarray(ref[4])[:k])
+
+
+@pytest.mark.parametrize("name", ["nan", "nan_last_rank"])
+def test_tci_sharded_breaks_its_nan_rule_c_ref_7(mesh8, name):
+    """ROADMAP C-ref-7, a fault of the reference, pinned: on a panel with a
+    NaN, tci_tpu's one-device rrlu_raw takes the NaN as its first pivot
+    (its row and column lead the orders; the pivots and err are NaN), and
+    so do the port's one-device and sharded eliminations (the test above);
+    tci_tpu's rrlu_sharded_raw on its 8-device mesh does not: its column
+    order is one column repeated, the last, so not a permutation, and its
+    pivots and err are finite. A fix of the reference fails here."""
+    Ap, m, n, maxrank, reltol, abstol, lo = PANELS[name]
+    A = Ap[:m, :n]
+    (r, c), = np.argwhere(np.isnan(A))
+    one = tci_rrlu_raw(A, maxrank, reltol, abstol, lo)
+    assert (int(one[1][0]), int(one[2][0])) == (r, c)
+    assert np.isnan(np.asarray(one[4])[0]) and np.isnan(one[5])
+    port = rrlu_raw(A, maxrank, reltol, abstol, lo, device="cpu")
+    assert (int(port[1][0]), int(port[2][0])) == (r, c)
+    sharded = tci_sharded_raw(A, maxrank, reltol, abstol, lo, mesh=mesh8)
+    assert sharded[3] == one[3] == min(m, n)
+    np.testing.assert_array_equal(np.asarray(sharded[2]),
+                                  np.full(n, n - 1))
+    assert np.isfinite(np.asarray(sharded[4])).all()
+    assert np.isfinite(sharded[5])
 
 
 @pytest.mark.parametrize("depth", tm.DEFER_DEPTHS)

@@ -4,12 +4,14 @@ from the Pallas bodies of benchmarks/probe_pallas_batched.py (each case
 cites its lines), and against a copy of each body run by
 ``pl.pallas_call(..., interpret=True)``.
 
-Inputs: the probe's own (B = 4, n = 256, its scalar tables), and a second
-set (B = 5, n = 40, a numpy-seeded table with a loop limit of 0 in one row).
-All values are int32, or float32 values that the operations keep exact, so
-every comparison is for equality. The CUDA kernels have no CPU mode; they are
-held against these plain versions on the card (tests/test_torch_cuda.py and
-chip_smoke.py).
+Inputs: the probe's own (B = 4, n = 256, its scalar tables), a second set
+(B = 5, n = 40, a numpy-seeded table with a loop limit of 0 in one row),
+and the edge sets of ``probe_batched.INPUT_SETS``: rows of 1, 3 and 257
+columns over several programs, one program, 300 programs, and loop limits
+that are negative, 0 and 10,000 (with int32 sums that wrap and float32 sums
+that round or overflow). Every comparison is for equality. The CUDA
+kernels have no CPU mode; they are held against these plain versions on the
+card (tests/test_torch_cuda.py and chip_smoke.py).
 """
 
 import jax
@@ -36,15 +38,18 @@ def _second_table(name, B):
     return s
 
 
+# the input sets: the probe's, this file's second, and the edge sets
+WHICH = ["probe", "second"] + [w for w in pb.INPUT_SETS
+                               if w not in ("probe", "second")]
+
+
 def _inputs(name, which):
     """(B, n, table or None) of an input set."""
-    if which == "probe":
-        B, n = 4, 256
-        s = None if name == "v1" else pb.probe_table(name, B, "cpu").numpy()
-    else:
+    if which == "second":
         B, n = 5, 40
-        s = None if name == "v1" else _second_table(name, B)
-    return B, n, s
+        return B, n, None if name == "v1" else _second_table(name, B)
+    B, n, s = pb.check_inputs(name, which, "cpu")
+    return B, n, None if s is None else s.numpy()
 
 
 def _call(fn, name, B, n, s):
@@ -68,15 +73,16 @@ def _closed_form(name, B, n, s):
     if name == "v2":  # :64-67  o[b] = (2 s[b, 0], s[b, 2])
         return {"o": np.stack([2 * s0, s[:, 2]], 1)}
     if name == "v3":  # :82-89  v[b, 0, :] = arange(n) + s[b, 0]
-        return {"v": (np.arange(n)[None, :] + s0[:, None])[:, None, :],
-                "o": np.stack([s0, b], 1)}
+        col = (np.arange(n)[None, :] + s0[:, None]).astype(np.int32)
+        return {"v": col[:, None, :], "o": np.stack([s0, b], 1)}
     lim = np.maximum(s0, 0)
     if name == "v4":  # :109-123  acc = sum of k < lim; o[b] = (acc, k)
-        acc = lim * (lim - 1) // 2
+        acc = (lim.astype(np.int64) * (lim - 1) // 2).astype(np.int32)
         return {"v": row * acc[:, None, None], "o": np.stack([acc, lim], 1)}
     if name == "v4b":  # :144-149  v = 2 t; o[b] = (t + 1, t)
-        return {"v": row * (2 * s0)[:, None, None],
-                "o": np.stack([s0 + 1, s0], 1)}
+        with np.errstate(over="ignore"):  # 2 x 3e38 is inf in float32
+            return {"v": row * (2 * s0)[:, None, None],
+                    "o": np.stack([s0 + 1, s0], 1)}
     if name == "v4c":  # :169-182  v = lim after lim increments; o[b] = (k, b)
         return {"v": row * lim[:, None, None], "o": np.stack([lim, b], 1)}
     raise AssertionError(name)
@@ -155,7 +161,7 @@ def _pallas(name, B, n, s):
     return {"v": np.asarray(v), "o": np.asarray(o)}
 
 
-@pytest.mark.parametrize("which", ["probe", "second"])
+@pytest.mark.parametrize("which", WHICH)
 @pytest.mark.parametrize("name", pb.NAMES)
 def test_plain_matches_closed_form(name, which):
     B, n, s = _inputs(name, which)
@@ -167,7 +173,7 @@ def test_plain_matches_closed_form(name, which):
         assert np.array_equal(out[key], ref[key])
 
 
-@pytest.mark.parametrize("which", ["probe", "second"])
+@pytest.mark.parametrize("which", WHICH)
 @pytest.mark.parametrize("name", pb.NAMES)
 def test_plain_matches_pallas_interpreter(name, which):
     B, n, s = _inputs(name, which)
@@ -217,6 +223,51 @@ def test_bad_table_raises(name):
             wrapper(torch.from_numpy(s), 0)
 
 
+def test_edge_sets_reach_the_edges():
+    """The edge sets hold what they are named for: rows that start off a
+    16-byte boundary, more programs than the card's 132 SMs, loop limits
+    below 0, at 0 and at 10,000, an int32 sum past 2^31 and float32 sums
+    that round and overflow."""
+    starts = [b * pb.INPUT_SETS["n257"][1] * 4 % 16
+              for b in range(pb.INPUT_SETS["n257"][0])]
+    assert sum(x != 0 for x in starts) >= 3
+    assert pb.INPUT_SETS["b300"][0] > 132 and pb.INPUT_SETS["b1"][0] == 1
+    lim = pb.check_inputs("v4c", "limits", "cpu")[2][:, 0].tolist()
+    assert min(lim) < 0 and 0 in lim and 10000 in lim
+    v, o = pb.v4_plain(pb.check_inputs("v4", "limits", "cpu")[2], 4)
+    assert int(o[3, 1]) == 70000 and int(o[3, 0]) < 0  # the sum wrapped
+    t = pb.check_inputs("v4b", "limits", "cpu")[2]
+    v, o = pb.v4b_plain(t, 4)
+    assert float(o[3, 0]) == 2.0**24 and torch.isinf(v[4]).all()
+
+
+@pytest.mark.parametrize("shape", [(4, 64), (300, 96), (1, 1024)])
+def test_floor_ms_raises_on_the_cpu(shape):
+    """The launch floor and its empty kernel need the card: on the CPU they
+    raise, launch nothing and count no probe launch."""
+    launches = dict(pb.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA device"):
+        pb.floor_ms(*shape, device="cpu")
+    with pytest.raises(ValueError, match="CUDA device"):
+        pb.empty_launch(*shape, device="cpu")
+    assert dict(pb.LAUNCHES) == launches
+
+
+@pytest.mark.parametrize("name", pb.NAMES)
+def test_launch_shape(name):
+    """B blocks; one warp for the scalar probes, else a thread a 16-byte
+    group of the row, rounded up to a warp, at most 1024."""
+    for B, n in [*pb.INPUT_SETS.values(), (2, 4096), (2, 4097), (2, 10**6)]:
+        blocks, threads = pb.launch_shape(name, B, n)
+        assert blocks == B and threads % 32 == 0 and 32 <= threads <= 1024
+        if name in ("v1", "v2"):
+            assert threads == 32
+        else:
+            assert threads >= min(1024, (n + 3) // 4) > threads - 32
+    assert pb.launch_shape(name, 4, 256)[1] == (32 if name in ("v1", "v2")
+                                                else 64)
+
+
 def test_run_probes_on_the_cpu():
     """The probe's JSON object: its keys, every step ok, and the values
     the probe prints (benchmarks/probe_pallas_batched.py:58-231)."""
@@ -241,3 +292,19 @@ def test_run_probes_reports_a_failing_step(monkeypatch):
     assert out["v4_while_loop"] == {
         "ok": False, "error": "RuntimeError: kernel launch failed"}
     assert out["v4c_row0_rmw_in_loop"]["ok"]
+
+
+def test_graph_runs_at_two_levels_are_not_averaged():
+    """chip_smoke.py reports a kernel's graph-event time as the mean of its
+    runs only where they sit at one level; runs ~0.18 us apart (two levels
+    of one small kernel on the card) are not measured."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_levels", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    assert cs.same_level([0.000967, 0.000969]) == pytest.approx(0.000968)
+    assert cs.same_level([0.00079, 0.00097]) is None
+    assert cs.same_level([0.0012, 0.0012, 0.0011]) is None
+    assert cs.same_level([]) is None
