@@ -178,6 +178,35 @@ __device__ __forceinline__ void clamp_extents(int mp, int np, int& m, int& n,
   maxrank = min(max(maxrank, 0), min(mp, np));
 }
 
+// The work record (lu_cuda.work_record: one per device, alive as long as the
+// process, so that graphs recorded with its address stay valid), 8 int64:
+// [0] the flag, [1 + mode] panels by mode (0 resident, 1 cluster, 2
+// grid-resident, 3 streamed), [5] pivots (the sum of k), [6] real operations
+// c * sum_{j<k} (m-1-j)(n-1-j), c = 2 for a real update and 8 for a complex
+// one, [7] bytes: the panel read once, the LU buffer, both permutations, k,
+// mags and err written once. The arithmetic of chip_smoke.py's bound_parts,
+// from the panel's clamped extents and rank. The thread that writes k_out[b]
+// calls it; with the flag clear it costs that thread one load.
+constexpr int kWorkFlag = 0, kWorkPanels = 1, kWorkPivots = 5, kWorkOps = 6,
+              kWorkBytes = 7;
+
+template <typename T>
+__device__ void count_work(unsigned long long* work, int mode, int mp, int np,
+                           int m, int n, int k) {
+  if (work == nullptr || work[kWorkFlag] == 0) return;
+  const long long a = m - 1, c = n - 1, kk = k;
+  // sum_{j<k} (a - j)(c - j) in closed form
+  const long long s = kk * a * c - (a + c) * (kk * (kk - 1) / 2) +
+                      (kk - 1) * kk * (2 * kk - 1) / 6;
+  const long long es = sizeof(T), real = es < 8 ? es : 8;
+  const long long bytes = 2LL * mp * np * es + 8LL * (mp + np + 1) +
+                          real * ((mp < np ? mp : np) + 1);
+  atomicAdd(work + kWorkPanels + mode, 1ull);
+  atomicAdd(work + kWorkPivots, (unsigned long long)kk);
+  atomicAdd(work + kWorkOps, (unsigned long long)((es == 16 ? 8 : 2) * s));
+  atomicAdd(work + kWorkBytes, (unsigned long long)bytes);
+}
+
 // How a pass spreads the true extents over a block's `nwarps` warps: columns
 // in chunks of 32 (one per lane), R warps per chunk, each taking every R-th
 // row. Computed once per panel (it holds integer divisions).
@@ -372,7 +401,8 @@ __global__ void __launch_bounds__(kResidentThreads)
                 const int* n_arr, const int* maxrank_arr,
                 const typename Ops<T>::R* tol_arr, int m_s, int n_s,
                 int maxrank_s, typename Ops<T>::R reltol_s,
-                typename Ops<T>::R abstol_s, int mp, int np, int leftorth_i) {
+                typename Ops<T>::R abstol_s, int mp, int np, int leftorth_i,
+                unsigned long long* work) {
   using R = typename Ops<T>::R;
   constexpr int NT = kResidentThreads;
   constexpr int kW = kResidentWarps;
@@ -538,6 +568,7 @@ __global__ void __launch_bounds__(kResidentThreads)
     k_out[b] = k;
     err_out[b] = err;
     mode_out[b] = 0;
+    count_work<T>(work, 0, mp, np, m, n, k);
   }
   for (int i = tid; i < mp; i += NT) rowperm_out[b * mp + i] = rowperm[i];
   for (int j = tid; j < np; j += NT) colperm_out[b * np + j] = colperm[j];
@@ -657,7 +688,7 @@ __global__ void __launch_bounds__(kClusterThreads)
                         const typename Ops<T>::R* tol_arr, int m_s, int n_s,
                         int maxrank_s, typename Ops<T>::R reltol_s,
                         typename Ops<T>::R abstol_s, int mp, int np,
-                        int leftorth_i) {
+                        int leftorth_i, unsigned long long* work) {
   using R = typename Ops<T>::R;
   __shared__ unsigned long long load_bar;
   __shared__ R w_val[32];  // per-warp winners
@@ -886,6 +917,7 @@ __global__ void __launch_bounds__(kClusterThreads)
       k_out[b] = k;
       err_out[b] = err;
       mode_out[b] = 1;
+      count_work<T>(work, 1, mp, np, m, n, k);
     }
     for (int i = tid; i < mp; i += NT) rowperm_out[b * mp + i] = rowperm[i];
     for (int j = tid; j < np; j += NT) colperm_out[b * np + j] = colperm[j];
@@ -1337,7 +1369,8 @@ __global__ void __launch_bounds__(kGridThreads, 1)
                      const typename Ops<T>::R* tol_arr, int m_s, int n_s,
                      int maxrank_s, typename Ops<T>::R reltol_s,
                      typename Ops<T>::R abstol_s, int B, int mp, int np,
-                     int leftorth_i, int C, long long l2_bytes) {
+                     int leftorth_i, int C, long long l2_bytes,
+                     unsigned long long* work) {
   using R = typename Ops<T>::R;
   constexpr int NT = kGridThreads;
   constexpr int W = kGridWarps;
@@ -1751,6 +1784,7 @@ __global__ void __launch_bounds__(kGridThreads, 1)
         k_out[b] = k;
         err_out[b] = err;
         mode_out[b] = Stream ? 3 : 2;
+        count_work<T>(work, Stream ? 3 : 2, mp, np, m, n, k);
       }
       for (int i = tid; i < mp; i += NT)
         rowperm_out[b * mp + i] = st.rowperm[i];
@@ -1903,7 +1937,8 @@ int launch(const void* A_in, void* scratch, void* bar, void* A_sw,
            void* err_out, void* mode_out, const void* m_arr,
            const void* n_arr, const void* maxrank_arr, const void* tol_arr,
            int m, int n, int maxrank, double reltol, double abstol, int B,
-           int mp, int np, int leftorth, int C, void* stream) {
+           int mp, int np, int leftorth, int C, void* work_rec,
+           void* stream) {
   using R = typename Ops<T>::R;
   if (B <= 0 || mp <= 0 || np <= 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
@@ -1921,6 +1956,7 @@ int launch(const void* A_in, void* scratch, void* bar, void* A_sw,
   const int* ra = (const int*)maxrank_arr;
   const R* ta = (const R*)tol_arr;
   R rt = (R)reltol, at = (R)abstol;
+  unsigned long long* wk = (unsigned long long*)work_rec;
   cudaError_t e = kernel_attributes<T>();
   if (e != cudaSuccess) return (int)e;
   if (mode == 0 || mode == 1 || mode == 2) {
@@ -1931,7 +1967,7 @@ int launch(const void* A_in, void* scratch, void* bar, void* A_sw,
   if (mode == 0) {
     rrlu_kernel<T><<<B, kResidentThreads, smem_bytes<T>(mp, np), st>>>(
         a_in, a_sw, rp, cp, mg, ko, eo, mo, ma, na, ra, ta, m, n, maxrank, rt,
-        at, mp, np, leftorth);
+        at, mp, np, leftorth, wk);
     return (int)cudaGetLastError();
   }
   if (mode == 1 || mode == 2) {
@@ -1953,7 +1989,7 @@ int launch(const void* A_in, void* scratch, void* bar, void* A_sw,
     cfg.numAttrs = 1;
     e = cudaLaunchKernelEx(&cfg, rrlu_cluster_kernel<T>, a_in, a_sw, rp, cp,
                            mg, ko, eo, mo, ma, na, ra, ta, m, n, maxrank, rt,
-                           at, mp, np, leftorth);
+                           at, mp, np, leftorth, wk);
     if (e != cudaSuccess) return (int)e;
     e = cudaGetLastError();
     if (e != cudaSuccess || mode == 1) return (int)e;
@@ -1981,7 +2017,7 @@ int launch(const void* A_in, void* scratch, void* bar, void* A_sw,
     unsigned int* br = (unsigned int*)bar + stream;
     void* args[] = {&a_in, &scr, &br, &a_sw, &rp, &cp, &mg, &ko, &eo, &mo,
                     &ma, &na, &ra, &ta, &m, &n, &maxrank, &rt, &at,
-                    &B, &mp, &np, &leftorth, &Cg, &l2_bytes};
+                    &B, &mp, &np, &leftorth, &Cg, &l2_bytes, &wk};
     e = cudaLaunchCooperativeKernel(
         stream ? (const void*)rrlu_grid_kernel<T, true>
                : (const void*)rrlu_grid_kernel<T, false>,
@@ -2099,7 +2135,8 @@ int rrlu_grid_barrier_launch(int iters, void* bar, void* stream) {
 // from the scalar arguments otherwise; the kernels clamp them to the panel,
 // so the caller need not read them back to check them. C is the cluster
 // size from rrlu_cluster_size (0: no cluster kernel); mode_out ((B,) int64)
-// receives each panel's mode. Returns the launches' CUDA error code (0 on
+// receives each panel's mode; `work` is the device's work record (8 int64,
+// count_work), or null. Returns the launches' CUDA error code (0 on
 // success).
 #define RRLU_LAUNCH(NAME, T)                                                  \
   int NAME(const void* A_in, void* scratch, void* bar, void* A_sw,           \
@@ -2107,11 +2144,11 @@ int rrlu_grid_barrier_launch(int iters, void* bar, void* stream) {
            void* err_out, void* mode_out, const void* m_arr,                 \
            const void* n_arr, const void* maxrank_arr, const void* tol_arr,  \
            int m, int n, int maxrank, double reltol, double abstol, int B,   \
-           int mp, int np, int leftorth, int C, void* stream) {              \
+           int mp, int np, int leftorth, int C, void* work, void* stream) {  \
     return launch<T>(A_in, scratch, bar, A_sw, rowperm, colperm, mags,       \
                      k_out, err_out, mode_out, m_arr, n_arr, maxrank_arr,    \
                      tol_arr, m, n, maxrank, reltol, abstol, B, mp, np,      \
-                     leftorth, C, stream);                                   \
+                     leftorth, C, work, stream);                             \
   }
 RRLU_LAUNCH(rrlu_launch_f64, double)
 RRLU_LAUNCH(rrlu_launch_f32, float)

@@ -82,6 +82,7 @@ from ..parallel.mesh import mesh_rng, shard_rows
 from ..utils.device import (FETCHES, capture_graph, fetch, peek,
                             resolve_device, to_device, torch_dtype)
 from ..utils.prng import fold_in, prng_key, uniform_f64
+from ..utils.trace import span
 from .tteval import chi_bucket, max_bond, tt_evaluate_batched
 
 __all__ = ["DeviceSweepEngine", "FETCHES"]
@@ -811,24 +812,29 @@ class _Program:
              maxbonddim: int = 0, **values) -> None:
         """A call's inputs into the record, in one transfer: the index-set
         lists (in the record's order), the tolerances, the rank cap clamped
-        to the capacity, and the program's own fields by name."""
-        if self._pending:
-            self._copied.synchronize()
-        for i, s in enumerate(sets):
-            _pack_into(self._host[self._sets[2 * i]],
-                       self._host[self._sets[2 * i + 1]], s)
-        values.update(reltol=reltol, abstol=abstol,
-                      maxbond=min(int(maxbonddim), self.engine.Imax))
-        for name, value in values.items():
-            self._host[name][...] = value
-        self._record.copy_(self._stage, non_blocking=True)
-        if self._copied is not None:
-            self._copied.record(torch.cuda.current_stream(self._record.device))
-            self._pending = True
+        to the capacity, and the program's own fields by name (the span
+        ``tci.engine.load``)."""
+        with span("tci.engine.load"):
+            if self._pending:
+                with span("tci.wait.engine_stage"):
+                    self._copied.synchronize()
+            for i, s in enumerate(sets):
+                _pack_into(self._host[self._sets[2 * i]],
+                           self._host[self._sets[2 * i + 1]], s)
+            values.update(reltol=reltol, abstol=abstol,
+                          maxbond=min(int(maxbonddim), self.engine.Imax))
+            for name, value in values.items():
+                self._host[name][...] = value
+            self._record.copy_(self._stage, non_blocking=True)
+            if self._copied is not None:
+                self._copied.record(
+                    torch.cuda.current_stream(self._record.device))
+                self._pending = True
 
     def run(self):
         """The body's results on the loaded inputs: replayed from the graph,
-        or computed eagerly."""
+        or computed eagerly (the span ``tci.engine.replay`` either way; a
+        capture is ``tci.engine.capture``)."""
         eng = self.engine
         self.uses += 1
         if (eng.cuda_graphs and self._replay is None
@@ -837,22 +843,24 @@ class _Program:
             before = lu_cuda.CAPTURED["rrlu"]
             t0 = time.perf_counter()
             try:
-                self._replay, self._outputs = eng._capture(
-                    lambda: self.body(self))
+                with span("tci.engine.capture"):
+                    self._replay, self._outputs = eng._capture(
+                        lambda: self.body(self))
             except Exception as exc:  # anything f or the capture raises
                 eng._decline(self.key, exc)
             else:
                 self.capture_seconds = time.perf_counter() - t0
                 self.captured_launches = lu_cuda.CAPTURED["rrlu"] - before
                 eng.captures += 1
-        if not eng.cuda_graphs or self._replay is None:
-            return self.body(self)
-        self._replay()
-        lu_cuda.count_replay(self.captured_launches)
-        self.replays += 1
-        eng.replays += 1
-        rec, shapes, *kept = self._outputs
-        return (rec, shapes, *(t.clone() for t in kept))
+        with span("tci.engine.replay"):
+            if not eng.cuda_graphs or self._replay is None:
+                return self.body(self)
+            self._replay()
+            lu_cuda.count_replay(self.captured_launches)
+            self.replays += 1
+            eng.replays += 1
+            rec, shapes, *kept = self._outputs
+            return (rec, shapes, *(t.clone() for t in kept))
 
 
 class DeviceSweepEngine:
@@ -1322,8 +1330,11 @@ class DeviceSweepEngine:
             k, nactive = program.read_status()
             if nactive == 0 or k >= nsweeps:
                 break
-        rec, shapes = _packed(program.pivots, program.maxerr)
-        pivots, maxerr = _unpacked(fetch(rec, "engine"), shapes)
+        with span("tci.engine.pack"):
+            rec, shapes = _packed(program.pivots, program.maxerr)
+        host = fetch(rec, "engine")
+        with span("tci.engine.unpack"):
+            pivots, maxerr = _unpacked(host, shapes)
         self.nevals += S + k * S * L * max(self.localdims)
         return pivots.astype(np.int64), maxerr
 
@@ -1334,7 +1345,9 @@ class DeviceSweepEngine:
         self.rrlu_calls += program.rrlu_launches
         if rec is None:
             return None, kept
-        return _unpacked(fetch(rec, "engine"), shapes), kept
+        host = fetch(rec, "engine")
+        with span("tci.engine.unpack"):
+            return _unpacked(host, shapes), kept
 
     def _unpack(self, buf: np.ndarray, lens: np.ndarray,
                 lengths_per_site: List[int]) -> List[List[MultiIndex]]:
@@ -1364,8 +1377,10 @@ class DeviceSweepEngine:
 
     def _write_sets(self, tci, Iset, Ilen, Jset, Jlen, maxsample) -> None:
         L = len(self.localdims)
-        tci.Iset = self._unpack(Iset, Ilen, list(range(L)))
-        tci.Jset = self._unpack(Jset, Jlen, [L - b - 1 for b in range(L)])
+        with span("tci.engine.unpack"):
+            tci.Iset = self._unpack(Iset, Ilen, list(range(L)))
+            tci.Jset = self._unpack(Jset, Jlen,
+                                    [L - b - 1 for b in range(L)])
         tci.updatemaxsample(float(maxsample))
 
     def sweep2site(self, tci, forward: bool, reltol: float, abstol: float,
@@ -1520,8 +1535,9 @@ class DeviceSweepEngine:
         prefix, suffix = list(range(L)), [L - b - 1 for b in range(L)]
         tci.Iset_history.append([list(s) for s in tci.Iset])
         tci.Jset_history.append([list(s) for s in tci.Jset])
-        tci.Iset_history.append(self._unpack(I1, Il1, prefix))
-        tci.Jset_history.append(self._unpack(J1, Jl1, suffix))
+        with span("tci.engine.unpack"):
+            tci.Iset_history.append(self._unpack(I1, Il1, prefix))
+            tci.Jset_history.append(self._unpack(J1, Jl1, suffix))
         self._write_sets(tci, Iset, Ilen, Jset, Jlen, maxsample)
         for b in range(L - 1):
             tci.updateerrors(b, list(perrs[b][:int(Ilen[b + 1]) + 1]))
@@ -1545,15 +1561,16 @@ class DeviceSweepEngine:
         by a read of its status (k, done, code) through a pinned buffer,
         until the step says done or k reaches the budget; then one fetch of
         the stacked outputs. Returns the reference's result dict (numpy
-        values; ``cores`` the last committed site tensors on the device), or
-        None when the capacity, panel-edge or history guards decline, as
-        the reference's do. tci is not changed: TensorCI2 replays the
-        per-iteration bookkeeping from the result. pivotsearch="rook" runs
-        the rook sweeps, with two seeds an iteration of the budget drawn
-        from ``_rng`` before the block, in the order the sweep pair draws
-        them (tci_tpu's rule: a run that one block covers repeats the
-        pair's trajectory; a new block draws new seeds); the result's
-        ``nev`` holds their slab samples."""
+        values; ``cores`` the last committed site tensors on the device;
+        ``step_walls`` each step's host wall, from its run until its status
+        was on the host), or None when the capacity, panel-edge or history
+        guards decline, as the reference's do. tci is not changed:
+        TensorCI2 replays the per-iteration bookkeeping from the result.
+        pivotsearch="rook" runs the rook sweeps, with two seeds an
+        iteration of the budget drawn from ``_rng`` before the block, in
+        the order the sweep pair draws them (tci_tpu's rule: a run that one
+        block covers repeats the pair's trajectory; a new block draws new
+        seeds); the result's ``nev`` holds their slab samples."""
         L, dmax = len(self.localdims), max(self.localdims)
         needed = self._needed(tci, extraIset, extraJset)
         if needed > self.imax_cap or k_budget <= 0 or nch < 1:
@@ -1605,27 +1622,39 @@ class DeviceSweepEngine:
             seeds=seeds, nev=0.0, k=0, done=0, code=3)
         budget = min(k_budget, Kmax)
         self.loop_blocks += 1
-        while True:
-            self._run(program)
-            self.loop_steps += 1
-            k, done, code = program.read_status()
-            if done or k >= budget:
-                break
-        res = {"k": k, "code": code}
+        # each step's host wall, from its run until its status is on the
+        # host (the span tci.engine.step)
+        walls = []
+        with span("tci.engine.loop"):
+            while True:
+                t0 = time.perf_counter()
+                with span("tci.engine.step"):
+                    self._run(program)
+                    k, done, code = program.read_status()
+                walls.append(time.perf_counter() - t0)
+                self.loop_steps += 1
+                if done or k >= budget:
+                    break
+        res = {"k": k, "code": code, "step_walls": walls}
         if k == 0:
             return res
         o = program.out
         names = ("I", "Il", "J", "Jl", "ms", "abstol", "perrs", "hI", "hIl",
                  "hJ", "hJl", "oerr", "orank", "bflat", "berr") + (
                      ("nev",) if rook else ())
-        rec, shapes = _packed(
-            program.Iset, program.Ilen, program.Jset, program.Jlen,
-            program.ms, program.abstol, o["perrs"], o["hI"][:k],
-            o["hIl"][:k], o["hJ"][:k], o["hJl"][:k], o["oerr"][:k],
-            o["orank"][:k], o["bflat"], o["berr"],
-            *((program.nev,) if rook else ()))
-        res.update(zip(names, _unpacked(fetch(rec, "engine"), shapes)))
+        with span("tci.engine.pack"):
+            # the cores' copy first, so that the device's last work before
+            # the host's write-back is the fetch
+            res["cores"] = o["cores"].clone()
+            rec, shapes = _packed(
+                program.Iset, program.Ilen, program.Jset, program.Jlen,
+                program.ms, program.abstol, o["perrs"], o["hI"][:k],
+                o["hIl"][:k], o["hJ"][:k], o["hJl"][:k], o["oerr"][:k],
+                o["orank"][:k], o["bflat"], o["berr"],
+                *((program.nev,) if rook else ()))
+        host = fetch(rec, "engine")
+        with span("tci.engine.unpack"):
+            res.update(zip(names, _unpacked(host, shapes)))
         if rook:
             res["nev"] = float(res["nev"][0])
-        res["cores"] = o["cores"].clone()
         return res

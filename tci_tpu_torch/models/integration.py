@@ -34,6 +34,7 @@ import torch
 from ..ops.kronrod import kronrod
 from ..parallel.batcheval import TorchBatchEvaluator, VectorizedBatchEvaluator
 from ..utils.device import resolve_device, to_device
+from ..utils.trace import span
 from .tensorci2 import crossinterpolate2
 
 # torch_native evaluators by integrand (weakly), then by (GK order, bounds,
@@ -86,7 +87,9 @@ def integrate(
     **kwargs,
 ):
     """∫_a^b f(x) d^N x via TCI2 over a tensor-product GK grid
-    (integration.jl:68-161).
+    (integration.jl:68-161). Its host steps around TCI2 are the spans
+    ``tci.integrate.setup`` (the grid and the evaluator) and
+    ``tci.integrate.sum``.
 
     GKorder must be odd (2n+1 Kronrod points with n = GKorder // 2 Gauss
     points). Additional kwargs go to crossinterpolate2 (e.g. tolerance).
@@ -122,54 +125,60 @@ def integrate(
             "mesh= shards the device sampling path; it requires "
             "torch_native=True (host-sampled tiers ignore the mesh).")
 
-    nodes1d, weights1d, _ = kronrod(GKorder // 2)
-    # affine map [-1, 1] -> [a_n, b_n] per dimension
-    nodes = (b[:, None] - a[:, None]) * (nodes1d[None, :] + 1) / 2 + a[:, None]
-    weights = (b[:, None] - a[:, None]) * weights1d[None, :] / 2
-    normalization = float(GKorder) ** len(a)
-    localdims = [len(nodes1d)] * len(a)
-    kwargs.setdefault("nsearchglobalpivot", 10)
+    with span("tci.integrate.setup"):
+        nodes1d, weights1d, _ = kronrod(GKorder // 2)
+        # affine map [-1, 1] -> [a_n, b_n] per dimension
+        nodes = ((b[:, None] - a[:, None]) * (nodes1d[None, :] + 1) / 2
+                 + a[:, None])
+        weights = (b[:, None] - a[:, None]) * weights1d[None, :] / 2
+        normalization = float(GKorder) ** len(a)
+        localdims = [len(nodes1d)] * len(a)
+        kwargs.setdefault("nsearchglobalpivot", 10)
 
-    if torch_native:
-        device = resolve_device(device)
-        # the cached evaluator holds the mesh, so its id is not reused
-        # while the entry lives
-        cache_key = (GKorder, tuple(a.tolist()), tuple(b.tolist()),
-                     np.dtype(valuetype).str, str(device),
-                     enable_device_sweep, None if mesh is None else id(mesh))
-        try:
-            slots = _GK_EVAL_CACHE.setdefault(f, {})
-        except TypeError:  # an integrand that cannot be referenced weakly
-            slots = {}
-        F = slots.get(cache_key)
-        if F is None:
-            F = slots[cache_key] = _torch_native_evaluator(
-                f, nodes, weights, normalization, localdims, valuetype,
-                device, enable_device_sweep, mesh)
+        if torch_native:
+            device = resolve_device(device)
+            # the cached evaluator holds the mesh, so its id is not reused
+            # while the entry lives
+            cache_key = (GKorder, tuple(a.tolist()), tuple(b.tolist()),
+                         np.dtype(valuetype).str, str(device),
+                         enable_device_sweep,
+                         None if mesh is None else id(mesh))
+            try:
+                slots = _GK_EVAL_CACHE.setdefault(f, {})
+            except TypeError:  # an integrand that cannot be referenced weakly
+                slots = {}
+            F = slots.get(cache_key)
+            if F is None:
+                F = slots[cache_key] = _torch_native_evaluator(
+                    f, nodes, weights, normalization, localdims, valuetype,
+                    device, enable_device_sweep, mesh)
+            else:
+                F.reset_nevals()
+        elif vectorized:
+            dims = np.arange(len(a))
+
+            def Fvec(idx):
+                X = nodes[dims[None, :], idx]  # (B, N) coordinates
+                W = np.prod(weights[dims[None, :], idx], axis=1)
+                y = np.asarray(f(X))
+                if y.shape != (X.shape[0],):
+                    raise ValueError(
+                        f"vectorized integrand must map a (B, N) coordinate "
+                        f"matrix to shape (B,) = ({X.shape[0]},); got "
+                        f"{y.shape}. Pass vectorized=False for a per-point "
+                        f"integrand."
+                    )
+                return W * y * normalization
+
+            F = VectorizedBatchEvaluator(Fvec, localdims, dtype=valuetype)
         else:
-            F.reset_nevals()
-    elif vectorized:
-        dims = np.arange(len(a))
-
-        def Fvec(idx):
-            X = nodes[dims[None, :], idx]  # (B, N) coordinates
-            W = np.prod(weights[dims[None, :], idx], axis=1)
-            y = np.asarray(f(X))
-            if y.shape != (X.shape[0],):
-                raise ValueError(
-                    f"vectorized integrand must map a (B, N) coordinate "
-                    f"matrix to shape (B,) = ({X.shape[0]},); got {y.shape}. "
-                    f"Pass vectorized=False for a per-point integrand."
-                )
-            return W * y * normalization
-
-        F = VectorizedBatchEvaluator(Fvec, localdims, dtype=valuetype)
-    else:
-        def F(indices):
-            x = [nodes[n, i] for n, i in enumerate(indices)]
-            w = float(np.prod([weights[n, i] for n, i in enumerate(indices)]))
-            return w * f(x) * normalization
+            def F(indices):
+                x = [nodes[n, i] for n, i in enumerate(indices)]
+                w = float(np.prod([weights[n, i]
+                                   for n, i in enumerate(indices)]))
+                return w * f(x) * normalization
 
     tci2, ranks, errors = crossinterpolate2(valuetype, F, localdims,
                                             device=device, **kwargs)
-    return tci2.sum() / normalization
+    with span("tci.integrate.sum"):
+        return tci2.sum() / normalization

@@ -44,6 +44,7 @@ from ..parallel.mesh import mesh_rng
 from ..utils.device import numpy_dtype, resolve_device, to_device, torch_dtype
 from ..utils.indexset import isnested
 from ..utils.sweep import forwardsweep
+from ..utils.trace import begin_solve, count_rrlu, profiled, span
 from ..utils.util import _host, padzero, pushunique
 from .globalpivotfinder import DefaultGlobalPivotFinder, GlobalPivotSearchInput
 from .tensortrain import AbstractTensorTrain, TensorTrain
@@ -805,7 +806,6 @@ class TensorCI2(AbstractTensorTrain):
         if not strictlynested and len(self.Iset_history) > 0:
             extraIset = self.Iset_history[-1]
             extraJset = self.Jset_history[-1]
-        t0 = time.time()
         res = engine.optimize_loop(
             self, forwardsweep(sweepstrategy, 1),
             forwardsweep(sweepstrategy, 2), 1e-14, tol, normalizeerror,
@@ -816,7 +816,6 @@ class TensorCI2(AbstractTensorTrain):
         )
         if res is None:
             return None
-        wall = time.time() - t0
         K_done, code = res["k"], res["code"]
         if K_done == 0:
             # the first iteration saturated the capacity: grow and retry;
@@ -824,17 +823,34 @@ class TensorCI2(AbstractTensorTrain):
             if code == 2 and engine._grow():
                 return (0, False)
             return None
+        with span("tci.tci2.writeback"):
+            return self._write_device_block(
+                engine, finder, res, maxbonddim, all_starts, it, errors,
+                ranks, nglobalpivots, ncheckhistory, checkconvglobalpivot,
+                sb is not None)
 
+    def _write_device_block(self, engine, finder, res, maxbonddim,
+                            all_starts, it, errors, ranks, nglobalpivots,
+                            ncheckhistory, checkconvglobalpivot, searched):
+        """The per-iteration bookkeeping of a block replayed from its result
+        ``res`` (``_optimize_device_block``): the index sets, histories,
+        errors and stats. Each iteration's wall is its loop step's (from the
+        step's run until its status is on the host); the sweeps and the
+        search run inside that step, so the loop path has no wall of them
+        apart (nan)."""
+        n = len(self)
+        K_done, code = res["k"], res["code"]
         prefix = list(range(n))
         suffix = [n - b - 1 for b in range(n)]
-        for j in range(K_done):
-            for h in (0, 1):
-                self.Iset_history.append(engine._unpack(
-                    res["hI"][j, h], res["hIl"][j, h], prefix))
-                self.Jset_history.append(engine._unpack(
-                    res["hJ"][j, h], res["hJl"][j, h], suffix))
-        self.Iset = engine._unpack(res["I"], res["Il"], prefix)
-        self.Jset = engine._unpack(res["J"], res["Jl"], suffix)
+        with span("tci.engine.unpack"):
+            for j in range(K_done):
+                for h in (0, 1):
+                    self.Iset_history.append(engine._unpack(
+                        res["hI"][j, h], res["hIl"][j, h], prefix))
+                    self.Jset_history.append(engine._unpack(
+                        res["hJ"][j, h], res["hJl"][j, h], suffix))
+            self.Iset = engine._unpack(res["I"], res["Il"], prefix)
+            self.Jset = engine._unpack(res["J"], res["Jl"], suffix)
         self.maxsamplevalue = max(self.maxsamplevalue, float(res["ms"][0]))
         self.invalidatesitetensors()
         self.flushpivoterror()
@@ -852,7 +868,7 @@ class TensorCI2(AbstractTensorTrain):
             engine._count_sweeps(2 * K_done)
         for _ in range(K_done):
             engine._count_fill()
-        if sb is not None:
+        if searched:
             engine.nevals += (K_done * finder.nsearch * n
                               * max(self.localdims))
 
@@ -860,18 +876,19 @@ class TensorCI2(AbstractTensorTrain):
         for j in range(K_done):
             errors.append(float(res["oerr"][j]))
             if code == 1 and j == K_done - 1:
-                pivots = finder.select_device_result(
-                    all_starts[it - 1 + j], res["bflat"], res["berr"],
-                    max(self.localdims), abstol_exit)
-                self.addglobalpivots(pivots)
+                with span("tci.tci2.globalpivots"):
+                    pivots = finder.select_device_result(
+                        all_starts[it - 1 + j], res["bflat"], res["berr"],
+                        max(self.localdims), abstol_exit)
+                    self.addglobalpivots(pivots)
                 nglobalpivots.append(len(pivots))
                 ranks.append(self.rank())
             else:
                 nglobalpivots.append(0)
                 ranks.append(int(res["orank"][j]))
-            self.stats["sweep_walltime"].append(wall / K_done)
-            self.stats["globalsearch_walltime"].append(0.0)
-            self.stats["iteration_walltime"].append(wall / K_done)
+            self.stats["sweep_walltime"].append(float("nan"))
+            self.stats["globalsearch_walltime"].append(float("nan"))
+            self.stats["iteration_walltime"].append(res["step_walls"][j])
             self.stats["ranks"].append(ranks[-1])
             self.stats["errors"].append(errors[-1])
             self.stats["nglobalpivots"].append(nglobalpivots[-1])
@@ -911,11 +928,30 @@ class TensorCI2(AbstractTensorTrain):
         checkbatchevaluatable: bool = False,
         checkconvglobalpivot: bool = True,
         rng: Optional[np.random.Generator] = None,
+        profile_dir: Optional[str] = None,
     ):
         """Returns (ranks, errors) per iteration; `self.stats` holds the
-        per-iteration wall times, ranks, errors and global pivot counts."""
+        per-iteration wall times (seconds), ranks, errors and global pivot
+        counts. On the per-iteration path ``iteration_walltime`` is each
+        iteration's host wall, ``sweep_walltime`` its 2-site sweeps' and
+        ``globalsearch_walltime`` its global-pivot search's. In the engine's
+        blocks (``_optimize_device_block``) ``iteration_walltime`` is the
+        iteration's loop step, from its run until its status is on the
+        host; the sweeps and the search run inside that step, so those two
+        hold nan there.
+
+        With `profile_dir` a ``torch.profiler`` (the CPU, and CUDA where
+        present) records the optimization, and its Chrome trace, with the
+        port's ``tci.*`` spans (``utils/trace.py``), is written there."""
+        if profile_dir is not None:
+            # the same call under a profiler that writes its trace there
+            args = dict(locals(), profile_dir=None)
+            del args["self"]
+            with profiled(profile_dir):
+                return self.optimize(**args)
         import warnings
 
+        count_rrlu(self.device)
         if checkbatchevaluatable and not isbatchevaluable(f):
             raise ValueError("Function `f` is not batch evaluatable")
         if nsearchglobalpivot > 0 and nsearchglobalpivot < maxnglobalpivot:
@@ -971,10 +1007,12 @@ class TensorCI2(AbstractTensorTrain):
         # finder, the search in the sweep pair, the optimize loop), the same
         # start points for an iteration.
         default_finder = type(finder) is DefaultGlobalPivotFinder
-        all_starts = (
-            [finder.draw_starts(self.localdims, rng) for _ in range(maxiter)]
-            if default_finder and finder.nsearch > 0 else None
-        )
+        with span("tci.tci2.starts"):
+            all_starts = (
+                [finder.draw_starts(self.localdims, rng)
+                 for _ in range(maxiter)]
+                if default_finder and finder.nsearch > 0 else None
+            )
         engine = getattr(f, "device_sweep_engine", None)
         # iterations that add no global pivot are state transitions on the
         # device: the engine runs blocks of them and returns to the host
@@ -993,11 +1031,12 @@ class TensorCI2(AbstractTensorTrain):
             abstol = tol * errornormalization
 
             if fused_loop_ok:
-                blk = self._optimize_device_block(
-                    engine, finder, tol, normalizeerror, maxbonddim,
-                    strictlynested, sweepstrategy, all_starts, it, maxiter,
-                    errors, ranks, nglobalpivots, ncheckhistory,
-                    checkconvglobalpivot, pivotsearch=pivotsearch)
+                with span("tci.tci2.block"):
+                    blk = self._optimize_device_block(
+                        engine, finder, tol, normalizeerror, maxbonddim,
+                        strictlynested, sweepstrategy, all_starts, it,
+                        maxiter, errors, ranks, nglobalpivots, ncheckhistory,
+                        checkconvglobalpivot, pivotsearch=pivotsearch)
                 if blk is not None:
                     it += blk[0]
                     if blk[1]:
@@ -1009,29 +1048,33 @@ class TensorCI2(AbstractTensorTrain):
                       "starting 2site sweep")
             starts = all_starts[it - 1] if all_starts is not None else None
             tsweep = time.time()
-            self.sweep2site(
-                f, 2, iter1=1,
-                abstol=abstol, maxbonddim=maxbonddim, pivotsearch=pivotsearch,
-                strictlynested=strictlynested, verbosity=verbosity,
-                sweepstrategy=sweepstrategy, fillsitetensors=True,
-                _search_starts=starts,
-            )
+            with span("tci.tci2.sweep2site"):
+                self.sweep2site(
+                    f, 2, iter1=1,
+                    abstol=abstol, maxbonddim=maxbonddim,
+                    pivotsearch=pivotsearch, strictlynested=strictlynested,
+                    verbosity=verbosity, sweepstrategy=sweepstrategy,
+                    fillsitetensors=True, _search_starts=starts,
+                )
             self.stats["sweep_walltime"].append(time.time() - tsweep)
             errors.append(self.pivoterror())
 
             tsearch = time.time()
-            if starts is not None and self._pair_search is not None:
-                # the search already ran inside the sweep pair's program
-                best_flat, best_err = self._pair_search
-                globalpivots = finder.select_device_result(
-                    starts, best_flat, best_err, max(self.localdims), abstol,
-                    verbosity=verbosity)
-            else:
-                input_ = GlobalPivotSearchInput.from_tci(self)
-                points = {} if starts is None else {"initial_points": starts}
-                globalpivots = finder(input_, f, abstol, verbosity=verbosity,
-                                      rng=rng, **points)
-            self.addglobalpivots(globalpivots)
+            with span("tci.tci2.globalpivots"):
+                if starts is not None and self._pair_search is not None:
+                    # the search already ran inside the sweep pair's program
+                    best_flat, best_err = self._pair_search
+                    globalpivots = finder.select_device_result(
+                        starts, best_flat, best_err, max(self.localdims),
+                        abstol, verbosity=verbosity)
+                else:
+                    input_ = GlobalPivotSearchInput.from_tci(self)
+                    points = ({} if starts is None
+                              else {"initial_points": starts})
+                    globalpivots = finder(input_, f, abstol,
+                                          verbosity=verbosity, rng=rng,
+                                          **points)
+                self.addglobalpivots(globalpivots)
             nglobalpivots.append(len(globalpivots))
             self.stats["globalsearch_walltime"].append(time.time() - tsearch)
 
@@ -1058,8 +1101,9 @@ class TensorCI2(AbstractTensorTrain):
         # compute site tensors (tensorci2.jl:1157-1167)
         errornormalization = self.maxsamplevalue if normalizeerror else 1.0
         abstol = tol * errornormalization
-        self.sweep1site(f, abstol=abstol, maxbonddim=maxbonddim)
-        _sanitycheck(self)
+        with span("tci.tci2.sweep1site"):
+            self.sweep1site(f, abstol=abstol, maxbonddim=maxbonddim)
+            _sanitycheck(self)
         return ranks, [e / errornormalization for e in errors]
 
 
@@ -1117,6 +1161,7 @@ def crossinterpolate2(
     localdims: Sequence[int],
     initialpivots: Optional[Sequence[Sequence[int]]] = None,
     device=None,
+    profile_dir: Optional[str] = None,
     **kwargs,
 ):
     """Cross-interpolate f by TCI2 (tensorci2.jl:1313-1323).
@@ -1125,12 +1170,17 @@ def crossinterpolate2(
     raises unless ``device="cpu"`` is given. f may sample anywhere (a plain
     callable or a ``VectorizedBatchEvaluator`` on the host, a
     ``TorchBatchEvaluator`` on its device); its panels are moved to
-    `device`. Returns (tci, ranks, errors). Other keyword arguments are
-    forwarded to TensorCI2.optimize.
+    `device`. Returns (tci, ranks, errors). With `profile_dir` the whole
+    call is recorded by a ``torch.profiler`` and its Chrome trace written
+    there (``TensorCI2.optimize``). Other keyword arguments are forwarded
+    to TensorCI2.optimize.
     """
-    tci = TensorCI2.from_function(f, localdims, initialpivots, dtype=valuetype,
-                                  device=device)
-    ranks, errors = tci.optimize(f, **kwargs)
+    with profiled(profile_dir):
+        begin_solve(resolve_device(device))
+        with span("tci.tci2.init"):
+            tci = TensorCI2.from_function(f, localdims, initialpivots,
+                                          dtype=valuetype, device=device)
+        ranks, errors = tci.optimize(f, **kwargs)
     return tci, ranks, errors
 
 

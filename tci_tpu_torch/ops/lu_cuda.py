@@ -40,11 +40,13 @@ from . import _build
 LAUNCHES: Counter = Counter()
 # Launches recorded into a CUDA graph while a stream was capturing. Nothing
 # runs then, so they are not launches; whoever owns the graph reads how many
-# it holds here and reports them at each replay (``count_replay``).
+# it holds here and reports them at each replay (``count_replay``). What
+# each panel of a launch cost (mode, rank, operations, bytes) exists only on
+# the device; the kernels count it there (``work_record``).
 CAPTURED: Counter = Counter()
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-_LAUNCH_ARGTYPES = [_P] * 14 + [_I, _I, _I, _D, _D] + [_I] * 5 + [_P]
+_LAUNCH_ARGTYPES = [_P] * 14 + [_I, _I, _I, _D, _D] + [_I] * 5 + [_P, _P]
 
 # the kernel's host modes (rrlu_host_mode in csrc/rrlu.cu), and the modes it
 # reports for a panel (return_mode)
@@ -209,6 +211,33 @@ def _scratch_bytes(device_index: int, mp: int, npd: int, elsize: int,
     return nbytes
 
 
+# The fields of a device's work record (``work_record``), in order: the
+# flag, the panels by mode (PANEL_MODES), the pivots, the real operations and
+# the bytes of csrc/rrlu.cu's count_work.
+WORK_FIELDS = ("flag",) + PANEL_MODES + ("pivots", "ops", "bytes")
+_WORK = {}
+
+
+def work_record(device_index: int) -> torch.Tensor:
+    """The (8,) int64 work record of one device, which every launch there
+    is given: while its flag (element 0) is set, the kernels add each
+    panel's mode, rank, operations and bytes to it on the device, also when
+    they run from a CUDA graph (the record lives as long as the process, so
+    a graph's recorded address stays valid). Allocated, zeroed, at the
+    first call, which may not happen while a stream captures (``warm_up``
+    makes it)."""
+    rec = _WORK.get(device_index)
+    if rec is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "rrLU kernel: the device's work record is allocated at the "
+                "first launch; call lu_cuda.warm_up before a capture")
+        rec = _WORK[device_index] = torch.zeros(
+            (len(WORK_FIELDS),), dtype=torch.int64,
+            device=torch.device("cuda", device_index))
+    return rec
+
+
 def count_replay(launches: int) -> None:
     """A CUDA graph that holds `launches` captured launches of the kernel
     was replayed: each of them ran."""
@@ -248,6 +277,7 @@ def warm_up(device_index: int, dtype: torch.dtype) -> None:
     dev = torch.device("cuda", device_index)
     elsize = torch.empty((), dtype=dtype).element_size()
     cluster_size(device_index, elsize)
+    work_record(device_index)
     # 8 x 8 is resident, 256 x 256 a cluster's; rows of 4 KB, 1024 of them,
     # fit no cluster but the grid's shared memory, so that shape launches
     # the cluster kernel and the grid-resident one; 65536 rows of 16 bytes
@@ -304,6 +334,7 @@ def _launch(A, B, mp, npd, leftorthogonal, scalars, arrays):
     # a panel the bulk copy cannot load takes the grid mode (C = 0)
     C = cluster_size(dev.index, es) if aligned else 0
     mode = HOST_MODES[_lib().rrlu_host_mode(mp, npd, es, C)]
+    work = work_record(dev.index)
     with torch.cuda.device(dev):
         # where the grid kernel runs: global scratch, and the counters of
         # the grid barriers of its two instantiations, zeroed
@@ -323,7 +354,8 @@ def _launch(A, B, mp, npd, leftorthogonal, scalars, arrays):
         rc = fn(ptr(A), ptr(scratch), ptr(barrier), ptr(A_sw), ptr(rowperm),
                 ptr(colperm), ptr(mags), ptr(k), ptr(err), ptr(modes),
                 *(ptr(a) for a in arrays), m, n, maxrank, reltol, abstol, B,
-                mp, npd, int(bool(leftorthogonal)), C, stream)
+                mp, npd, int(bool(leftorthogonal)), C, work.data_ptr(),
+                stream)
     if rc != 0:
         raise RuntimeError(f"rrLU kernel launch failed with CUDA error {rc} "
                            f"(B={B}, panel {mp}x{npd}, {dt}, {mode}, "

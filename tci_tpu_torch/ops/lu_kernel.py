@@ -46,6 +46,13 @@ from . import lu_cuda
 # Calls of the plain version, by the device type of the panel. The main path
 # on a GPU must leave the "cuda" count at 0.
 PLAIN_CALLS: Counter = Counter()
+# The plain version's work on the CPU, in the fields of a device's work record
+# (lu_cuda.WORK_FIELDS) and counted as csrc/rrlu.cu's count_work counts the
+# kernel's while the flag, element 0, is set; a CPU panel takes none of the
+# kernel's modes, so those fields stay 0.
+PLAIN_WORK = [0] * len(lu_cuda.WORK_FIELDS)
+_PIVOTS, _OPS, _BYTES = (lu_cuda.WORK_FIELDS.index(f)
+                         for f in ("pivots", "ops", "bytes"))
 
 _BIG = 1 << 30
 
@@ -193,6 +200,13 @@ def rrlu_plain(A: torch.Tensor, m_true: int, n_true: int, maxrank: int,
         mags[k] = newerr
         maxerror = torch.maximum(maxerror, newerr)
         k += 1
+    if PLAIN_WORK[0] and dev.type == "cpu":
+        es = A.element_size()
+        PLAIN_WORK[_PIVOTS] += k
+        PLAIN_WORK[_OPS] += (8 if es == 16 else 2) * sum(
+            (m - 1 - j) * (n - 1 - j) for j in range(k))
+        PLAIN_WORK[_BYTES] += (2 * mp * npd * es + 8 * (mp + npd + 1)
+                               + min(es, 8) * (min(mp, npd) + 1))
     A_sw = A[rowperm][:, colperm]
     return (A_sw, rowperm, colperm,
             torch.tensor(k, dtype=torch.int64, device=dev), mags, err)

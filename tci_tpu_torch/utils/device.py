@@ -9,6 +9,8 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from .trace import span
+
 # Device-to-host fetches of the device tiers, by tier ("engine",
 # "fused_bond"), counted where they happen (``fetch``) and nowhere else.
 FETCHES: Counter = Counter()
@@ -62,30 +64,41 @@ def fetch(t: torch.Tensor, tier: str) -> np.ndarray:
     device-to-host transfer of a sweep or a bond update, counted in
     ``FETCHES[tier]``. On a CUDA device it is an asynchronous copy into
     pinned memory that the host then waits for on an event, so the host
-    waits for the work queued before it and for nothing else."""
+    waits for the work queued before it and for nothing else. The whole
+    read is the span ``tci.fetch.<tier>``, and the wait alone inside it
+    ``tci.wait.<tier>`` (empty on the CPU, which queues nothing)."""
     FETCHES[tier] += 1
-    if t.device.type != "cuda":
-        return t.detach().numpy()
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record(torch.cuda.current_stream(t.device))
-    done.synchronize()
-    return host.numpy()
+    with span("tci.fetch.", tier):
+        if t.device.type != "cuda":
+            with span("tci.wait.", tier):
+                pass
+            return t.detach().numpy()
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(t.device))
+        with span("tci.wait.", tier):
+            done.synchronize()
+        return host.numpy()
 
 
 def peek(t: torch.Tensor, host: torch.Tensor, done, tier: str) -> list:
     """A few values of a device tensor, read through the preallocated
     pinned `host` buffer and the event `done` (None on the CPU), counted in
     ``FETCHES[tier]``: the host waits for the work queued before and reads
-    nothing else."""
+    nothing else; the spans ``tci.fetch.<tier>`` and ``tci.wait.<tier>``
+    as in ``fetch``."""
     FETCHES[tier] += 1
-    if t.device.type != "cuda":
-        return t.tolist()
-    host.copy_(t, non_blocking=True)
-    done.record(torch.cuda.current_stream(t.device))
-    done.synchronize()
-    return host.tolist()
+    with span("tci.fetch.", tier):
+        if t.device.type != "cuda":
+            with span("tci.wait.", tier):
+                pass
+            return t.tolist()
+        host.copy_(t, non_blocking=True)
+        done.record(torch.cuda.current_stream(t.device))
+        with span("tci.wait.", tier):
+            done.synchronize()
+        return host.tolist()
 
 
 def graph_ms(fn, reps: int) -> float:

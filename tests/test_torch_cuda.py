@@ -2323,3 +2323,169 @@ def test_contraction_on_mesh_matches_device_tier(nccl_mesh):
     to.compress("LU", tolerance=1e-8, torch_native=True)
     assert all(torch.equal(x, y)
                for x, y in zip(tm.sitetensors(), to.sitetensors()))
+
+
+# -- the kernel's work record (lu_cuda.work_record) -------------------------
+
+
+def _bound_parts_work(mp, npd, m, n, k, elsize):
+    """chip_smoke.py's bound_parts, as counts: c sum_{j<k} (m-1-j)(n-1-j)
+    real operations (c = 2 real, 8 complex) and the bytes of the panel in
+    and the LU buffer, the permutations, k, mags and err out."""
+    real = min(elsize, 8)
+    nbytes = (2 * mp * npd * elsize + 8 * (mp + npd + 1)
+              + real * (min(mp, npd) + 1))
+    c = 8 if elsize == 16 else 2
+    return sum(c * (m - 1 - j) * (n - 1 - j) for j in range(k)), nbytes
+
+
+def _work_panels(dtype, device):
+    """One panel a mode, (A, m, n, k, mode): resident 64^2, cluster 512^2
+    (136 x 271 true), grid-resident 1024^2 (960 rows), streamed (2045 rows
+    of 2048^2, 4090 of 4096^2 in float32, whose 2048^2 panel the grid's
+    shared memory holds). The rank cap is k, so each takes k pivots."""
+    big = 4096 if dtype == torch.float32 else 2048
+    shapes = ((64, 60, 50, 6, 0), (512, 136, 271, 19, 1),
+              (1024, 960, 900, 12, 2), (big, big - 6, big - 40, 9, 3))
+    out = []
+    for mp, m, n, k, mode in shapes:
+        if dtype.is_complex:
+            A = _cpanel(mp + k, mp, mp, m, n, 2 * k, device)
+        else:
+            A = _panel(mp + k, mp, mp, m, n, 2 * k, dtype, device)
+        out.append((A, m, n, k, mode))
+    return out
+
+
+def _expected_work(panels, times=1):
+    exp = [0] * len(lu_cuda.WORK_FIELDS)
+    for A, m, n, k, mode in panels:
+        ops, nbytes = _bound_parts_work(*A.shape, m, n, k, A.element_size())
+        exp[1 + mode] += times
+        exp[5] += times * k
+        exp[6] += times * ops
+        exp[7] += times * nbytes
+    return exp
+
+
+@pytest.fixture
+def work_flag(cuda):
+    """The current device's work record with its flag set for the test,
+    cleared after it."""
+    rec = lu_cuda.work_record(torch.cuda.current_device())
+    rec[0] = 1
+    yield rec
+    rec[0] = 0
+    torch.cuda.synchronize()
+
+
+def _delta(rec, before):
+    torch.cuda.synchronize()
+    d = (rec - before).tolist()
+    d[0] = 0
+    return d
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.complex128])
+def test_work_record_counts_each_mode(work_flag, dtype):
+    """With the flag set, each launch adds its panel's mode, rank,
+    operations and bytes, as bound_parts counts them from the true extents;
+    a batched launch adds each of its panels."""
+    panels = _work_panels(dtype, work_flag.device)
+    before = work_flag.clone()
+    for A, m, n, k, mode in panels:
+        out = lu_cuda.rrlu_call(A, m, n, k, 0.0, 0.0, leftorthogonal=True,
+                                return_mode=True)
+        assert int(out[6]) == mode and int(out[3]) == k
+    assert _delta(work_flag, before) == _expected_work(panels)
+    A, m, n, k, mode = panels[0]
+    before = work_flag.clone()
+    out = lu_cuda.rrlu_batched(torch.stack([A, A, A]), m, n, k, 0.0, 0.0,
+                               leftorthogonal=False, return_mode=True)
+    assert out[6].tolist() == [0] * 3
+    assert _delta(work_flag, before) == _expected_work(panels[:1], 3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.complex128])
+def test_work_record_counts_replays(work_flag, dtype):
+    """Launches of every mode recorded into one CUDA graph: each of three
+    replays adds their work again (the graph holds the record's address),
+    and their outputs are those of the eager launches."""
+    from tci_tpu_torch.utils.device import capture_graph
+
+    dev = work_flag.device
+    panels = _work_panels(dtype, dev)
+    lu_cuda.warm_up(dev.index, dtype)
+
+    def body():
+        return [lu_cuda.rrlu_call(A, m, n, k, 0.0, 0.0, leftorthogonal=True)
+                for A, m, n, k, _ in panels]
+
+    ref = body()
+    before = work_flag.clone()
+    graph, outs = capture_graph(body, torch.cuda.graph_pool_handle(),
+                                torch.cuda.Stream(dev))
+    assert _delta(work_flag, before) == [0] * len(lu_cuda.WORK_FIELDS)
+    for _ in range(3):
+        graph.replay()
+    assert _delta(work_flag, before) == _expected_work(panels, 3)
+    for out, r in zip(outs, ref):
+        for o, x in zip(out, r):
+            assert _equal(o, x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.complex128])
+def test_work_record_flag_clear_changes_nothing(cuda, dtype):
+    """With the flag clear, launches of every mode leave the record as it
+    was, and their outputs are bitwise the plain version's."""
+    rec = lu_cuda.work_record(torch.cuda.current_device())
+    torch.cuda.synchronize()
+    assert int(rec[0]) == 0
+    before = rec.clone()
+    for A, m, n, k, mode in _work_panels(dtype, cuda):
+        args = (A, m, n, k, 0.0, 0.0)
+        out = lu_cuda.rrlu_call(*args, leftorthogonal=True, return_mode=True)
+        ref = lu_kernel.rrlu_plain(*args, leftorthogonal=True)
+        assert int(out[6]) == mode
+        for o, r in zip(out, ref):
+            assert _equal(o, r)
+    torch.cuda.synchronize()
+    assert torch.equal(rec, before)
+
+
+def test_traced_solve_counts_its_rrlu_work(cuda):
+    """On the card a solve sets the record's flag to whether a profiler
+    records: the untraced solves of a kept evaluator add nothing, the
+    traced one adds the work of its replayed launches, and the next
+    untraced one clears the flag again."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tci_tpu_torch.utils import trace
+
+    f = lambda idx: 1.0 / (1.0 + ((idx.to(torch.float64) + 1) ** 2).sum(1))
+    bf = tci_tpu_torch.TorchBatchEvaluator(f, [10] * 8)
+
+    def solve():
+        return tci_tpu_torch.crossinterpolate2(
+            np.float64, bf, [10] * 8, tolerance=1e-8,
+            rng=np.random.default_rng(0))
+
+    solve()
+    before = trace.rrlu_work()
+    solve()
+    assert trace.rrlu_work() == before
+    replays = bf.device_sweep_engine.replays
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        solve()
+        torch.cuda.synchronize()
+    assert bf.device_sweep_engine.replays > replays
+    work = trace.rrlu_work()
+    assert work["ops"] > before["ops"] and work["cluster"] > before["cluster"]
+    assert work["bytes"] > before["bytes"]
+    solve()
+    torch.cuda.synchronize()
+    assert trace.rrlu_work() == work
+    assert int(lu_cuda.work_record(torch.cuda.current_device())[0]) == 0
