@@ -9,8 +9,8 @@ line or more each:
 
 1. the device: torch's name for it, and nvidia-smi's name and power limit;
 2. the build of the CUDA kernels from the sources, csrc/rrlu.cu,
-   csrc/probe_batched.cu and csrc/lu_sharded.cu, one nvcc process each,
-   started together;
+   csrc/probe_batched.cu, csrc/lu_sharded.cu and csrc/gk_panel.cu, one
+   nvcc process each, started together;
 3. the kernel against its plain PyTorch version on the card, float64 and
    float32: Lorentzian panels at the main path's bucket sizes (8 ... 128,
    both orientations, padding, an abstol and a reltol stop; for each, the
@@ -63,6 +63,16 @@ line or more each:
    empty, empty, kernel; ``floor_ms``; its bound, its plain version's
    time, and the card's name and power limit (tools/probe_ab.py times the
    probes against another tree's);
+3f. the GK panel kernel (``[gk_panel]`` lines): ``gk_points_kernel``
+   against ``gk_points_plain`` on the card, X and W bit for bit and no
+   index clamped (``gk_panel.clamped``), on config 4's GK15 tables over
+   [-1, 1]^10 and row and column sets that are prefixes of wider buffers,
+   as the engine hands them over: the 1024^2 and 512^2 bond panels at
+   every split nl = 1 ... 9, and the index-matrix form at the fill's last
+   site (15 x 64 rows); then at 1024^2, nl = 5, the kernel's time and the
+   plain version's (the chain the kernel replaced) by CUDA events around a
+   CUDA graph of 10 launches, in the order kernel, plain, plain, kernel,
+   and the bound 8 (m nl + n nr + 2 N K + m n (N + 1)) B / 3.35 TB/s;
 4. BASELINE config 1 (8-D Lorentzian on {0..9}^8, tolerance 1e-8) through
    ``crossinterpolate2`` on the card, by each of the port's three tiers:
    the host tier (a plain scalar f and no device argument: panels sampled
@@ -96,7 +106,10 @@ line or more each:
    tolerance 1e-8, maxbonddim 64) through ``integrate(torch_native=True)``:
    the engine at d = 15, bond panels of 512^2 at a capacity of 32 (cluster
    mode) and 1024^2 at 64 (grid mode). Cold, warm, median of 10, kernel
-   count; the
+   count; the GK panel kernel's launches and points in each run (every
+   config 4 run through ``torch_native`` launches it, no index clamped,
+   none through the plain version; every other path of phases 4-4k
+   launches none); the
    integral within 1e-3 of -5.4960415218049, the engine's capacities and
    whether it declined, no plain call; and once through
    ``integrate(vectorized=True)`` (host sampling, factorization on the
@@ -1231,8 +1244,8 @@ def main():
     import numpy as np
 
     import tci_tpu_torch
-    from tci_tpu_torch.ops import (_build, lu as lu_mod, lu_cuda, lu_kernel,
-                                   lu_sharded, probe_batched)
+    from tci_tpu_torch.ops import (_build, gk_panel, lu as lu_mod, lu_cuda,
+                                   lu_kernel, lu_sharded, probe_batched)
     from tci_tpu_torch.utils.device import graph_ms
 
     dev = torch.device("cuda", 0)
@@ -1251,15 +1264,17 @@ def main():
 
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    _build.build(["rrlu", "probe_batched", "lu_sharded"])
+    _build.build(["rrlu", "probe_batched", "lu_sharded", "gk_panel"])
     lu_cuda._lib()
     probe_batched._lib()
     lu_sharded._lib()
-    print(f"[build] rrlu.cu, probe_batched.cu and lu_sharded.cu, in "
-          f"parallel: {time.perf_counter() - t0:.3f} s (nvcc: rrlu "
-          f"{_build.BUILD_SECONDS['rrlu']:.3f} s, probe_batched "
+    gk_panel._lib()
+    print(f"[build] rrlu.cu, probe_batched.cu, lu_sharded.cu and "
+          f"gk_panel.cu, in parallel: {time.perf_counter() - t0:.3f} s "
+          f"(nvcc: rrlu {_build.BUILD_SECONDS['rrlu']:.3f} s, probe_batched "
           f"{_build.BUILD_SECONDS['probe_batched']:.3f} s, lu_sharded "
-          f"{_build.BUILD_SECONDS['lu_sharded']:.3f} s)", flush=True)
+          f"{_build.BUILD_SECONDS['lu_sharded']:.3f} s, gk_panel "
+          f"{_build.BUILD_SECONDS['gk_panel']:.3f} s)", flush=True)
     if opts.phases:
         run_phases(smi_line)
         return
@@ -2021,6 +2036,93 @@ def main():
         f"{e['name'][6:-7]} {e['bound_ms']:.4g} ms ({e['bound_by']})"
         for e in probe_entries), flush=True)
 
+    # -- 3f. the GK panel kernel ----------------------------------------------
+    # config 4's tables, as integrate builds them over [-1, 1]^10 at GK15,
+    # and row and column sets that are prefixes of wider buffers, as the
+    # engine hands them over
+    from tci_tpu_torch.ops.kronrod import kronrod
+    gk_n, gk_k = 10, 15
+    gk_x1, gk_w1, _ = kronrod(gk_k // 2)
+    gk_lo, gk_hi = -np.ones((gk_n, 1)), np.ones((gk_n, 1))
+    gk_nodes = torch.from_numpy((gk_hi - gk_lo) * (gk_x1[None, :] + 1) / 2
+                                + gk_lo).to(dev)
+    gk_weights = torch.from_numpy((gk_hi - gk_lo) * gk_w1[None, :] / 2).to(dev)
+    gk_rng = np.random.default_rng(23)
+
+    def gk_sets(m, nl, n):
+        rows = torch.from_numpy(gk_rng.integers(0, gk_k, size=(m, gk_n)))
+        cols = torch.from_numpy(gk_rng.integers(0, gk_k, size=(n, gk_n)))
+        return rows.to(dev)[:, :nl], cols.to(dev)[:, nl:]
+
+    def gk_check(tag, rows, cols):
+        X, W = gk_panel.gk_points_kernel(rows, cols, gk_nodes, gk_weights)
+        Xp, Wp = gk_panel.gk_points_plain(rows, cols, gk_nodes, gk_weights)
+        torch.cuda.synchronize()
+        if gk_panel.clamped(dev):
+            fail(f"3f {tag}: the GK panel kernel clamped an index of a "
+                 f"valid set")
+        if not (torch.equal(X, Xp) and torch.equal(W, Wp)):
+            fail(f"3f {tag}: kernel and plain version differ (bound: bit "
+                 f"for bit): max |X - X_plain| "
+                 f"{float((X - Xp).abs().max())}, max |W - W_plain| "
+                 f"{float((W - Wp).abs().max())}")
+
+    gk_panel.LAUNCHES.clear()
+    gk_panel.ROWS.clear()
+    gk_checked = []
+    for size in (1024, 512):
+        for nl in range(1, gk_n):
+            gk_check(f"{size}^2 nl = {nl}", *gk_sets(size, nl, size))
+            gk_checked.append(f"{size}^2 nl={nl}")
+    gk_idx = torch.from_numpy(gk_rng.integers(0, gk_k, size=(gk_k * 64,
+                                                              gk_n + 3)))
+    gk_check("index matrix", gk_idx.to(dev)[:, :gk_n], None)
+    gk_checked.append(f"index matrix {gk_k * 64} x {gk_n}")
+    gk_check_launches = gk_panel.LAUNCHES["gk_panel"]
+    if (gk_check_launches != len(gk_checked)
+            or gk_panel.ROWS["gk_panel"] != gk_panel.ROWS["plain"]):
+        fail(f"3f: {dict(gk_panel.LAUNCHES)} launches and points "
+             f"{dict(gk_panel.ROWS)} for {len(gk_checked)} checks")
+    gk_m, gk_nl = 1024, 5
+    gk_rows, gk_cols = gk_sets(gk_m, gk_nl, gk_m)
+    gk_fns = {
+        "kernel": lambda: gk_panel.gk_points_kernel(gk_rows, gk_cols,
+                                                    gk_nodes, gk_weights),
+        "plain": lambda: gk_panel.gk_points_plain(gk_rows, gk_cols, gk_nodes,
+                                                  gk_weights)}
+    GK_ORDER = ("kernel", "plain", "plain", "kernel")
+    gk_times = {side: [] for side in gk_fns}
+    for side in GK_ORDER:
+        gk_times[side].append(graph_ms(gk_fns[side], 10))
+    torch.cuda.empty_cache()
+    gk_bytes = 8 * (gk_m * gk_nl + gk_m * (gk_n - gk_nl) + 2 * gk_n * gk_k
+                    + gk_m * gk_m * (gk_n + 1))
+    gk_entry = {
+        "name": "gk_panel_kernel", "route": "cuda",
+        "source": "tci_tpu_torch/csrc/gk_panel.cu",
+        # no Pallas kernel: tci_tpu's jax-native integrand looks the nodes
+        # and weights up by one-hot contractions inside its XLA program
+        "replaces": "tci_tpu/models/integration.py:114",
+        "max_abs_err": 0.0,
+        "ms": float(np.median(gk_times["kernel"])),
+        "ms_from": "cuda events around a cuda graph of 10 launches",
+        "plain_ms": float(np.median(gk_times["plain"])),
+        "bound_ms": gk_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": None,
+        "panel": {"m": gk_m, "nl": gk_nl, "n": gk_m, "nr": gk_n - gk_nl,
+                  "K": gk_k},
+        "runs": {"order": GK_ORDER, "ms": gk_times},
+        "checked": gk_checked}
+    print(f"[gk_panel] bit for bit the plain version, no index clamped, at "
+          f"{len(gk_checked)} sets (1024^2 and 512^2, nl = 1 ... 9, the "
+          f"index matrix); {gk_m}^2 nl = {gk_nl}, GK{gk_k}, ms a launch "
+          f"(events around a CUDA graph of 10), in the order "
+          f"{' / '.join(GK_ORDER)}: kernel "
+          f"{' / '.join(f'{t:.5f}' for t in gk_times['kernel'])}, plain "
+          f"{' / '.join(f'{t:.5f}' for t in gk_times['plain'])}; bound "
+          f"{gk_entry['bound_ms']:.5f} ms ({gk_bytes} B at 3.35 TB/s); "
+          f"{smi_line}", flush=True)
+
     # -- 4. config 1 through the port's three tiers ---------------------------
     from tci_tpu_torch.models.device_sweep import DeviceSweepEngine
     from tci_tpu_torch.utils.device import FETCHES
@@ -2127,6 +2229,8 @@ def main():
         base_nevals = getattr(f, "nevals", 0)
         lu_cuda.LAUNCHES.clear()
         probe_batched.LAUNCHES.clear()
+        gk_panel.LAUNCHES.clear()
+        gk_panel.ROWS.clear()
         lu_kernel.PLAIN_CALLS.clear()
         FETCHES.clear()
         raw_calls[0] = 0
@@ -2153,7 +2257,16 @@ def main():
                   "tier_calls": tier_calls(f) - base_calls,
                   "fetches": dict(FETCHES),
                   "nevals": getattr(f, "nevals", 0) - base_nevals,
-                  "declined": dict(engine.declined) if engine else {}}
+                  "declined": dict(engine.declined) if engine else {},
+                  "gk_launches": gk_panel.LAUNCHES["gk_panel"],
+                  "gk_rows": gk_panel.ROWS["gk_panel"]}
+        # only config 4's integrate(torch_native=True) has GK tables: its
+        # every run launches the GK panel kernel, every other path none,
+        # and nothing on the card takes the plain version
+        if ((counts["gk_launches"] > 0) != (tag in ("config4", "config4 loop"))
+                or gk_panel.ROWS["plain"]):
+            fail(f"{tag}: {counts['gk_launches']} GK panel kernel launches, "
+                 f"{gk_panel.ROWS['plain']} points through its plain version")
         if counts["declined"]:
             fail(f"{tag}: the engine declined to capture "
                  f"{counts['declined']}")
@@ -2462,6 +2575,8 @@ def main():
                 != counts["rrlu_raw"] + counts["tier_calls"]):
             fail(f"config 4 {tag}: {counts}; every elimination should launch "
                  f"the kernel and none take the plain version")
+        if gk_panel.clamped(dev):
+            fail(f"config 4 {tag}: the GK panel kernel clamped an index")
         if not declined:
             check_engine_run(f"config 4 {tag}", counts, f, None)
 
@@ -2469,6 +2584,7 @@ def main():
         "config4", lambda: solve_config4(graphs=False), record=True)
     check_config4("cold", res4[0], res4[1], counts4, res4[-1], res4[5])
     cold4 = res4[6]
+    gk_cold4 = (counts4["gk_launches"], counts4["gk_rows"])
     (val4, tci, ranks, errors, caps4, declined4, warm4, f), counts4 = (
         run_counted("config4", solve_config4))
     check_config4("warm", val4, tci, counts4, f, declined4)
@@ -2488,7 +2604,10 @@ def main():
           f"{counts4['tier_calls']} tier calls), device kernels in one "
           f"replayed run: {nk4[1]} rrLU / {nk4[0]} all (profiler), "
           f"{counts4['plain_cuda']} plain calls on CUDA, fetches "
-          f"{counts4['fetches']}, nevals {counts4['nevals']}", flush=True)
+          f"{counts4['fetches']}, nevals {counts4['nevals']}; GK panel "
+          f"kernel: {counts4['gk_launches']} launches, "
+          f"{counts4['gk_rows']} points (cold run: {gk_cold4[0]}, "
+          f"{gk_cold4[1]})", flush=True)
 
     # the same integrand sampled on the host (one numpy call a panel) and
     # factorized on the card
@@ -2903,6 +3022,8 @@ def main():
                 "status_reads": counts["fetches"].get("engine_status", 0),
                 "fetches": counts["fetches"].get("engine", 0),
                 "launches": counts["launches"], "device_busy_ms": busy,
+                "gk_launches": counts["gk_launches"],
+                "gk_rows": counts["gk_rows"],
                 "recording_run": recording[0],
                 "recording_run_launches": recording[1],
                 "idle_share": idle, "pool_bytes": pool,
@@ -5355,7 +5476,23 @@ def main():
         **eng,
         **n2000,
         **config2,
-    }, *probe_entries, mesh_entry]}), flush=True)
+    }, *probe_entries, mesh_entry, {
+        # the GK panel kernel: "launches" are config 4's under the default
+        # protocol (the optimize loop, replayed: counted from what the
+        # graphs' captures recorded), each path's beside them; its time,
+        # the plain version's and the bound at the 1024^2 bond panel
+        **gk_entry,
+        "launches": loop_results["config4"]["gk_launches"],
+        "points": loop_results["config4"]["gk_rows"],
+        "launches_by_path": {
+            "3f_checks": gk_check_launches,
+            "config4_cold": gk_cold4[0],
+            "config4": counts4["gk_launches"],
+            "config4_loop": loop_results["config4"]["gk_launches"],
+            "config4_vectorized": countsv["gk_launches"],
+            **{f"{c}_loop": r["gk_launches"]
+               for c, r in loop_results.items() if c != "config4"}}}]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -70,12 +70,13 @@ from __future__ import annotations
 import sys
 import time
 import weakref
+from collections import Counter
 from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..ops import lu_cuda
+from ..ops import gk_panel, lu_cuda
 from ..ops.fused import ci_factors, panel_solve_pinv, sample_panel
 from ..ops.lu_kernel import rrlu_panel_batched
 from ..parallel.mesh import mesh_rng, shard_rows
@@ -793,9 +794,11 @@ class _Program:
         self.replays = 0
         self._replay = None
         self._outputs = None
-        # filled at the capture: launches of the kernel the graph holds,
-        # and the host time the capture and its instantiation took
+        # filled at the capture: launches of the rrLU kernel the graph
+        # holds, launches and points of the GK panel kernel, and the host
+        # time the capture and its instantiation took
         self.captured_launches = 0
+        self.captured_gk = Counter()
         self.capture_seconds = None
 
     def read_status(self) -> list:
@@ -841,6 +844,7 @@ class _Program:
                 and self.key not in eng.declined
                 and self.uses >= eng.capture_at):
             before = lu_cuda.CAPTURED["rrlu"]
+            before_gk = Counter(gk_panel.CAPTURED)
             t0 = time.perf_counter()
             try:
                 with span("tci.engine.capture"):
@@ -851,12 +855,14 @@ class _Program:
             else:
                 self.capture_seconds = time.perf_counter() - t0
                 self.captured_launches = lu_cuda.CAPTURED["rrlu"] - before
+                self.captured_gk = gk_panel.CAPTURED - before_gk
                 eng.captures += 1
         with span("tci.engine.replay"):
             if not eng.cuda_graphs or self._replay is None:
                 return self.body(self)
             self._replay()
             lu_cuda.count_replay(self.captured_launches)
+            gk_panel.count_replay(self.captured_gk)
             self.replays += 1
             eng.replays += 1
             rec, shapes, *kept = self._outputs
@@ -974,6 +980,7 @@ class DeviceSweepEngine:
         if self._stream is None:
             self._stream = torch.cuda.Stream(dev)
         captured = lu_cuda.CAPTURED["rrlu"]
+        captured_gk = Counter(gk_panel.CAPTURED)
         try:
             graph, outputs = capture_graph(body, self._pool, self._stream)
         except torch.OutOfMemoryError:
@@ -983,6 +990,8 @@ class DeviceSweepEngine:
             # captures: give them back now and record once more, into a new
             # pool. The failed capture's launches never ran.
             lu_cuda.CAPTURED["rrlu"] = captured
+            gk_panel.CAPTURED.clear()
+            gk_panel.CAPTURED.update(captured_gk)
             torch.cuda.empty_cache()
             self._pool = torch.cuda.graph_pool_handle()
             graph, outputs = capture_graph(body, self._pool, self._stream)

@@ -13,7 +13,9 @@ weakly on f and drops an entry when f is collected. Two things of
 ``tci_tpu``'s jax-native branch have no counterpart here:
 
 - the one-hot node and weight lookup, a workaround for slow table gathers
-  on a TPU: the nodes and weights are gathered by index;
+  on a TPU: the nodes and weights of a panel's grid points are looked up
+  from its index sets by ``ops/gk_panel`` (on a card one kernel writes the
+  coordinates and weights, and no index matrix is formed);
 - ``fused_panel_capacity=True``, which bounds the number of programs XLA
   compiles for the fused tier: eager PyTorch compiles nothing per shape and
   the port's fused tier has no such mode.
@@ -31,6 +33,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from ..ops import gk_panel
 from ..ops.kronrod import kronrod
 from ..parallel.batcheval import TorchBatchEvaluator, VectorizedBatchEvaluator
 from ..utils.device import resolve_device, to_device
@@ -43,34 +46,45 @@ from .tensorci2 import crossinterpolate2
 _GK_EVAL_CACHE: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
+class _WeightedGK:
+    """The weighted integrand on the GK grid, W · f(X) · normalization, as a
+    ``TorchBatchEvaluator``'s f: called on an (B, N) index matrix, and
+    through ``_tci_panel(rows, cols)`` on a Π panel's index sets, whose
+    coordinates X and weights W ``ops/gk_panel.gk_points`` writes straight
+    from the sets (the kernel on a card). It refers to f weakly: the cache
+    that holds the evaluator is keyed weakly on f, and an entry whose value
+    kept its key alive would never go."""
+
+    def __init__(self, f, nodes, weights, normalization, device):
+        self.nodes = to_device(nodes, device)
+        self.weights = to_device(weights, device)
+        self.normalization = normalization
+        try:
+            self.fref = weakref.ref(f)
+        except TypeError:  # not cached either (see integrate)
+            self.fref = lambda: f
+        if device.type == "cuda":
+            gk_panel.warm_up(self.nodes, self.weights)
+
+    def _weighted(self, X, W):
+        return W * self.fref()(X) * self.normalization
+
+    def __call__(self, idx):
+        return self._weighted(*gk_panel.gk_points(idx, None, self.nodes,
+                                                  self.weights))
+
+    def _tci_panel(self, rows, cols):
+        return self._weighted(*gk_panel.gk_points(rows, cols, self.nodes,
+                                                  self.weights))
+
+
 def _torch_native_evaluator(f, nodes, weights, normalization, localdims,
                             valuetype, device, enable_device_sweep, mesh):
-    """The weighted integrand on the GK grid as a ``TorchBatchEvaluator``.
-    It refers to f weakly: the cache that holds it is keyed weakly on f, and
-    an entry whose value kept its key alive would never go."""
-    nodes_d = to_device(nodes, device)
-    weights_d = to_device(weights, device)
-    dims_d = torch.arange(nodes.shape[0], device=device)
-    try:
-        fref = weakref.ref(f)
-    except TypeError:  # not cached either (see integrate)
-        def fref():
-            return f
-
-    def Ftorch(idx):
-        x = nodes_d[dims_d, idx]  # (B, N) coordinates
-        wn = weights_d[dims_d, idx]
-        # the product in a fixed left-to-right order; a zero weight
-        # (degenerate bounds a_n == b_n) gives an exact zero
-        w = wn[:, 0]
-        for n in range(1, wn.shape[1]):
-            w = w * wn[:, n]
-        return w * fref()(x) * normalization
-
-    return TorchBatchEvaluator(Ftorch, localdims, dtype=valuetype,
-                               device=device,
-                               enable_device_sweep=enable_device_sweep,
-                               mesh=mesh)
+    """The weighted integrand on the GK grid as a ``TorchBatchEvaluator``."""
+    return TorchBatchEvaluator(
+        _WeightedGK(f, nodes, weights, normalization, device), localdims,
+        dtype=valuetype, device=device,
+        enable_device_sweep=enable_device_sweep, mesh=mesh)
 
 
 def integrate(

@@ -23,18 +23,33 @@ from ..utils.device import fetch, resolve_device, to_device, torch_dtype
 from .lu_kernel import bucket, rrlu_panel, rrlu_panel_batched
 
 
-def sample_panel(f: Callable, rows: torch.Tensor, cols: torch.Tensor,
-                 dtype: torch.dtype) -> torch.Tensor:
-    """The panel f([rows_i, cols_j]) for index rows (..., m, nl) and columns
-    (..., n, nr), int64 on f's device: one call of f on the assembled
-    (... m n, nl + nr) index matrix, shape (..., m, n)."""
+def panel_indices(rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """The (... m n, nl + nr) int64 index matrix of the panel of index rows
+    (..., m, nl) and columns (..., n, nr): row i n + j is [rows_i, cols_j]."""
     *batch, m, nl = rows.shape
     n, nr = cols.shape[-2:]
     idx = torch.empty((*batch, m, n, nl + nr), dtype=torch.int64,
                       device=rows.device)
     idx[..., :nl] = rows.unsqueeze(-2)
     idx[..., nl:] = cols.unsqueeze(-3)
-    return f(idx.reshape(-1, nl + nr)).reshape(*batch, m, n).to(dtype)
+    return idx.reshape(-1, nl + nr)
+
+
+def sample_panel(f: Callable, rows: torch.Tensor, cols: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """The panel f([rows_i, cols_j]) for index rows (..., m, nl) and columns
+    (..., n, nr), int64 on f's device, shape (..., m, n). Where f has the
+    private panel entry point ``f._tci_panel(rows, cols)`` (the m n values
+    in that order; only ``integrate``'s GK integrand defines it, and
+    ``TorchBatchEvaluator`` passes it on) a single panel goes to it and no
+    index matrix is formed; otherwise f is called once on the assembled
+    index matrix (``panel_indices``)."""
+    *batch, m, _ = rows.shape
+    n = cols.shape[-2]
+    panel = getattr(f, "_tci_panel", None)
+    if panel is not None and not batch:
+        return panel(rows, cols).reshape(m, n).to(dtype)
+    return f(panel_indices(rows, cols)).reshape(*batch, m, n).to(dtype)
 
 
 def ci_factors(A: torch.Tensor, rowperm: torch.Tensor, colperm: torch.Tensor,

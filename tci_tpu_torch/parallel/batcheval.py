@@ -275,6 +275,12 @@ class TorchBatchEvaluator(BatchEvaluator):
     so once on stderr, and lists the reasons in
     ``device_sweep_engine.declined``.
 
+    The GK integrand of ``integrate(torch_native=True)`` has the tiers' Π
+    panels sampled through its private entry point ``_tci_panel(rows,
+    cols)`` rather than through the assembled index matrix: it writes its
+    coordinates and weights straight from the index sets
+    (``ops/gk_panel``).
+
     With ``mesh`` (a 1-D ``parallel.mesh`` DeviceMesh; `axis`, kept for
     ``tci_tpu``'s signature, only names its one dim and is checked) the
     sampling is data-parallel, as ``JaxBatchEvaluator(mesh=)`` shards it:
@@ -414,14 +420,25 @@ class TorchBatchEvaluator(BatchEvaluator):
         at once, with its engine and the engine's CUDA graphs."""
         f, device, dtype = self.f, self.device, self.dtype
 
-        def values(indices: torch.Tensor) -> torch.Tensor:
-            vals = f(indices)
-            if vals.shape != (indices.shape[0],) or vals.device != device:
+        def checked(vals: torch.Tensor, n: int) -> torch.Tensor:
+            if vals.shape != (n,) or vals.device != device:
                 raise ValueError(
-                    f"f must return ({indices.shape[0]},) values on {device},"
-                    f" got shape {tuple(vals.shape)} on {vals.device}")
+                    f"f must return ({n},) values on {device}, got shape "
+                    f"{tuple(vals.shape)} on {vals.device}")
             return vals.to(dtype)
 
+        def values(indices: torch.Tensor) -> torch.Tensor:
+            return checked(f(indices), indices.shape[0])
+
+        panel = getattr(f, "_tci_panel", None)
+        if panel is not None:
+            def panel_values(rows: torch.Tensor,
+                             cols: torch.Tensor) -> torch.Tensor:
+                return checked(panel(rows, cols),
+                               rows.shape[0] * cols.shape[0])
+
+            # ops/fused.sample_panel samples a Π panel through it
+            values._tci_panel = panel_values
         return values
 
     def _eval(self, indices: torch.Tensor) -> torch.Tensor:

@@ -16,7 +16,9 @@ the plain version keeps such a record, ``lu_kernel.PLAIN_WORK``). Its flag
 is set, stream-ordered, at the entry of ``crossinterpolate2`` and
 ``TensorCI2.optimize`` whenever ``enabled()`` differs from it, so the record
 counts the launches of the traced solves, replayed ones included.
-``rrlu_work()`` reads it.
+``rrlu_work()`` reads it. The GK panel kernel's grid points are counted on the
+host, at each launch and replay (``ops/gk_panel``); those counted while a
+profiler records are ``gk_points_traced()``.
 """
 
 from __future__ import annotations
@@ -93,6 +95,14 @@ def rrlu_work() -> dict:
     for rec in lu_cuda._WORK.values():
         total = [a + b for a, b in zip(total, rec.tolist())]
     return dict(zip(lu_cuda.WORK_FIELDS[1:], total[1:]))
+
+
+def gk_points_traced() -> int:
+    """The GK grid points ``ops/gk_panel`` wrote while a profiler recorded,
+    since the process started: the kernel's, replayed launches included,
+    and the plain version's."""
+    from ..ops import gk_panel
+    return sum(gk_panel.TRACED.values())
 
 
 @contextlib.contextmanager

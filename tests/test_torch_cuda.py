@@ -4,7 +4,9 @@ path through the kernel: the host tier, the fused tier and the whole-sweep
 engine, which syncs only at its fetch and replays its sweeps from CUDA
 graphs (held bitwise against the same sweeps queued eagerly); ``integrate``
 on the card; ``compress`` through the kernel, the engine's floating-zone
-program against its eager body, and the caches' values on the card.
+program against its eager body, and the caches' values on the card; the
+GK panel kernel against its plain version, in a CUDA graph, its counters
+under replay and a whole 10-D GK15 solve against the plain path.
 
 Every test needs a CUDA device and skips without one: the CUDA kernel has
 no CPU mode. This file imports neither jax nor tci_tpu, so it runs on a
@@ -2489,3 +2491,245 @@ def test_traced_solve_counts_its_rrlu_work(cuda):
     torch.cuda.synchronize()
     assert trace.rrlu_work() == work
     assert int(lu_cuda.work_record(torch.cuda.current_device())[0]) == 0
+
+
+def _gk_tables(N, order, device, degenerate=(), seed=0):
+    """The (N, K) GK nodes and weights integrate builds on random bounds
+    (a_n = b_n for n in `degenerate`)."""
+    from tci_tpu_torch.ops.kronrod import kronrod
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(-2.0, 0.0, N)
+    b = rng.uniform(0.5, 2.0, N)
+    for n in degenerate:
+        b[n] = a[n]
+    x1, w1, _ = kronrod(order // 2)
+    nodes = (b[:, None] - a[:, None]) * (x1[None, :] + 1) / 2 + a[:, None]
+    weights = (b[:, None] - a[:, None]) * w1[None, :] / 2
+    return (torch.from_numpy(nodes).to(device),
+            torch.from_numpy(weights).to(device))
+
+
+def _gk_sets(rng, K, m, nl, n, nr, device):
+    # prefixes of wider buffers, as the engine hands its sets over
+    rows = torch.from_numpy(rng.integers(0, K, size=(m, nl + 3)))
+    cols = torch.from_numpy(rng.integers(0, K, size=(n, nr + 1)))
+    return rows.to(device)[:, :nl], cols.to(device)[:, :nr]
+
+
+def _gk_same(rows, cols, nodes, weights):
+    """The kernel bit for bit the plain version, and no index clamped."""
+    from tci_tpu_torch.ops import gk_panel
+    X, W = gk_panel.gk_points_kernel(rows, cols, nodes, weights)
+    Xp, Wp = gk_panel.gk_points_plain(rows, cols, nodes, weights)
+    torch.cuda.synchronize()
+    return (torch.equal(X, Xp) and torch.equal(W, Wp)
+            and not gk_panel.clamped(rows.device))
+
+
+@pytest.mark.parametrize("order", [15, 31, 61])
+@pytest.mark.parametrize("N", [1, 3, 10, 24])
+def test_gk_panel_kernel_matches_plain(cuda, N, order):
+    """The kernel's coordinates and weights bit for bit the plain version's,
+    at every split nl of N, for panels with a ragged last tile, one point,
+    and several tiles a row; and the empty column set (an index matrix)."""
+    nodes, weights = _gk_tables(N, order, cuda, seed=N + order)
+    rng = np.random.default_rng(N * order)
+    for nl in range(N + 1):
+        for m, n in ((7, 5), (1, 1), (33, 2000)):
+            rows, cols = _gk_sets(rng, order, m, nl, n, N - nl, cuda)
+            assert _gk_same(rows, cols, nodes, weights), (nl, m, n)
+    idx = torch.from_numpy(rng.integers(0, order, size=(5000, N + 2)))
+    idx = idx.to(cuda)
+    assert _gk_same(idx[:, :N].contiguous(), None, nodes, weights)
+    assert _gk_same(idx[:, :N], None, nodes, weights)
+
+
+def test_gk_panel_kernel_main_path_panel(cuda):
+    """The main path's 1024 x 1024 panel at N = 10, GK15, every split; and
+    tables too large for shared memory (N = 64, GK61: read through the
+    read-only cache)."""
+    nodes, weights = _gk_tables(10, 15, cuda)
+    rng = np.random.default_rng(7)
+    for nl in range(1, 10):
+        rows, cols = _gk_sets(rng, 15, 1024, nl, 1024, 10 - nl, cuda)
+        assert _gk_same(rows, cols, nodes, weights), nl
+    nodes, weights = _gk_tables(64, 61, cuda)
+    for nl in (0, 1, 31, 64):
+        rows, cols = _gk_sets(rng, 61, 40, nl, 300, 64 - nl, cuda)
+        assert _gk_same(rows, cols, nodes, weights), nl
+
+
+def test_gk_panel_kernel_degenerate_bounds(cuda):
+    """A zero weight (a_n = b_n) gives an exact zero in W, as in the plain
+    version, and so in the panel."""
+    nodes, weights = _gk_tables(6, 15, cuda, degenerate=(0, 4))
+    rows, cols = _gk_sets(np.random.default_rng(3), 15, 64, 3, 96, 3, cuda)
+    from tci_tpu_torch.ops import gk_panel
+    _, W = gk_panel.gk_points_kernel(rows, cols, nodes, weights)
+    assert bool((W == 0).all())
+    assert _gk_same(rows, cols, nodes, weights)
+
+
+def test_gk_panel_kernel_flags_an_index_outside_the_table(cuda):
+    """An index in [-K, 0) counts from the end of the table, as in the
+    plain version; one outside [-K, K), for which the plain version raises,
+    is clamped to the table and raises the flag, which ``clamped`` reads
+    and clears. The flag stays clear for valid sets."""
+    from tci_tpu_torch.ops import gk_panel
+    nodes, weights = _gk_tables(6, 15, cuda)
+    rng = np.random.default_rng(5)
+    rows, cols = _gk_sets(rng, 15, 40, 2, 70, 4, cuda)
+    assert not gk_panel.clamped(cuda)
+    rows[3, 1], cols[5, 0] = -1, -15
+    assert _gk_same(rows, cols, nodes, weights)
+    for bad, near in ((15, 14), (-16, 0), (2 ** 40, 14), (-2 ** 40, 0)):
+        r, c = rows.clone(), cols.clone()
+        c[7, 2] = bad
+        X, W = gk_panel.gk_points_kernel(r, c, nodes, weights)
+        assert gk_panel.clamped(cuda), bad
+        assert not gk_panel.clamped(cuda), bad
+        c[7, 2] = near
+        Xp, Wp = gk_panel.gk_points_plain(r, c, nodes, weights)
+        assert torch.equal(X, Xp) and torch.equal(W, Wp), bad
+    idx = torch.from_numpy(rng.integers(0, 15, size=(300, 6))).to(cuda)
+    idx[17, 5] = 15
+    gk_panel.gk_points_kernel(idx, None, nodes, weights)
+    assert gk_panel.clamped(cuda)
+    assert _gk_same(idx.clamp(max=14), None, nodes, weights)
+
+
+def test_gk_panel_kernel_in_a_cuda_graph(cuda):
+    """The weighted integrand's panel and matrix forms recorded into a CUDA
+    graph replay bitwise the plain version, with omega changed in place
+    between replays; the capture records its launches and points in
+    CAPTURED, not in LAUNCHES."""
+    from tci_tpu_torch.models.integration import _WeightedGK
+    from tci_tpu_torch.ops import gk_panel
+    nodes, weights = _gk_tables(10, 15, cuda)
+    omega = torch.zeros((), dtype=torch.float64, device=cuda)
+
+    def f(X):
+        return torch.cos(omega * (X ** 2).sum(1)) * torch.exp(-X.sum(1) ** 4
+                                                              / 1000)
+
+    F = _WeightedGK(f, nodes.cpu().numpy(), weights.cpu().numpy(), 15.0 ** 10,
+                    cuda)
+    rng = np.random.default_rng(11)
+    rows, cols = _gk_sets(rng, 15, 1024, 4, 1024, 6, cuda)
+    idx = torch.from_numpy(rng.integers(0, 15, size=(3000, 10))).to(cuda)
+    F._tci_panel(rows, cols)
+    torch.cuda.synchronize()
+    launches, captured = gk_panel.LAUNCHES.copy(), gk_panel.CAPTURED.copy()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_panel = F._tci_panel(rows, cols)
+        out_matrix = F(idx)
+    assert gk_panel.LAUNCHES == launches
+    assert gk_panel.CAPTURED - captured == {"gk_panel": 2,
+                                            "rows": 1024 * 1024 + 3000}
+    for value in (9.5, 10.25):
+        omega.fill_(value)
+        graph.replay()
+        X, W = gk_panel.gk_points_plain(rows, cols, nodes, weights)
+        want_panel = W * f(X) * 15.0 ** 10
+        X, W = gk_panel.gk_points_plain(idx, None, nodes, weights)
+        want_matrix = W * f(X) * 15.0 ** 10
+        torch.cuda.synchronize()
+        assert torch.equal(out_panel, want_panel), value
+        assert torch.equal(out_matrix, want_matrix), value
+
+
+def _gk15_10d(omega, seen=None):
+    """The benchmark's 10-D GK15 integrand; `seen` ((2,) int64 on the card)
+    counts its calls and points on the device, replays included."""
+    def f(X):
+        if seen is not None:
+            seen[0] += 1
+            seen[1] += X.shape[0]
+        return 1000.0 * torch.cos(omega * (X ** 2).sum(dim=1)) * torch.exp(
+            -X.sum(dim=1) ** 4 / 1000.0)
+    return f
+
+
+def _gk15_10d_solve(f, monkeypatch):
+    """integrate(f) as the benchmark's gk15_10d cell runs it; returns the
+    integral and the TT's cores."""
+    from tci_tpu_torch.models import integration
+    out = []
+    solve = integration.crossinterpolate2
+
+    def recording(*args, **kwargs):
+        out.append(solve(*args, **kwargs))
+        return out[-1]
+
+    monkeypatch.setattr(integration, "crossinterpolate2", recording)
+    val = integration.integrate(
+        np.float64, f, [-1.0] * 10, [1.0] * 10, GKorder=15, torch_native=True,
+        tolerance=1e-8, maxbonddim=64, nsearchglobalpivot=10,
+        rng=np.random.default_rng(0))
+    monkeypatch.setattr(integration, "crossinterpolate2", solve)
+    torch.cuda.synchronize()
+    return val, [c.clone() for c in out[-1][0].sitetensors()]
+
+
+def test_gk_panel_counts_every_point_under_replay(cuda, monkeypatch):
+    """A 10-D GK15 solve on a kept integrand, recorded and then replayed:
+    LAUNCHES["gk_panel"] and ROWS["gk_panel"] count every call of the
+    integrand and every point it saw (counted on the device, inside the
+    graphs), in the recording solve and in the replayed one."""
+    from tci_tpu_torch.models import integration
+    from tci_tpu_torch.ops import gk_panel
+    omega = torch.tensor(10.0, dtype=torch.float64, device=cuda)
+    seen = torch.zeros(2, dtype=torch.int64, device=cuda)
+    f = _gk15_10d(omega, seen)
+    for k in range(2):
+        launches, rows = gk_panel.LAUNCHES["gk_panel"], gk_panel.ROWS["gk_panel"]
+        seen.zero_()
+        _gk15_10d_solve(f, monkeypatch)
+        calls, points = seen.tolist()
+        assert gk_panel.LAUNCHES["gk_panel"] - launches == calls > 0, k
+        assert gk_panel.ROWS["gk_panel"] - rows == points, k
+        omega.fill_(10.3)
+    engine = next(iter(integration._GK_EVAL_CACHE[f].values())
+                  ).device_sweep_engine
+    assert engine.replays > 0 and not engine.declined
+
+
+def test_gk15_10d_solve_is_bitwise_the_plain_path(cuda, monkeypatch):
+    """One whole gk15_10d solve through the kernel and one through the plain
+    version on the card (today's index matrix, gathers and product): the
+    same integral and the same TT cores, bit for bit."""
+    from tci_tpu_torch.ops import gk_panel
+    omega = torch.tensor(10.0, dtype=torch.float64, device=cuda)
+    launches = gk_panel.LAUNCHES["gk_panel"]
+    val, cores = _gk15_10d_solve(_gk15_10d(omega), monkeypatch)
+    assert gk_panel.LAUNCHES["gk_panel"] > launches
+    assert not gk_panel.clamped(cuda)
+    monkeypatch.setattr(gk_panel, "gk_points_kernel",
+                        gk_panel.gk_points_plain)
+    launches = gk_panel.LAUNCHES["gk_panel"]
+    val_plain, cores_plain = _gk15_10d_solve(_gk15_10d(omega), monkeypatch)
+    assert gk_panel.LAUNCHES["gk_panel"] == launches
+    assert val == val_plain
+    assert len(cores) == len(cores_plain) == 10
+    for c, cp in zip(cores, cores_plain):
+        assert torch.equal(c, cp)
+
+
+def test_evaluator_without_gk_tables_launches_no_gk_kernel(cuda):
+    """An evaluator whose f has no panel entry point (config 1's f, as the
+    lorentz8d cell's) samples through the index matrix: recorded and
+    replayed, its solves launch, capture and count nothing of the GK panel
+    kernel."""
+    from tci_tpu_torch.ops import gk_panel
+    f = lambda idx: 1.0 / (1.0 + ((idx.to(torch.float64) + 1) ** 2).sum(1))
+    bf = tci_tpu_torch.TorchBatchEvaluator(f, [10] * 8)
+    before = (gk_panel.LAUNCHES.copy(), gk_panel.ROWS.copy(),
+              gk_panel.CAPTURED.copy())
+    for _ in range(2):
+        tci_tpu_torch.crossinterpolate2(np.float64, bf, [10] * 8,
+                                        tolerance=1e-8,
+                                        rng=np.random.default_rng(0))
+    torch.cuda.synchronize()
+    assert bf.device_sweep_engine.replays > 0
+    assert (gk_panel.LAUNCHES, gk_panel.ROWS, gk_panel.CAPTURED) == before
