@@ -59,25 +59,39 @@ the cards. ``tci_tpu`` puts its row sharding constraint on the same rows
 but the fill's; sampling them sharded too changes no value. The rrLU
 stays replicated: every rank runs the one-device kernel on the same panel.
 
-The capacity grows when a sweep saturates it (a new capacity is a new key);
-above ``imax_cap`` or ``max_panel_edge`` the engine declines and TensorCI2
-falls back to the per-bond fused tier (``ops/fused.py``), which runs on the
-device too.
+The capacity grows when a sweep saturates it (a new capacity is a new key):
+in ``tci_tpu``'s quantum (powers of two to 32, then steps of 32) up to
+``QUANTUM_CAP`` = 256, where ``tci_tpu``'s engine stops, and then by
+doubling, no further than the rank cap needs. It stops at
+``capacity_limit()``: the largest capacity whose per-bond panel edge Imax
+(dmax + 1) is at most ``max_panel_edge`` (4096) and whose largest program
+works in at most ``MEMORY_SHARE`` of the device's memory
+(``program_bytes``), or ``imax_cap`` where one is given. Above it the
+engine declines and TensorCI2 falls back to the per-bond fused tier
+(``ops/fused.py``), which runs on the device too. At d = 2 the edge allows
+capacity 1344, so a TCI at rank 1000 stays on the engine. Above
+``QUANTUM_CAP`` a bond's candidates are the union of the kron and history
+sets, and its panels are sampled only as far as its sets can hold distinct
+rows (``_Layout``); a panel whose index matrix is large is sampled in
+chunks of rows (``ops/fused.sample_panel``).
 """
 
 from __future__ import annotations
 
+import os
 import sys
 import time
 import weakref
 from collections import Counter
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..ops import gk_panel, lu_cuda
-from ..ops.fused import ci_factors, panel_solve_pinv, sample_panel
+from ..ops import fused
+from ..ops.fused import (INDEX_CHUNK_BYTES, chunk_rows, ci_factors, indexed,
+                         panel_solve_pinv, sample_panel)
 from ..ops.lu_kernel import rrlu_panel_batched
 from ..parallel.mesh import mesh_rng, shard_rows
 from ..utils.device import (FETCHES, capture_graph, fetch, peek,
@@ -91,6 +105,16 @@ __all__ = ["DeviceSweepEngine", "FETCHES"]
 # the slab steps of a rook bond: tci_tpu's numrookiter, which its engine
 # leaves at the default, every one a launch of the kernel (dead or not)
 ROOK_STEPS = 5
+# the capacity up to which the engine grows in tci_tpu's quantum, and above
+# which tci_tpu's engine declines; the port's doubles from there
+QUANTUM_CAP = 256
+# the share of the device's memory that the largest program of one
+# capacity may plan to work in (``program_bytes``): the graphs of the
+# smaller capacities and the caller keep the rest
+MEMORY_SHARE = 0.5
+# start points the global search's estimate in ``program_bytes`` allows for
+# (the optimize default is 5)
+SEARCH_STARTS = 10
 
 MultiIndex = Tuple[int, ...]
 
@@ -107,6 +131,30 @@ def _imax_target(current: int, needed: int) -> int:
     return max(current, t)
 
 
+def program_bytes(localdims: Sequence[int], Imax: int, itemsize: int) -> int:
+    """An estimate of the device memory that the engine's largest program
+    at capacity Imax works in at once: the 2-site sweep's padded Π panel of
+    edge C = Imax (dmax + 1) in up to 8 copies (the samples, the masked
+    panel, the rrLU kernel's copy and scratch, the chunks' join); the
+    fill's samples, P blocks, solves and site tensors, (6 dmax + 4) L Imax²
+    values; the global search's cores gathered for ``SEARCH_STARTS`` start
+    points, SEARCH_STARTS dmax L Imax²; and three chunks of index matrix
+    for f's own intermediates."""
+    L, dmax = len(localdims), max(localdims)
+    C = Imax * (dmax + 1)
+    per_site = 6 * dmax + 4 + SEARCH_STARTS * dmax
+    return int(itemsize * (8 * C * C + per_site * L * Imax * Imax)
+               + 3 * INDEX_CHUNK_BYTES)
+
+
+def _device_memory(device: torch.device) -> int:
+    """The bytes of memory of `device`: the card's, or the host's for the
+    CPU."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+
+
 def _lt(idx: torch.Tensor, m) -> torch.Tensor:
     """idx < m, broadcast over the batch shape of m (an int or a tensor)."""
     return idx < (m[..., None] if isinstance(m, torch.Tensor) else m)
@@ -120,11 +168,19 @@ def _valid(shape, mI, mJ, device) -> torch.Tensor:
     return rows[..., :, None] & cols[..., None, :]
 
 
-def _panel(f, Ic, Jc, nl: int, nr: int, mI, mJ, dtype):
+def _panel(f, Ic, Jc, nl: int, nr: int, mI, mJ, dtype, lay=None):
     """Π panel f([Ic_i[:nl], Jc_j[:nr]]) with invalid rows/cols masked to
     zero (``tci_tpu``'s ``_panel`` and ``_panel_dyn``: the prefix length nl
-    is a Python int here)."""
-    Pi = sample_panel(f, Ic[:, :nl], Jc[:, :nr], dtype)
+    is a Python int here). With a ``cut`` layout `lay` only the rows and
+    columns that can be distinct are sampled (``_Layout.edge``; the valid
+    ones come first), the rest of the panel is zero."""
+    ri, cj = Ic.shape[0], Jc.shape[0]
+    if lay is not None:
+        ri, cj = lay.edge(lay.prefixes(nl), ri), lay.edge(lay.suffixes(nr), cj)
+    Pi = sample_panel(f, Ic[:ri, :nl], Jc[:cj, :nr], dtype)
+    if (ri, cj) != (Ic.shape[0], Jc.shape[0]):
+        Pi = torch.nn.functional.pad(
+            Pi, (0, Jc.shape[0] - cj, 0, Ic.shape[0] - ri))
     return torch.where(_valid(Pi.shape, mI, mJ, Pi.device), Pi, 0)
 
 
@@ -166,10 +222,22 @@ class _Layout:
     d_b (I side) and d_{b+1} (J side). ``ar`` is arange(C) and ``keep``
     arange(Imax) as a column, for the masks, and ``dims`` the local
     dimensions. Everything uploaded from the host lives here, outside any
-    body: a graph replays a body's launches, not its uploads."""
+    body: a graph replays a body's launches, not its uploads.
+
+    Above ``QUANTUM_CAP`` (``cut``) a panel is sampled only as far as its
+    index sets can hold distinct rows: a set of prefixes of n sites holds
+    at most d_0 ... d_{n-1} of them, a set of suffixes of n sites at most
+    the product of the last n local dimensions (``prefixes``,
+    ``suffixes``), and ``edge`` rounds such a count up to the capacity
+    ladder, at most the padded extent. At capacity 1024 and L = 20, d = 2 a
+    2-site sweep then samples 6.1 M points where the padded panels hold
+    179 M. At or below it every panel keeps its padded extent, as
+    ``tci_tpu``'s engine samples it."""
 
     def __init__(self, localdims: Sequence[int], Imax: int, device):
         dmax = max(localdims)
+        self.localdims = tuple(localdims)
+        self.cut = Imax > QUANTUM_CAP
         R = Imax * dmax
         r = torch.arange(R, device=device)
         e = torch.arange(Imax, device=device)
@@ -185,6 +253,34 @@ class _Layout:
         self.pad = torch.stack([site[0] >= self.dims[:-1, None],
                                 site[1] >= self.dims[1:, None]], dim=1)
         self.keep = e[:, None]
+        # the place values of the sites first .. first + w - 1, for the
+        # union's test (``_candidates``) where a multi-index of them fits
+        # an int64 key: (first, w) of bond b's prefixes and suffixes
+        L = len(localdims)
+        self.radix = {}
+        if self.cut:
+            for first, w in ([(0, b) for b in range(L - 1)]
+                             + [(b + 2, L - b - 2) for b in range(L - 1)]):
+                place = np.cumprod((1,) + self.localdims[first:first + w],
+                                   dtype=object)
+                if place[-1] < 2**62:
+                    self.radix[first, w] = to_device(
+                        np.asarray(place[:-1], dtype=np.int64), device)
+
+    def prefixes(self, n: int) -> int:
+        """The most distinct multi-indices of the first n sites."""
+        return int(np.prod(self.localdims[:n], dtype=object))
+
+    def suffixes(self, n: int) -> int:
+        """The most distinct multi-indices of the last n sites."""
+        return int(np.prod(self.localdims[len(self.localdims) - n:],
+                           dtype=object))
+
+    def edge(self, count: int, full: int) -> int:
+        """A panel's extent for at most `count` distinct rows: `full`, the
+        padded extent, unless ``cut``; then `count` on the capacity ladder,
+        at most `full`."""
+        return min(full, _imax_target(1, count)) if self.cut else full
 
 
 def _bond_writeback(lay, Iset, Ilen, Jset, Jlen, perrs, bi: int, bj: int,
@@ -196,10 +292,15 @@ def _bond_writeback(lay, Iset, Ilen, Jset, Jlen, perrs, bi: int, bj: int,
     position k (reference pivoterrors, matrixlu.jl:799-801)."""
     Imax = Iset.shape[1]
     keep = lay.keep < k
-    torch.mul(Ic[rowsel[:Imax]], keep, out=Iset[bi])
-    Ilen[bi] = k
-    torch.mul(Jc[colsel[:Imax]], keep, out=Jset[bj])
-    Jlen[bj] = k
+    for sets, lens, i, cand, sel in ((Iset, Ilen, bi, Ic, rowsel),
+                                     (Jset, Jlen, bj, Jc, colsel)):
+        # a panel cut to fewer candidates than the capacity fills the
+        # first rows, and the rest of the buffer is zero
+        n = min(Imax, cand.shape[0])
+        torch.mul(cand[sel[:n]], keep[:n], out=sets[i][:n])
+        if n < Imax:
+            sets[i][n:] = 0
+        lens[i] = k
     # the elimination leaves the magnitudes past k at zero
     row = perrs[be]
     n = min(mags.shape[0], Imax + 1)
@@ -222,14 +323,20 @@ def _sweep(f, localdims, dtype, lay, Iset, Ilen, Jset, Jlen, eI, eIlen, eJ,
     # the history sets' sizes at each bond: (|extraIset[b+1]|, |extraJset[b]|)
     exlens = torch.stack([eIlen[1:], eJlen[:-1]], dim=1)[:, :, None]
     cap = maxbond.to(torch.int32)
+    C = lay.ar.shape[0]
     for b in (range(L - 1) if forward else range(L - 2, -1, -1)):
         # Icombined and Jcombined, the valid ones first; their counts are
-        # the panel's extents (mI, mJ)
+        # the panel's extents (mI, mJ). Above QUANTUM_CAP (a ``cut``
+        # layout) the valid ones are the union's, and a panel holds the
+        # candidates that can be distinct
         Ic, Jc, m = _candidates(lay, Iset, Ilen, Jset, Jlen, eI, eJ, exlens,
-                                b)
+                                b, union=lay.cut)
+        Ic = Ic[:lay.edge(lay.prefixes(b + 1), C)]
+        Jc = Jc[:lay.edge(lay.suffixes(L - b - 1), C)]
         Pi = sample_panel(f, Ic[:, :b + 1], Jc[:, :L - b - 1], dtype)
         ok = lay.ar < m[:, None]
-        Pi = torch.where(ok[0][:, None] & ok[1][None, :], Pi, 0)
+        Pi = torch.where(ok[0][:Ic.shape[0], None]
+                         & ok[1][None, :Jc.shape[0]], Pi, 0)
         maxsample = torch.maximum(
             maxsample, torch.linalg.vector_norm(Pi, float("inf")))
         mn = m.amin()
@@ -242,15 +349,46 @@ def _sweep(f, localdims, dtype, lay, Iset, Ilen, Jset, Jlen, eI, eIlen, eJ,
     return perrs, maxsample
 
 
-def _candidates(lay, Iset, Ilen, Jset, Jlen, eI, eJ, exlens, b: int):
+def _candidates(lay, Iset, Ilen, Jset, Jlen, eI, eJ, exlens, b: int,
+                union: bool = False):
     """Bond b's candidate rows Ic (kron(Iset[b], d_b), then the Iset
     history) and columns Jc (kron(d_{b+1}, Jset[b+1]), then the Jset
     history), each moved to the front in a stable order when valid, and
-    their counts m (2,) int32: the panel's extents."""
+    their counts m (2,) int32: the panel's extents. With `union` a history
+    row or column that repeats a kron candidate is not valid, so that the
+    valid ones are the union the reference forms (tensorci2.jl:842-843):
+    a history row repeats one of kron(Iset[b], d_b) where its first b
+    entries are a row of Iset[b], a history column one of kron(d_{b+1},
+    Jset[b+1]) where its entries past the first are a row of Jset[b+1].
+    Without it a history candidate that repeats a kron one is valid, as in
+    ``tci_tpu``'s engine: it is never selected, but it counts in the
+    extents that the rank cap and the residual rule read (ROADMAP
+    C-ref-8)."""
     R = lay.site.shape[1]
     lens = torch.stack((Ilen[b], Jlen[b + 1]))[:, None]
     invalid = ((lay.row >= torch.where(lay.extra, exlens[b], lens))
                | lay.pad[b])
+    if union:
+        L = Iset.shape[0]
+        ar = lay.keep[:, 0]
+
+        def repeats(hist, sets, slen, a: int, first: int, w: int):
+            # entries a .. a + w - 1 of each history row (sites first ..)
+            # against entries 0 .. w - 1 of each row of the set, compared
+            # as one int64 key a row where they fit one
+            radix = lay.radix.get((first, w))
+            if radix is None:
+                same = (hist[:, None, a:a + w] == sets[None, :, :w]).all(-1)
+            else:
+                same = ((hist[:, a:a + w] * radix).sum(1)[:, None]
+                        == (sets[:, :w] * radix).sum(1)[None, :])
+            return (same & (ar < slen)[None, :]).any(1)
+
+        invalid = invalid | torch.cat([
+            torch.zeros((2, R), dtype=torch.bool, device=invalid.device),
+            torch.stack([repeats(eI[b + 1], Iset[b], Ilen[b], 0, 0, b),
+                         repeats(eJ[b], Jset[b + 1], Jlen[b + 1], 1, b + 2,
+                                 L - b - 2)])], dim=1)
     order = torch.argsort(invalid.to(torch.uint8), dim=1, stable=True)
     m = (~invalid).sum(1, dtype=torch.int32)
     Ic = torch.cat([Iset[b], eI[b + 1]])[lay.src[0]]
@@ -378,7 +516,7 @@ def _sweep_rook(f, localdims, dtype, lay, Iset, Ilen, Jset, Jlen, eI, eIlen,
     for b in (range(L - 1) if forward else range(L - 2, -1, -1)):
         nl, nr = b + 1, L - b - 1
         Ic, Jc, m = _candidates(lay, Iset, Ilen, Jset, Jlen, eI, eJ, exlens,
-                                b)
+                                b, union=lay.cut)
         mI, mJ = m[0].to(torch.int64), m[1].to(torch.int64)
         Icap, Jcap = Ic.shape[0], Jc.shape[0]
         I0m, nmI = _continuation(Iset[b + 1], Ilen[b + 1], Ic, mI)
@@ -432,7 +570,9 @@ def _sweep_rook(f, localdims, dtype, lay, Iset, Ilen, Jset, Jlen, eI, eIlen,
 def _fill(f, localdims, dtype, lay, Iset, Ilen, Jset, Jlen):
     """All L site tensors T_b = Π₁ P^{-1} (tensorci2.jl:599-629;
     ``_make_fillsitetensors_scan``). The L-1 bonds' Π₁ and P panels and the
-    last site's samples come from one call of f, the L-1 P blocks from one
+    last site's samples come from one call of f (where their index matrix
+    is larger than ``INDEX_CHUNK_BYTES``: one call for each chunk of the
+    panels' rows, and one for the last site), the L-1 P blocks from one
     batched rrLU launch. Returns (tensors (L, Imax, dmax, Imax), max
     |sample| over the Π₁ panels), on the device."""
     L, dmax, (Imax, dev) = len(localdims), max(localdims), (Iset.shape[1],
@@ -455,13 +595,39 @@ def _fill(f, localdims, dtype, lay, Iset, Ilen, Jset, Jlen):
     # columns: Jset[b] rolled right by the prefix length b + 1
     shift = (pos[None, :] - bidx[:, None] - 1) % L
     Jsh = torch.gather(Jset[:B], 2, shift[:, None, :].expand(B, Imax, L))
-    idx = torch.where((pos[None, :] <= bidx[:, None])[:, None, None, :],
-                      rows[:, :, None, :], Jsh[:, None, :, :])
+    prefix = (pos[None, :] <= bidx[:, None])[:, None, None, :]
+
+    def block(a: int, b: int) -> torch.Tensor:
+        """The index matrix of the panels' rows a:b, (B (b - a) Imax, L)."""
+        return torch.where(prefix, rows[:, a:b, None, :],
+                           Jsh[:, None, :, :]).reshape(-1, L)
+
     # the last site: T = Π₁ reshaped (Jset[L-1] = [()])
     last, d_l = L - 1, localdims[L - 1]
     Is = _kron_is(Iset[last], last, d_l)
-    vals = f(torch.cat([idx.reshape(-1, L), Is])).to(dtype)
-    panels = vals[:B * (R + Imax) * Imax].reshape(B, R + Imax, Imax)
+    n = R + Imax
+    step = chunk_rows(n, B * Imax * L * 8)
+    if lay.cut:
+        # per bond, the Π₁ rows (distinct prefixes, the valid ones first),
+        # the P rows (Iset[b+1]) and the columns (Jset[b]) that can be
+        # distinct; the rest of each panel is masked below
+        panels = torch.zeros((B, n, Imax), dtype=dtype, device=dev)
+        for b in range(B):
+            cj = lay.edge(lay.suffixes(L - b - 1), Imax)
+            for a, full in ((0, R), (R, Imax)):
+                ri = lay.edge(lay.prefixes(b + 1), full)
+                panels[b, a:a + ri, :cj] = sample_panel(
+                    f, rows[b, a:a + ri, :b + 1], Jset[b, :cj, :L - b - 1],
+                    dtype)
+        vals_last = indexed(f, Is).to(dtype)
+    elif step == n:
+        vals = indexed(f, torch.cat([block(0, n), Is])).to(dtype)
+        panels = vals[:B * n * Imax].reshape(B, n, Imax)
+        vals_last = vals[B * n * Imax:]
+    else:
+        panels = torch.cat([indexed(f, block(a, a + step)).to(dtype).reshape(
+            B, -1, Imax) for a in range(0, n, step)], dim=1)
+        vals_last = indexed(f, Is).to(dtype)
 
     Pi1 = torch.where(_valid((R, Imax), mIs, Jlen[:B], dev), panels[:, :R], 0)
     maxsample = Pi1.abs().amax()
@@ -474,7 +640,7 @@ def _fill(f, localdims, dtype, lay, Iset, Ilen, Jset, Jlen):
                                                              Imax)
     ok = ((torch.arange(Imax * d_l, device=dev) < Ilen[last] * d_l)
           & (Jlen[last] > 0))
-    vlast = torch.where(ok, vals[B * (R + Imax) * Imax:], 0)
+    vlast = torch.where(ok, vals_last, 0)
     maxsample = torch.maximum(maxsample, vlast.abs().amax())
     tensors[last, :, :d_l, 0] = vlast.reshape(Imax, d_l)
     return tensors, maxsample
@@ -506,13 +672,13 @@ def _sweep1(f, localdims, dtype, lay, Iset, Ilen, Jset, Jlen, forward: bool,
             Is[:, b] = lay.site[0]
             Is, mIs = Is[order], m
             Js, mJs = Jset[b], Jlen[b]
-            Pi = _panel(f, Is, Js, b + 1, L - b - 1, mIs, mJs, dtype)
+            Pi = _panel(f, Is, Js, b + 1, L - b - 1, mIs, mJs, dtype, lay)
         else:
             Js = torch.roll(Jset[b], 1, 1)[lay.row[1, :R]]
             Js[:, 0] = lay.site[1]
             Js, mJs = Js[order], m
             Is, mIs = Iset[b], Ilen[b]
-            Pi = _panel(f, Is, Js, b, L - b, mIs, mJs, dtype)
+            Pi = _panel(f, Is, Js, b, L - b, mIs, mJs, dtype, lay)
         maxsample = torch.maximum(maxsample, Pi.abs().amax())
         mn = torch.minimum(mIs, mJs)
         maxrank = torch.minimum(mn, maxbond)
@@ -537,7 +703,7 @@ def _sweep1(f, localdims, dtype, lay, Iset, Ilen, Jset, Jlen, forward: bool,
     last = L - 1 if forward else 0
     d_l = localdims[last]
     Pi1 = _panel(f, _kron_is(Iset[last], last, d_l), Jset[last], last + 1,
-                 L - last - 1, Ilen[last] * d_l, Jlen[last], dtype)
+                 L - last - 1, Ilen[last] * d_l, Jlen[last], dtype, lay)
     maxsample = torch.maximum(maxsample, Pi1.abs().amax())
     tensors[last, :, :d_l, :] = Pi1[:, :Imax].reshape(Imax, d_l, Imax)
     return tensors, perrs, maxsample
@@ -590,8 +756,12 @@ def _tt_search_on_cores(f, dtype, lay, cores, Ilen, Jlen, starts):
     local index (the reference's one-hot contraction was a TPU workaround
     against slow gathers). Rows of a core past |Iset[b]| meet zeros of the
     carried vector, which is cut to the true right bond length after every
-    site. Returns, per start, the first maximum in (leg, value) order:
-    (best_flat (S,) = leg dmax + value, best_err (S,) float64)."""
+    site. With a ``cut`` layout (capacities above QUANTUM_CAP, where a
+    gathered core is Imax² values a row) each site is instead dmax products
+    of all the rows with one value's slice of the core, each kept where the
+    row takes that value. Returns, per start, the first maximum in (leg,
+    value) order: (best_flat (S,) = leg dmax + value, best_err (S,)
+    float64)."""
     L, Imax, dmax, _ = cores.shape
     dev = cores.device
     S = starts.shape[0]
@@ -600,14 +770,22 @@ def _tt_search_on_cores(f, dtype, lay, cores, Ilen, Jlen, starts):
     legsel = torch.eye(L, dtype=torch.bool, device=dev)[None, :, None, :]
     rows = torch.where(legsel, vclamped[None, :, :, None],
                        starts[:, None, None, :]).reshape(S * L * dmax, L)
-    fv = f(rows).to(dtype)
+    fv = indexed(f, rows).to(dtype)
     v = torch.zeros((rows.shape[0], 1, Imax), dtype=dtype, device=dev)
     v[:, 0, 0] = 1
     lens_r = torch.cat([Ilen[1:], Jlen[-1:]])
     col = torch.arange(Imax, device=dev)
     by_value = cores.permute(0, 2, 1, 3)
     for b in range(L):
-        v = torch.bmm(v, by_value[b][rows[:, b]])
+        if lay.cut:
+            v = v[:, 0]
+            out = torch.zeros_like(v)
+            for s in range(dmax):
+                out = torch.where((rows[:, b] == s)[:, None],
+                                  v @ by_value[b, s], out)
+            v = out[:, None]
+        else:
+            v = torch.bmm(v, by_value[b][rows[:, b]])
         v = torch.where(col < lens_r[b], v, 0)
     err = (fv - v[:, 0, 0]).abs().to(torch.float64).reshape(S, L, dmax)
     valid = vgrid[None, None, :] < lay.dims[None, :, None]
@@ -620,7 +798,7 @@ def _fzone_abs_err(f, dtype, cores, rows) -> torch.Tensor:
     """|f - tt| (float64) at the (N, L) `rows`, the TT through
     ``tt_evaluate_batched`` on the floating-zone program's padded `cores`,
     as in the host lock-step search, so that both round alike."""
-    fv = f(rows).to(dtype)
+    fv = indexed(f, rows).to(dtype)
     return (fv - tt_evaluate_batched(cores.to(dtype), rows)).abs().to(
         torch.float64)
 
@@ -699,13 +877,13 @@ def _unpacked(rec: np.ndarray, shapes) -> List[np.ndarray]:
 def _pack_into(buf: np.ndarray, lens: np.ndarray,
                sets: List[List[MultiIndex]]) -> None:
     """Pack ragged index-set lists into an (L, Imax, L) buffer (each
-    multi-index stored left-aligned in row[:len]) and (L,) lengths."""
+    multi-index stored left-aligned in row[:len]) and (L,) lengths. The
+    multi-indices of one set have one length."""
     buf[...] = 0
     for b, s in enumerate(sets):
         lens[b] = len(s)
-        for r, idx in enumerate(s):
-            if len(idx) > 0:
-                buf[b, r, :len(idx)] = idx
+        if len(s) and len(s[0]):
+            buf[b, :len(s), :len(s[0])] = np.asarray(s, dtype=np.int64)
 
 
 class _Program:
@@ -795,10 +973,12 @@ class _Program:
         self._replay = None
         self._outputs = None
         # filled at the capture: launches of the rrLU kernel the graph
-        # holds, launches and points of the GK panel kernel, and the host
-        # time the capture and its instantiation took
+        # holds, launches and points of the GK panel kernel, the bytes of
+        # index matrix it forms for f, and the host time the capture and
+        # its instantiation took
         self.captured_launches = 0
         self.captured_gk = Counter()
+        self.captured_index_bytes = 0
         self.capture_seconds = None
 
     def read_status(self) -> list:
@@ -845,6 +1025,7 @@ class _Program:
                 and self.uses >= eng.capture_at):
             before = lu_cuda.CAPTURED["rrlu"]
             before_gk = Counter(gk_panel.CAPTURED)
+            before_index = fused.INDEX_BYTES["captured"]
             t0 = time.perf_counter()
             try:
                 with span("tci.engine.capture"):
@@ -856,6 +1037,8 @@ class _Program:
                 self.capture_seconds = time.perf_counter() - t0
                 self.captured_launches = lu_cuda.CAPTURED["rrlu"] - before
                 self.captured_gk = gk_panel.CAPTURED - before_gk
+                self.captured_index_bytes = (fused.INDEX_BYTES["captured"]
+                                             - before_index)
                 eng.captures += 1
         with span("tci.engine.replay"):
             if not eng.cuda_graphs or self._replay is None:
@@ -863,6 +1046,7 @@ class _Program:
             self._replay()
             lu_cuda.count_replay(self.captured_launches)
             gk_panel.count_replay(self.captured_gk)
+            fused.count_index_replay(self.captured_index_bytes)
             self.replays += 1
             eng.replays += 1
             rec, shapes, *kept = self._outputs
@@ -888,12 +1072,20 @@ class DeviceSweepEngine:
     When the capture of a body fails, that key runs eagerly from then on,
     on the same device and through the same kernel; the engine says so once
     on stderr and keeps the reason in ``declined[key]``. ``captures`` and
-    ``replays`` count what happened; ``programs()`` describes every key."""
+    ``replays`` count what happened; ``programs()`` describes every key.
+
+    The capacity Imax starts at `imax` and grows as the module's head says,
+    up to ``capacity_limit()``: the largest capacity whose panel edge Imax
+    (dmax + 1) is at most `max_panel_edge` and whose largest program
+    (``program_bytes``) fits in ``MEMORY_SHARE`` of the device's memory
+    (the card's total; the host's for the CPU), and at most `imax_cap`
+    where that is given. Above it the engine declines and TensorCI2 runs
+    the per-bond fused tier."""
 
     def __init__(self, f: Callable, localdims: Sequence[int], imax: int = 32,
-                 imax_cap: int = 256, dtype=torch.float64, device=None,
-                 max_panel_edge: int = 4096, cuda_graphs: bool = True,
-                 mesh=None):
+                 imax_cap: Optional[int] = None, dtype=torch.float64,
+                 device=None, max_panel_edge: int = 4096,
+                 cuda_graphs: bool = True, mesh=None):
         self.mesh = mesh
         if mesh is not None:
             f = shard_rows(f, mesh)
@@ -902,11 +1094,12 @@ class DeviceSweepEngine:
         self.dtype = torch_dtype(dtype)
         self.device = resolve_device(device)
         self.Imax = imax
-        # beyond this capacity the padded panels get wasteful; TensorCI2
-        # then falls back to the per-bond fused tier
+        # a fixed limit on the capacity, in place of the memory's (None);
+        # beyond the limit TensorCI2 falls back to the per-bond fused tier
         self.imax_cap = imax_cap
         # largest per-bond panel edge Imax * (dmax + 1) the engine takes
         self.max_panel_edge = max_panel_edge
+        self._memory = None
         self.nevals = 0
         # rrLU launches this engine made (one a bond, one a fill)
         self.rrlu_calls = 0
@@ -981,6 +1174,7 @@ class DeviceSweepEngine:
             self._stream = torch.cuda.Stream(dev)
         captured = lu_cuda.CAPTURED["rrlu"]
         captured_gk = Counter(gk_panel.CAPTURED)
+        captured_index = fused.INDEX_BYTES["captured"]
         try:
             graph, outputs = capture_graph(body, self._pool, self._stream)
         except torch.OutOfMemoryError:
@@ -992,6 +1186,7 @@ class DeviceSweepEngine:
             lu_cuda.CAPTURED["rrlu"] = captured
             gk_panel.CAPTURED.clear()
             gk_panel.CAPTURED.update(captured_gk)
+            fused.INDEX_BYTES["captured"] = captured_index
             torch.cuda.empty_cache()
             self._pool = torch.cuda.graph_pool_handle()
             graph, outputs = capture_graph(body, self._pool, self._stream)
@@ -1027,22 +1222,47 @@ class DeviceSweepEngine:
         return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
                    if tuple(seg.get("segment_pool_id", ())) == tuple(self._pool))
 
+    def capacity_limit(self) -> int:
+        """The largest capacity the engine takes: the largest step of its
+        ladder (powers of two to 32, then multiples of 32) whose panel edge
+        Imax (dmax + 1) is at most ``max_panel_edge`` and whose largest
+        program (``program_bytes``) fits in ``MEMORY_SHARE`` of the
+        device's memory; at most ``imax_cap`` where that is set."""
+        if self._memory is None:
+            self._memory = _device_memory(self.device)
+        dmax = max(self.localdims)
+        item = torch.empty((), dtype=self.dtype).element_size()
+        cap = self.max_panel_edge // (dmax + 1)
+        cap = 32 * (cap // 32) if cap >= 32 else 1 << (cap.bit_length() - 1)
+        while cap > 1 and (program_bytes(self.localdims, cap, item)
+                           > MEMORY_SHARE * self._memory):
+            cap = cap - 32 if cap > 32 else cap // 2
+        return cap if self.imax_cap is None else min(cap, self.imax_cap)
+
     def _reserve(self, needed: int) -> bool:
         """Set the capacity for sets of up to `needed` entries; False when
-        that exceeds imax_cap or max_panel_edge."""
-        if needed > self.imax_cap:
+        that exceeds ``capacity_limit()``."""
+        limit = self.capacity_limit()
+        if needed > limit:
             return False
-        target = _imax_target(self.Imax, needed)
-        if target * (max(self.localdims) + 1) > self.max_panel_edge:
-            return False
-        self.Imax = target
+        self.Imax = _imax_target(self.Imax, needed)
         return True
 
-    def _grow(self) -> bool:
-        """Raise the capacity one step after a saturated sweep."""
-        nxt = _imax_target(self.Imax, self.Imax + 1)
-        if nxt > self.imax_cap or (
-                nxt * (max(self.localdims) + 1) > self.max_panel_edge):
+    def _grow(self, maxbonddim: Optional[int] = None) -> bool:
+        """Raise the capacity one step after a saturated sweep: tci_tpu's
+        quantum below ``QUANTUM_CAP``; from there twice the capacity, but
+        no more than a rank cap of `maxbonddim` needs, and the limit where
+        twice would pass it. False at the limit."""
+        limit = self.capacity_limit()
+        if self.Imax < QUANTUM_CAP:
+            nxt = _imax_target(self.Imax, self.Imax + 1)
+        else:
+            nxt = 2 * self.Imax
+            if maxbonddim is not None and maxbonddim > self.Imax:
+                nxt = min(nxt, _imax_target(self.Imax, maxbonddim))
+            if nxt > limit > self.Imax:
+                nxt = limit
+        if nxt > limit:
             return False
         self.Imax = nxt
         return True
@@ -1360,12 +1580,9 @@ class DeviceSweepEngine:
 
     def _unpack(self, buf: np.ndarray, lens: np.ndarray,
                 lengths_per_site: List[int]) -> List[List[MultiIndex]]:
-        out = []
-        for b in range(buf.shape[0]):
-            ll = lengths_per_site[b]
-            out.append([tuple(int(x) for x in buf[b, r, :ll])
-                        for r in range(int(lens[b]))])
-        return out
+        return [[tuple(r) for r in buf[b, :int(lens[b]), :ll].astype(
+                    np.int64).tolist()]
+                for b, ll in enumerate(lengths_per_site)]
 
     def _store_sitetensors(self, tci, tensors: torch.Tensor) -> None:
         """The true (|I_b|, d_b, |I_{b+1}|) block of each site tensor into
@@ -1379,6 +1596,15 @@ class DeviceSweepEngine:
                 tensors[b, :len(tci.Iset[b]), :d_b, :ncols], tci.device)
 
     def _count_fill(self) -> None:
+        lay, Imax, L = self._layout(), self.Imax, len(self.localdims)
+        if lay.cut:
+            R = Imax * max(self.localdims)
+            self.nevals += Imax * self.localdims[-1] + sum(
+                (lay.edge(lay.prefixes(b + 1), R)
+                 + lay.edge(lay.prefixes(b + 1), Imax))
+                * lay.edge(lay.suffixes(L - b - 1), Imax)
+                for b in range(L - 1))
+            return
         for b, d_b in enumerate(self.localdims):
             self.nevals += self.Imax * d_b * self.Imax
             if b < len(self.localdims) - 1:
@@ -1402,8 +1628,9 @@ class DeviceSweepEngine:
         (``_sweep_rook``) from a seed drawn from ``_rng``. fill_sites=True
         also computes all site tensors on the same device state before that
         fetch (tci_tpu's fused sweep-and-fill program) and stores them on
-        tci. Returns False when the required capacity exceeds imax_cap or
-        max_panel_edge (the caller falls back to the per-bond tier)."""
+        tci. Returns False when the required capacity exceeds
+        ``capacity_limit()`` (the caller falls back to the per-bond
+        tier)."""
         L = len(self.localdims)
         if not self._reserve(self._needed(tci, extraIset, extraJset)):
             return False
@@ -1415,9 +1642,9 @@ class DeviceSweepEngine:
         (Iset, Ilen, Jset, Jlen, perrs, maxsample, *nev), kept = self._run(
             program)
         # a bond at the cap with more rank allowed: grow and re-run this
-        # sweep with larger buffers (until imax_cap, then hand back)
+        # sweep with larger buffers (until the limit, then hand back)
         if Ilen.max() >= self.Imax and self.Imax < maxbonddim:
-            if not self._grow():
+            if not self._grow(maxbonddim):
                 return False
             return self.sweep2site(tci, forward, reltol, abstol, maxbonddim,
                                    extraIset, extraJset, pivotsearch,
@@ -1463,7 +1690,7 @@ class DeviceSweepEngine:
                 self._run(program))
             if (max(Ilen.max(), Jlen.max()) >= self.Imax
                     and self.Imax < maxbonddim):
-                if not self._grow():
+                if not self._grow(maxbonddim):
                     return False
                 continue
             break
@@ -1476,9 +1703,26 @@ class DeviceSweepEngine:
         for b in range(L - 1):
             k = int(Ilen[b + 1]) if forward else int(Jlen[b])
             tci.updateerrors(b, list(perrs[b][:k + 1]))
-        for b in range(L):
-            self.nevals += self.Imax * self.localdims[b] * self.Imax
+        self._count_sweep1(forward)
         return True
+
+    def _count_sweep1(self, forward: bool) -> None:
+        """The Π samples of one 1-site sweep: padded, or cut (``_panel``)."""
+        lay, Imax, L = self._layout(), self.Imax, len(self.localdims)
+        if not lay.cut:
+            for b in range(L):
+                self.nevals += Imax * self.localdims[b] * Imax
+            return
+        R = Imax * max(self.localdims)
+        # each panel's (prefix sites, rows) and (suffix sites, columns)
+        if forward:
+            shapes = [((b + 1, R), (L - b - 1, Imax)) for b in range(L)]
+        else:
+            shapes = [((b, Imax), (L - b, R)) for b in range(L - 1, 0, -1)]
+            shapes.append(((1, R), (L - 1, Imax)))
+        self.nevals += sum(lay.edge(lay.prefixes(a), ra)
+                           * lay.edge(lay.suffixes(c), rc)
+                           for (a, ra), (c, rc) in shapes)
 
     def _needed(self, tci, *extra) -> int:
         """The capacity tci's sets (and the history sets `extra`) need."""
@@ -1486,8 +1730,16 @@ class DeviceSweepEngine:
                    + [len(s) for sets in extra for s in sets] + [1])
 
     def _count_sweeps(self, n: int) -> None:
-        """The padded Π samples of n 2-site sweeps at the capacity."""
-        d, Imax = self.localdims, self.Imax
+        """The Π samples of n 2-site sweeps at the capacity: the padded
+        panels, or the cut ones (``_Layout.edge``)."""
+        d, Imax, lay = self.localdims, self.Imax, self._layout()
+        if lay.cut:
+            C = lay.ar.shape[0]
+            self.nevals += n * sum(
+                lay.edge(lay.prefixes(b + 1), C)
+                * lay.edge(lay.suffixes(len(d) - b - 1), C)
+                for b in range(len(d) - 1))
+            return
         self.nevals += n * sum((Imax * d[b] + Imax) * (d[b + 1] * Imax + Imax)
                                for b in range(len(d) - 1))
 
@@ -1535,7 +1787,7 @@ class DeviceSweepEngine:
             if (max(Ilen.max(), Il1.max()) < self.Imax
                     or self.Imax >= maxbonddim):
                 break
-            if not self._grow():
+            if not self._grow(maxbonddim):
                 return False
         if rook:
             self.nevals += int(search.pop())
@@ -1572,21 +1824,20 @@ class DeviceSweepEngine:
         the stacked outputs. Returns the reference's result dict (numpy
         values; ``cores`` the last committed site tensors on the device;
         ``step_walls`` each step's host wall, from its run until its status
-        was on the host), or None when the capacity, panel-edge or history
-        guards decline, as the reference's do. tci is not changed:
+        was on the host), or None when the capacity (``capacity_limit``,
+        the panel edge's included) or history guards decline, as the
+        reference's do. tci is not changed:
         TensorCI2 replays the per-iteration bookkeeping from the result.
         pivotsearch="rook" runs the rook sweeps, with two seeds an
         iteration of the budget drawn from ``_rng`` before the block, in
         the order the sweep pair draws them (tci_tpu's rule: a run that one
         block covers repeats the pair's trajectory; a new block draws new
         seeds); the result's ``nev`` holds their slab samples."""
-        L, dmax = len(self.localdims), max(self.localdims)
+        L = len(self.localdims)
         needed = self._needed(tci, extraIset, extraJset)
-        if needed > self.imax_cap or k_budget <= 0 or nch < 1:
+        if needed > self.capacity_limit() or k_budget <= 0 or nch < 1:
             return None
         target = _imax_target(self.Imax, needed)
-        if target * (dmax + 1) > self.max_panel_edge:
-            return None
         # the reference's guard on its stacked history (int32 there),
         # computed the same way so that both packages decline alike
         if 2 * self.loop_kmax * 2 * L * target * L * 4 > 64 * 2**20:

@@ -820,7 +820,7 @@ class TensorCI2(AbstractTensorTrain):
         if K_done == 0:
             # the first iteration saturated the capacity: grow and retry;
             # when it cannot grow the block declines
-            if code == 2 and engine._grow():
+            if code == 2 and engine._grow(maxbonddim):
                 return (0, False)
             return None
         with span("tci.tci2.writeback"):
@@ -902,7 +902,7 @@ class TensorCI2(AbstractTensorTrain):
         elif code == 2:
             # saturated after at least one whole iteration: those are
             # accounted for above; grow (if it can) and enter again
-            engine._grow()
+            engine._grow(maxbonddim)
         return (K_done, stop)
 
     # -- main optimization loop (tensorci2.jl:1018-1172) ----------------------

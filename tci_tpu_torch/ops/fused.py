@@ -10,17 +10,66 @@ permutation scatters, matrixluci.jl:194-241) handles the dynamic rank by
 masking instead of dynamic shapes. Only the pivot record comes back, in one
 fetch; the factors stay on the device as site tensors. PyTorch runs
 eagerly, so ``tci_tpu``'s jitted programs become plain functions here.
+
+For an f without the private panel entry (``_tci_panel``) a panel is an
+int64 index matrix of m n rows, which f reads. ``sample_panel`` forms it in
+chunks of rows of at most ``INDEX_CHUNK_BYTES`` bytes and calls f on each
+in turn, so that a large panel (3072² at capacity 1024 and d = 2, L = 20:
+1.51 GB of indices) holds one chunk at a time; a panel that fits is one
+call, as before. ``INDEX_BYTES`` counts the index matrices formed for f.
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..utils import trace
 from ..utils.device import fetch, resolve_device, to_device, torch_dtype
 from .lu_kernel import bucket, rrlu_panel, rrlu_panel_batched
+
+# The most bytes of index matrix formed for one call of f: 2^28, 256 MiB,
+# a sixth of a 3072² panel at L = 20; every cell's panels below capacity
+# 256 fit in one.
+INDEX_CHUNK_BYTES = 1 << 28
+
+# Bytes of the int64 index matrices formed for f ("formed"; "traced": those
+# formed while a profiler records), counted where they are formed and, for
+# a CUDA graph that formed them, at each replay: while a stream captures
+# they go to "captured", and the graph's owner reports its share at each
+# replay (``count_index_replay``), as ``lu_cuda`` counts the rrLU kernel.
+INDEX_BYTES: Counter = Counter()
+# Bonds the per-bond fused tier updated ("bonds"; "traced": while a
+# profiler records)
+FUSED_BONDS: Counter = Counter()
+
+
+def count_index_replay(nbytes: int) -> None:
+    """`nbytes` of index matrices were formed, by a launch queued now or by
+    the replay of a graph that holds their forming."""
+    INDEX_BYTES["formed"] += nbytes
+    if trace.enabled():
+        INDEX_BYTES["traced"] += nbytes
+
+
+def indexed(f: Callable, idx: torch.Tensor) -> torch.Tensor:
+    """f on the index matrix `idx`, whose bytes are counted in
+    ``INDEX_BYTES``."""
+    nbytes = idx.numel() * idx.element_size()
+    if idx.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        INDEX_BYTES["captured"] += nbytes
+    else:
+        count_index_replay(nbytes)
+    return f(idx)
+
+
+def chunk_rows(rows: int, row_bytes: int) -> int:
+    """How many of `rows` rows of `row_bytes` bytes of index one call of f
+    takes: all that fit in ``INDEX_CHUNK_BYTES``, at least one."""
+    return max(1, min(rows, INDEX_CHUNK_BYTES // max(row_bytes, 1)))
 
 
 def panel_indices(rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
@@ -42,14 +91,23 @@ def sample_panel(f: Callable, rows: torch.Tensor, cols: torch.Tensor,
     private panel entry point ``f._tci_panel(rows, cols)`` (the m n values
     in that order; only ``integrate``'s GK integrand defines it, and
     ``TorchBatchEvaluator`` passes it on) a single panel goes to it and no
-    index matrix is formed; otherwise f is called once on the assembled
-    index matrix (``panel_indices``)."""
-    *batch, m, _ = rows.shape
-    n = cols.shape[-2]
+    index matrix is formed; otherwise f is called on the assembled index
+    matrix (``panel_indices``), once where it fits in ``INDEX_CHUNK_BYTES``
+    and else once for each chunk of rows (``chunk_rows``), whose values are
+    joined in the panel's order."""
+    *batch, m, nl = rows.shape
+    n, nr = cols.shape[-2:]
     panel = getattr(f, "_tci_panel", None)
     if panel is not None and not batch:
         return panel(rows, cols).reshape(m, n).to(dtype)
-    return f(panel_indices(rows, cols)).reshape(*batch, m, n).to(dtype)
+    step = chunk_rows(m, int(np.prod(batch, dtype=np.int64)) * n * (nl + nr)
+                      * 8)
+    if step == m:
+        return indexed(f, panel_indices(rows, cols)).reshape(
+            *batch, m, n).to(dtype)
+    parts = [indexed(f, panel_indices(rows[..., s:s + step, :], cols))
+             .reshape(*batch, -1, n) for s in range(0, m, step)]
+    return torch.cat(parts, dim=-2).to(dtype)
 
 
 def ci_factors(A: torch.Tensor, rowperm: torch.Tensor, colperm: torch.Tensor,
@@ -262,7 +320,17 @@ class FusedBondUpdater:
         row pivots, column pivots, pivot errors, err, max |sample|): the
         factors as device tensors (None with need_factors=False, when
         non-strict-nesting sweeps discard them), the rest on the host from
-        one fetch."""
+        one fetch. Counted in ``FUSED_BONDS``; the span ``tci.fused.bond``
+        holds it while a profiler records."""
+        FUSED_BONDS["bonds"] += 1
+        if trace.enabled():
+            FUSED_BONDS["traced"] += 1
+        with trace.span("tci.fused.bond"):
+            return self._update(Icombined, Jcombined, reltol, abstol,
+                                maxrank, leftorthogonal, need_factors)
+
+    def _update(self, Icombined, Jcombined, reltol, abstol, maxrank,
+                leftorthogonal, need_factors):
         Ic, Jc, nI, nJ = pad_index_panels(_index_rows(Icombined),
                                           _index_rows(Jcombined))
         mI, mJ = Ic.shape[0], Jc.shape[0]

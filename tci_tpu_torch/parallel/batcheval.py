@@ -261,6 +261,16 @@ class TorchBatchEvaluator(BatchEvaluator):
     (``fused_site_tensors``). ``nevals`` counts the samples of all of them;
     the tiers count padded panels, as ``tci_tpu`` does.
 
+    The engine's capacity (the largest index set it holds) grows with the
+    rank up to ``device_sweep_engine.capacity_limit()``: the largest whose
+    padded Π panel edge, capacity (d + 1), is at most 4096 and whose
+    largest program fits in half of the device's memory (at d = 2 it
+    allows rank 1344, at d = 15 rank 256). Setting
+    ``device_sweep_engine.imax_cap`` to a number caps it lower. A rank
+    above the limit runs on the per-bond fused tier. Panels whose index
+    matrix exceeds 256 MiB are sampled in chunks of rows
+    (``ops/fused.sample_panel``).
+
     On a CUDA device the engine records each of its sweeps, `f` included,
     into a CUDA graph at the sweep's first use and replays it afterwards
     (unless ``cuda_graphs=False``), as ``tci_tpu`` keeps its jitted sweeps.

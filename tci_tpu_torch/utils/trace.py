@@ -18,7 +18,11 @@ is set, stream-ordered, at the entry of ``crossinterpolate2`` and
 counts the launches of the traced solves, replayed ones included.
 ``rrlu_work()`` reads it. The GK panel kernel's grid points are counted on the
 host, at each launch and replay (``ops/gk_panel``); those counted while a
-profiler records are ``gk_points_traced()``.
+profiler records are ``gk_points_traced()``. So are the bytes of the index
+matrices formed for f (``ops/fused.INDEX_BYTES``, replays included;
+``index_bytes_traced()``) and the bonds of the per-bond fused tier, each
+inside a span ``tci.fused.bond`` (``ops/fused.FUSED_BONDS``;
+``fused_bonds_traced()``).
 """
 
 from __future__ import annotations
@@ -103,6 +107,20 @@ def gk_points_traced() -> int:
     and the plain version's."""
     from ..ops import gk_panel
     return sum(gk_panel.TRACED.values())
+
+
+def index_bytes_traced() -> int:
+    """The bytes of the int64 index matrices formed for f while a profiler
+    recorded, since the process started, replayed graphs included."""
+    from ..ops import fused
+    return fused.INDEX_BYTES["traced"]
+
+
+def fused_bonds_traced() -> int:
+    """The bonds the per-bond fused tier updated while a profiler
+    recorded, since the process started."""
+    from ..ops import fused
+    return fused.FUSED_BONDS["traced"]
 
 
 @contextlib.contextmanager

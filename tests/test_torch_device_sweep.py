@@ -205,3 +205,47 @@ def test_complex_tiers_are_not_ported():
     for full in (fe, ff):
         assert full.dtype == torch.complex128
         assert float((full - fh).abs().max()) <= 1e-12 * scale
+
+
+def test_engine_counts_repeated_history_candidates_c_ref_8():
+    """C-ref-8: tci_tpu's engine counts a history candidate that repeats a
+    kron candidate in a bond's extents, where the union the reference
+    forms does not (tensorci2.jl:842-843). A bond whose rank reaches the
+    union's size at the rank cap then reports its last pivot's magnitude as
+    its error, where the per-bond tier reports 0. On a random table at L =
+    10 and cap 32 (the middle bond's full rank) both packages agree tier by
+    tier; the port's engine forms the union only above capacity 256
+    (tests/test_torch_high_rank.py)."""
+    dims = [2] * 10
+    T = np.random.default_rng(0).uniform(-1, 1, 2**10)
+    place = 2 ** np.arange(10)
+    Tj, Tt = jnp.asarray(T), torch.from_numpy(T)
+
+    def fj(idx):
+        return Tj[jnp.sum(idx * place)]
+
+    def ft(idx):
+        return Tt[(idx * torch.from_numpy(place)).sum(1)]
+
+    errors = {}
+    for tier, sweep in (("engine", True), ("fused", False)):
+        bj = JaxBatchEvaluator(fj, dims, enable_device_sweep=sweep)
+        bt = tci_tpu_torch.TorchBatchEvaluator(ft, dims, device="cpu",
+                                               enable_device_sweep=sweep)
+        if sweep:
+            for b in (bj, bt):
+                b.device_sweep_engine.use_sweep_pair = False
+                b.device_sweep_engine.use_optimize_loop = False
+        _, rranks, rerrs = tci_tpu.crossinterpolate2(
+            np.float64, bj, dims, tolerance=1e-12, maxbonddim=32,
+            rng=np.random.default_rng(1))
+        _, oranks, oerrs = tci_tpu_torch.crossinterpolate2(
+            np.float64, bt, dims, tolerance=1e-12, maxbonddim=32,
+            device="cpu", rng=np.random.default_rng(1))
+        assert oranks == rranks
+        # the last pivots are O(0.1) here: their Schur updates round apart
+        # by ~3e-14 relative in the two packages
+        np.testing.assert_allclose(oerrs, rerrs, rtol=1e-12, atol=ERR_ATOL)
+        errors[tier] = oerrs
+    assert errors["engine"][-1] > 0.01
+    assert errors["fused"][-1] == 0.0
